@@ -1,0 +1,124 @@
+"""Where the TAS drain's time goes on the card.
+
+    python3 -m kueue_oss_tpu_torch.profile_drain
+
+Drains the TAS store (``scenarios.tas_drain_store``) at the full tree and
+ClusterQueue widths but 1,500 workloads instead of 15,000: the profiler
+records every eager op and kernel, and at the full backlog (~1.5 M ops)
+its own overhead outruns a chip call. The cut keeps what a round is (30
+ClusterQueue heads, one admission scan step each, the same 640-leaf
+tree) and shortens the number of rounds.
+
+Three drains on the CUDA device: one plain, for the wall time and its
+phases; one under ``torch.profiler``, for the device time by kernel
+name; one under ``torch.cuda.set_sync_debug_mode("warn")``, counting
+host synchronisations by source line. Prints one JSON object: the card
+(name, power limit), the plain drain's phases, the device busy seconds,
+the device idle share of the plain drain's wall (1 - busy / wall), the
+top kernels by device time and the synchronisation counts. Needs a CUDA
+device; exits 1 without one.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+import warnings
+from collections import Counter
+from pathlib import Path
+
+WORKLOADS = 1500
+TOP_KERNELS = 12
+
+
+def _drain(n_workloads: int):
+    import torch
+
+    from kueue_oss_tpu_torch.api import types
+    from kueue_oss_tpu_torch.core.queue_manager import QueueManager
+    from kueue_oss_tpu_torch.core.store import Store
+    from kueue_oss_tpu_torch.scenarios import tas_drain_store
+    from kueue_oss_tpu_torch.solver.engine import SolverEngine
+
+    store = tas_drain_store(types, Store, n_workloads=n_workloads)
+    engine = SolverEngine(store, QueueManager(store))
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    result = engine.drain(now=0.0)
+    torch.cuda.synchronize()
+    return result, time.monotonic() - t0
+
+
+def _device_us(evt) -> float:
+    for name in ("self_device_time_total", "self_cuda_time_total"):
+        v = getattr(evt, name, None)
+        if v is not None:
+            return float(v)
+    return 0.0
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("profile_drain: no CUDA device", file=sys.stderr)
+        return 1
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+
+    _drain(200)  # warm-up: kernel build, CUDA context, allocator
+    plain, wall = _drain(WORKLOADS)
+
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        profiled, profiled_wall = _drain(WORKLOADS)
+    # device-side events only (kernels, memcpy/memset): the CPU ops that
+    # launched them carry the same time again as children
+    cuda = torch.autograd.DeviceType.CUDA
+    rows = [(e.key, e.count, _device_us(e)) for e in prof.key_averages()
+            if getattr(e, "device_type", None) == cuda]
+    kernels = sorted((r for r in rows if r[2] > 0), key=lambda r: -r[2])
+    if not kernels:
+        raise RuntimeError("the profiler recorded no device time; time "
+                           "the drain with CUDA events instead")
+    busy_s = sum(r[2] for r in kernels) / 1e6
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            _drain(WORKLOADS)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    syncs = Counter(f"{Path(w.filename).name}:{w.lineno}" for w in caught
+                    if "synchroniz" in str(w.message))
+
+    print(json.dumps({
+        "card": smi,
+        "workloads": WORKLOADS,
+        "admitted": plain.admitted,
+        "rounds": plain.rounds,
+        "same_plan_under_profiler": (profiled.admitted_keys
+                                     == plain.admitted_keys),
+        "drain_s": wall,
+        "phases_s": plain.phases,
+        "profiled_drain_s": profiled_wall,
+        "device_busy_s": busy_s,
+        "device_idle_share": 1.0 - busy_s / wall,
+        "device_kernels": sum(r[1] for r in kernels),
+        "top_kernels": [{"name": k, "count": c, "device_s": us / 1e6}
+                        for k, c, us in kernels[:TOP_KERNELS]],
+        "host_syncs": sum(syncs.values()),
+        "host_syncs_by_line": dict(syncs.most_common()),
+    }))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
