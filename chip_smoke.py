@@ -9,19 +9,34 @@ Phases, in order; any failure propagates (nonzero exit, no result line):
 
 1. device: the card's name, and its name and power limit as nvidia-smi
    reports them;
-2. build: compile every CUDA kernel of the drain path from the sources
-   in the checkout (nvcc, at first use) and report the build seconds;
+2. build: compile every CUDA kernel from the sources in the checkout
+   (one nvcc call, at first use) and report the build seconds and what
+   ptxas said about each kernel (registers, shared memory, spills);
 3. kernel vs plain: every kernel against its plain PyTorch version on
-   the card, exact integer equality, on the main-path shapes and on
-   random, all-zero-request, negative-capacity and leader cases; then
-   CUDA-event times of kernel and plain version at the main-path shape;
-4. main path: the full-size TAS drain (640 nodes, 30 ClusterQueues,
+   the card, exact integer equality, with CUDA-event times of kernel and
+   plain version at the main-path shape:
+   - ``leaf_states`` on the main-path tiles and on random,
+     all-zero-request, negative-capacity and leader cases;
+   - ``tas_place_sequential`` on the drain-shaped batch, random 2/3/4
+     level trees with slices, leaders, least-free and required /
+     preferred / unconstrained requests, pre-rejected rows, M = 0, a
+     tree above 48 KB of shared memory and one above 227 KB (global
+     scratch); timed plain, kernel, kernel, plain;
+4. stepwise placement: the full-size TAS drain placed by the plain
+   sequential placer with the CUDA leaf pass (one leaf_states launch per
+   podset, ~350 eager ops per podset around it), the placement path
+   before tas_place_sequential, for its placement phase; its plan must
+   be the reference plan too;
+5. main path: the full-size TAS drain (640 nodes, 30 ClusterQueues,
    15,000 workloads; the reference Kueue TAS performance config) built
    with the port's own types and drained by ``SolverEngine(store,
    queues).drain()`` on the card, with the launch counts reset just
-   before the drain and read just after. The plan is checked against
-   the JAX reference plan (admitted/rounds/parked counts and the plan
-   digest) and against independent capacity and quota checks.
+   before the drain and read just after: one tas_place_sequential launch
+   placing every TAS admission, no leaf_states launch. The plan is
+   checked against the JAX reference plan (admitted/rounds/parked counts
+   and the plan digest) and against independent capacity and quota
+   checks; the batch phase 4 placed is replayed through the kernel and
+   its plain version, which must agree exactly.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 is the JSON kernel report.
@@ -42,6 +57,13 @@ REFERENCE = {"admitted": 102, "rounds": 549, "evicted": 0,
 #: H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, non-tensor fp32 ops/s
 HBM_BYTES_PER_S = 3.35e12
 SCALAR_OPS_PER_S = 67e12
+
+
+def _bound(nbytes: int, nops: int) -> dict:
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = nops / SCALAR_OPS_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
 def _time_ms(fn, iters: int = 200, warmup: int = 20) -> float:
@@ -124,17 +146,140 @@ def check_leaf_states(device) -> dict:
         lambda: cuda_tas.leaf_states_reference(cap, pp, lead, flag))
     nbytes = 4 * (D * R + 2 * R + 1 + 3 * D)
     nops = 8 * D * R  # compare, divide, min per element, twice
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = nops / SCALAR_OPS_PER_S * 1e3
     return {"name": "leaf_states", "route": "cuda", "impl": "cuda",
             "source": "kueue_oss_tpu_torch/csrc/leaf_states.cu",
             "replaces": "kueue_oss_tpu/solver/pallas_tas.py:99",
             "max_abs_err": max_err, "exact": max_err == 0,
             "shape": [D, R], "ms": ms, "plain_ms": plain_ms,
             "kernel_us": ms * 1e3, "plain_us": plain_ms * 1e3,
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": None}
+            **_bound(nbytes, nops), "library_ms": None}
+
+
+def _place_inputs(cap, req, device):
+    import torch
+
+    from kueue_oss_tpu_torch.scenarios import PLACER_INPUTS
+
+    return [torch.as_tensor(cap, device=device)] + [
+        torch.as_tensor(req[k], device=device) for k in PLACER_INPUTS]
+
+
+def _check_place(name, tree, inputs) -> int:
+    """Kernel against its plain version on one batch, exactly; returns
+    the max abs error (0)."""
+    import torch
+
+    from kueue_oss_tpu_torch.solver import cuda_tas
+
+    leaf_before = cuda_tas.leaf_states.launches
+    got = cuda_tas.tas_place_sequential(tree, *inputs)
+    want = cuda_tas.tas_place_sequential_reference(tree, *inputs)
+    torch.cuda.synchronize()
+    if cuda_tas.leaf_states.launches != leaf_before:
+        raise AssertionError("the plain placer launched leaf_states")
+    err = 0
+    for g, w, out in zip(got, want, ("sels", "leads", "oks", "cap")):
+        if g.shape != w.shape or g.dtype != w.dtype:
+            raise AssertionError(f"tas_place_sequential {out} is {g.dtype}"
+                                 f"{tuple(g.shape)}, plain {w.dtype}"
+                                 f"{tuple(w.shape)} on case {name!r}")
+        e = int((g.long() - w.long()).abs().max()) if g.numel() else 0
+        err = max(err, e)
+        if not torch.equal(g, w):
+            raise AssertionError(
+                f"tas_place_sequential {out} differs from the plain version "
+                f"on case {name!r} (max abs err {e})")
+    return err
+
+
+def check_tas_place(device) -> dict:
+    """Phase 3 for ``tas_place_sequential``: exact agreement on every
+    case, then the times at the drain's shape (plain, kernel, kernel,
+    plain)."""
+    import numpy as np
+    import torch
+
+    from kueue_oss_tpu_torch import scenarios as sc
+    from kueue_oss_tpu_torch.solver import cuda_tas
+
+    rng = np.random.default_rng(2)
+    cases = []
+    parents, drain_cap, req = sc.drain_placer_batch()
+    drain = (cuda_tas.PlacerTree(parents),
+             _place_inputs(drain_cap, req, device))
+    cases.append(("drain batch 1x10x64 R=2 M=102",) + drain)
+    for n_levels in (2, 3, 4):
+        for seed in range(4):
+            parents, cap = sc.random_placer_tree(
+                n_levels, seed, min_children=seed % 2,
+                max_children=(4, 40)[seed // 2])
+            req = sc.random_placer_requests(rng, n_levels, cap.shape[1], 24,
+                                            pre_rejected=0.1)
+            cases.append((f"random L={n_levels} seed={seed} "
+                          f"sizes={[len(p) for p in parents]}",
+                          cuda_tas.PlacerTree(parents),
+                          _place_inputs(cap, req, device)))
+    parents, cap = sc.random_placer_tree(3, 9)
+    req = sc.random_placer_requests(rng, 3, cap.shape[1], 40,
+                                    pre_rejected=0.5)
+    cases.append(("pre-rejected rows", cuda_tas.PlacerTree(parents),
+                  _place_inputs(cap, req, device)))
+    empty = sc.random_placer_requests(rng, 3, 2, 0)
+    cases.append(("M = 0", drain[0], _place_inputs(drain_cap, empty,
+                                                   device)))
+    for racks, hosts, shared in ((20, 64, True), (64, 128, False)):
+        parents, cap, _ = sc.drain_placer_batch(1, n_racks=racks,
+                                                n_hosts=hosts)
+        cap = rng.integers(0, 200, size=cap.shape).astype(np.int32)
+        tree = cuda_tas.PlacerTree(parents)
+        if tree.uses_shared(2) != shared:
+            raise AssertionError(f"1x{racks}x{hosts}: footprint "
+                                 f"{tree.footprint_bytes(2)} B")
+        req = sc.random_placer_requests(rng, 3, 2, 24, pre_rejected=0.1)
+        cases.append((f"1x{racks}x{hosts} R=2 state "
+                      f"{tree.footprint_bytes(2)} B in "
+                      f"{'shared' if shared else 'global'} memory", tree,
+                      _place_inputs(cap, req, device)))
+    max_err = 0
+    for name, tree, inputs in cases:
+        max_err = max(max_err, _check_place(name, tree, inputs))
+    print(f"[kernel] tas_place_sequential == tas_place_sequential_reference "
+          f"exactly on {len(cases)} cases: "
+          + "; ".join(c[0] for c in cases))
+
+    tree, inputs = drain
+    turns = []
+    for which in ("plain", "kernel", "kernel", "plain"):
+        if which == "kernel":
+            turns.append(_time_ms(
+                lambda: cuda_tas.tas_place_sequential(tree, *inputs),
+                iters=50, warmup=5))
+        else:
+            turns.append(_time_ms(
+                lambda: cuda_tas.tas_place_sequential_reference(tree,
+                                                                *inputs),
+                iters=2, warmup=1))
+    print(f"[kernel] tas_place_sequential at the drain's shape, ms per "
+          f"batch (plain, kernel, kernel, plain): {turns}")
+    D, R = inputs[0].shape
+    M = inputs[1].shape[0]
+    L, N = tree.n_levels, tree.n_domains
+    # each input read once (capacity, requests, the tree), each output
+    # written once (sels, leads, oks, capacity after)
+    nbytes = (4 * D * R + 4 * 2 * M * R + 4 * 4 * M + 4 * M
+              + 4 * (L + 3 * N) + 4 * M * D + 4 * M + M + 4 * D * R)
+    # per step: the leaf pass (compare, divide, min per element, twice)
+    # and one pass over every domain's state
+    nops = M * (8 * D * R + 12 * N)
+    return {"name": "tas_place_sequential", "route": "cuda",
+            "source": "kueue_oss_tpu_torch/csrc/tas_place.cu",
+            "replaces": "kueue_oss_tpu/solver/pallas_tas.py:99 (with the "
+                        "lax.scan of kueue_oss_tpu/solver/tas_kernels.py:"
+                        "250-283)",
+            "max_abs_err": max_err, "shape": [M, D, R],
+            "ms": (turns[1] + turns[2]) / 2,
+            "plain_ms": (turns[0] + turns[3]) / 2, "turns_ms": turns,
+            **_bound(nbytes, nops), "library_ms": None}
 
 
 def check_plan(store, queues, result) -> None:
@@ -184,6 +329,59 @@ def check_plan(store, queues, result) -> None:
     print(f"[plan] matches the reference: {got}")
 
 
+def _drain_store():
+    from kueue_oss_tpu_torch.api import types
+    from kueue_oss_tpu_torch.core.queue_manager import QueueManager
+    from kueue_oss_tpu_torch.core.store import Store
+    from kueue_oss_tpu_torch.scenarios import tas_drain_store
+
+    store = tas_drain_store(types, Store)
+    return store, QueueManager(store)
+
+
+def _placed(store, result) -> int:
+    return sum(1 for k in result.admitted_keys
+               if store.workloads[k].status.admission
+               .podset_assignments[0].topology_assignment is not None)
+
+
+def drain_with_stepwise_placer(device):
+    """Phase 4: the full drain placed stepwise (the plain sequential
+    placer, its leaf pass the CUDA leaf_states kernel, one launch per
+    podset). Returns (phases, the placed batch)."""
+    import torch
+
+    from kueue_oss_tpu_torch.solver import cuda_tas, tas_kernels
+    from kueue_oss_tpu_torch.solver.engine import SolverEngine
+    from kueue_oss_tpu_torch.solver.tas_engine import DeviceTASPlacer
+
+    class StepwisePlacer(DeviceTASPlacer):
+        batches = []
+
+        def _place(self, tree, *inputs):
+            self.batches.append((tree, inputs))
+            return tas_kernels.make_sequential_placer_ext(
+                tree.parents, self.device)(*inputs)
+
+    store, queues = _drain_store()
+    engine = SolverEngine(store, queues)
+    engine._tas_placer = StepwisePlacer(engine.device)
+    before = cuda_tas.leaf_states.launches
+    t0 = time.monotonic()
+    result = engine.drain(now=0.0)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    check_plan(store, queues, result)
+    launches = cuda_tas.leaf_states.launches - before
+    if launches != _placed(store, result) or len(StepwisePlacer.batches) != 1:
+        raise AssertionError(f"stepwise placer: {launches} leaf_states launches "
+                             f"for {_placed(store, result)} placements")
+    phases = {"drain_s": wall,
+              **{f"{k}_s": v for k, v in result.phases.items()}}
+    print("[stepwise-placer drain] " + json.dumps(phases))
+    return phases, StepwisePlacer.batches[0]
+
+
 def main() -> int:
     import torch
 
@@ -207,43 +405,59 @@ def main() -> int:
     lib = cuda_tas.build()
     print(f"[build] {lib.name} in {time.monotonic() - t0:.3f} s")
 
+    for line in cuda_tas.ptxas_report(lib).splitlines():
+        if any(w in line for w in ("Compiling entry", "registers",
+                                   "spill")):
+            print(f"[build] ptxas: {line.strip()}")
+
     # 3. kernel vs plain
     device = torch.device("cuda")
-    report = check_leaf_states(device)
+    reports = [check_leaf_states(device), check_tas_place(device)]
 
-    # 4. main path at full size
-    from kueue_oss_tpu_torch.api import types
-    from kueue_oss_tpu_torch.core.queue_manager import QueueManager
-    from kueue_oss_tpu_torch.core.store import Store
-    from kueue_oss_tpu_torch.scenarios import tas_drain_store
+    # 4. stepwise placement, for the placement phase before the kernel
+    step_phases, (step_tree, step_batch) = drain_with_stepwise_placer(
+        device)
+
+    # 5. main path at full size
     from kueue_oss_tpu_torch.solver.engine import SolverEngine
 
     t0 = time.monotonic()
-    store = tas_drain_store(types, Store)
-    queues = QueueManager(store)
+    store, queues = _drain_store()
     engine = SolverEngine(store, queues)
     setup_s = time.monotonic() - t0
     cuda_tas.leaf_states.launches = 0
+    cuda_tas.tas_place_sequential.launches = 0
+    cuda_tas.tas_place_sequential.steps = 0
     t0 = time.monotonic()
     result = engine.drain(now=0.0)
     torch.cuda.synchronize()
     drain_s = time.monotonic() - t0
-    launches = cuda_tas.leaf_states.launches
-    placed = sum(1 for k in result.admitted_keys
-                 if store.workloads[k].status.admission
-                 .podset_assignments[0].topology_assignment is not None)
-    if launches == 0 or launches != placed:
-        raise AssertionError(f"leaf_states launched {launches} times on "
-                             f"the main path for {placed} placements")
+    leaf_launches = cuda_tas.leaf_states.launches
+    place_launches = cuda_tas.tas_place_sequential.launches
+    steps = cuda_tas.tas_place_sequential.steps
+    placed = _placed(store, result)
+    if leaf_launches != 0 or place_launches != 1 or steps != placed:
+        raise AssertionError(
+            f"main path: {place_launches} tas_place_sequential launches "
+            f"({steps} steps) and {leaf_launches} leaf_states launches for "
+            f"{placed} placements; expected 1 ({placed}) and 0")
     check_plan(store, queues, result)
-    report["launches"] = launches
+    replay_err = _check_place("the drain's placement batch", step_tree,
+                              list(step_batch))
+    print(f"[main] 1 tas_place_sequential launch, {steps} steps, "
+          f"0 leaf_states launches; the drain's batch agrees exactly "
+          f"(max abs err {replay_err})")
+    reports[0]["launches"] = leaf_launches
+    reports[1]["launches"] = place_launches
+    reports[1]["steps"] = steps
 
     timings = {"setup_s": setup_s, "drain_s": drain_s,
                **{f"{k}_s": v for k, v in result.phases.items()},
-               "rounds": result.rounds, "admitted": result.admitted}
+               "rounds": result.rounds, "admitted": result.admitted,
+               "stepwise_placer": step_phases}
     print("[timings] " + json.dumps(timings))
     print(smi)
-    print(json.dumps({"kernels": [report]}))
+    print(json.dumps({"kernels": reports}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

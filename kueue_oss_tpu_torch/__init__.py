@@ -4,8 +4,9 @@ The port runs the solver drain of the job-queueing and admission
 controller on an NVIDIA GPU: the pending backlog is exported to dense
 int32 tensors, every admission round of the whole backlog runs on the
 device, and admitted topology-aware (TAS) workloads are placed by the
-sequential device placer, whose leaf pass is a CUDA kernel
-(``solver/cuda_tas.py``, ``csrc/leaf_states.cu``).
+sequential device placer, one CUDA kernel launch for the whole batch
+(``solver/cuda_tas.py``, ``csrc/tas_place.cu``; the standalone leaf-pass
+kernel ``csrc/leaf_states.cu`` shares its row arithmetic).
 
 The package keeps its own copies of the host layer it needs (API types,
 store, queue manager, quota forest, TAS domain tree) and mirrors the

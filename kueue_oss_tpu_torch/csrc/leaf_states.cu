@@ -15,32 +15,21 @@
 //
 // Design: one thread per leaf row, 256 threads per block, ceil(D/256)
 // blocks, a loop over R inside the thread (R is any value >= 1; the TPU
-// kernel's one-lane-row limit of R <= 128 does not apply). The request
-// vectors are read through the read-only cache (__ldg): every thread of
-// a block reads the same R words, so they are served from cache after
-// the first warp. has_leader is a device int32 scalar, like the Pallas
-// flags_ref, so a placer loop never synchronises with the host.
-// Division floors (JAX's //), also for negative numerators; the leader
-// subtraction wraps in two's complement like the int32 JAX program.
+// kernel's one-lane-row limit of R <= 128 does not apply). Every thread
+// of a block reads the same R request words, so they are served from
+// cache after the first warp. has_leader is a device int32 scalar, like
+// the Pallas flags_ref, so a placer loop never synchronises with the
+// host. The row arithmetic (floor division, wrapping leader
+// subtraction) is kueue_tas::leaf_row in tas_leaf.cuh, which the
+// sequential placer (tas_place.cu) runs too.
 
 #include <cuda_runtime.h>
 
+#include "tas_leaf.cuh"
+
 namespace {
 
-constexpr int kBig = 1 << 30;
 constexpr int kThreads = 256;
-
-__device__ __forceinline__ int floor_div(int a, int b) {
-  // b >= 1 here, so a / b cannot overflow
-  int q = a / b;
-  int r = a - q * b;
-  return (r != 0 && (r < 0)) ? q - 1 : q;
-}
-
-__device__ __forceinline__ int wrap_sub(int a, int b) {
-  return static_cast<int>(static_cast<unsigned int>(a) -
-                          static_cast<unsigned int>(b));
-}
 
 __global__ void leaf_states_kernel(const int* __restrict__ cap,
                                    const int* __restrict__ per_pod,
@@ -52,27 +41,12 @@ __global__ void leaf_states_kernel(const int* __restrict__ cap,
                                    int* __restrict__ ls) {
   const int d = blockIdx.x * blockDim.x + threadIdx.x;
   if (d >= D) return;
-  const int* row = cap + static_cast<long long>(d) * R;
-
-  bool fits = __ldg(has_leader) > 0;
-  int m_st = kBig;
-  for (int r = 0; r < R; ++r) {
-    const int c = row[r];
-    const int req = __ldg(per_pod + r);
-    const int lead = __ldg(leader + r);
-    if (lead > 0 && c < lead) fits = false;
-    if (req > 0) m_st = min(m_st, floor_div(c, req));
-  }
-  int m_swl = kBig;
-  for (int r = 0; r < R; ++r) {
-    const int req = __ldg(per_pod + r);
-    if (req <= 0) continue;
-    const int rem = fits ? wrap_sub(row[r], __ldg(leader + r)) : row[r];
-    m_swl = min(m_swl, floor_div(rem, req));
-  }
-  st[d] = m_st;
-  swl[d] = m_swl;
-  ls[d] = fits ? 1 : 0;
+  const kueue_tas::LeafState s = kueue_tas::leaf_row(
+      cap + static_cast<long long>(d) * R, per_pod, leader,
+      __ldg(has_leader) > 0, R);
+  st[d] = s.st;
+  swl[d] = s.swl;
+  ls[d] = s.ls;
 }
 
 }  // namespace

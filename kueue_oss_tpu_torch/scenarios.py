@@ -12,6 +12,12 @@ requests drawn from ``random.Random(seed)``.
 The builder takes the API types module and the Store class as
 arguments, so identical stores can be built for any package that has
 the same object model; the draw order matches ``bench.py`` exactly.
+
+``drain_placer_batch`` and ``random_placer_tree`` /
+``random_placer_requests`` make inputs of the sequential TAS placer
+(``cuda_tas.tas_place_sequential``) from a seed with numpy: the drain's
+tree and request mix, and random trees with slices, leaders, the
+least-free profile and pre-rejected rows.
 """
 
 from __future__ import annotations
@@ -19,6 +25,8 @@ from __future__ import annotations
 import hashlib
 import json
 import random
+
+import numpy as np
 
 HOSTNAME = "kubernetes.io/hostname"
 BLOCK = "cloud.provider.com/topology-block"
@@ -90,3 +98,102 @@ def plan_digest(store, admitted_keys) -> str:
     rows = plan_rows(store, admitted_keys)
     return hashlib.sha256(
         json.dumps(rows, separators=(",", ":")).encode()).hexdigest()
+
+
+#: the sequential placer's per-podset inputs, in argument order
+PLACER_INPUTS = ("per_pod", "count", "level", "required", "unconstrained",
+                 "least_free", "slice_size", "slice_level",
+                 "leader_per_pod", "has_leader")
+
+
+def random_placer_tree(n_levels: int, seed: int, *, min_children: int = 1,
+                       max_children: int = 4, cap_hi: int = 24):
+    """A random lex-ordered tree (nondecreasing parent arrays) and a
+    random leaf capacity [D, R] (R in 1..3). With ``min_children=0``
+    some inner domains have no children."""
+    rng = np.random.default_rng(seed)
+    parents = [np.zeros(int(rng.integers(1, 3)), np.int32)]
+    for _ in range(1, n_levels):
+        n_up = parents[-1].shape[0]
+        kids = rng.integers(min_children, max_children + 1, size=n_up)
+        kids[int(rng.integers(0, n_up))] = max(1, kids.max())
+        parents.append(np.repeat(np.arange(n_up), kids).astype(np.int32))
+    R = int(rng.integers(1, 4))
+    cap = rng.integers(0, cap_hi, size=(parents[-1].shape[0], R)).astype(
+        np.int32)
+    return parents, cap
+
+
+def random_placer_requests(rng, n_levels: int, R: int, M: int, *,
+                           pre_rejected: float = 0.0) -> dict:
+    """M random requests the host pre-checks would accept (required,
+    preferred or unconstrained; slices; leaders; least-free), stacked
+    per input. A share ``pre_rejected`` of rows is zeroed the way
+    ``DeviceTASPlacer.place_batch`` zeroes rows the host rejected."""
+    leaf = n_levels - 1
+    rows = []
+    for _ in range(M):
+        level = int(rng.integers(0, n_levels))
+        slice_level = int(rng.integers(level, n_levels))
+        slice_size = int(rng.integers(1, 4))
+        count = slice_size * int(rng.integers(1, 6))
+        unconstrained = bool(rng.integers(0, 4) == 0)
+        required = (not unconstrained) and bool(rng.integers(0, 2))
+        if unconstrained:
+            level = slice_level = leaf
+        has_leader = bool(rng.integers(0, 2))
+        row = dict(
+            per_pod=rng.integers(0, 4, size=R).astype(np.int32),
+            count=np.int32(count), level=np.int32(level),
+            required=np.bool_(required),
+            unconstrained=np.bool_(unconstrained),
+            least_free=np.bool_(unconstrained and bool(rng.integers(0, 2))),
+            slice_size=np.int32(slice_size),
+            slice_level=np.int32(slice_level),
+            leader_per_pod=(rng.integers(0, 3, size=R)
+                            * has_leader).astype(np.int32),
+            has_leader=np.bool_(has_leader))
+        if rng.random() < pre_rejected:
+            row.update(count=np.int32(0), slice_size=np.int32(1),
+                       per_pod=np.zeros(R, np.int32))
+        rows.append(row)
+    return _stack(rows, R)
+
+
+def _stack(rows: list, R: int) -> dict:
+    empty = {"per_pod": (0, R), "leader_per_pod": (0, R)}
+    out = {}
+    for k in PLACER_INPUTS:
+        if rows:
+            out[k] = np.stack([np.asarray(r[k]) for r in rows])
+        else:
+            dtype = bool if k in ("required", "unconstrained", "least_free",
+                                  "has_leader") else np.int32
+            out[k] = np.zeros(empty.get(k, (0,)), dtype=dtype)
+    return out
+
+
+def drain_placer_batch(M: int = 102, seed: int = 640, *, n_racks: int = 10,
+                       n_hosts: int = 64):
+    """The drain's placement batch shape: the 1 x n_racks x n_hosts tree
+    of ``tas_drain_store`` with (cpu, pods) = (96, 110) free on every
+    host, and M single-pod requests drawn like its workloads (cpu in
+    {1, 5, 20}; required rack, preferred rack or unconstrained; no
+    slices, no leader, BestFit). Returns (parents, capacity, requests)."""
+    rng = np.random.default_rng(seed)
+    parents = [np.zeros(1, np.int32), np.zeros(n_racks, np.int32),
+               np.repeat(np.arange(n_racks), n_hosts).astype(np.int32)]
+    cap = np.tile(np.asarray([[96, 110]], np.int32), (n_racks * n_hosts, 1))
+    rows = []
+    for _ in range(M):
+        mode = int(rng.integers(0, 3))
+        rows.append(dict(
+            per_pod=np.asarray([[1, 5, 20][int(rng.integers(0, 3))], 0],
+                               np.int32),
+            count=np.int32(1), level=np.int32(1 if mode < 2 else 2),
+            required=np.bool_(mode == 0), unconstrained=np.bool_(mode == 2),
+            least_free=np.bool_(False), slice_size=np.int32(1),
+            slice_level=np.int32(2),
+            leader_per_pod=np.zeros(2, np.int32),
+            has_leader=np.bool_(False)))
+    return parents, cap, _stack(rows, 2)

@@ -28,10 +28,8 @@ from kueue_oss_tpu_torch.core.workload_info import (
     WorkloadInfo,
     effective_per_pod_requests,
 )
-from kueue_oss_tpu_torch.solver.tas_kernels import (
-    build_levels,
-    make_sequential_placer_ext,
-)
+from kueue_oss_tpu_torch.solver import cuda_tas
+from kueue_oss_tpu_torch.solver.tas_kernels import build_levels
 
 
 def _topology_of_cq(store, spec) -> Optional[str]:
@@ -89,22 +87,27 @@ def device_tas_supported(info: WorkloadInfo, store, spec) -> bool:
 
 class DeviceTASPlacer:
     """Places drain-admitted TAS workloads with the sequential device
-    placer, one step per admission with the leaf-capacity carry between
-    them."""
+    placer: one ``cuda_tas.tas_place_sequential`` call per TAS flavor,
+    one step per admission with the leaf-capacity carry between them."""
 
     def __init__(self, device) -> None:
         self.device = torch.device(device)
-        #: full parent structure -> sequential placer for that tree
-        self._placers: dict[tuple, object] = {}
+        #: full parent structure -> the checked tree with its offsets
+        self._trees: dict[tuple, cuda_tas.PlacerTree] = {}
 
-    def _placer_for(self, levels):
+    def _tree_for(self, levels) -> cuda_tas.PlacerTree:
         key = tuple(np.asarray(p, dtype=np.int32).tobytes()
                     for p in levels.parents)
-        placer = self._placers.get(key)
-        if placer is None:
-            placer = make_sequential_placer_ext(levels.parents, self.device)
-            self._placers[key] = placer
-        return placer
+        tree = self._trees.get(key)
+        if tree is None:
+            tree = cuda_tas.PlacerTree(levels.parents)
+            self._trees[key] = tree
+        return tree
+
+    def _place(self, tree, *inputs):
+        """The batch's sequential placement (one kernel launch on a CUDA
+        device); returns (sels, leads, oks, capacity after)."""
+        return cuda_tas.tas_place_sequential(tree, *inputs)
 
     def place_batch(self, snapshot, items):
         """Place ``items`` (admission-ordered (info, flavor) pairs).
@@ -181,12 +184,13 @@ class DeviceTASPlacer:
             count[bad] = 0
             per_pod[bad] = 0
             sl_size[bad] = 1
-            placer = self._placer_for(levels)
+            tree = self._tree_for(levels)
 
             def dev(a):
                 return torch.as_tensor(a, device=self.device)
 
-            sels, _leads, oks, _cap = placer(
+            sels, _leads, oks, _cap = self._place(
+                tree,
                 dev(levels.leaf_capacity), dev(per_pod), dev(count),
                 dev(level), dev(required), dev(unconstrained),
                 dev(least_free), dev(sl_size), dev(sl_level),

@@ -6,15 +6,18 @@ one dense int32 array per level: ``parents[l][d]`` indexes level l-1;
 leaf capacities are a [D_leaf, R] matrix. Placement of one podset:
 
   phase 1 (fillInCounts, tas_flavor_snapshot.go:1568-1719): the leaf
-    pass (``cuda_tas.leaf_states``, the CUDA kernel) then one segment
-    reduction per level for pods, slices and leader states;
+    pass (``leaf_fn``: by default ``cuda_tas.leaf_states``, the CUDA
+    kernel) then one segment reduction per level for pods, slices and
+    leader states;
   phase 2 (findLevelWithFitDomains + updateCountsToMinimumGeneric,
     :1236-1469): pick the start level/domain, then descend minimizing
     the number of domains per sibling group.
 
 Each ``jax.jit`` closure of the JAX module is a plain function here; the
 ``lax.scan`` of the sequential placer is a Python loop over admissions
-with the capacity carry on the device. Per-step scalars (count, levels,
+with the capacity carry on the device. This is the plain version of
+``cuda_tas.tas_place_sequential``, which runs the whole loop in one
+kernel launch. Per-step scalars (count, levels,
 flags) are 0-d device tensors, so a step makes no host synchronisation.
 Every integer stays int32 and wraps like the JAX program.
 """
@@ -86,18 +89,21 @@ def build_levels(snapshot) -> TASLevels:
 
 
 def fill_counts_ext(parents, leaf_capacity, per_pod, leader_per_pod,
-                    has_leader, slice_size, slice_level):
+                    has_leader, slice_size, slice_level,
+                    leaf_fn=cuda_tas.leaf_states):
     """Phase 1 with slice and leader states (fillInCounts +
     fillInCountsHelper). ``parents`` are device int32 tensors;
     ``has_leader``/``slice_size``/``slice_level`` 0-d device tensors.
 
     Returns per level l a dict with st (pods), swl (pods with the leader
     hosted somewhere below), ls (leader capacity 0/1), ss (slices), sswl
-    (slices with leader). The leaf pass is the CUDA kernel for every R.
+    (slices with leader). ``leaf_fn`` is the leaf pass: the CUDA kernel
+    by default, ``cuda_tas.leaf_states_reference`` for an all-PyTorch
+    placer.
     """
     n_levels = len(parents)
-    st, swl, ls = cuda_tas.leaf_states(leaf_capacity, per_pod,
-                                       leader_per_pod, has_leader)
+    st, swl, ls = leaf_fn(leaf_capacity, per_pod, leader_per_pod,
+                          has_leader)
     ss_div = torch.clamp(slice_size, min=1)
     leaf_l = n_levels - 1
     at_sl = slice_level == leaf_l
@@ -227,7 +233,8 @@ def _consume_in_order(s_sorted, seg_sorted, need_of_seg, n_seg):
     return full_take + bf_take
 
 
-def make_placer_ext(parents_np: list[np.ndarray], device):
+def make_placer_ext(parents_np: list[np.ndarray], device,
+                    leaf_fn=cuda_tas.leaf_states):
     """Placer with slice + leader support for one tree shape.
 
     ``place(leaf_capacity, per_pod, count, requested_level, required,
@@ -248,7 +255,7 @@ def make_placer_ext(parents_np: list[np.ndarray], device):
               leader_per_pod, has_leader):
         cs = fill_counts_ext(parents, leaf_capacity, per_pod,
                              leader_per_pod, has_leader, slice_size,
-                             slice_level)
+                             slice_level, leaf_fn)
         ss_div = torch.clamp(slice_size, min=1)
         slice_count = floor_div(count, ss_div)
 
@@ -344,13 +351,14 @@ def make_placer_ext(parents_np: list[np.ndarray], device):
     return place
 
 
-def make_sequential_placer_ext(parents_np: list[np.ndarray], device):
+def make_sequential_placer_ext(parents_np: list[np.ndarray], device,
+                               leaf_fn=cuda_tas.leaf_states):
     """Sequential device drain through the slice/leader-capable placer:
     M podsets placed one after another, the leaf-capacity carry updated
     in between (worker pods and the leader's row). Inputs are [M, ...]
     device tensors; returns (sels [M, D_leaf], leads [M], oks [M],
-    leaf_capacity_after)."""
-    place = make_placer_ext(parents_np, device)
+    leaf_capacity_after). ``leaf_fn`` as in ``fill_counts_ext``."""
+    place = make_placer_ext(parents_np, device, leaf_fn)
 
     def place_all(leaf_capacity, per_pod, count, level, required,
                   unconstrained, least_free, slice_size, slice_level,
