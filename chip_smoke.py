@@ -36,7 +36,22 @@ Phases, in order; any failure propagates (nonzero exit, no result line):
    checked against the JAX reference plan (admitted/rounds/parked counts
    and the plan digest) and against independent capacity and quota
    checks; the batch phase 4 placed is replayed through the kernel and
-   its plain version, which must agree exactly.
+   its plain version, which must agree exactly;
+6. preemption storm: the reference Kueue scheduler baseline
+   (test/performance/scheduler/configs/baseline/generator.yaml; 5
+   cohorts x 6 ClusterQueues, 15,000 workloads, nothing cut) drained by
+   the FULL path in two waves — every low-priority small workload, then
+   the medium and large ones, which preempt 600 of them. Each wave's
+   plan must equal the JAX reference plan (counts, rounds, digest) and
+   pass independent checks: no ClusterQueue or cohort over quota, every
+   victim either below a preemptor of its own ClusterQueue in priority
+   or admitted in a borrowing ClusterQueue, and ``evicted_keys`` equal
+   to the workloads whose QuotaReserved flipped to false. The FULL
+   drain's lanes, loop iterations and host reads are printed;
+7. TAS with preemption: the TAS store at 1,500 workloads with
+   LowerPriority / Any preemption on every ClusterQueue, drained by the
+   FULL path: the JAX reference plan, one tas_place_sequential launch
+   placing every admission, no leaf_states launch.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 is the JSON kernel report.
@@ -54,6 +69,23 @@ REFERENCE = {"admitted": 102, "rounds": 549, "evicted": 0,
              "parked": 14898,
              "digest": "22ede1e7cac0f0ae5e34d56ef0205e204e1ee208cd35ba8c"
                        "b2fae3232b409bfc"}
+#: the JAX package's plans of phase 6 (per wave) and phase 7: its
+#: engine with ``mesh_mode="off"`` and without delta sessions
+#: (KUEUE_SOLVER_SESSIONS=0), the port's engine; with sessions the JAX
+#: engine re-lays a later drain's rows into stable slots, which reorders
+#: wave 2's evicted keys (the same set) and changes that digest only
+STORM_REFERENCE = [
+    {"admitted": 600, "evicted": 0, "rounds": 22, "held": 600,
+     "digest": "e127c72662d418820e4abaa29e4e4b0d03ed02f9d7e97c6b59a3aa27"
+               "f87fedc9"},
+    {"admitted": 30, "evicted": 600, "rounds": 6, "held": 30,
+     "digest": "58b39babac12c4d6630e0d5d724f07a8501a4cde09c100302e2cb817"
+               "f4c39761"},
+]
+TAS_FULL_REFERENCE = {
+    "admitted": 215, "evicted": 0, "rounds": 277, "parked": 1285,
+    "digest": "1f78efb7540ae640e5f2d1ce613a9393e0c7c6c4201d882b673101623d"
+              "686a0b"}
 #: H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, non-tensor fp32 ops/s
 HBM_BYTES_PER_S = 3.35e12
 SCALAR_OPS_PER_S = 67e12
@@ -382,6 +414,180 @@ def drain_with_stepwise_placer(device):
     return phases, StepwisePlacer.batches[0]
 
 
+def _quota_checks(store) -> None:
+    """No ClusterQueue above nominal + borrowing limit and no cohort
+    above its members' nominal quota, summed over the workloads that
+    hold quota now."""
+    cq_cpu: dict[str, int] = {}
+    for wl in store.workloads.values():
+        if wl.is_quota_reserved:
+            adm = wl.status.admission
+            cq_cpu[adm.cluster_queue] = cq_cpu.get(adm.cluster_queue, 0) + sum(
+                psa.resource_usage.get("cpu", 0)
+                for psa in adm.podset_assignments)
+    cohort_cpu: dict[str, int] = {}
+    cohort_nominal: dict[str, int] = {}
+    for name, spec in store.cluster_queues.items():
+        rq = spec.resource_groups[0].flavors[0].resources[0]
+        used = cq_cpu.get(name, 0)
+        if used > rq.nominal + rq.borrowing_limit:
+            raise AssertionError(f"ClusterQueue {name} over its nominal + "
+                                 f"borrowing limit: {used}")
+        cohort_cpu[spec.cohort] = cohort_cpu.get(spec.cohort, 0) + used
+        cohort_nominal[spec.cohort] = (cohort_nominal.get(spec.cohort, 0)
+                                       + rq.nominal)
+    for cohort, used in cohort_cpu.items():
+        if used > cohort_nominal[cohort]:
+            raise AssertionError(f"cohort {cohort} over quota: {used}")
+
+
+def _check_storm_wave(store, result, before, reference) -> dict:
+    """One wave of phase 6 against the JAX plan and the independent
+    checks; ``before`` is (reserved keys, CQ of each, CQ cpu usage)
+    taken just before the drain."""
+    from kueue_oss_tpu_torch.scenarios import preempt_plan_digest
+
+    held = sum(1 for w in store.workloads.values() if w.is_quota_reserved)
+    got = {"admitted": result.admitted, "evicted": result.evicted,
+           "rounds": result.rounds, "held": held,
+           "digest": preempt_plan_digest(store, result)}
+    if got != reference:
+        raise AssertionError(f"plan {got} != reference {reference}")
+    _quota_checks(store)
+    reserved0, cq_of, cq_used0 = before
+    flipped = {k for k in reserved0
+               if not store.workloads[k].is_quota_reserved}
+    if (len(result.evicted_keys) != len(set(result.evicted_keys))
+            or set(result.evicted_keys) != flipped):
+        raise AssertionError("evicted_keys differ from the workloads whose "
+                             "QuotaReserved flipped to false")
+    nominal = {name: spec.resource_groups[0].flavors[0].resources[0].nominal
+               for name, spec in store.cluster_queues.items()}
+    preemptor_prio: dict[str, int] = {}
+    for key in result.admitted_keys:
+        wl = store.workloads[key]
+        cq = wl.status.admission.cluster_queue
+        preemptor_prio[cq] = max(preemptor_prio.get(cq, wl.priority),
+                                 wl.priority)
+    for key in result.evicted_keys:
+        wl = store.workloads[key]
+        cq = cq_of[key]
+        own = preemptor_prio.get(cq)
+        borrowing = cq_used0.get(cq, 0) > nominal[cq]
+        if not ((own is not None and wl.priority < own) or borrowing):
+            raise AssertionError(f"victim {key} of {cq} is neither below a "
+                                 f"preemptor of its ClusterQueue nor "
+                                 f"admitted in a borrowing one")
+    return got
+
+
+def _reserved_state(store):
+    reserved = {k for k, w in store.workloads.items()
+                if w.is_quota_reserved}
+    cq_of = {k: store.workloads[k].status.admission.cluster_queue
+             for k in reserved}
+    used: dict[str, int] = {}
+    for k in reserved:
+        for psa in store.workloads[k].status.admission.podset_assignments:
+            used[cq_of[k]] = used.get(cq_of[k], 0) + psa.resource_usage.get(
+                "cpu", 0)
+    return reserved, cq_of, used
+
+
+def _stats(result) -> dict:
+    st = result.full_stats
+    return {"rounds": st.rounds, "lanes": st.lanes,
+            "walk_iterations": st.walk_iterations,
+            "fill_iterations": st.fill_iterations,
+            "removal_steps": st.removal_steps, "syncs": st.syncs}
+
+
+def storm_drain() -> dict:
+    """Phase 6: the baseline preemption storm at full size, two waves."""
+    import torch
+
+    from kueue_oss_tpu_torch.api import types
+    from kueue_oss_tpu_torch.core.queue_manager import QueueManager
+    from kueue_oss_tpu_torch.core.store import Store
+    from kueue_oss_tpu_torch.scenarios import baseline_preempt_store
+    from kueue_oss_tpu_torch.solver import cuda_tas
+    from kueue_oss_tpu_torch.solver.engine import SolverEngine
+
+    store, wave1, wave2 = baseline_preempt_store(types, Store)
+    engine = SolverEngine(store, QueueManager(store))
+    out = {}
+    for name, now, wave, reference in (
+            ("wave1", 100.0, wave1, STORM_REFERENCE[0]),
+            ("wave2", 200.0, wave2, STORM_REFERENCE[1])):
+        for wl in wave:
+            store.add_workload(wl)
+        before = _reserved_state(store)
+        cuda_tas.leaf_states.launches = 0
+        cuda_tas.tas_place_sequential.launches = 0
+        t0 = time.monotonic()
+        result = engine.drain(now=now)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        if (cuda_tas.leaf_states.launches
+                or cuda_tas.tas_place_sequential.launches):
+            raise AssertionError("the storm has no TAS flavor, yet a TAS "
+                                 "kernel launched")
+        got = _check_storm_wave(store, result, before, reference)
+        out[name] = {"drain_s": wall,
+                     **{f"{k}_s": v for k, v in result.phases.items()},
+                     "workloads": len(wave), **_stats(result)}
+        print(f"[storm {name}] plan matches the reference {got}; FULL "
+              f"drain counters " + json.dumps(_stats(result)))
+    return out
+
+
+def tas_full_drain() -> tuple:
+    """Phase 7: the TAS store with preemption through the FULL path.
+    Returns (timings, tas_place_sequential launches)."""
+    import torch
+
+    from kueue_oss_tpu_torch.api import types
+    from kueue_oss_tpu_torch.core.queue_manager import QueueManager
+    from kueue_oss_tpu_torch.core.store import Store
+    from kueue_oss_tpu_torch.scenarios import plan_digest, tas_drain_store
+    from kueue_oss_tpu_torch.solver import cuda_tas
+    from kueue_oss_tpu_torch.solver.engine import SolverEngine
+
+    store = tas_drain_store(types, Store, n_workloads=1500, preempt=True)
+    queues = QueueManager(store)
+    engine = SolverEngine(store, queues)
+    cuda_tas.leaf_states.launches = 0
+    cuda_tas.tas_place_sequential.launches = 0
+    cuda_tas.tas_place_sequential.steps = 0
+    t0 = time.monotonic()
+    result = engine.drain(now=0.0)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = cuda_tas.tas_place_sequential.launches
+    steps = cuda_tas.tas_place_sequential.steps
+    placed = _placed(store, result)
+    if (launches != 1 or steps != placed or placed != result.admitted
+            or cuda_tas.leaf_states.launches != 0):
+        raise AssertionError(
+            f"TAS FULL path: {launches} tas_place_sequential launches "
+            f"({steps} steps), {cuda_tas.leaf_states.launches} leaf_states "
+            f"launches for {placed} placements of {result.admitted}")
+    got = {"admitted": result.admitted, "evicted": result.evicted,
+           "rounds": result.rounds,
+           "parked": sum(len(q.inadmissible)
+                         for q in queues.queues.values()),
+           "digest": plan_digest(store, result.admitted_keys)}
+    if got != TAS_FULL_REFERENCE:
+        raise AssertionError(f"plan {got} != reference {TAS_FULL_REFERENCE}")
+    _quota_checks(store)
+    print(f"[tas full] plan matches the reference {got}; 1 "
+          f"tas_place_sequential launch, {steps} steps, 0 leaf_states "
+          f"launches; FULL drain counters " + json.dumps(_stats(result)))
+    return ({"drain_s": wall,
+             **{f"{k}_s": v for k, v in result.phases.items()},
+             **_stats(result)}, launches)
+
+
 def main() -> int:
     import torch
 
@@ -451,10 +657,22 @@ def main() -> int:
     reports[1]["launches"] = place_launches
     reports[1]["steps"] = steps
 
+    # 6. the baseline preemption storm (FULL path, no TAS kernel)
+    storm = storm_drain()
+
+    # 7. TAS with preemption (FULL path)
+    tas_full, tas_full_launches = tas_full_drain()
+    reports[0]["launches_by_path"] = {"tas_lean": leaf_launches,
+                                      "tas_full": 0, "storm_full": 0}
+    reports[1]["launches_by_path"] = {"tas_lean": place_launches,
+                                      "tas_full": tas_full_launches,
+                                      "storm_full": 0}
+
     timings = {"setup_s": setup_s, "drain_s": drain_s,
                **{f"{k}_s": v for k, v in result.phases.items()},
                "rounds": result.rounds, "admitted": result.admitted,
-               "stepwise_placer": step_phases}
+               "stepwise_placer": step_phases, "storm": storm,
+               "tas_full": tas_full}
     print("[timings] " + json.dumps(timings))
     print(smi)
     print(json.dumps({"kernels": reports}))

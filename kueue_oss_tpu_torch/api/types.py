@@ -4,9 +4,11 @@ A copy of ``kueue_oss_tpu/api/types.py`` restricted to the objects the
 drain reads or writes (reference: apis/kueue/v1beta2/*_types.go). Field
 names and defaults are the JAX package's, so the same store builder
 works against either package. Quantities are plain integers in
-canonical units. Cut from the copy: fair-sharing weights, admission
-scopes (AFS), node taints, priority classes, admission-check objects,
-MultiKueue and workload-slicing fields.
+canonical units. Fair-sharing weights and admission scopes (AFS) are
+carried so that a store can state them; the port's drain refuses a
+backlog that needs either. Cut from the copy: node taints, priority
+classes, admission-check objects, MultiKueue and workload-slicing
+fields.
 """
 
 from __future__ import annotations
@@ -60,6 +62,21 @@ class FlavorFungibilityPolicy:
     BORROW = "Borrow"
     PREEMPT = "Preempt"
     TRY_NEXT_FLAVOR = "TryNextFlavor"
+
+
+class FlavorFungibilityPreference:
+    BORROWING_OVER_PREEMPTION = "BorrowingOverPreemption"
+    PREEMPTION_OVER_BORROWING = "PreemptionOverBorrowing"
+
+
+@dataclass
+class FairSharing:
+    weight: float = 1.0
+
+
+@dataclass
+class AdmissionScope:
+    admission_mode: str = "UsageBasedAdmissionFairSharing"
 
 
 @dataclass
@@ -189,6 +206,8 @@ class ClusterQueue:
     preemption: PreemptionPolicy = field(default_factory=PreemptionPolicy)
     flavor_fungibility: FlavorFungibility = field(
         default_factory=FlavorFungibility)
+    fair_sharing: FairSharing = field(default_factory=FairSharing)
+    admission_scope: Optional[AdmissionScope] = None
     admission_checks: list[str] = field(default_factory=list)
     admission_checks_strategy: Optional[AdmissionChecksStrategy] = None
     stop_policy: str = StopPolicy.NONE
@@ -214,6 +233,7 @@ class Cohort:
     name: str
     parent: Optional[str] = None
     resource_groups: list[ResourceGroup] = field(default_factory=list)
+    fair_sharing: FairSharing = field(default_factory=FairSharing)
 
 
 @dataclass
@@ -268,7 +288,9 @@ class WorkloadConditionType:
     QUOTA_RESERVED = "QuotaReserved"
     ADMITTED = "Admitted"
     EVICTED = "Evicted"
+    PREEMPTED = "Preempted"
     FINISHED = "Finished"
+    PODS_READY = "PodsReady"
 
 
 @dataclass
@@ -330,12 +352,21 @@ class RequeueState:
 
 
 @dataclass
+class WorkloadSchedulingStatsEviction:
+    reason: str
+    underlying_cause: str = ""
+    count: int = 0
+
+
+@dataclass
 class WorkloadStatus:
     conditions: dict[str, Condition] = field(default_factory=dict)
     admission: Optional[Admission] = None
     admission_checks: dict[str, AdmissionCheckState] = field(
         default_factory=dict)
     requeue_state: Optional[RequeueState] = None
+    eviction_stats: list[WorkloadSchedulingStatsEviction] = field(
+        default_factory=list)
     unhealthy_nodes: list[str] = field(default_factory=list)
     reclaimable_pods: dict[str, int] = field(default_factory=dict)
 

@@ -1,8 +1,9 @@
 """Carry solver state into the port from arrays named by field.
 
-Both functions take plain numpy arrays (or duck-typed objects exposing
+The functions take plain numpy arrays (or duck-typed objects exposing
 them as attributes), so a problem exported elsewhere — the JAX
-package's ``SolverProblem`` or ``TASLevels``, or arrays loaded from a
+package's ``SolverProblem``, ``TASLevels`` or the FULL drain's host
+tensors (``host_tensors_full``), or arrays loaded from a
 file — can be solved by the port without the port importing it. Dtypes
 are checked, never coerced: a wrong dtype is a caller bug.
 """
@@ -13,6 +14,11 @@ import dataclasses
 
 import numpy as np
 
+from kueue_oss_tpu_torch.solver.full_kernels import (
+    FullTensors,
+    field_dtype,
+    tensors_to_device,
+)
 from kueue_oss_tpu_torch.solver.tas_kernels import TASLevels
 from kueue_oss_tpu_torch.solver.tensors import ARRAY_FIELDS, SolverProblem
 
@@ -64,3 +70,13 @@ def levels_from_arrays(parents, leaf_capacity, leaf_names,
         leaf_names=[tuple(n) for n in leaf_names],
         resources=list(resources),
     )
+
+
+def full_tensors_from_arrays(obj, device) -> FullTensors:
+    """The port's ``FullTensors`` on ``device`` from an object or mapping
+    carrying every FULL-drain input array by field name, each in the
+    dtype the port uses (int32, bool or float32; the two bases are 0-d
+    int32)."""
+    return tensors_to_device(FullTensors(**{
+        name: _array(name, _get(obj, name), field_dtype(name))
+        for name in FullTensors._fields}), device)

@@ -4,11 +4,18 @@ A copy of ``kueue_oss_tpu/core/queue_manager.py`` (reference:
 pkg/cache/queue/manager.go + cluster_queue.go) for BestEffortFIFO and
 StrictFIFO queues: the heap members, ordered by (priority desc, queue-order
 timestamp asc, uid), the inadmissible (parked) set, and the cohort
-flush when capacity frees. The drain reads ``snapshot_order`` and
-writes ``delete``/``park``. Cut from the copy: admission fair sharing,
-the TAS second-pass queue, solver-managed lazy flushes (no stale
-entries), scheduling-equivalence no-fit hashes, metric dirty sets, and
-the lock/condition the threaded host scheduler waits on.
+flush when capacity frees (a workload deleted or evicted). The drain
+reads ``snapshot_order`` and ``inadmissible`` and writes
+``delete``/``park``; an eviction re-queues the workload through its
+store update and flushes its cohort. The flush is the JAX package's
+eager one: parked entries move back into the heap at once, ordered by
+the same ``_order_key``, so the drain exports the same pending and
+parked rows as the JAX engine over a queue manager without lazy
+flushing. Cut from the copy: admission fair sharing, the TAS
+second-pass queue, solver-managed lazy flushes (no stale entries),
+scheduling-equivalence no-fit hashes (only host cycles record them),
+metric dirty sets, and the lock/condition the threaded host scheduler
+waits on.
 """
 
 from __future__ import annotations
@@ -160,6 +167,12 @@ class QueueManager:
         my_root = root_of(spec.cohort)
         return [name for name, other in self.store.cluster_queues.items()
                 if other.cohort and root_of(other.cohort) == my_root]
+
+    def report_workload_evicted(self, wl: Workload) -> None:
+        """Freed capacity wakes the parked workloads of the cohort."""
+        cq = self._cq_for(wl)
+        if cq is not None:
+            self.flush_cohort_for(cq)
 
     def flush_cohort_for(self, cq_name: str) -> None:
         """Re-queue inadmissible workloads across the whole cohort."""

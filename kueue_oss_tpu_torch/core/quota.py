@@ -36,6 +36,8 @@ class QuotaNode:
     usage: dict[FlavorResource, int] = field(default_factory=dict)
     parent: Optional["QuotaNode"] = None
     children: dict[str, "QuotaNode"] = field(default_factory=dict)
+    #: fair-sharing weight from the spec (exported, read by no drain)
+    fair_weight: float = 1.0
 
     def local_quota(self, fr: FlavorResource) -> int:
         q = self.quotas.get(fr)
@@ -90,6 +92,7 @@ class QuotaForest:
                 spec = cohort_by_name.get(name)
                 node = QuotaNode(name=name, is_cq=False)
                 if spec is not None:
+                    node.fair_weight = spec.fair_sharing.weight
                     node.quotas = _collect_quotas(
                         f"cohort {name}", spec.resource_groups)
                 self.nodes[key] = node
@@ -102,7 +105,8 @@ class QuotaForest:
         for c in cohorts:
             ensure_cohort(c.name)
         for cq in cluster_queues:
-            node = QuotaNode(name=cq.name, is_cq=True)
+            node = QuotaNode(name=cq.name, is_cq=True,
+                             fair_weight=cq.fair_sharing.weight)
             node.quotas = _collect_quotas(f"cq {cq.name}", cq.resource_groups)
             key = f"cq/{cq.name}"
             self.nodes[key] = node

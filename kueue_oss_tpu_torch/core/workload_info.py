@@ -3,8 +3,8 @@
 A copy of ``kueue_oss_tpu/core/workload_info.py`` (reference:
 pkg/workload/workload.go). Cut from the copy: the request-shaping
 config (LimitRange defaults and resource transformations, empty by
-default; the port has no Configuration loader), the flavor cursor and
-the scheduling-equivalence hash, which only the host scheduler reads.
+default; the port has no Configuration loader) and the flavor cursor,
+which only the host scheduler reads.
 """
 
 from __future__ import annotations
@@ -92,6 +92,28 @@ class WorkloadInfo:
                 out[fr] = out.get(fr, 0) + qty
         return out
 
+    def scheduling_hash(self) -> tuple:
+        """Shape key of the BestEffortFIFO NoFit dedup: same podset
+        shapes, priority and ClusterQueue (workload.go:227-230)."""
+        podsets = {ps.name: ps for ps in self.obj.podsets}
+
+        def ps_shape(psr: PodSetResources) -> tuple:
+            ps = podsets.get(psr.name)
+            topo = None
+            if ps is not None and ps.topology_request is not None:
+                tr = ps.topology_request
+                topo = (tr.required, tr.preferred, tr.unconstrained,
+                        tr.podset_group_name,
+                        tr.podset_slice_required_topology,
+                        tr.podset_slice_size)
+            return (psr.name, psr.count,
+                    ps.min_count if ps is not None else None,
+                    topo, tuple(sorted(psr.requests.items())))
+
+        return (self.cluster_queue, effective_priority(self.obj),
+                self.obj.allowed_flavor,
+                tuple(ps_shape(psr) for psr in self.total_requests))
+
     def can_be_partially_admitted(self) -> bool:
         return any(ps.min_count is not None for ps in self.obj.podsets)
 
@@ -122,3 +144,11 @@ def queue_order_timestamp(wl: Workload) -> float:
     if evicted is not None and evicted.status:
         return evicted.last_transition_time
     return wl.creation_time
+
+
+def quota_reservation_time(wl: Workload, now: float) -> float:
+    """When the current quota reservation was made (``now`` if none)."""
+    cond = wl.status.conditions.get(WorkloadConditionType.QUOTA_RESERVED)
+    if cond is None or not cond.status:
+        return now
+    return cond.last_transition_time

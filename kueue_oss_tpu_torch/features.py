@@ -18,6 +18,7 @@ _DEFAULTS: dict[str, bool] = {
     "TASBalancedPlacement": False,     # solver/tas_engine.py shape gate
     "ConcurrentAdmission": False,      # core/queue_manager.py CA parents
     "PriorityBoost": False,            # core/workload_info.py priority
+    "SchedulingEquivalenceHashing": True,  # solver/tensors.py NoFit classes
 }
 
 

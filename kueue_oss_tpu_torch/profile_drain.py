@@ -1,22 +1,28 @@
-"""Where the TAS drain's time goes on the card.
+"""Where the drains' time goes on the card.
 
     python3 -m kueue_oss_tpu_torch.profile_drain
 
-Drains the TAS store (``scenarios.tas_drain_store``) at the full tree and
-ClusterQueue widths but 1,500 workloads instead of 15,000: the profiler
-records every eager op and kernel, and at the full backlog (~1.5 M ops)
-its own overhead outruns a chip call. The cut keeps what a round is (30
-ClusterQueue heads, one admission scan step each, the same 640-leaf
-tree) and shortens the number of rounds.
+Two scenarios:
 
-Three drains on the CUDA device: one plain, for the wall time and its
-phases; one under ``torch.profiler``, for the device time by kernel
-name; one under ``torch.cuda.set_sync_debug_mode("warn")``, counting
-host synchronisations by source line. Prints one JSON object: the card
-(name, power limit), the plain drain's phases, the device busy seconds,
-the device idle share of the plain drain's wall (1 - busy / wall), the
-top kernels by device time and the synchronisation counts. Needs a CUDA
-device; exits 1 without one.
+- ``tas_drain``: the lean TAS drain (``scenarios.tas_drain_store``) at
+  the full tree and ClusterQueue widths but 1,500 workloads instead of
+  15,000: the profiler records every eager op and kernel, and at the
+  full backlog (~1.5 M ops) its own overhead outruns a chip call. The
+  cut keeps what a round is (30 ClusterQueue heads, one admission scan
+  step each, the same 640-leaf tree) and shortens the number of rounds;
+- ``storm``: the FULL drain of the Kueue baseline preemption storm
+  (``scenarios.baseline_preempt_store``) at full size, both waves
+  (28 rounds in all), measured over the two drains together.
+
+Each scenario runs three times on the CUDA device: once plain, for the
+wall time and its phases; once under ``torch.profiler``, for the device
+time by kernel name; once under ``torch.cuda.set_sync_debug_mode
+("warn")``, counting host synchronisations by source line. Prints one
+JSON object: the card (name, power limit) and per scenario the plain
+run's phases, the device busy seconds, the device idle share of the
+plain run's wall (1 - busy / wall), the top kernels by device time, the
+synchronisation counts and, for the FULL drain, its own counters
+(``DrainResult.full_stats``). Needs a CUDA device; exits 1 without one.
 """
 
 from __future__ import annotations
@@ -33,7 +39,8 @@ WORKLOADS = 1500
 TOP_KERNELS = 12
 
 
-def _drain(n_workloads: int):
+def _tas_drain(n_workloads: int = WORKLOADS):
+    """The lean TAS drain; returns ([result], wall seconds)."""
     import torch
 
     from kueue_oss_tpu_torch.api import types
@@ -48,7 +55,32 @@ def _drain(n_workloads: int):
     t0 = time.monotonic()
     result = engine.drain(now=0.0)
     torch.cuda.synchronize()
-    return result, time.monotonic() - t0
+    return [result], time.monotonic() - t0
+
+
+def _storm_drain():
+    """Both waves of the baseline storm; returns ([result per wave],
+    the two drains' wall seconds summed)."""
+    import torch
+
+    from kueue_oss_tpu_torch.api import types
+    from kueue_oss_tpu_torch.core.queue_manager import QueueManager
+    from kueue_oss_tpu_torch.core.store import Store
+    from kueue_oss_tpu_torch.scenarios import baseline_preempt_store
+    from kueue_oss_tpu_torch.solver.engine import SolverEngine
+
+    store, wave1, wave2 = baseline_preempt_store(types, Store)
+    engine = SolverEngine(store, QueueManager(store))
+    results, wall = [], 0.0
+    for now, wave in ((100.0, wave1), (200.0, wave2)):
+        for wl in wave:
+            store.add_workload(wl)
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        results.append(engine.drain(now=now))
+        torch.cuda.synchronize()
+        wall += time.monotonic() - t0
+    return results, wall
 
 
 def _device_us(evt) -> float:
@@ -70,14 +102,21 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
 
-    _drain(200)  # warm-up: kernel build, CUDA context, allocator
-    plain, wall = _drain(WORKLOADS)
+    _tas_drain(200)  # warm-up: kernel build, CUDA context, allocator
+    print(json.dumps({"card": smi,
+                      "tas_drain": _profile(_tas_drain),
+                      "storm": _profile(_storm_drain)}))
+    return 0
 
+
+def _profile(drain) -> dict:
+    import torch
     from torch.profiler import ProfilerActivity, profile
 
+    plain, wall = drain()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        profiled, profiled_wall = _drain(WORKLOADS)
+        profiled, profiled_wall = drain()
     # device-side events only (kernels, memcpy/memset): the CPU ops that
     # launched them carry the same time again as children
     cuda = torch.autograd.DeviceType.CUDA
@@ -93,21 +132,20 @@ def main() -> int:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
         try:
-            _drain(WORKLOADS)
+            drain()
         finally:
             torch.cuda.set_sync_debug_mode(0)
     syncs = Counter(f"{Path(w.filename).name}:{w.lineno}" for w in caught
                     if "synchroniz" in str(w.message))
-
-    print(json.dumps({
-        "card": smi,
-        "workloads": WORKLOADS,
-        "admitted": plain.admitted,
-        "rounds": plain.rounds,
-        "same_plan_under_profiler": (profiled.admitted_keys
-                                     == plain.admitted_keys),
+    full = [r.full_stats for r in plain if r.full_stats is not None]
+    return {
+        "admitted": [r.admitted for r in plain],
+        "evicted": [r.evicted for r in plain],
+        "rounds": [r.rounds for r in plain],
+        "same_plan_under_profiler": ([r.admitted_keys for r in profiled]
+                                     == [r.admitted_keys for r in plain]),
         "drain_s": wall,
-        "phases_s": plain.phases,
+        "phases_s": [r.phases for r in plain],
         "profiled_drain_s": profiled_wall,
         "device_busy_s": busy_s,
         "device_idle_share": 1.0 - busy_s / wall,
@@ -116,8 +154,8 @@ def main() -> int:
                         for k, c, us in kernels[:TOP_KERNELS]],
         "host_syncs": sum(syncs.values()),
         "host_syncs_by_line": dict(syncs.most_common()),
-    }))
-    return 0
+        "full_stats": [vars(st) for st in full],
+    }
 
 
 if __name__ == "__main__":

@@ -1,4 +1,4 @@
-"""The TAS drain scenario and its plan digest.
+"""The drain scenarios of the port and their plan digests.
 
 ``tas_drain_store`` builds the store of the reference Kueue's TAS
 scheduler performance configuration
@@ -9,9 +9,23 @@ borrowing limit of 100 on one TAS flavor, and a backlog of 1/5/20-cpu
 single-pod workloads with required / preferred / unconstrained rack
 requests drawn from ``random.Random(seed)``.
 
-The builder takes the API types module and the Store class as
-arguments, so identical stores can be built for any package that has
-the same object model; the draw order matches ``bench.py`` exactly.
+With ``preempt=True`` every ClusterQueue also preempts
+(``withinClusterQueue: LowerPriority``, ``reclaimWithinCohort: Any``),
+which routes the drain through the FULL path.
+
+``baseline_preempt_store`` builds the reference Kueue's scheduler
+performance baseline (test/performance/scheduler/configs/baseline/
+generator.yaml, the shape of ``GeneratorConfig.baseline()``) as a
+preemption storm in two waves: every low-priority ``small`` workload
+first, then the ``medium`` and ``large`` ones. ``heterogeneous_preempt_
+store`` builds ``GeneratorConfig.heterogeneous``: two fungible flavors
+over cpu and memory plus an accelerator resource group, with pod-group
+workloads, in two waves the same way.
+
+The builders take the API types module and the Store class as
+arguments, so identical stores (names, uids, creation times) can be
+built for any package that has the same object model; the TAS draw
+order matches ``bench.py`` exactly.
 
 ``drain_placer_batch`` and ``random_placer_tree`` /
 ``random_placer_requests`` make inputs of the sequential TAS placer
@@ -35,9 +49,14 @@ RACK = "cloud.provider.com/topology-rack"
 
 def tas_drain_store(types, store_cls, *, n_racks: int = 10,
                     n_hosts: int = 64, n_cohorts: int = 5, n_cqs: int = 6,
-                    n_workloads: int = 15000, seed: int = 640):
+                    n_workloads: int = 15000, seed: int = 640,
+                    preempt: bool = False):
     """Build the TAS drain store (defaults: the full 640-node,
     30-ClusterQueue, 15,000-workload shape)."""
+    preemption = (types.PreemptionPolicy(
+        within_cluster_queue=types.PreemptionPolicyValue.LOWER_PRIORITY,
+        reclaim_within_cohort=types.PreemptionPolicyValue.ANY)
+        if preempt else types.PreemptionPolicy())
     store = store_cls()
     store.upsert_topology(types.Topology(name="default",
                                          levels=[BLOCK, RACK, HOSTNAME]))
@@ -53,7 +72,7 @@ def tas_drain_store(types, store_cls, *, n_racks: int = 10,
         for qi in range(n_cqs):
             name = f"cq-{c}-{qi}"
             store.upsert_cluster_queue(types.ClusterQueue(
-                name=name, cohort=f"co{c}",
+                name=name, cohort=f"co{c}", preemption=preemption,
                 resource_groups=[types.ResourceGroup(
                     covered_resources=["cpu"],
                     flavors=[types.FlavorQuotas(name="tas", resources=[
@@ -77,6 +96,150 @@ def tas_drain_store(types, store_cls, *, n_racks: int = 10,
                                   requests={"cpu": cpu},
                                   topology_request=tr)]))
     return store
+
+
+#: baseline/generator.yaml workload classes: (name, count per CQ,
+#: cpu request, priority, creation interval in ms)
+BASELINE_CLASSES = (("small", 350, 1, 50, 100), ("medium", 100, 5, 100, 500),
+                    ("large", 50, 20, 200, 1200))
+#: GeneratorConfig.heterogeneous classes: (name, count per CQ, priority,
+#: creation interval in ms, [(pods, per-pod requests), ...])
+HETERO_CLASSES = (
+    ("small", 25, 50, 60, [(1, {"cpu": 1, "memory": 100})]),
+    ("group", 10, 100, 300, [(1, {"cpu": 2, "memory": 200}),
+                             (3, {"cpu": 2, "memory": 200})]),
+    ("accel", 5, 150, 500, [(1, {"cpu": 2, "memory": 200, "gpu": 2}),
+                            (2, {"cpu": 4, "memory": 400})]),
+    ("large", 5, 200, 700, [(1, {"cpu": 10, "memory": 1000})]),
+)
+
+
+def _preempting_cqs(types, store, n_cohorts, cqs_per_cohort, make_groups):
+    for ci in range(n_cohorts):
+        store.upsert_cohort(types.Cohort(name=f"cohort-{ci}"))
+        for qi in range(cqs_per_cohort):
+            name = f"cq-{ci}-{qi}"
+            store.upsert_cluster_queue(types.ClusterQueue(
+                name=name, cohort=f"cohort-{ci}",
+                preemption=types.PreemptionPolicy(
+                    reclaim_within_cohort=types.PreemptionPolicyValue.ANY,
+                    within_cluster_queue=(
+                        types.PreemptionPolicyValue.LOWER_PRIORITY)),
+                resource_groups=make_groups()))
+            store.upsert_local_queue(types.LocalQueue(
+                name=f"lq-{name}", cluster_queue=name))
+
+
+def _waves(types, n_cohorts, cqs_per_cohort, classes, scale):
+    """(arrival ms, Workload) per class instance, split into the lowest
+    priority class (wave 1) and the rest (wave 2), each in arrival
+    order; uids number the workloads in build order."""
+    rows = []
+    for ci in range(n_cohorts):
+        for qi in range(cqs_per_cohort):
+            cq = f"cq-{ci}-{qi}"
+            for name, count, prio, interval, podsets in classes:
+                for i in range(max(1, int(count * scale))):
+                    rows.append((i * interval, prio, types.Workload(
+                        name=f"{name}-{cq}-{i}", queue_name=f"lq-{cq}",
+                        priority=prio, creation_time=i * interval / 1000.0,
+                        uid=len(rows) + 1,
+                        podsets=[types.PodSet(name=f"ps{j}", count=n,
+                                              requests=dict(req))
+                                 for j, (n, req) in enumerate(podsets)])))
+    rows.sort(key=lambda r: r[0])
+    low = min(r[1] for r in rows)
+    return ([wl for _, p, wl in rows if p == low],
+            [wl for _, p, wl in rows if p != low])
+
+
+def baseline_preempt_store(types, store_cls, *, n_cohorts: int = 5,
+                           cqs_per_cohort: int = 6, scale: float = 1.0):
+    """The Kueue scheduler-performance baseline as a preemption storm.
+
+    Returns (store, wave1, wave2): 5 cohorts x 6 ClusterQueues, nominal
+    20 cpu with a borrowing limit of 100 on one flavor, LowerPriority
+    within the ClusterQueue and Any reclaim within the cohort; per
+    ClusterQueue 350 ``small`` (1 cpu, priority 50), 100 ``medium``
+    (5 cpu, priority 100) and 50 ``large`` (20 cpu, priority 200)
+    workloads, class counts times ``scale``. Wave 1 holds the smalls,
+    wave 2 the rest; the caller adds each wave and drains."""
+    store = store_cls()
+    store.upsert_resource_flavor(types.ResourceFlavor(name="default"))
+
+    def groups():
+        return [types.ResourceGroup(
+            covered_resources=["cpu"],
+            flavors=[types.FlavorQuotas(name="default", resources=[
+                types.ResourceQuota(name="cpu", nominal=20,
+                                    borrowing_limit=100)])])]
+
+    _preempting_cqs(types, store, n_cohorts, cqs_per_cohort, groups)
+    classes = [(name, count, prio, interval, [(1, {"cpu": cpu})])
+               for name, count, cpu, prio, interval in BASELINE_CLASSES]
+    return (store,) + _waves(types, n_cohorts, cqs_per_cohort, classes,
+                             scale)
+
+
+def heterogeneous_preempt_store(types, store_cls, *, n_cohorts: int = 2,
+                                cqs_per_cohort: int = 3,
+                                scale: float = 1.0):
+    """``GeneratorConfig.heterogeneous`` as two waves: two fungible
+    flavors (on-demand, spot) over cpu+memory in one resource group, an
+    accelerator resource group, multi-podset workloads; returns (store,
+    wave1, wave2)."""
+    store = store_cls()
+    for fl in ("on-demand", "spot", "accel"):
+        store.upsert_resource_flavor(types.ResourceFlavor(name=fl))
+    q, bl = 20, 100
+    rq = types.ResourceQuota
+
+    def groups():
+        return [
+            types.ResourceGroup(
+                covered_resources=["cpu", "memory"],
+                flavors=[
+                    types.FlavorQuotas(name="on-demand", resources=[
+                        rq(name="cpu", nominal=q, borrowing_limit=bl),
+                        rq(name="memory", nominal=q * 100,
+                           borrowing_limit=bl * 100)]),
+                    types.FlavorQuotas(name="spot", resources=[
+                        rq(name="cpu", nominal=2 * q, borrowing_limit=bl),
+                        rq(name="memory", nominal=2 * q * 100,
+                           borrowing_limit=bl * 100)]),
+                ]),
+            types.ResourceGroup(
+                covered_resources=["gpu"],
+                flavors=[types.FlavorQuotas(name="accel", resources=[
+                    rq(name="gpu", nominal=4, borrowing_limit=8)])]),
+        ]
+
+    _preempting_cqs(types, store, n_cohorts, cqs_per_cohort, groups)
+    return (store,) + _waves(types, n_cohorts, cqs_per_cohort,
+                             HETERO_CLASSES, scale)
+
+
+def preempt_plan_rows(store, result) -> list:
+    """The FULL drain's plan as rows: each admitted key in order with
+    its ClusterQueue and the flavors of every podset, then each evicted
+    key in order with its Preempted reason."""
+    rows = []
+    for key in result.admitted_keys:
+        adm = store.workloads[key].status.admission
+        rows.append([key, adm.cluster_queue,
+                     [sorted(psa.flavors.items())
+                      for psa in adm.podset_assignments]])
+    for key in result.evicted_keys:
+        cond = store.workloads[key].status.conditions["Preempted"]
+        rows.append([key, cond.reason])
+    return rows
+
+
+def preempt_plan_digest(store, result) -> str:
+    """sha256 of the compact JSON of ``preempt_plan_rows``."""
+    return hashlib.sha256(json.dumps(
+        preempt_plan_rows(store, result),
+        separators=(",", ":")).encode()).hexdigest()
 
 
 def plan_rows(store, admitted_keys) -> list:

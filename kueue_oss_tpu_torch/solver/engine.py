@@ -1,16 +1,25 @@
 """Solver engine: export -> device drain -> apply the plan to the store.
 
-Port of the lean path of ``kueue_oss_tpu/solver/engine.py``
-(``SolverEngine.drain``, engine.py:448). One drain computes the
-admission plan of the whole pending backlog on the device:
-``pending_backlog`` -> ``export_problem`` -> ``pad_workloads`` ->
-``to_device`` -> ``solve_backlog`` -> ``_apply_plan``, where admitted
-topology-aware (TAS) workloads are placed by the sequential device
-placer (``_compute_tas_assignments``) before ``_commit_admission``
-writes the admission, its conditions and the queue transitions.
+Port of ``kueue_oss_tpu/solver/engine.py`` (``SolverEngine.drain``,
+engine.py:448). One drain computes the admission plan of the whole
+pending backlog on the device and commits it:
 
-Backlogs that need the FULL (preemption / multi-resource-group) drain
-raise ``UnsupportedProblem``; ``verify=True`` raises
+- the lean drain (no ClusterQueue admitting this drain has preemption
+  or more than one resource group): ``pending_backlog`` ->
+  ``export_problem`` -> ``pad_workloads`` -> ``to_device`` ->
+  ``solve_backlog`` -> ``_apply_plan``;
+- the FULL drain (preemption or several resource groups):
+  ``export_problem(include_admitted=True, parked=...)`` ->
+  ``_size_caps`` -> ``solve_backlog_full`` -> ``_apply_full_plan``,
+  which applies the evictions first (``core/eviction.py``), then the
+  admissions in (round, entry) order with a flavor per resource group,
+  then the parking.
+
+Admitted topology-aware (TAS) workloads are placed by the sequential
+device placer (``_compute_tas_assignments``) before
+``_commit_admission`` writes the admission, its conditions and the
+queue transitions. Fair sharing, admission fair sharing and podset
+topology groups raise ``UnsupportedProblem``; ``verify=True`` raises
 ``NotImplementedError`` (the host oracle re-check is a later slice).
 Cut from the copy: metrics, the obs recorder and cycle ledger, tracer
 spans, persistence intents, the degradation ladder, the remote sidecar,
@@ -33,11 +42,21 @@ from kueue_oss_tpu_torch.api.types import (
     TopologyAssignment,
     WorkloadConditionType,
 )
+from kueue_oss_tpu_torch.core.eviction import evict_workload
 from kueue_oss_tpu_torch.core.queue_manager import QueueManager
 from kueue_oss_tpu_torch.core.snapshot import build_snapshot
 from kueue_oss_tpu_torch.core.store import Store
 from kueue_oss_tpu_torch.core.workload_info import WorkloadInfo
 from kueue_oss_tpu_torch.device import resolve_device
+from kueue_oss_tpu_torch.solver.full_kernels import (
+    V_HIERARCHICAL_RECLAIM,
+    V_RECLAIM_WHILE_BORROWING,
+    V_RECLAIM_WITHOUT_BORROWING,
+    V_WITHIN_CQ,
+    FullDrainStats,
+    solve_backlog_full,
+    to_device_full,
+)
 from kueue_oss_tpu_torch.solver.kernels import solve_backlog, to_device
 from kueue_oss_tpu_torch.solver.tas_engine import (
     DeviceTASPlacer,
@@ -51,28 +70,51 @@ from kueue_oss_tpu_torch.solver.tensors import (
     pow2,
 )
 
+#: Preempted-condition reason of each candidate variant
+#: (preemption.go; scheduler/preemption.py _VARIANT_REASON)
+_VARIANT_REASON = {
+    V_WITHIN_CQ: "InClusterQueue",
+    V_HIERARCHICAL_RECLAIM: "InCohortReclamation",
+    V_RECLAIM_WITHOUT_BORROWING: "InCohortReclamation",
+    V_RECLAIM_WHILE_BORROWING: "InCohortReclaimWhileBorrowing",
+}
+#: FULL drain lanes per round: up to the ClusterQueue count and this cap
+H_MAX_CAP = 1024
+#: the FULL drain's per-round search budget in lane x option x group
+#: units, by device type: the JAX engine's accelerator and CPU budgets
+SEARCH_BUDGET = {"cuda": 8192, "cpu": 512}
+
 
 @dataclass
 class DrainResult:
     admitted: int = 0
-    #: always 0: the lean drain never preempts
+    #: workloads that held quota before the drain and lost it (the FULL
+    #: drain's victims that were not re-admitted)
     evicted: int = 0
     rounds: int = 0
     #: workload keys admitted, in (round, workload row) order
     admitted_keys: list[str] = field(default_factory=list)
+    #: the evicted workloads' keys, in workload row order
+    evicted_keys: list[str] = field(default_factory=list)
     #: wall seconds by phase: export, solve, placement, apply (apply
     #: includes placement)
     phases: dict[str, float] = field(default_factory=dict)
+    #: the FULL drain's lanes, loop iterations and host reads (None on
+    #: the lean path)
+    full_stats: Optional[FullDrainStats] = None
 
 
 class SolverEngine:
     """Drains pending backlogs through the device kernels."""
 
     def __init__(self, store: Store, queues: QueueManager,
-                 device="cuda") -> None:
+                 device="cuda", enable_fair_sharing: bool = False) -> None:
         self.store = store
         self.queues = queues
         self.device = resolve_device(device)
+        #: fair sharing (KEP-1714) needs the fair drain, which the port
+        #: does not have: drains refuse while it is set
+        self.enable_fair_sharing = enable_fair_sharing
         #: sticky pad high-water mark: the padded workload axis never
         #: shrinks across drains (the JAX engine's recompile guard; the
         #: axis length also sets the drain's round bound)
@@ -143,11 +185,20 @@ class SolverEngine:
             raise NotImplementedError(
                 "verify=True needs the host oracle re-check, which this "
                 "port does not have yet")
-        pending = self.pending_backlog()
-        if self.needs_full_kernel(pending):
+        if self.enable_fair_sharing:
             raise UnsupportedProblem(
-                "the backlog needs the FULL (preemption / multi-resource-"
-                "group) drain, which this port does not have yet")
+                "fair sharing needs the fair drain, which this port does "
+                "not have yet")
+        pending = self.pending_backlog()
+        for name in pending:
+            scope = self.store.cluster_queues[name].admission_scope
+            if (scope is not None and scope.admission_mode
+                    == "UsageBasedAdmissionFairSharing"):
+                raise UnsupportedProblem(
+                    f"ClusterQueue {name} uses admission fair sharing, "
+                    "which this port does not have yet")
+        if self.needs_full_kernel(pending):
+            return self._drain_full(now, pending)
         result = DrainResult()
         te = time.monotonic()
         problem = export_problem(self.store, pending)
@@ -176,7 +227,10 @@ class SolverEngine:
         Returns (kept_candidates, topology_by_workload_key); candidates
         whose placement failed are dropped and stay queued."""
         t0 = time.monotonic()
-        tas_items = [(info, flavor)
+        # the FULL path carries a flavor per resource; a TAS CQ has one
+        # resource group, so its first flavor is the TAS flavor
+        tas_items = [(info, next(iter(flavor.values()))
+                      if isinstance(flavor, dict) else flavor)
                      for _wl, cq_name, flavor, info, _u in candidates
                      if cq_name in self._drain_tas_ready and flavor]
         if not tas_items:
@@ -240,6 +294,160 @@ class SolverEngine:
         # mirror the drain's inadmissible parking host-side; StrictFIFO
         # blocked heads (not parked) stay in their heaps
         for w in np.nonzero(parked[:problem.n_workloads])[0]:
+            cq_name = problem.cq_names[problem.wl_cqid[w]]
+            self.queues.queues[cq_name].park(problem.wl_keys[w])
+
+    # -- the FULL (preemption / multi-resource-group) drain ----------------
+
+    def _size_caps(self, problem: SolverProblem) -> tuple[int, int]:
+        """The FULL drain's lane count h_max and candidate cap p_max.
+
+        h_max: one lane per ClusterQueue up to ``H_MAX_CAP``, within the
+        per-round search budget (each lane runs K x g searches), rounded
+        down to a power of two with a 64-lane floor, then up to a power
+        of two. p_max must cover the largest candidate set: admitted
+        workloads with usage in one cohort tree, bounded by the tree's
+        population and by its quota over the smallest positive request
+        (plus the workloads admitted before the drain, which may predate
+        a quota cut). Both follow ``SolverEngine._size_caps`` of the JAX
+        package (engine.py:1593-1682)."""
+        C = problem.n_cqs
+        K = problem.wl_req.shape[1]
+        g = max(1, int(problem.cq_ngroups.max()) if C else 1)
+        budget = SEARCH_BUDGET[self.device.type]
+        lane_cap = max(64, pow2(max(1, budget // max(K * g, 1)) + 1) // 2)
+        h_max = max(1, pow2(min(C, H_MAX_CAP, lane_cap)))
+        root_of_cq = problem.cq_root
+        wl_root = root_of_cq[np.minimum(problem.wl_cqid[:-1], C - 1)]
+        counts = np.bincount(wl_root, minlength=problem.n_nodes + 1)
+        pop = int(counts.max()) if counts.size else 1
+        req = problem.wl_req[:-1].reshape(-1, problem.wl_req.shape[-1])
+        req = np.concatenate([req, problem.ad_usage[:-1]], axis=0)
+        pos = req > 0
+        if not pos.any():
+            return h_max, pow2(max(8, pop))
+        big = np.iinfo(req.dtype).max
+        min_req = np.where(pos.any(axis=0),
+                           np.where(pos, req, big).min(axis=0), 0)
+        # per-node root: the last valid entry of the ancestor path
+        path = problem.path
+        null = path.shape[0] - 1
+        valid = path != null
+        last = np.maximum(valid.shape[1] - 1 - np.argmax(
+            valid[:, ::-1], axis=1), 0)
+        root_of_node = path[np.arange(path.shape[0]), last]
+        root_of_node = np.where(valid.any(axis=1), root_of_node, null)
+        tree_quota = np.zeros_like(problem.local_quota)
+        np.add.at(tree_quota, root_of_node[:-1], problem.local_quota[:-1])
+        adm0 = problem.ad_usage[:-1].any(axis=1)
+        adm_counts = np.bincount(wl_root[adm0],
+                                 minlength=problem.n_nodes + 1)
+        cap = 0
+        for rn in np.unique(root_of_cq):
+            quota = tree_quota[rn] + problem.subtree[rn]
+            per_fr = quota // np.maximum(min_req, 1)
+            cap = max(cap, int(per_fr[min_req > 0].sum())
+                      + int(adm_counts[rn]))
+        return h_max, pow2(max(8, min(pop, max(8, cap))))
+
+    def _drain_full(self, now: float, pending) -> DrainResult:
+        """Drain a preemption-enabled or multi-resource-group backlog
+        through solve_backlog_full and apply the net plan (reference
+        cycle contract: scheduler.go:286-467)."""
+        result = DrainResult()
+        parked_map: dict[str, list[WorkloadInfo]] = {}
+        for name, q in self.queues.queues.items():
+            if not q.inadmissible or (self._is_tas_cq(name)
+                                      and name not in self._drain_tas_ready):
+                continue
+            infos = [i for i in q.inadmissible.values()
+                     if all(ps.topology_request is None
+                            for ps in i.obj.podsets)]
+            if infos:
+                parked_map[name] = infos
+        te = time.monotonic()
+        problem = export_problem(self.store, pending, include_admitted=True,
+                                 parked=parked_map)
+        result.phases["export"] = time.monotonic() - te
+        if problem.n_workloads == 0:
+            return result
+        g_max = int(problem.cq_ngroups.max())
+        h_max, p_max = self._size_caps(problem)
+        self._pad_hwm = max(self._pad_hwm, pow2(problem.n_workloads))
+        problem = pad_workloads(problem, self._pad_hwm)
+
+        t0 = time.monotonic()
+        stats = FullDrainStats()
+        out = solve_backlog_full(to_device_full(problem, self.device),
+                                 g_max=g_max, h_max=h_max, p_max=p_max,
+                                 stats=stats)
+        (admitted, opt, admit_round, parked, rounds, _usage, _wl_usage,
+         victim_reason) = (a.cpu().numpy() for a in out)
+        stats.syncs += 1  # the plan's read-back
+        result.rounds = int(rounds)
+        result.full_stats = stats
+        result.phases["solve"] = time.monotonic() - t0
+
+        t1 = time.monotonic()
+        self._apply_full_plan(problem, admitted, opt, admit_round, parked,
+                              victim_reason, now, result)
+        result.phases["apply"] = time.monotonic() - t1
+        return result
+
+    def _apply_full_plan(self, problem: SolverProblem, admitted, opt,
+                         admit_round, parked, victim_reason, now: float,
+                         result: DrainResult) -> None:
+        """Evictions first, then admissions in (round, entry) order with
+        a flavor per resource group, then the parking decisions."""
+        W = problem.n_workloads
+        # 1) evictions: initially admitted workloads that lost their
+        #    admission, or were evicted mid-drain and re-admitted
+        #    (admit_round >= 0, possibly with another flavor)
+        evict_ws = np.nonzero(problem.wl_admitted0[:W]
+                              & ~(admitted[:W] & (admit_round[:W] < 0)))[0]
+        for w in evict_ws:
+            key = problem.wl_keys[w]
+            wl = self.store.workloads.get(key)
+            if wl is None or not wl.is_quota_reserved:
+                continue
+            evict_workload(
+                self.store, self.queues, key, reason="Preempted",
+                message="Preempted by the solver drain plan", now=now,
+                preemption_reason=_VARIANT_REASON.get(
+                    int(victim_reason[w]), "InClusterQueue"))
+            if not admitted[w]:
+                result.evicted += 1
+                result.evicted_keys.append(key)
+
+        # 2) admissions in (round, entry order); per-group flavor decode
+        adm_ws = np.nonzero(admitted[:W] & (admit_round[:W] >= 0))[0]
+        order = adm_ws[np.argsort(admit_round[adm_ws], kind="stable")]
+        candidates = []
+        for w in order:
+            key = problem.wl_keys[w]
+            wl = self.store.workloads.get(key)
+            if wl is None or wl.is_quota_reserved or not wl.active:
+                continue
+            cq_name = problem.cq_names[problem.wl_cqid[w]]
+            opts = problem.cq_option_flavors[cq_name]
+            info = WorkloadInfo(wl, cluster_queue=cq_name)
+            flavor_of = {r: opts[opt[w, g]] for r, g in
+                         problem.cq_resource_group[cq_name].items()}
+            plan_usage: dict[tuple[str, str], int] = {}
+            for psr in info.total_requests:
+                for r, q in psr.requests.items():
+                    if r in flavor_of:
+                        fr = (flavor_of[r], r)
+                        plan_usage[fr] = plan_usage.get(fr, 0) + q
+            candidates.append((wl, cq_name, flavor_of, info, plan_usage))
+        candidates, topo_of = self._compute_tas_assignments(candidates,
+                                                            result)
+        for wl, cq_name, flavor_of, info, _ in candidates:
+            self._commit_admission(wl, cq_name, flavor_of, info, now,
+                                   result, topology=topo_of.get(wl.key))
+
+        # 3) parking decisions (inadmissible backoff parity)
+        for w in np.nonzero(parked[:W] & ~admitted[:W])[0]:
             cq_name = problem.cq_names[problem.wl_cqid[w]]
             self.queues.queues[cq_name].park(problem.wl_keys[w])
 

@@ -90,14 +90,16 @@ def to_device(p: SolverProblem, device) -> ProblemTensors:
 def refresh_cohort_usage(t: ProblemTensors,
                          usage: torch.Tensor) -> torch.Tensor:
     """Recompute cohort rows bottom-up from ClusterQueue rows: a
-    parent's usage is the sum over children of max(0, usage - local)."""
+    parent's usage is the sum over children of max(0, usage - local).
+    ``usage`` is [N+1, F] or lane-batched [L, N+1, F]."""
     u = torch.where(t.is_cq[:, None], usage, 0)
     depth_col = t.depth[:, None]
     parent = t.parent.long()
+    node_dim = u.dim() - 2
     for d in range(t.path.shape[1] - 1, 0, -1):
         contrib = torch.where(depth_col == d,
                               torch.clamp(u - t.local_quota, min=0), 0)
-        u = u.index_add(0, parent, contrib)
+        u = u.index_add(node_dim, parent, contrib)
     return u
 
 

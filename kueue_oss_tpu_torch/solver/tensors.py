@@ -1,16 +1,22 @@
-"""Snapshot -> dense tensor export for the lean drain.
+"""Snapshot -> dense tensor export for the lean and FULL drains.
 
 Port of ``kueue_oss_tpu/solver/tensors.py``: the cohort forest flattens
 into parents-first node arrays over a global (flavor, resource)
-vocabulary, and the pending backlog into per-workload flavor-option
-request tensors. Quantities are int32 after gcd-based unit scaling.
+vocabulary, and the backlog into per-workload flavor-option request
+tensors. Quantities are int32 after gcd-based unit scaling.
 
-Only the lean (fit-only) shape is exported: ``include_admitted``,
-``parked`` and ``afs`` exports and multi-resource-group ClusterQueues
-raise ``UnsupportedProblem`` (the FULL drain is a later slice), and the
-dataclass carries the lean fields only. Cut from the copy: the
+The workload axis holds the pending heap, then (``parked``) the parked
+workloads and (``include_admitted``) the workloads holding quota, which
+the FULL drain may evict. The flavor-option axis K spans (resource
+group, flavor) pairs; a workload picks one option per group. The FULL
+fields (preemption policies, admitted rows, equivalence classes,
+option groups) are exported on every call, as the JAX package does.
+Admission fair sharing raises ``UnsupportedProblem``; its fields and
+the fair-sharing weights export as the JAX package exports them with
+both off (zeros, ones and the specs' weights). Cut from the copy: the
 cross-drain ``ExportCache`` and its columnar assembly view — the export
-here is the classic per-workload walk.
+here is the classic per-workload walk, with equivalence-class tokens
+interned afresh on every export (the JAX export with ``cache=None``).
 """
 
 from __future__ import annotations
@@ -23,9 +29,12 @@ from typing import Optional
 
 import numpy as np
 
+from kueue_oss_tpu_torch import features
 from kueue_oss_tpu_torch.api.types import (
     FlavorFungibilityPolicy,
+    FlavorFungibilityPreference,
     FlavorResource,
+    PreemptionPolicyValue,
     QueueingStrategy,
     ResourceFlavor,
 )
@@ -35,6 +44,7 @@ from kueue_oss_tpu_torch.core.workload_info import (
     WorkloadInfo,
     effective_priority,
     queue_order_timestamp,
+    quota_reservation_time,
 )
 
 #: "infinity" for missing borrowing limits; headroom against overflow
@@ -55,10 +65,28 @@ def pow2(n: int) -> int:
     return p
 
 
+#: preemption-policy encoding shared with the FULL drain
+POLICY_NEVER = 0
+POLICY_LOWER_PRIORITY = 1
+POLICY_LOWER_OR_NEWER_EQUAL = 2
+POLICY_ANY = 3
+
+_POLICY_CODE = {
+    PreemptionPolicyValue.NEVER: POLICY_NEVER,
+    PreemptionPolicyValue.LOWER_PRIORITY: POLICY_LOWER_PRIORITY,
+    PreemptionPolicyValue.LOWER_OR_NEWER_EQUAL_PRIORITY:
+        POLICY_LOWER_OR_NEWER_EQUAL,
+    PreemptionPolicyValue.ANY: POLICY_ANY,
+}
+
+#: sentinel for "no borrowWithinCohort maxPriorityThreshold"
+NO_THRESHOLD = np.int32(-(1 << 31) + 1)
+
+
 @dataclass
 class SolverProblem:
-    """Dense lean-drain instance. Node axis is [N+1] (last row = null
-    node); workload axis is [W+1] (last row = null workload)."""
+    """Dense drain instance. Node axis is [N+1] (last row = null node);
+    workload axis is [W+1] (last row = null workload)."""
 
     # --- node (CQ + cohort) arrays, parents-first topo order -------------
     parent: np.ndarray        # [N+1] int32, null node index N for roots
@@ -88,13 +116,58 @@ class SolverProblem:
     wl_req: np.ndarray        # [W+1, K, F] int32 request under option k
     wl_valid: np.ndarray      # [W+1, K] bool option exists & selectable
 
+    # --- FULL drain fields ------------------------------------------------
+    cq_root_height: Optional[np.ndarray] = None  # [C] int32
+    wl_parked0: Optional[np.ndarray] = None    # [W+1] bool initially parked
+    wl_admitted0: Optional[np.ndarray] = None  # [W+1] bool initially admitted
+    wl_evicted0: Optional[np.ndarray] = None   # [W+1] bool Evicted condition
+    wl_admit_rank: Optional[np.ndarray] = None  # [W+1] int32 reservation rank
+    ad_usage: Optional[np.ndarray] = None      # [W+1, F] int32 admission usage
+    cq_within_policy: Optional[np.ndarray] = None   # [C] int32 POLICY_*
+    cq_reclaim_policy: Optional[np.ndarray] = None  # [C] int32 POLICY_*
+    cq_bwc_forbidden: Optional[np.ndarray] = None   # [C] bool
+    cq_bwc_threshold: Optional[np.ndarray] = None   # [C] int32
+    cq_preempt_try_next: Optional[np.ndarray] = None  # [C] bool
+    cq_pref_pob: Optional[np.ndarray] = None    # [C] bool PreemptionOverBorrowing
+    cq_fair_weight: Optional[np.ndarray] = None  # [C] float32
+    cq_root: Optional[np.ndarray] = None        # [C] int32 root node
+    cq_opt_group: Optional[np.ndarray] = None   # [C, K] int32 (-1 none)
+    cq_ngroups: Optional[np.ndarray] = None     # [C] int32
+    fr_resource: Optional[np.ndarray] = None    # [F] int32 resource id
+    node_fair_weight: Optional[np.ndarray] = None  # [N+1] float32
+    #: scheduling-equivalence class per workload (BestEffortFIFO NoFit
+    #: dedup); n_classes is the sentinel class of StrictFIFO workloads
+    wl_class: Optional[np.ndarray] = None       # [W+1] int32
+    class_root: Optional[np.ndarray] = None     # [n_classes+1] int32
+    n_classes: int = 0
+    #: admission fair sharing (always off in the port: zeros)
+    wl_lq: Optional[np.ndarray] = None          # [W+1] int32
+    wl_afs_penalty: Optional[np.ndarray] = None  # [W+1] float32
+    #: newer-equal preemption threshold rank (own timestamp rank)
+    wl_ts_buf: Optional[np.ndarray] = None      # [W+1] int32
+    lq_penalty0: Optional[np.ndarray] = None    # [1] float32
+    cq_afs: Optional[np.ndarray] = None         # [C] bool
+    #: raw inputs behind the dense encodings
+    wl_raw_ts: Optional[np.ndarray] = None      # [W+1] float64
+    wl_raw_admit_ts: Optional[np.ndarray] = None  # [W+1] float64
+    wl_class_tok: Optional[np.ndarray] = None   # [W+1] int64 (-1 none)
+    class_tok_root: Optional[np.ndarray] = None  # [n_toks] int32
+    n_resources: int = 1
+    #: timestamp rank assigned to round-r evictions: ts_evict_base + r
+    ts_evict_base: int = 0
+    #: reservation rank of round-r re-admissions: admit_rank_base + r
+    admit_rank_base: int = 0
+
     # --- host-side decode tables -----------------------------------------
     fr_list: list[FlavorResource] = field(default_factory=list)
     node_names: list[str] = field(default_factory=list)
     cq_names: list[str] = field(default_factory=list)
     wl_keys: list[str] = field(default_factory=list)
-    #: per CQ: ordered flavor names (option k -> flavor)
+    #: per CQ: ordered flavor names (option k -> flavor, spanning groups)
     cq_option_flavors: dict[str, list[str]] = field(default_factory=dict)
+    #: per CQ: resource name -> resource group index (admission decode)
+    cq_resource_group: dict[str, dict[str, int]] = field(
+        default_factory=dict)
     scale: int = 1
 
     @property
@@ -113,15 +186,19 @@ class SolverProblem:
 #: the lean drain's array fields, in declaration order
 ARRAY_FIELDS = tuple(f.name for f in dataclasses.fields(SolverProblem)
                      if f.type == "np.ndarray")
+#: the FULL drain's extra array fields, in declaration order
+FULL_ARRAY_FIELDS = tuple(
+    f.name for f in dataclasses.fields(SolverProblem)
+    if f.type == "Optional[np.ndarray]")
 
 
 def pad_workloads(problem: SolverProblem, target_w: int) -> SolverProblem:
     """Pad the workload axis to ``target_w`` rows (plus the null row).
 
-    Padding rows carry the null CQ id (C), no valid options and rank
-    BIG, so they are inert; ``wl_uid`` pads with BIG so padding never
-    aliases a real uid. Inert rows go BEFORE the null row, which stays
-    the last row.
+    Padding rows carry the null CQ id (C), no valid options, rank BIG,
+    the sentinel class and no initial state, so they are inert;
+    ``wl_uid`` pads with BIG so padding never aliases a real uid. Inert
+    rows go BEFORE the null row, which stays the last row.
     """
     W = problem.n_workloads
     if target_w <= W:
@@ -129,6 +206,8 @@ def pad_workloads(problem: SolverProblem, target_w: int) -> SolverProblem:
     pad = target_w - W
 
     def pad1(arr, fill):
+        if arr is None:
+            return None
         filler = np.full((pad,) + arr.shape[1:], fill, dtype=arr.dtype)
         return np.concatenate([arr[:-1], filler, arr[-1:]])
 
@@ -141,6 +220,18 @@ def pad_workloads(problem: SolverProblem, target_w: int) -> SolverProblem:
         wl_uid=pad1(problem.wl_uid, BIG),
         wl_req=pad1(problem.wl_req, 0),
         wl_valid=pad1(problem.wl_valid, False),
+        wl_parked0=pad1(problem.wl_parked0, False),
+        wl_admitted0=pad1(problem.wl_admitted0, False),
+        wl_evicted0=pad1(problem.wl_evicted0, False),
+        wl_admit_rank=pad1(problem.wl_admit_rank, 0),
+        ad_usage=pad1(problem.ad_usage, 0),
+        wl_class=pad1(problem.wl_class, problem.n_classes),
+        wl_lq=pad1(problem.wl_lq, 0),
+        wl_afs_penalty=pad1(problem.wl_afs_penalty, 0.0),
+        wl_ts_buf=pad1(problem.wl_ts_buf, 0),
+        wl_raw_ts=pad1(problem.wl_raw_ts, 0.0),
+        wl_raw_admit_ts=pad1(problem.wl_raw_admit_ts, 0.0),
+        wl_class_tok=pad1(problem.wl_class_tok, -1),
         wl_keys=list(problem.wl_keys) + [""] * pad,
     )
 
@@ -188,17 +279,14 @@ def order_nodes(forest) -> list:
     return nodes
 
 
-def _workload_options(store: Store, info: WorkloadInfo, spec,
-                      fr_index: dict, K: int, F: int):
-    """(valid [K], req [K, F]) of one workload: for each flavor option,
-    whether it is selectable and the request totals it would charge."""
+def _workload_options(store: Store, info: WorkloadInfo, totals: dict,
+                      spec, fr_index: dict, K: int, F: int):
+    """(valid [K], req [K, F]) of one workload with request ``totals``:
+    for each flavor option, whether it is selectable and the request
+    totals it would charge."""
     wl = info.obj
     valid = np.zeros(K, dtype=bool)
     req = np.zeros((K, F), dtype=np.int64)
-    totals: dict[str, int] = {}
-    for psr in info.total_requests:
-        for rname, q in psr.requests.items():
-            totals[rname] = totals.get(rname, 0) + q
     covered = {r for rg in spec.resource_groups
                for r in rg.covered_resources}
     if not spec.resource_groups or any(
@@ -232,22 +320,24 @@ def export_problem(
     store: Store,
     pending: dict[str, list[WorkloadInfo]],
     include_admitted: bool = False,
-    parked: Optional[dict] = None,
+    parked: Optional[dict[str, list[WorkloadInfo]]] = None,
     afs=None,
 ) -> SolverProblem:
-    """Build the lean SolverProblem from the store and the backlog.
+    """Build the SolverProblem from the store and the backlog.
 
     ``pending`` maps CQ name -> workloads in FIFO-heap (rank) order.
-    Shapes outside the lean drain raise UnsupportedProblem.
+    ``parked`` maps CQ name -> inadmissible workloads; they export with
+    ``wl_parked0`` set, so the FULL drain retries them when an in-drain
+    eviction frees capacity in their cohort. With ``include_admitted``
+    the workloads holding quota follow on the same axis as eviction
+    candidates (their usage rides ``ad_usage``; the node ``usage0``
+    still includes it). Podset topology groups and admission fair
+    sharing (``afs``) raise UnsupportedProblem.
     """
-    if include_admitted or parked or afs is not None:
+    if afs is not None:
         raise UnsupportedProblem(
-            "admitted/parked/AFS exports feed the FULL drain, which this "
-            "port does not have yet")
-    for name in pending:
-        if len(store.cluster_queues[name].resource_groups) > 1:
-            raise UnsupportedProblem(
-                f"ClusterQueue {name} has multiple resource groups")
+            "admission fair sharing needs the AFS drain, which this port "
+            "does not have yet")
     forest = build_snapshot(store).forest
 
     nodes = order_nodes(forest)
@@ -281,6 +371,7 @@ def export_problem(
     has_borrow = np.zeros((n_nodes + 1, F), dtype=bool)
     borrow_limit = np.zeros((n_nodes + 1, F), dtype=np.int64)
     usage0 = np.zeros((n_nodes + 1, F), dtype=np.int64)
+    node_fair_weight = np.ones(n_nodes + 1, dtype=np.float32)
     for i, n in enumerate(nodes):
         if n.parent is not None:
             parent[i] = index[id(n.parent)]
@@ -298,6 +389,7 @@ def export_problem(
             usage0[i, fr_index[fr]] = v
         for j, fr in enumerate(fr_list):
             local_quota[i, j] = n.local_quota(fr)
+        node_fair_weight[i] = n.fair_weight
 
     D = int(depth.max()) + 1 if n_nodes else 1
     path = np.full((n_nodes + 1, D), null, dtype=np.int32)
@@ -325,24 +417,70 @@ def export_problem(
     cq_node = np.zeros(C, dtype=np.int32)
     cq_strict = np.zeros(C, dtype=bool)
     cq_try_next = np.zeros(C, dtype=bool)
+    cq_root_height = np.zeros(C, dtype=np.int32)
     cq_nflavors = np.zeros(C, dtype=np.int32)
+    cq_within_policy = np.zeros(C, dtype=np.int32)
+    cq_reclaim_policy = np.zeros(C, dtype=np.int32)
+    cq_bwc_forbidden = np.zeros(C, dtype=bool)
+    cq_bwc_threshold = np.full(C, NO_THRESHOLD, dtype=np.int32)
+    cq_preempt_try_next = np.zeros(C, dtype=bool)
+    cq_pref_pob = np.zeros(C, dtype=bool)
+    cq_fair_weight = np.ones(C, dtype=np.float32)
+    cq_root = np.zeros(C, dtype=np.int32)
+    cq_ngroups = np.ones(C, dtype=np.int32)
     cq_option_flavors: dict[str, list[str]] = {}
+    cq_resource_group: dict[str, dict[str, int]] = {}
+    cq_groups: dict[str, list[int]] = {}
     K = 1
     for cid, name in enumerate(cq_names):
         spec = store.cluster_queues[name]
-        cq_node[cid] = index[id(forest.cqs[name])]
+        node = forest.cqs[name]
+        root = node
+        while root.parent is not None:
+            root = root.parent
+        cq_node[cid] = index[id(node)]
         cq_strict[cid] = (spec.queueing_strategy
                           == QueueingStrategy.STRICT_FIFO)
-        cq_try_next[cid] = (spec.flavor_fungibility.when_can_borrow
+        fung = spec.flavor_fungibility
+        cq_try_next[cid] = (fung.when_can_borrow
                             == FlavorFungibilityPolicy.TRY_NEXT_FLAVOR)
-        options = [fq.name for rg in spec.resource_groups
-                   for fq in rg.flavors]
+        cq_preempt_try_next[cid] = (
+            fung.when_can_preempt == FlavorFungibilityPolicy.TRY_NEXT_FLAVOR)
+        cq_pref_pob[cid] = (
+            fung.preference
+            == FlavorFungibilityPreference.PREEMPTION_OVER_BORROWING)
+        cq_root_height[cid] = height[index[id(root)]]
+        cq_root[cid] = index[id(root)]
+        pre = spec.preemption
+        cq_within_policy[cid] = _POLICY_CODE[pre.within_cluster_queue]
+        cq_reclaim_policy[cid] = _POLICY_CODE[pre.reclaim_within_cohort]
+        bwc = pre.borrow_within_cohort
+        cq_bwc_forbidden[cid] = bwc.policy == PreemptionPolicyValue.NEVER
+        if bwc.max_priority_threshold is not None:
+            cq_bwc_threshold[cid] = bwc.max_priority_threshold
+        cq_fair_weight[cid] = spec.fair_sharing.weight
+        groups: list[int] = []
+        options: list[str] = []
+        rg_of_resource: dict[str, int] = {}
+        for g, rg in enumerate(spec.resource_groups):
+            for r in rg.covered_resources:
+                rg_of_resource[r] = g
+            for fq in rg.flavors:
+                groups.append(g)
+                options.append(fq.name)
+        cq_groups[name] = groups
         cq_option_flavors[name] = options
+        cq_resource_group[name] = rg_of_resource
+        cq_ngroups[cid] = max(1, len(spec.resource_groups))
         cq_nflavors[cid] = len(options)
         K = max(K, len(options))
+    cq_opt_group = np.full((C, K), -1, dtype=np.int32)
+    for cid, name in enumerate(cq_names):
+        for k, g in enumerate(cq_groups[name]):
+            cq_opt_group[cid, k] = g
     cq_id = {name: i for i, name in enumerate(cq_names)}
 
-    # ---- workload arrays -------------------------------------------------
+    # ---- workload rows: heap, then parked, then admitted -----------------
     all_infos: list[WorkloadInfo] = []
     wl_cqid_l, wl_rank_l = [], []
     for infos in pending.values():
@@ -350,6 +488,19 @@ def export_problem(
             all_infos.append(info)
             wl_cqid_l.append(cq_id[info.cluster_queue])
             wl_rank_l.append(rank)
+    n_heap = len(all_infos)
+    for infos in (parked or {}).values():
+        for info in infos:
+            all_infos.append(info)
+            wl_cqid_l.append(cq_id[info.cluster_queue])
+            wl_rank_l.append(int(BIG))
+    n_pending = len(all_infos)
+    if include_admitted:
+        for info in store.admitted_infos():
+            if info.cluster_queue in cq_id:
+                all_infos.append(info)
+                wl_cqid_l.append(cq_id[info.cluster_queue])
+                wl_rank_l.append(int(BIG))
     W = len(all_infos)
     wl_cqid = np.asarray(wl_cqid_l + [C], dtype=np.int32)
     wl_rank = np.asarray(wl_rank_l + [int(BIG)], dtype=np.int32)
@@ -358,28 +509,102 @@ def export_problem(
     wl_uid = np.zeros(W + 1, dtype=np.int32)
     wl_req = np.zeros((W + 1, K, F), dtype=np.int64)
     wl_valid = np.zeros((W + 1, K), dtype=bool)
+    wl_admitted0 = np.zeros(W + 1, dtype=bool)
+    wl_admitted0[n_pending:W] = True
+    wl_parked0 = np.zeros(W + 1, dtype=bool)
+    wl_parked0[n_heap:n_pending] = True
+    wl_evicted0 = np.zeros(W + 1, dtype=bool)
+    wl_admit_rank = np.zeros(W + 1, dtype=np.int32)
+    ad_usage = np.zeros((W + 1, F), dtype=np.int64)
     raw_ts = np.zeros(W, dtype=np.float64)
+    raw_admit = np.zeros(W, dtype=np.float64)
+    # scheduling-equivalence tokens (per CQ; StrictFIFO workloads get
+    # none and never dedup-park), interned in row order
+    hashing = features.enabled("SchedulingEquivalenceHashing")
+    shapes: dict[tuple, tuple] = {}
+    class_toks: dict[tuple, int] = {}
+    tok_root: list[int] = []
+    toks = np.full(W, -1, dtype=np.int64)
     for w, info in enumerate(all_infos):
+        cid = wl_cqid_l[w]
         spec = store.cluster_queues[info.cluster_queue]
-        for ps in info.obj.podsets:
+        wl = info.obj
+        for ps in wl.podsets:
             if (ps.topology_request is not None
                     and ps.topology_request.podset_group_name):
                 raise UnsupportedProblem(
                     f"workload {info.key} uses podset topology groups")
-        wl_prio[w] = effective_priority(info.obj)
-        wl_uid[w] = info.obj.uid
-        raw_ts[w] = queue_order_timestamp(info.obj)
-        wl_valid[w], wl_req[w] = _workload_options(
-            store, info, spec, fr_index, K, F)
+        wl_prio[w] = effective_priority(wl)
+        wl_uid[w] = wl.uid
+        wl_evicted0[w] = wl.is_evicted
+        raw_ts[w] = queue_order_timestamp(wl)
+        # the options depend on the workload only through its shape
+        # (the JAX export's ExportCache interns them the same way)
+        totals: dict[str, int] = {}
+        for psr in info.total_requests:
+            for rname, q in psr.requests.items():
+                totals[rname] = totals.get(rname, 0) + q
+        shape_key = (cid, wl.allowed_flavor, tuple(sorted(totals.items())),
+                     tuple((tuple(sorted(ps.node_selector.items())),
+                            tuple(ps.tolerations)) for ps in wl.podsets))
+        shape = shapes.get(shape_key)
+        if shape is None:
+            shape = shapes[shape_key] = _workload_options(
+                store, info, totals, spec, fr_index, K, F)
+        wl_valid[w], wl_req[w] = shape
+        if hashing and not cq_strict[cid]:
+            ckey = (cid, info.scheduling_hash())
+            tok = class_toks.get(ckey)
+            if tok is None:
+                tok = len(tok_root)
+                class_toks[ckey] = tok
+                tok_root.append(int(cq_root[cid]))
+            toks[w] = tok
+        if w >= n_pending and wl.status.admission is not None:
+            raw_admit[w] = quota_reservation_time(wl, 0.0)
+            for fr, q in info.usage().items():
+                j = fr_index.get(fr)
+                if j is not None:
+                    ad_usage[w, j] = q
+
+    pos = toks >= 0
+    if pos.any():
+        uniq, inv_c = np.unique(toks[pos], return_inverse=True)
+        n_classes = len(uniq)
+        wl_class = np.full(W + 1, n_classes, dtype=np.int32)
+        wl_class[np.nonzero(pos)[0]] = inv_c
+        class_root = np.concatenate(
+            [np.asarray(tok_root, dtype=np.int32)[uniq],
+             [n_nodes]]).astype(np.int32)
+    else:
+        n_classes = 0
+        wl_class = np.zeros(W + 1, dtype=np.int32)
+        class_root = np.asarray([n_nodes], dtype=np.int32)
+
     # timestamps export as dense ranks: only relative order matters, and
-    # ties must stay ties for the uid tiebreak
+    # ties must stay ties for the uid tiebreak; with the
+    # SchedulerTimestampPreemptionBuffer gate at its default (off) the
+    # newer-equal threshold is the own rank
+    wl_raw_ts = np.zeros(W + 1, dtype=np.float64)
+    wl_raw_admit_ts = np.zeros(W + 1, dtype=np.float64)
+    n_ts = n_admit_rank = 0
     if W:
-        wl_ts[:W] = np.unique(raw_ts, return_inverse=True)[1]
+        wl_raw_ts[:W] = raw_ts
+        distinct_ts, inv_ts = np.unique(raw_ts, return_inverse=True)
+        n_ts = len(distinct_ts)
+        wl_ts[:W] = inv_ts
+    wl_ts_buf = wl_ts.copy()
+    if W > n_pending:
+        wl_raw_admit_ts[n_pending:W] = raw_admit[n_pending:]
+        distinct_admit, inv_a = np.unique(raw_admit[n_pending:],
+                                          return_inverse=True)
+        n_admit_rank = len(distinct_admit)
+        wl_admit_rank[n_pending:W] = inv_a + 1
 
     # ---- unit scaling ----------------------------------------------------
     scale = 0
     for arr in (nominal, borrow_limit[has_borrow], usage0, subtree,
-                local_quota, wl_req):
+                local_quota, wl_req, ad_usage):
         flat = np.asarray(arr, dtype=np.int64).ravel()
         if flat.size:
             scale = math.gcd(scale, int(np.gcd.reduce(flat)))
@@ -391,6 +616,11 @@ def export_problem(
             raise UnsupportedProblem(
                 "quantities too large for int32 solver tensors")
         return out.astype(np.int32)
+
+    resources = sorted({fr[1] for fr in fr_list}) or ["_"]
+    res_index = {r: i for i, r in enumerate(resources)}
+    fr_resource = np.asarray([res_index[fr[1]] for fr in fr_list] or [0],
+                             dtype=np.int32)
 
     return SolverProblem(
         parent=parent,
@@ -416,10 +646,44 @@ def export_problem(
         wl_uid=wl_uid,
         wl_req=scaled(wl_req),
         wl_valid=wl_valid,
+        cq_root_height=cq_root_height,
+        wl_parked0=wl_parked0,
+        wl_admitted0=wl_admitted0,
+        wl_evicted0=wl_evicted0,
+        wl_admit_rank=wl_admit_rank,
+        ad_usage=scaled(ad_usage),
+        cq_within_policy=cq_within_policy,
+        cq_reclaim_policy=cq_reclaim_policy,
+        cq_bwc_forbidden=cq_bwc_forbidden,
+        cq_bwc_threshold=cq_bwc_threshold,
+        cq_preempt_try_next=cq_preempt_try_next,
+        cq_pref_pob=cq_pref_pob,
+        cq_fair_weight=cq_fair_weight,
+        cq_root=cq_root,
+        cq_opt_group=cq_opt_group,
+        cq_ngroups=cq_ngroups,
+        fr_resource=fr_resource,
+        node_fair_weight=node_fair_weight,
+        wl_class=wl_class,
+        class_root=class_root,
+        n_classes=n_classes,
+        wl_lq=np.zeros(W + 1, dtype=np.int32),
+        wl_afs_penalty=np.zeros(W + 1, dtype=np.float32),
+        wl_ts_buf=wl_ts_buf,
+        lq_penalty0=np.zeros(1, dtype=np.float32),
+        cq_afs=np.zeros(C, dtype=bool),
+        wl_raw_ts=wl_raw_ts,
+        wl_raw_admit_ts=wl_raw_admit_ts,
+        wl_class_tok=np.concatenate([toks, [-1]]).astype(np.int64),
+        class_tok_root=np.asarray(tok_root, dtype=np.int32),
+        n_resources=len(resources),
+        ts_evict_base=n_ts + 1,
+        admit_rank_base=n_admit_rank + 2,
         fr_list=fr_list,
         node_names=[n.name for n in nodes],
         cq_names=cq_names,
         wl_keys=[i.key for i in all_infos],
         cq_option_flavors=cq_option_flavors,
+        cq_resource_group=cq_resource_group,
         scale=scale,
     )

@@ -124,12 +124,19 @@ def test_default_device_is_cuda_and_raises_without_it():
 
 
 def test_verify_and_full_shapes_refuse():
+    """verify=True and the shapes the port still lacks a drain for
+    (admission fair sharing here; fair sharing and podset groups in
+    tests/test_torch_engine_full.py) refuse; a preemption-enabled CQ no
+    longer does: it drains through the FULL path."""
     _, (ps, pq) = _both(640)
     engine = PortEngine(ps, pq, device="cpu")
     with pytest.raises(NotImplementedError):
         engine.drain(verify=True)
     cq = ps.cluster_queues["cq-0-0"]
-    cq.preemption.within_cluster_queue = (
-        port_types.PreemptionPolicyValue.LOWER_PRIORITY)
+    cq.admission_scope = port_types.AdmissionScope()
     with pytest.raises(UnsupportedProblem):
         engine.drain()
+    cq.admission_scope = None
+    cq.preemption.within_cluster_queue = (
+        port_types.PreemptionPolicyValue.LOWER_PRIORITY)
+    assert engine.drain().full_stats is not None

@@ -1,6 +1,6 @@
 """The port stands alone: no module of kueue_oss_tpu_torch/ and not
 chip_smoke.py imports jax, jaxlib or the JAX package, and the port
-imports and drains with those modules blocked."""
+imports and drains (lean and FULL) with those modules blocked."""
 
 import ast
 import subprocess
@@ -41,6 +41,8 @@ def test_no_forbidden_imports(path):
 def test_scan_sees_the_whole_port():
     names = {str(p.relative_to(ROOT)) for p in _sources()}
     assert "kueue_oss_tpu_torch/solver/engine.py" in names
+    assert "kueue_oss_tpu_torch/solver/full_kernels.py" in names
+    assert "kueue_oss_tpu_torch/core/eviction.py" in names
     assert "chip_smoke.py" in names
     # the exact-name comparison lets the port's own name through
     assert "kueue_oss_tpu_torch" not in FORBIDDEN
@@ -63,6 +65,16 @@ def test_port_drains_with_jax_blocked():
         result = SolverEngine(store, QueueManager(store),
                               device="cpu").drain()
         assert result.admitted > 0, result
+        # and the FULL drain (preemption), through its eviction path
+        from kueue_oss_tpu_torch.scenarios import baseline_preempt_store
+        store, wave1, wave2 = baseline_preempt_store(
+            types, Store, n_cohorts=1, cqs_per_cohort=2, scale=0.05)
+        engine = SolverEngine(store, QueueManager(store), device="cpu")
+        for wave in (wave1, wave2):
+            for wl in wave:
+                store.add_workload(wl)
+            full = engine.drain()
+        assert full.evicted > 0, full
         leaked = [m for m in sys.modules
                   if m.split(".")[0] in ("jax", "jaxlib", "kueue_oss_tpu")
                   and sys.modules[m] is not None]
