@@ -51,7 +51,26 @@ Phases, in order; any failure propagates (nonzero exit, no result line):
 7. TAS with preemption: the TAS store at 1,500 workloads with
    LowerPriority / Any preemption on every ClusterQueue, drained by the
    FULL path: the JAX reference plan, one tas_place_sequential launch
-   placing every admission, no leaf_states launch.
+   placing every admission, no leaf_states launch;
+8. fair storm: the baseline store under fair sharing
+   (``SolverEngine(..., enable_fair_sharing=True)``), ClusterQueues 3-5
+   of every cohort idle: the smalls of ClusterQueues 0 and 1 borrow the
+   idle quota (3,500 workloads), then the medium and large workloads of
+   ClusterQueue 2 (750) reclaim it, evicting 100 smalls as
+   within-nominal reclamations and 100 by the fair strategy rules. Each
+   wave's plan must equal the JAX reference plan (counts, rounds,
+   digest, victims' reasons) and pass the quota checks; 32 search lanes
+   per round (h_max = 32 under either search budget); the per-CQ
+   dominant resource shares are printed after each wave;
+9. admission fair sharing: the baseline smalls split over two
+   LocalQueues per ClusterQueue, every ``-a`` queue charged 20 cpu at
+   t = 0, drained at t = 60 s: the JAX reference plan (600 admitted in
+   22 rounds, 570 from ``-b`` queues and 30 from ``-a`` queues: per
+   ClusterQueue the ``-b`` queue admits until its entry penalties pass
+   the ``-a`` queue's decayed charge of 17.4).
+
+Phases 8 and 9 run no TAS flavor: both kernels' launch counts are set
+to 0 before each drain and must still be 0 after it.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 is the JSON kernel report.
@@ -82,6 +101,24 @@ STORM_REFERENCE = [
      "digest": "58b39babac12c4d6630e0d5d724f07a8501a4cde09c100302e2cb817"
                "f4c39761"},
 ]
+#: the JAX package's plans of phases 8 and 9 (its engine without mesh
+#: and delta sessions, as above)
+FAIR_REFERENCE = [
+    {"admitted": 600, "evicted": 0, "rounds": 62, "held": 600,
+     "digest": "557f26ef39c557381aed73eb4a46b1e81ff5549c79976443e68206830a"
+               "cb92ac"},
+    {"admitted": 10, "evicted": 200, "rounds": 7, "held": 410,
+     "digest": "6fc8e8418aca1c51ad7d813faeb77db054333343fceb1c8a03d6c07cd1"
+               "aab6bc"},
+]
+FAIR_REASONS = {"InCohortReclamation": 100, "InCohortFairSharing": 100}
+AFS_REFERENCE = {
+    "admitted": 600, "evicted": 0, "rounds": 22, "held": 600,
+    "digest": "98a7dccfc9b09fb8e496277cf113dbb7a5107fc943c8e711863c1fda44"
+              "f8c244",
+    "sides": {"a": 30, "b": 570}}
+#: search lanes per FULL round at C = 30, K = 1, g = 1
+H_MAX = 32
 TAS_FULL_REFERENCE = {
     "admitted": 215, "evicted": 0, "rounds": 277, "parked": 1285,
     "digest": "1f78efb7540ae640e5f2d1ce613a9393e0c7c6c4201d882b673101623d"
@@ -499,7 +536,8 @@ def _stats(result) -> dict:
     return {"rounds": st.rounds, "lanes": st.lanes,
             "walk_iterations": st.walk_iterations,
             "fill_iterations": st.fill_iterations,
-            "removal_steps": st.removal_steps, "syncs": st.syncs}
+            "removal_steps": st.removal_steps,
+            "entry_picks": st.entry_picks, "syncs": st.syncs}
 
 
 def storm_drain() -> dict:
@@ -588,6 +626,131 @@ def tas_full_drain() -> tuple:
              **_stats(result)}, launches)
 
 
+def _reset_launches() -> None:
+    from kueue_oss_tpu_torch.solver import cuda_tas
+
+    cuda_tas.leaf_states.launches = 0
+    cuda_tas.tas_place_sequential.launches = 0
+
+
+def _launches() -> int:
+    from kueue_oss_tpu_torch.solver import cuda_tas
+
+    return (cuda_tas.leaf_states.launches
+            + cuda_tas.tas_place_sequential.launches)
+
+
+def _cq_shares(store) -> dict:
+    """Each ClusterQueue's dominant resource share (host DRS)."""
+    from kueue_oss_tpu_torch.core.quota import dominant_resource_share
+    from kueue_oss_tpu_torch.core.snapshot import build_snapshot
+
+    forest = build_snapshot(store).forest
+    return {name: dominant_resource_share(node).precise_weighted_share()
+            for name, node in sorted(forest.cqs.items())}
+
+
+def fair_storm_drain() -> tuple:
+    """Phase 8: the fair reclamation storm at full size, two waves.
+    Returns (timings, TAS kernel launches)."""
+    import collections
+
+    import torch
+
+    from kueue_oss_tpu_torch.api import types
+    from kueue_oss_tpu_torch.core.queue_manager import QueueManager
+    from kueue_oss_tpu_torch.core.store import Store
+    from kueue_oss_tpu_torch.scenarios import fair_reclaim_store
+    from kueue_oss_tpu_torch.solver.engine import SolverEngine
+
+    store, wave1, wave2 = fair_reclaim_store(types, Store)
+    engine = SolverEngine(store, QueueManager(store),
+                          enable_fair_sharing=True)
+    out, launches = {}, 0
+    for name, now, wave, reference in (
+            ("wave1", 100.0, wave1, FAIR_REFERENCE[0]),
+            ("wave2", 200.0, wave2, FAIR_REFERENCE[1])):
+        for wl in wave:
+            store.add_workload(wl)
+        before = _reserved_state(store)
+        _reset_launches()
+        t0 = time.monotonic()
+        result = engine.drain(now=now)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        launches += _launches()
+        if _launches():
+            raise AssertionError("the fair storm has no TAS flavor, yet a "
+                                 "TAS kernel launched")
+        got = _check_storm_wave(store, result, before, reference)
+        reasons = dict(collections.Counter(
+            store.workloads[k].status.conditions["Preempted"].reason
+            for k in result.evicted_keys))
+        if reasons != (FAIR_REASONS if result.evicted else {}):
+            raise AssertionError(f"victims' reasons {reasons}")
+        if result.full_stats.lanes != H_MAX * result.rounds:
+            raise AssertionError(f"{result.full_stats.lanes} search lanes "
+                                 f"in {result.rounds} rounds; h_max is not "
+                                 f"{H_MAX}")
+        out[name] = {"drain_s": wall,
+                     **{f"{k}_s": v for k, v in result.phases.items()},
+                     "workloads": len(wave), **_stats(result)}
+        print(f"[fair {name}] plan matches the reference {got}, reasons "
+              f"{reasons}; FULL drain counters " + json.dumps(_stats(result))
+              + f"; {json.dumps(out[name])}")
+        print(f"[fair {name}] dominant resource share per ClusterQueue "
+              + json.dumps(_cq_shares(store)))
+    return out, launches
+
+
+def afs_drain() -> tuple:
+    """Phase 9: the admission-fair-sharing backlog at full size.
+    Returns (timings, TAS kernel launches)."""
+    import collections
+
+    import torch
+
+    from kueue_oss_tpu_torch.api import types
+    from kueue_oss_tpu_torch.core.afs import AfsManager
+    from kueue_oss_tpu_torch.core.queue_manager import QueueManager
+    from kueue_oss_tpu_torch.core.store import Store
+    from kueue_oss_tpu_torch.scenarios import (
+        afs_baseline_store,
+        preempt_plan_digest,
+    )
+    from kueue_oss_tpu_torch.solver.engine import SolverEngine
+
+    store, afs, backlog = afs_baseline_store(types, Store, AfsManager)
+    engine = SolverEngine(store, QueueManager(store, afs=afs))
+    for wl in backlog:
+        store.add_workload(wl)
+    _reset_launches()
+    t0 = time.monotonic()
+    result = engine.drain(now=60.0)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = _launches()
+    if launches:
+        raise AssertionError("the AFS backlog has no TAS flavor, yet a TAS "
+                             "kernel launched")
+    got = {"admitted": result.admitted, "evicted": result.evicted,
+           "rounds": result.rounds,
+           "held": sum(1 for w in store.workloads.values()
+                       if w.is_quota_reserved),
+           "digest": preempt_plan_digest(store, result),
+           "sides": dict(sorted(collections.Counter(
+               store.workloads[k].queue_name[-1]
+               for k in result.admitted_keys).items()))}
+    if got != AFS_REFERENCE:
+        raise AssertionError(f"plan {got} != reference {AFS_REFERENCE}")
+    _quota_checks(store)
+    out = {"drain_s": wall, **{f"{k}_s": v for k, v in result.phases.items()},
+           "workloads": len(backlog), **_stats(result)}
+    print(f"[afs] plan matches the reference {got}; FULL drain counters "
+          + json.dumps(_stats(result)) + f"; {json.dumps(out)}")
+    return out, launches
+
+
 def main() -> int:
     import torch
 
@@ -662,17 +825,27 @@ def main() -> int:
 
     # 7. TAS with preemption (FULL path)
     tas_full, tas_full_launches = tas_full_drain()
+
+    # 8. the fair reclamation storm (FULL path, fair sharing)
+    fair, fair_launches = fair_storm_drain()
+
+    # 9. the admission-fair-sharing backlog (FULL path, AFS)
+    afs, afs_launches = afs_drain()
     reports[0]["launches_by_path"] = {"tas_lean": leaf_launches,
-                                      "tas_full": 0, "storm_full": 0}
+                                      "tas_full": 0, "storm_full": 0,
+                                      "fair_storm": fair_launches,
+                                      "afs": afs_launches}
     reports[1]["launches_by_path"] = {"tas_lean": place_launches,
                                       "tas_full": tas_full_launches,
-                                      "storm_full": 0}
+                                      "storm_full": 0,
+                                      "fair_storm": fair_launches,
+                                      "afs": afs_launches}
 
     timings = {"setup_s": setup_s, "drain_s": drain_s,
                **{f"{k}_s": v for k, v in result.phases.items()},
                "rounds": result.rounds, "admitted": result.admitted,
                "stepwise_placer": step_phases, "storm": storm,
-               "tas_full": tas_full}
+               "tas_full": tas_full, "fair_storm": fair, "afs": afs}
     print("[timings] " + json.dumps(timings))
     print(smi)
     print(json.dumps({"kernels": reports}))

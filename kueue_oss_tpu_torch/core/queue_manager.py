@@ -11,8 +11,12 @@ store update and flushes its cohort. The flush is the JAX package's
 eager one: parked entries move back into the heap at once, ordered by
 the same ``_order_key``, so the drain exports the same pending and
 parked rows as the JAX engine over a queue manager without lazy
-flushing. Cut from the copy: admission fair sharing, the TAS
-second-pass queue, solver-managed lazy flushes (no stale entries),
+flushing. Under admission fair sharing the manager only holds the
+``AfsManager`` (``afs``): the drain exports the heap order and picks a
+UsageBasedAdmissionFairSharing queue's head (the entry of the
+LocalQueue with the lowest decayed usage) on the device. Cut from the
+copy: the host AFS pop order, the TAS second-pass queue,
+solver-managed lazy flushes (no stale entries),
 scheduling-equivalence no-fit hashes (only host cycles record them),
 metric dirty sets, and the lock/condition the threaded host scheduler
 waits on.
@@ -85,8 +89,10 @@ class ClusterQueuePendingQueue:
 class QueueManager:
     """Reference parity: pkg/cache/queue/manager.go."""
 
-    def __init__(self, store: Store) -> None:
+    def __init__(self, store: Store, afs=None) -> None:
         self.store = store
+        #: optional AfsManager (admission fair sharing, KEP-4136)
+        self.afs = afs
         self.queues: dict[str, ClusterQueuePendingQueue] = {}
         for cq in store.cluster_queues.values():
             self.add_cluster_queue(cq.name)

@@ -19,6 +19,10 @@ _DEFAULTS: dict[str, bool] = {
     "ConcurrentAdmission": False,      # core/queue_manager.py CA parents
     "PriorityBoost": False,            # core/workload_info.py priority
     "SchedulingEquivalenceHashing": True,  # solver/tensors.py NoFit classes
+    # read by solver/fair_kernels.py
+    "PrioritySortingWithinCohort": True,      # entry tournament priority key
+    "FairSharingPreemptWithinNominal": True,  # within-nominal bypass
+    "FairSharingPrioritizeNonBorrowing": True,  # entry tournament step 1
 }
 
 

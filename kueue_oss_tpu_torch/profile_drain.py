@@ -2,7 +2,7 @@
 
     python3 -m kueue_oss_tpu_torch.profile_drain
 
-Two scenarios:
+Three scenarios:
 
 - ``tas_drain``: the lean TAS drain (``scenarios.tas_drain_store``) at
   the full tree and ClusterQueue widths but 1,500 workloads instead of
@@ -12,12 +12,17 @@ Two scenarios:
   step each, the same 640-leaf tree) and shortens the number of rounds;
 - ``storm``: the FULL drain of the Kueue baseline preemption storm
   (``scenarios.baseline_preempt_store``) at full size, both waves
-  (28 rounds in all), measured over the two drains together.
+  (28 rounds in all), measured over the two drains together;
+- ``fair_wave2``: the fair-sharing FULL drain of the fair reclamation
+  storm's second wave (``scenarios.fair_reclaim_store`` at full size,
+  7 rounds, 200 evictions), measured alone: its first wave is drained
+  before the measurement starts.
 
 Each scenario runs three times on the CUDA device: once plain, for the
 wall time and its phases; once under ``torch.profiler``, for the device
 time by kernel name; once under ``torch.cuda.set_sync_debug_mode
-("warn")``, counting host synchronisations by source line. Prints one
+("warn")``, counting host synchronisations by source line. Only the
+measured drains run inside the profiler and the sync counting. Prints one
 JSON object: the card (name, power limit) and per scenario the plain
 run's phases, the device busy seconds, the device idle share of the
 plain run's wall (1 - busy / wall), the top kernels by device time, the
@@ -27,6 +32,7 @@ synchronisation counts and, for the FULL drain, its own counters
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -39,8 +45,9 @@ WORKLOADS = 1500
 TOP_KERNELS = 12
 
 
-def _tas_drain(n_workloads: int = WORKLOADS):
-    """The lean TAS drain; returns ([result], wall seconds)."""
+def _tas_drain(around=contextlib.nullcontext, n_workloads: int = WORKLOADS):
+    """The lean TAS drain, inside ``around()``; returns ([result], wall
+    seconds)."""
     import torch
 
     from kueue_oss_tpu_torch.api import types
@@ -52,15 +59,17 @@ def _tas_drain(n_workloads: int = WORKLOADS):
     store = tas_drain_store(types, Store, n_workloads=n_workloads)
     engine = SolverEngine(store, QueueManager(store))
     torch.cuda.synchronize()
-    t0 = time.monotonic()
-    result = engine.drain(now=0.0)
-    torch.cuda.synchronize()
-    return [result], time.monotonic() - t0
+    with around():
+        t0 = time.monotonic()
+        result = engine.drain(now=0.0)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+    return [result], wall
 
 
-def _storm_drain():
-    """Both waves of the baseline storm; returns ([result per wave],
-    the two drains' wall seconds summed)."""
+def _storm_drain(around=contextlib.nullcontext):
+    """Both waves of the baseline storm, inside ``around()``; returns
+    ([result per wave], the two drains' wall seconds summed)."""
     import torch
 
     from kueue_oss_tpu_torch.api import types
@@ -72,15 +81,44 @@ def _storm_drain():
     store, wave1, wave2 = baseline_preempt_store(types, Store)
     engine = SolverEngine(store, QueueManager(store))
     results, wall = [], 0.0
-    for now, wave in ((100.0, wave1), (200.0, wave2)):
-        for wl in wave:
-            store.add_workload(wl)
-        torch.cuda.synchronize()
-        t0 = time.monotonic()
-        results.append(engine.drain(now=now))
-        torch.cuda.synchronize()
-        wall += time.monotonic() - t0
+    with around():
+        for now, wave in ((100.0, wave1), (200.0, wave2)):
+            for wl in wave:
+                store.add_workload(wl)
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            results.append(engine.drain(now=now))
+            torch.cuda.synchronize()
+            wall += time.monotonic() - t0
     return results, wall
+
+
+def _fair_wave2(around=contextlib.nullcontext):
+    """The fair storm's second wave, inside ``around()``, after its
+    first wave; returns ([result], wall seconds)."""
+    import torch
+
+    from kueue_oss_tpu_torch.api import types
+    from kueue_oss_tpu_torch.core.queue_manager import QueueManager
+    from kueue_oss_tpu_torch.core.store import Store
+    from kueue_oss_tpu_torch.scenarios import fair_reclaim_store
+    from kueue_oss_tpu_torch.solver.engine import SolverEngine
+
+    store, wave1, wave2 = fair_reclaim_store(types, Store)
+    engine = SolverEngine(store, QueueManager(store),
+                          enable_fair_sharing=True)
+    for wl in wave1:
+        store.add_workload(wl)
+    engine.drain(now=100.0)
+    for wl in wave2:
+        store.add_workload(wl)
+    torch.cuda.synchronize()
+    with around():
+        t0 = time.monotonic()
+        result = engine.drain(now=200.0)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+    return [result], wall
 
 
 def _device_us(evt) -> float:
@@ -102,11 +140,24 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
 
-    _tas_drain(200)  # warm-up: kernel build, CUDA context, allocator
+    _tas_drain(n_workloads=200)  # warm-up: build, CUDA context, allocator
     print(json.dumps({"card": smi,
                       "tas_drain": _profile(_tas_drain),
-                      "storm": _profile(_storm_drain)}))
+                      "storm": _profile(_storm_drain),
+                      "fair_wave2": _profile(_fair_wave2)}))
     return 0
+
+
+@contextlib.contextmanager
+def _sync_warnings():
+    """Warn on every host synchronisation inside the block."""
+    import torch
+
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
 
 
 def _profile(drain) -> dict:
@@ -114,9 +165,8 @@ def _profile(drain) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     plain, wall = drain()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        profiled, profiled_wall = drain()
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    profiled, profiled_wall = drain(lambda: prof)
     # device-side events only (kernels, memcpy/memset): the CPU ops that
     # launched them carry the same time again as children
     cuda = torch.autograd.DeviceType.CUDA
@@ -130,11 +180,7 @@ def _profile(drain) -> dict:
 
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            drain()
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
+        drain(_sync_warnings)
     syncs = Counter(f"{Path(w.filename).name}:{w.lineno}" for w in caught
                     if "synchroniz" in str(w.message))
     full = [r.full_stats for r in plain if r.full_stats is not None]

@@ -181,6 +181,55 @@ def baseline_preempt_store(types, store_cls, *, n_cohorts: int = 5,
                              scale)
 
 
+def fair_reclaim_store(types, store_cls, *, n_cohorts: int = 5,
+                       cqs_per_cohort: int = 6, scale: float = 1.0):
+    """The baseline store as a fair-sharing reclamation storm.
+
+    Returns (store, wave1, wave2) over ``baseline_preempt_store``'s
+    store: wave 1 holds the smalls of ClusterQueues ``cq-*-0`` and
+    ``cq-*-1``, which borrow the quota of their idle cohort members;
+    wave 2 holds the medium and large workloads of ``cq-*-2``, which
+    reclaim it. ClusterQueues 3 and up stay idle."""
+    store, low, high = baseline_preempt_store(
+        types, store_cls, n_cohorts=n_cohorts,
+        cqs_per_cohort=cqs_per_cohort, scale=scale)
+
+    def of_cqs(wls, idx):
+        return [wl for wl in wls
+                if int(wl.queue_name.rsplit("-", 1)[1]) in idx]
+
+    return store, of_cqs(low, (0, 1)), of_cqs(high, (2,))
+
+
+def afs_baseline_store(types, store_cls, afs_cls, *, n_cohorts: int = 5,
+                       cqs_per_cohort: int = 6, scale: float = 1.0):
+    """The baseline backlog under admission fair sharing.
+
+    Returns (store, afs, backlog): ``baseline_preempt_store``'s store
+    with ``AdmissionScope()`` (UsageBasedAdmissionFairSharing) on every
+    ClusterQueue and two LocalQueues per ClusterQueue, ``lq-<cq>-a`` and
+    ``lq-<cq>-b``; the backlog is every small workload, alternating
+    between the two (even index ``-a``). ``afs`` is an ``afs_cls()`` (the
+    default configuration: half-life 300 s) in which every ``-a`` queue
+    was charged ``{"cpu": 20}`` at t = 0. Pass ``afs`` to the
+    QueueManager and drain after adding the backlog."""
+    store, low, _ = baseline_preempt_store(
+        types, store_cls, n_cohorts=n_cohorts,
+        cqs_per_cohort=cqs_per_cohort, scale=scale)
+    afs = afs_cls()
+    for name, cq in list(store.cluster_queues.items()):
+        cq.admission_scope = types.AdmissionScope()
+        store.upsert_cluster_queue(cq)
+        for side in ("a", "b"):
+            store.upsert_local_queue(types.LocalQueue(
+                name=f"lq-{name}-{side}", cluster_queue=name))
+        afs.record_admission(f"default/lq-{name}-a", {"cpu": 20}, 0.0)
+    for wl in low:
+        side = "a" if int(wl.name.rsplit("-", 1)[1]) % 2 == 0 else "b"
+        wl.queue_name = f"{wl.queue_name}-{side}"
+    return store, afs, low
+
+
 def heterogeneous_preempt_store(types, store_cls, *, n_cohorts: int = 2,
                                 cqs_per_cohort: int = 3,
                                 scale: float = 1.0):

@@ -8,19 +8,22 @@ pending backlog on the device and commits it:
   or more than one resource group): ``pending_backlog`` ->
   ``export_problem`` -> ``pad_workloads`` -> ``to_device`` ->
   ``solve_backlog`` -> ``_apply_plan``;
-- the FULL drain (preemption or several resource groups):
-  ``export_problem(include_admitted=True, parked=...)`` ->
-  ``_size_caps`` -> ``solve_backlog_full`` -> ``_apply_full_plan``,
-  which applies the evictions first (``core/eviction.py``), then the
+- the FULL drain (preemption, several resource groups, fair sharing
+  with ``enable_fair_sharing``, or admission fair sharing with an
+  ``AfsManager`` on the queues): ``export_problem(include_admitted=True,
+  parked=..., afs=..., now=...)`` -> ``_size_caps`` ->
+  ``solve_backlog_full(fs_enabled=...)`` -> ``_apply_full_plan``, which
+  applies the evictions first (``core/eviction.py``), then the
   admissions in (round, entry) order with a flavor per resource group,
   then the parking.
 
 Admitted topology-aware (TAS) workloads are placed by the sequential
 device placer (``_compute_tas_assignments``) before
 ``_commit_admission`` writes the admission, its conditions and the
-queue transitions. Fair sharing, admission fair sharing and podset
-topology groups raise ``UnsupportedProblem``; ``verify=True`` raises
-``NotImplementedError`` (the host oracle re-check is a later slice).
+queue transitions, and charges an AFS admission to its LocalQueue.
+Podset topology groups raise ``UnsupportedProblem``; ``verify=True``
+raises ``NotImplementedError`` (the host oracle re-check is a later
+slice).
 Cut from the copy: metrics, the obs recorder and cycle ledger, tracer
 spans, persistence intents, the degradation ladder, the remote sidecar,
 mesh and relaxed-LP arms, delta sessions and resident device state, and
@@ -48,6 +51,7 @@ from kueue_oss_tpu_torch.core.snapshot import build_snapshot
 from kueue_oss_tpu_torch.core.store import Store
 from kueue_oss_tpu_torch.core.workload_info import WorkloadInfo
 from kueue_oss_tpu_torch.device import resolve_device
+from kueue_oss_tpu_torch.solver.fair_kernels import V_FAIR_SHARING
 from kueue_oss_tpu_torch.solver.full_kernels import (
     V_HIERARCHICAL_RECLAIM,
     V_RECLAIM_WHILE_BORROWING,
@@ -64,7 +68,6 @@ from kueue_oss_tpu_torch.solver.tas_engine import (
 )
 from kueue_oss_tpu_torch.solver.tensors import (
     SolverProblem,
-    UnsupportedProblem,
     export_problem,
     pad_workloads,
     pow2,
@@ -77,6 +80,7 @@ _VARIANT_REASON = {
     V_HIERARCHICAL_RECLAIM: "InCohortReclamation",
     V_RECLAIM_WITHOUT_BORROWING: "InCohortReclamation",
     V_RECLAIM_WHILE_BORROWING: "InCohortReclaimWhileBorrowing",
+    V_FAIR_SHARING: "InCohortFairSharing",
 }
 #: FULL drain lanes per round: up to the ClusterQueue count and this cap
 H_MAX_CAP = 1024
@@ -112,8 +116,8 @@ class SolverEngine:
         self.store = store
         self.queues = queues
         self.device = resolve_device(device)
-        #: fair sharing (KEP-1714) needs the fair drain, which the port
-        #: does not have: drains refuse while it is set
+        #: fair sharing (KEP-1714): the DRS entry order and the fair
+        #: preemption strategies, on the device (solver/fair_kernels.py)
         self.enable_fair_sharing = enable_fair_sharing
         #: sticky pad high-water mark: the padded workload axis never
         #: shrinks across drains (the JAX engine's recompile guard; the
@@ -125,13 +129,18 @@ class SolverEngine:
 
     def needs_full_kernel(self, pending: dict[str, list[WorkloadInfo]]
                           ) -> bool:
-        """Preemption or multi-resource-group shapes among the CQs
-        admitting this drain need the FULL drain."""
+        """Fair sharing, and preemption, multi-resource-group or
+        admission-fair-sharing shapes among the CQs admitting this
+        drain, need the FULL drain."""
+        if self.enable_fair_sharing:
+            return True
         for name in pending:
             cq = self.store.cluster_queues.get(name)
             if cq is None:
                 continue
             if cq.preemption.any_enabled or len(cq.resource_groups) > 1:
+                return True
+            if cq.admission_scope is not None and self.queues.afs is not None:
                 return True
         return False
 
@@ -185,18 +194,7 @@ class SolverEngine:
             raise NotImplementedError(
                 "verify=True needs the host oracle re-check, which this "
                 "port does not have yet")
-        if self.enable_fair_sharing:
-            raise UnsupportedProblem(
-                "fair sharing needs the fair drain, which this port does "
-                "not have yet")
         pending = self.pending_backlog()
-        for name in pending:
-            scope = self.store.cluster_queues[name].admission_scope
-            if (scope is not None and scope.admission_mode
-                    == "UsageBasedAdmissionFairSharing"):
-                raise UnsupportedProblem(
-                    f"ClusterQueue {name} uses admission fair sharing, "
-                    "which this port does not have yet")
         if self.needs_full_kernel(pending):
             return self._drain_full(now, pending)
         result = DrainResult()
@@ -351,9 +349,10 @@ class SolverEngine:
         return h_max, pow2(max(8, min(pop, max(8, cap))))
 
     def _drain_full(self, now: float, pending) -> DrainResult:
-        """Drain a preemption-enabled or multi-resource-group backlog
-        through solve_backlog_full and apply the net plan (reference
-        cycle contract: scheduler.go:286-467)."""
+        """Drain a preemption-enabled, multi-resource-group, fair-sharing
+        or admission-fair-sharing backlog through solve_backlog_full and
+        apply the net plan (reference cycle contract:
+        scheduler.go:286-467)."""
         result = DrainResult()
         parked_map: dict[str, list[WorkloadInfo]] = {}
         for name, q in self.queues.queues.items():
@@ -367,7 +366,8 @@ class SolverEngine:
                 parked_map[name] = infos
         te = time.monotonic()
         problem = export_problem(self.store, pending, include_admitted=True,
-                                 parked=parked_map)
+                                 parked=parked_map, afs=self.queues.afs,
+                                 now=now)
         result.phases["export"] = time.monotonic() - te
         if problem.n_workloads == 0:
             return result
@@ -380,7 +380,9 @@ class SolverEngine:
         stats = FullDrainStats()
         out = solve_backlog_full(to_device_full(problem, self.device),
                                  g_max=g_max, h_max=h_max, p_max=p_max,
-                                 stats=stats)
+                                 stats=stats,
+                                 fs_enabled=self.enable_fair_sharing,
+                                 afs=bool(problem.cq_afs.any()))
         (admitted, opt, admit_round, parked, rounds, _usage, _wl_usage,
          victim_reason) = (a.cpu().numpy() for a in out)
         stats.syncs += 1  # the plan's read-back
@@ -489,5 +491,16 @@ class SolverEngine:
                              reason="Admitted", now=now)
         self.store.update_workload(wl)
         self.queues.queues[cq_name].delete(wl.key)
+        scope = cq_spec.admission_scope
+        if (self.queues.afs is not None and scope is not None
+                and scope.admission_mode == "UsageBasedAdmissionFairSharing"):
+            # keep the AfsManager in step with the plan's entry penalties
+            # (the scheduler's record_admission hook)
+            by_resource: dict[str, int] = {}
+            for psr in info.total_requests:
+                for r, q in psr.requests.items():
+                    by_resource[r] = by_resource.get(r, 0) + q
+            self.queues.afs.record_admission(
+                f"{wl.namespace}/{wl.queue_name}", by_resource, now)
         result.admitted += 1
         result.admitted_keys.append(wl.key)

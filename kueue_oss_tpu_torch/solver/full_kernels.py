@@ -1,11 +1,14 @@
 """The preemption-capable (FULL) admission drain over dense tensors.
 
-Port of ``kueue_oss_tpu/solver/full_kernels.py`` (its non-fair,
-single-device path). The drain extends the lean one (``kernels.py``)
-with the reference's classical preemption, on a workload axis that
-holds pending, parked and admitted workloads alike:
+Port of ``kueue_oss_tpu/solver/full_kernels.py`` (its single-device
+path). The drain extends the lean one (``kernels.py``) with the
+reference's preemption, on a workload axis that holds pending, parked
+and admitted workloads alike:
 
 - head selection by (-priority, timestamp, uid) over the pending set;
+  within an admission-fair-sharing (AFS) ClusterQueue the LocalQueue
+  with the lowest decayed usage goes first (KEP-4136), and each
+  admission charges its entry penalty to its LocalQueue;
 - per resource group nomination and the assigner's flavor walk over
   granular preemption modes (flavorassigner.go:812-951);
 - a per-round candidate table per cohort root, and the classical victim
@@ -13,7 +16,11 @@ holds pending, parked and admitted workloads alike:
   legality masks, the hierarchical advantage rings, the 7-bucket order,
   two allow-borrowing attempts with the infeasibility precheck, the
   bulk-skip removal walk, the fill-back and the borrow-after level;
-- the entry scan (scheduler.go:337-467): reserve-and-park, one
+  under fair sharing the fair search (``fair_kernels.fair_search``)
+  takes its place;
+- the entry scan (scheduler.go:337-467), in the classical entry order
+  or, under fair sharing, one ``fair_kernels.fair_entry_pick`` per pop
+  on the mutated usage: reserve-and-park, one
   overlapping preemption skip, the fits re-check under the removal of
   the victims, evictions, admissions;
 - the round's bookkeeping: evicted workloads re-enter the pending set
@@ -32,11 +39,8 @@ sliced away, and boolean / int8 scatter-max/min with repeated indices
 go through ``scatter_reduce`` on an integer dtype. Every device-to-host
 read is counted in ``FullDrainStats.syncs``.
 
-Cut from the copy: fair sharing (``fair_kernels``), admission fair
-sharing (the ``lq_penalty`` head order and entry penalties: the port's
-export refuses AFS, so ``lq_penalty`` never changes and is not carried),
-the ``shard_map`` lane sharding, ``debug_drain`` and the scenario-batched
-``solve_backlog_full_batched``.
+Cut from the copy: the ``shard_map`` lane sharding, ``debug_drain`` and
+the scenario-batched ``solve_backlog_full_batched``.
 """
 
 from __future__ import annotations
@@ -138,11 +142,11 @@ class FullTensors(NamedTuple):
     node_fair_weight: torch.Tensor  # [N+1] float32
     wl_class: torch.Tensor        # [W+1] int32 equivalence class
     class_root: torch.Tensor      # [n_classes+1] int32
-    wl_lq: torch.Tensor           # [W+1] int32 (AFS; zeros)
+    wl_lq: torch.Tensor           # [W+1] int32 dense LocalQueue id (AFS)
     wl_ts_buf: torch.Tensor       # [W+1] int32 newer-eq threshold rank
-    wl_afs_penalty: torch.Tensor  # [W+1] float32 (AFS; zeros)
-    lq_penalty0: torch.Tensor     # [1] float32 (AFS; zeros)
-    cq_afs: torch.Tensor          # [C] bool (AFS; all False)
+    wl_afs_penalty: torch.Tensor  # [W+1] float32 admission penalty (AFS)
+    lq_penalty0: torch.Tensor     # [L+1] float32 decayed start penalties
+    cq_afs: torch.Tensor          # [C] bool UsageBasedAdmissionFairSharing
     ts_evict_base: torch.Tensor   # 0-d int32
     admit_rank_base: torch.Tensor  # 0-d int32
 
@@ -228,12 +232,16 @@ class FullDrainStats:
     rounds: int = 0
     #: victim searches run: lanes summed over rounds
     lanes: int = 0
-    #: bulk-skip removal-walk iterations (one per victim tried)
+    #: victim-walk iterations: the classical bulk-skip removal walk (one
+    #: per victim tried) and the fair strategy loop (one candidate
+    #: popped per iteration)
     walk_iterations: int = 0
     #: fill-back iterations
     fill_iterations: int = 0
     #: sequential victim removals in the entry scans' fits re-checks
     removal_steps: int = 0
+    #: fair entry picks (one host read each)
+    entry_picks: int = 0
     #: device-to-host reads (each one synchronises with the device)
     syncs: int = 0
 
@@ -382,18 +390,29 @@ def _workload_fits(t, usage, cq_node, req, allow_borrow):
 # ---------------------------------------------------------------------------
 
 
-def select_heads_full(t: FullTensors, admitted, parked, ts):
+def select_heads_full(t: FullTensors, admitted, parked, ts,
+                      lq_penalty=None):
     """Each CQ's head row, W_null where the CQ has none; [C] int32.
 
-    Segment C collects the padding rows; the JAX program gathers its
-    per-CQ maxima clamped to C-1 for them instead, which changes only
-    segment C, and segment C is dropped."""
+    With ``lq_penalty`` (admission fair sharing, KEP-4136), within a
+    UsageBasedAdmissionFairSharing CQ the head comes from the entries
+    whose LocalQueue carries the lowest decayed usage; the (priority,
+    ts, uid) order breaks ties (queue_manager afs_key). Segment C
+    collects the padding rows; the JAX program gathers its per-CQ
+    minima and maxima clamped to C-1 for them instead, which changes
+    only segment C, and segment C is dropped."""
     C = t.cq_node.shape[0]
     W1 = t.wl_cqid.shape[0]
     W_null = W1 - 1
     pending = (~admitted & ~parked)[:-1]
     seg = t.wl_cqid[:-1]
     segl = seg.long()
+    if lq_penalty is not None:
+        is_afs = t.cq_afs[torch.clamp(seg, max=C - 1).long()]
+        pen = lq_penalty[t.wl_lq[:-1].long()]
+        min_pen = segment_min(torch.where(pending & is_afs, pen,
+                                          float("inf")), seg, C + 1)
+        pending = pending & (~is_afs | (pen == min_pen[segl]))
     prio = t.wl_prio[:-1]
     max_prio = segment_max(torch.where(pending, prio, -BIG), seg, C + 1)
     c1 = pending & (prio == max_prio[segl])
@@ -414,7 +433,7 @@ def select_heads_full(t: FullTensors, admitted, parked, ts):
 
 
 def nominate_full(t: FullTensors, usage, avail, pot, cand_w, cursor,
-                  g_max: int):
+                  g_max: int, fs_enabled: bool = False):
     """Classify each CQ's head across (group, flavor) options.
 
     Per resource group the walk mirrors findFlavorForPodSets: start at
@@ -444,8 +463,12 @@ def nominate_full(t: FullTensors, usage, avail, pot, cand_w, cursor,
     within_cap = (~nonzero) | (req <= pot_cq)
     # flavorassigner.go:1071-1108: preemption is considered within
     # nominal, where a higher subtree could reclaim, or where the CQ may
-    # preempt while borrowing (borrowWithinCohort enabled)
-    can_pwb = (~t.cq_bwc_forbidden)[:, None, None]
+    # preempt while borrowing (borrowWithinCohort enabled; under fair
+    # sharing also any reclaimWithinCohort policy other than Never)
+    can_pwb = ~t.cq_bwc_forbidden
+    if fs_enabled:
+        can_pwb = can_pwb | (t.cq_reclaim_policy != POLICY_NEVER)
+    can_pwb = can_pwb[:, None, None]
     preemptish_fr = (~nonzero) | (
         within_cap & ((req <= nominal_cq) | may_reclaim | can_pwb))
     opt_fit = valid & fit_fr.all(dim=-1)
@@ -875,10 +898,18 @@ def classical_search(t: FullTensors, usage0_round, wl_usage, admitted,
 
 def _run_searches(t, usage, wl_usage, admitted, evicted, ts, flat_w,
                   flat_req, flat_avail, flat_cands, p_max,
-                  stats: FullDrainStats):
-    """The per-lane victim searches (the single-device, non-fair branch
-    of the JAX program; the lanes are one batch)."""
+                  stats: FullDrainStats, fs_enabled: bool = False,
+                  lendable_r=None):
+    """The per-lane victim searches (the single-device branch of the
+    JAX program; the lanes are one batch): the fair search under fair
+    sharing, else the classical one."""
     stats.lanes += flat_w.shape[0]
+    if fs_enabled:
+        from kueue_oss_tpu_torch.solver.fair_kernels import fair_search
+
+        return fair_search(t, lendable_r, usage, wl_usage, admitted,
+                           evicted, ts, flat_w, flat_req, flat_avail,
+                           flat_cands, p_max, stats)
     return classical_search(t, usage, wl_usage, admitted, evicted, ts,
                             flat_w, flat_req, flat_avail, flat_cands,
                             p_max, stats)
@@ -904,21 +935,31 @@ def _quota_to_reserve(t, usage_cq, cq_node, req, borrow):
 def full_round_scan(t: FullTensors, state, cand_w, mode, k_chosen, req_c,
                     borrow, lane_of_entry, lane_success, lane_cand_w,
                     lane_victims, lane_reason, p_max: int,
-                    stats: FullDrainStats):
-    """Process the round's entries in the classical order (borrow,
-    -priority, timestamp, uid); returns the updated state parts,
-    (admitted, preempted) per entry and whether any entry admitted or
-    evicted.
+                    stats: FullDrainStats, fs_enabled: bool = False,
+                    lendable_r=None, afs: bool = False):
+    """Process the round's entries in order; returns the updated state
+    parts, (admitted, preempted) per entry and whether any entry
+    admitted or evicted.
+
+    The order is the classical sort (borrow, -priority, timestamp, uid)
+    or, under fair sharing, the dynamic per-pop DRS tournament
+    (fair_sharing_iterator.go: each pop re-evaluates shares on the
+    mutated usage): one ``fair_entry_pick`` on the device per pop, whose
+    entry is read back (one read per pop), until no entry is active or
+    after C pops. Both orders run the same per-entry step.
 
     ``state`` holds usage_full and usage_net ([N+1, F], bubbled, with
     reservations), cq_rows, admitted, parked, wl_usage, victims_all,
-    victim_reason and ts. One read per call brings each slot's lane, the
-    lanes' success flags and their last victim slots to the host: a slot
-    whose lane found no targets cannot preempt, so its preemption block
-    is skipped, and the sequential victim removal of the fits re-check
-    runs exactly to the lane's last victim slot. The removals stay
-    sequential: the bubbling ``min`` of removeUsage makes the result
-    depend on their order.
+    victim_reason, lq_penalty and ts. One read per call brings each
+    entry's lane, the lanes' success flags and their last victim slots
+    to the host: an entry whose lane found no targets cannot preempt, so
+    its preemption block is skipped, and the sequential victim removal
+    of the fits re-check runs exactly to the lane's last victim slot.
+    The removals stay sequential: the bubbling ``min`` of removeUsage
+    makes the result depend on their order. With ``afs`` each admission
+    in an AFS ClusterQueue charges its entry penalty to its LocalQueue,
+    one [1]-index add at a time (a batched float add with repeated
+    indices would not be deterministic on CUDA).
     """
     C = cand_w.shape[0]
     W_null = t.wl_cqid.shape[0] - 1
@@ -926,59 +967,57 @@ def full_round_scan(t: FullTensors, state, cand_w, mode, k_chosen, req_c,
     H, P = lane_victims.shape
     cw = cand_w.long()
     active = (cand_w != W_null) & (mode != M_NOFIT)
-    sort_borrow = torch.where(active, borrow, BIG)
-    order = lexsort((t.wl_uid[cw], state["ts"][cw], -t.wl_prio[cw],
-                     sort_borrow)).long()
     n_slots = torch.where(lane_victims, arange(P, dev) + 1, 0).amax(dim=-1)
-    host = stats.read(torch.cat([lane_of_entry[order],
-                                 _i32(lane_success), _i32(n_slots)]))
-    slot_lane = host[:C]
+    if fs_enabled:
+        host = stats.read(torch.cat([lane_of_entry, _i32(lane_success),
+                                     _i32(n_slots),
+                                     active.sum(dtype=INT32)[None]]))
+    else:
+        sort_borrow = torch.where(active, borrow, BIG)
+        order = lexsort((t.wl_uid[cw], state["ts"][cw], -t.wl_prio[cw],
+                         sort_borrow)).long()
+        host = stats.read(torch.cat([lane_of_entry[order],
+                                     _i32(lane_success), _i32(n_slots)]))
+    lane_at = host[:C]
     lane_ok = host[C:C + H]
-    lane_slots = host[C + H:]
+    lane_slots = host[C + H:C + 2 * H]
 
-    usage_full = state["usage_full"][None]
-    usage_net = state["usage_net"][None]
-    cq_rows = state["cq_rows"]
-    admitted = state["admitted"]
-    parked = state["parked"]
-    wl_usage = state["wl_usage"]
-    victims_all = state["victims_all"]
-    victim_reason = state["victim_reason"]
-    slot_w = cw[order]
-    slot_m = mode[order]
-    slot_req = req_c[order]
-    slot_b = borrow[order]
-    any_adm = torch.zeros(1, dtype=torch.bool, device=dev)
-    any_evict = torch.zeros(1, dtype=torch.bool, device=dev)
-    adm_slot, pre_slot = [], []
+    s = {k: state[k] for k in ("cq_rows", "admitted", "parked", "wl_usage",
+                               "victims_all", "victim_reason",
+                               "lq_penalty")}
+    s["usage_full"] = state["usage_full"][None]
+    s["usage_net"] = state["usage_net"][None]
+    s["any_adm"] = torch.zeros(1, dtype=torch.bool, device=dev)
+    s["any_evict"] = torch.zeros(1, dtype=torch.bool, device=dev)
     no = torch.zeros(1, dtype=torch.bool, device=dev)
-    for i in range(C):
-        w = slot_w[i:i + 1]
-        c = order[i:i + 1]
-        m = slot_m[i:i + 1]
-        req = slot_req[i:i + 1]
+
+    def step(w, c, m, req, brw, lane):
+        """One entry: ``w``, ``c`` (entry index), ``m``, ``req``,
+        ``brw`` are [1]-shaped slices, ``lane`` the host's lane index
+        (-1 when the entry was not searched). Updates ``s``; returns
+        (admitted, preempted), each [1]."""
+        usage_full, usage_net = s["usage_full"], s["usage_net"]
+        admitted, wl_usage = s["admitted"], s["wl_usage"]
         cq_node = t.cq_node[c].long()
         is_active = (w != W_null) & (m != M_NOFIT)
-        lane = slot_lane[i]
         has_targets = lane >= 0 and bool(lane_ok[lane])
 
         if lane >= 0 and not has_targets:
             # Preempt / NoCandidates: reserve entitled capacity and park
             is_reserve = is_active & (m == M_PREEMPT)
             reserve = torch.where(is_reserve[:, None], _quota_to_reserve(
-                t, usage_full[0, cq_node], cq_node, req,
-                slot_b[i:i + 1]), 0)
+                t, usage_full[0, cq_node], cq_node, req, brw), 0)
             usage_full = _add_path(t, usage_full, cq_node, reserve)
             usage_net = _add_path(t, usage_net, cq_node, reserve)
-            parked = parked.index_put(
-                (w,), parked[w] | (is_reserve & ~t.cq_strict[c]))
+            s["parked"] = s["parked"].index_put(
+                (w,), s["parked"][w] | (is_reserve & ~t.cq_strict[c]))
 
         do_preempt = no
         if has_targets:
             # overlap check (one conflicting preemption per cycle)
             vm = lane_victims[lane:lane + 1]                    # [1,P]
             vw = lane_cand_w[lane].long()                       # [P]
-            overlap = (vm & victims_all[vw][None]).any(dim=-1)
+            overlap = (vm & s["victims_all"][vw][None]).any(dim=-1)
             is_preempt = is_active & (m == M_PREEMPT) & ~overlap
             # fits re-check with the lane's own victims removed (earlier
             # preemptions are already out of usage_net)
@@ -998,46 +1037,93 @@ def full_round_scan(t: FullTensors, state, cand_w, mode, k_chosen, req_c,
             usage_net = torch.where(do_preempt[:, None, None], usage_probe,
                                     usage_net)
             evict_now = (do_preempt[:, None] & vm)[0]           # [P]
-            victims_all = _with_last(
-                _scatter_bool(victims_all, vw, evict_now, "amax"), False)
-            victim_reason = _with_last(_scatter_bool(
-                victim_reason, vw,
+            s["victims_all"] = _with_last(
+                _scatter_bool(s["victims_all"], vw, evict_now, "amax"), False)
+            s["victim_reason"] = _with_last(_scatter_bool(
+                s["victim_reason"], vw,
                 torch.where(evict_now, lane_reason[lane], 0), "amax"), 0)
             admitted = _scatter_bool(admitted, vw, ~evict_now, "amin")
             # durable rows: the victims' usage leaves their CQ rows
-            cq_rows = cq_rows.index_add(0, v_nodes, -torch.where(
+            s["cq_rows"] = s["cq_rows"].index_add(0, v_nodes, -torch.where(
                 evict_now[:, None], wl_usage[vw], 0))
             # the preemptor charges its usage for the rest of the round
             entry_usage = torch.where(do_preempt[:, None], req, 0)
             usage_full = _add_path(t, usage_full, cq_node, entry_usage)
             usage_net = _add_path(t, usage_net, cq_node, entry_usage)
-            any_evict = any_evict | do_preempt
+            s["any_evict"] = s["any_evict"] | do_preempt
 
         # Fit: re-check under the current usage, then admit
         avail_fit = _avail_path(t, usage_net, cq_node)
         fit_ok = ((req == 0) | (req <= avail_fit)).all(dim=-1)
         do_admit = is_active & (m == M_FIT) & fit_ok
         admit_vec = torch.where(do_admit[:, None], req, 0)
-        usage_full = _add_path(t, usage_full, cq_node, admit_vec)
-        usage_net = _add_path(t, usage_net, cq_node, admit_vec)
-        cq_rows = cq_rows.index_add(0, cq_node, admit_vec)
-        admitted = admitted.index_put((w,), admitted[w] | do_admit)
-        wl_usage = wl_usage.index_put(
+        s["usage_full"] = _add_path(t, usage_full, cq_node, admit_vec)
+        s["usage_net"] = _add_path(t, usage_net, cq_node, admit_vec)
+        s["cq_rows"] = s["cq_rows"].index_add(0, cq_node, admit_vec)
+        s["admitted"] = admitted.index_put((w,), admitted[w] | do_admit)
+        s["wl_usage"] = wl_usage.index_put(
             (w,), torch.where(do_admit[:, None], req, wl_usage[w]))
-        any_adm = any_adm | do_admit
-        adm_slot.append(do_admit)
-        pre_slot.append(do_preempt)
+        if afs:
+            # AFS entry penalty: charge the admitted usage to the
+            # LocalQueue (afs/entry_penalties.go)
+            s["lq_penalty"] = s["lq_penalty"].index_add(
+                0, t.wl_lq[w].long(), torch.where(
+                    do_admit & t.cq_afs[c], t.wl_afs_penalty[w], 0.0))
+        s["any_adm"] = s["any_adm"] | do_admit
+        return do_admit, do_preempt
+
+    adm_flags, pre_flags = [], []
+    if fs_enabled:
+        from kueue_oss_tpu_torch.solver.fair_kernels import fair_entry_pick
+
+        e_idx = arange(C, dev)
+        act = active
+        n_active = host[-1]
+        picked = []
+        for _ in range(C):
+            if n_active == 0:
+                break
+            e = fair_entry_pick(t, lendable_r, s["usage_net"][0], cand_w,
+                                req_c, state["ts"], act)
+            stats.entry_picks += 1
+            e_host = stats.read(e)
+            if e_host >= C:
+                # nothing picked: the state is unchanged, so every later
+                # pop would pick nothing too (JAX runs them as no-ops)
+                break
+            c = e.reshape(1).long()
+            da, dp = step(cw[c], c, mode[c], req_c[c], borrow[c],
+                          lane_at[e_host])
+            act = act & (e_idx != e)
+            n_active -= 1
+            picked.append(c)
+            adm_flags.append(da)
+            pre_flags.append(dp)
+        order = (torch.cat(picked) if picked
+                 else torch.zeros(0, dtype=torch.long, device=dev))
+    else:
+        slot_w = cw[order]
+        slot_m = mode[order]
+        slot_req = req_c[order]
+        slot_b = borrow[order]
+        for i in range(C):
+            da, dp = step(slot_w[i:i + 1], order[i:i + 1], slot_m[i:i + 1],
+                          slot_req[i:i + 1], slot_b[i:i + 1], lane_at[i])
+            adm_flags.append(da)
+            pre_flags.append(dp)
 
     # per-slot flags back to entry order
     zeros = torch.zeros(C, dtype=torch.bool, device=dev)
-    adm_entry = zeros.index_put((order,), torch.cat(adm_slot))
-    pre_entry = zeros.index_put((order,), torch.cat(pre_slot))
+    adm_entry = zeros.index_put((order,), torch.cat(adm_flags + [no[:0]]))
+    pre_entry = zeros.index_put((order,), torch.cat(pre_flags + [no[:0]]))
     return {
-        "usage_full": usage_full[0], "usage_net": usage_net[0],
-        "cq_rows": cq_rows, "admitted": admitted, "parked": parked,
-        "wl_usage": wl_usage, "victims_all": victims_all,
-        "victim_reason": victim_reason,
-    }, adm_entry, pre_entry, any_adm[0], any_evict[0]
+        "usage_full": s["usage_full"][0], "usage_net": s["usage_net"][0],
+        "cq_rows": s["cq_rows"], "admitted": s["admitted"],
+        "parked": s["parked"], "wl_usage": s["wl_usage"],
+        "victims_all": s["victims_all"],
+        "victim_reason": s["victim_reason"],
+        "lq_penalty": s["lq_penalty"],
+    }, adm_entry, pre_entry, s["any_adm"][0], s["any_evict"][0]
 
 
 # ---------------------------------------------------------------------------
@@ -1046,8 +1132,13 @@ def full_round_scan(t: FullTensors, state, cand_w, mode, k_chosen, req_c,
 
 
 def round_body(t: FullTensors, state, pot, g_max: int, h_max: int,
-               p_max: int, stats: FullDrainStats):
-    """One reference cycle; returns (new_state, debug)."""
+               p_max: int, stats: FullDrainStats, fs_enabled: bool = False,
+               lendable_r=None, afs: bool = False):
+    """One reference cycle; returns (new_state, debug). Fair sharing
+    (``fs_enabled``) needs ``lendable_r`` (``fair_kernels.
+    lendable_by_resource``); ``afs`` turns on the admission-fair-sharing
+    head order and entry penalties (some ClusterQueue has
+    ``cq_afs``)."""
     W1 = t.wl_cqid.shape[0]
     C = t.cq_node.shape[0]
     N1 = t.parent.shape[0]
@@ -1069,12 +1160,14 @@ def round_body(t: FullTensors, state, pot, g_max: int, h_max: int,
     parked_before = parked
     cursor_before = state["cursor"]
 
-    cand_w = select_heads_full(t, admitted, parked, ts)
+    cand_w = select_heads_full(
+        t, admitted, parked, ts,
+        lq_penalty=state["lq_penalty"] if afs else None)
     cw = cand_w.long()
     avail = available_all(t, usage)
     (mode, k_chosen, req_c, borrow, next_cursor, opt_fit, opt_preempt,
      opt_level, group_active, opt_valid) = nominate_full(
-        t, usage, avail, pot, cand_w, state["cursor"], g_max)
+        t, usage, avail, pot, cand_w, state["cursor"], g_max, fs_enabled)
     is_head = cand_w != W_null
 
     # ---- heads needing victim-search simulation ----------------------
@@ -1114,7 +1207,8 @@ def round_body(t: FullTensors, state, pot, g_max: int, h_max: int,
     flat_cands = lane_cands.repeat_interleave(K, dim=0)
     (s_succ, s_cand_w, s_victims, s_reason, s_same, s_borrow) = (
         _run_searches(t, usage, wl_usage, admitted, evicted, ts, flat_w,
-                      flat_req, flat_avail, flat_cands, p_max, stats))
+                      flat_req, flat_avail, flat_cands, p_max, stats,
+                      fs_enabled, lendable_r))
 
     # granular-mode table per (lane, option)
     sim_pmode = _i32(torch.where(
@@ -1153,7 +1247,7 @@ def round_body(t: FullTensors, state, pot, g_max: int, h_max: int,
         (lane_success, lane_cand_w, lane_victims, lane_reason, _s,
          _b) = _run_searches(t, usage, wl_usage, admitted, evicted, ts,
                              lane_w, l_req, lane_avail, lane_cands, p_max,
-                             stats)
+                             stats, fs_enabled, lendable_r)
     lane_success = lane_success & lane_valid & (l_mode == M_PREEMPT)
 
     # compact victims to the front of each lane's slot axis (stable)
@@ -1175,11 +1269,12 @@ def round_body(t: FullTensors, state, pot, g_max: int, h_max: int,
         "parked": parked, "wl_usage": wl_usage,
         "victims_all": torch.zeros(W1, dtype=torch.bool, device=dev),
         "victim_reason": state["victim_reason"], "ts": ts,
+        "lq_penalty": state["lq_penalty"],
     }
     out, adm_entry, pre_entry, any_adm, any_evict = full_round_scan(
         t, scan_state, cand_w, mode, k_chosen, req_c, borrow,
         lane_of_entry, lane_success, lane_cand_w, lane_victims,
-        lane_reason, p_max, stats)
+        lane_reason, p_max, stats, fs_enabled, lendable_r, afs)
     admitted = out["admitted"]
     parked = out["parked"]
     wl_usage = out["wl_usage"]
@@ -1245,7 +1340,8 @@ def round_body(t: FullTensors, state, pot, g_max: int, h_max: int,
         "evicted": evicted_f, "admit_rank": admit_rank,
         "wl_usage": wl_usage, "cursor": cursor, "opt": opt,
         "admit_round": admit_round, "class_nofit": class_nofit,
-        "victim_reason": out["victim_reason"], "progress": progress,
+        "victim_reason": out["victim_reason"],
+        "lq_penalty": out["lq_penalty"], "progress": progress,
         "rounds": rounds + 1,
     }
     debug = {
@@ -1273,6 +1369,7 @@ def _init_state(t: FullTensors, g_max: int):
         "opt": torch.zeros((W1, g_max), dtype=INT32, device=dev),
         "admit_round": torch.full((W1,), -1, dtype=INT32, device=dev),
         "victim_reason": torch.zeros(W1, dtype=torch.int8, device=dev),
+        "lq_penalty": t.lq_penalty0,
         "class_nofit": torch.zeros(t.class_root.shape[0], dtype=torch.bool,
                                    device=dev),
         "progress": torch.ones((), dtype=torch.bool, device=dev),
@@ -1282,9 +1379,13 @@ def _init_state(t: FullTensors, g_max: int):
 
 def solve_backlog_full(t: FullTensors, g_max: int, h_max: int = 32,
                        p_max: int = 128, round_cap: int = 0,
-                       stats: Optional[FullDrainStats] = None):
+                       stats: Optional[FullDrainStats] = None,
+                       fs_enabled: bool = False, afs: bool = False):
     """Drain the backlog with preemption until quiescent (or
-    ``round_cap`` rounds, when set; the bound is 2 W1 + C + 5).
+    ``round_cap`` rounds, when set; the bound is 2 W1 + C + 5), under
+    fair sharing when ``fs_enabled``. ``afs`` says whether any
+    ClusterQueue uses admission fair sharing (``cq_afs.any()``, known
+    to the host at export).
 
     Returns (admitted [W+1] bool, opt [W+1, G] int32, admit_round [W+1]
     int32, parked [W+1] bool, rounds 0-d int32, usage [N+1, F], wl_usage
@@ -1296,13 +1397,21 @@ def solve_backlog_full(t: FullTensors, g_max: int, h_max: int = 32,
     W1 = t.wl_cqid.shape[0]
     C = t.cq_node.shape[0]
     pot = potential_available_all(t)
+    lendable_r = None
+    if fs_enabled:
+        from kueue_oss_tpu_torch.solver.fair_kernels import (
+            lendable_by_resource,
+        )
+
+        lendable_r = lendable_by_resource(t, pot)
     bound = 2 * W1 + C + 5
     if round_cap:
         bound = min(bound, round_cap)
     state = _init_state(t, g_max)
     progress = True
     while progress and state["rounds"] < bound:
-        state, _ = round_body(t, state, pot, g_max, h_max, p_max, stats)
+        state, _ = round_body(t, state, pot, g_max, h_max, p_max, stats,
+                              fs_enabled, lendable_r, afs)
         progress = stats.read(state["progress"])
     stats.rounds += state["rounds"]
     return (_with_last(state["admitted"], False), state["opt"],

@@ -7,10 +7,14 @@ results. These helpers pin the JAX behaviour so the ports stay
 bitwise-equal:
 
 - ``segment_min``/``segment_max`` seed empty segments with the dtype's
-  max/min (JAX's identities: INT32_MAX for min, INT32_MIN for max);
+  max/min (JAX's identities: INT32_MAX for min, INT32_MIN for max;
+  +inf and -inf for floats);
 - ``lexsort`` is stable with the LAST key primary;
 - every index result is int32;
-- integer sums and prefix sums wrap in int32 like the JAX programs.
+- integer sums and prefix sums wrap in int32 like the JAX programs;
+- ``resource_sum`` replaces the JAX programs' int32 matmuls against the
+  FR -> resource one-hot (CUDA has no integer matmul): an exact int32
+  sum of each resource's FR columns.
 
 Segment ids must lie in ``[0, num_segments)``; every caller passes
 in-range ids.
@@ -46,16 +50,32 @@ def _segment_reduce(data, segment_ids, num_segments, reduce, identity):
 
 def segment_min(data: torch.Tensor, segment_ids: torch.Tensor,
                 num_segments: int) -> torch.Tensor:
-    """Per-segment minima; empty segments hold the dtype's max."""
+    """Per-segment minima; empty segments hold the dtype's max (+inf
+    for floats)."""
+    identity = (float("inf") if data.dtype.is_floating_point
+                else torch.iinfo(data.dtype).max)
     return _segment_reduce(data, segment_ids, num_segments, "amin",
-                           torch.iinfo(data.dtype).max)
+                           identity)
 
 
 def segment_max(data: torch.Tensor, segment_ids: torch.Tensor,
                 num_segments: int) -> torch.Tensor:
-    """Per-segment maxima; empty segments hold the dtype's min."""
+    """Per-segment maxima; empty segments hold the dtype's min (-inf
+    for floats)."""
+    identity = (float("-inf") if data.dtype.is_floating_point
+                else torch.iinfo(data.dtype).min)
     return _segment_reduce(data, segment_ids, num_segments, "amax",
-                           torch.iinfo(data.dtype).min)
+                           identity)
+
+
+def resource_sum(x: torch.Tensor, fr_resource: torch.Tensor,
+                 n_resources: int) -> torch.Tensor:
+    """``x @ onehot(fr_resource)`` for integer ``x`` [..., F]: the sum of
+    each resource's FR columns, [..., R], wrapping in int32 like XLA's
+    int32 dot (an integer ``index_add`` is exact in any order)."""
+    out = torch.zeros(tuple(x.shape[:-1]) + (n_resources,), dtype=x.dtype,
+                      device=x.device)
+    return out.index_add_(x.dim() - 1, fr_resource.long(), x)
 
 
 def lexsort(keys: Sequence[torch.Tensor]) -> torch.Tensor:

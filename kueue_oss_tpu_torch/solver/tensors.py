@@ -10,10 +10,11 @@ workloads and (``include_admitted``) the workloads holding quota, which
 the FULL drain may evict. The flavor-option axis K spans (resource
 group, flavor) pairs; a workload picks one option per group. The FULL
 fields (preemption policies, admitted rows, equivalence classes,
-option groups) are exported on every call, as the JAX package does.
-Admission fair sharing raises ``UnsupportedProblem``; its fields and
-the fair-sharing weights export as the JAX package exports them with
-both off (zeros, ones and the specs' weights). Cut from the copy: the
+option groups) are exported on every call, as the JAX package does,
+and so are the fair-sharing weights. With an ``AfsManager`` (``afs``)
+the admission-fair-sharing fields carry dense LocalQueue ids, entry
+penalties and the LocalQueues' decayed usage at ``now``. Cut from the
+copy: the
 cross-drain ``ExportCache`` and its columnar assembly view — the export
 here is the classic per-workload walk, with equivalence-class tokens
 interned afresh on every export (the JAX export with ``cache=None``).
@@ -140,12 +141,15 @@ class SolverProblem:
     wl_class: Optional[np.ndarray] = None       # [W+1] int32
     class_root: Optional[np.ndarray] = None     # [n_classes+1] int32
     n_classes: int = 0
-    #: admission fair sharing (always off in the port: zeros)
+    #: admission fair sharing: dense LocalQueue id (0 = none) and the
+    #: admission penalty of each workload of a UsageBasedAdmission-
+    #: FairSharing ClusterQueue
     wl_lq: Optional[np.ndarray] = None          # [W+1] int32
     wl_afs_penalty: Optional[np.ndarray] = None  # [W+1] float32
     #: newer-equal preemption threshold rank (own timestamp rank)
     wl_ts_buf: Optional[np.ndarray] = None      # [W+1] int32
-    lq_penalty0: Optional[np.ndarray] = None    # [1] float32
+    #: decayed LocalQueue usage at export time; entry 0 is unused
+    lq_penalty0: Optional[np.ndarray] = None    # [L+1] float32
     cq_afs: Optional[np.ndarray] = None         # [C] bool
     #: raw inputs behind the dense encodings
     wl_raw_ts: Optional[np.ndarray] = None      # [W+1] float64
@@ -322,6 +326,7 @@ def export_problem(
     include_admitted: bool = False,
     parked: Optional[dict[str, list[WorkloadInfo]]] = None,
     afs=None,
+    now: float = 0.0,
 ) -> SolverProblem:
     """Build the SolverProblem from the store and the backlog.
 
@@ -331,13 +336,10 @@ def export_problem(
     eviction frees capacity in their cohort. With ``include_admitted``
     the workloads holding quota follow on the same axis as eviction
     candidates (their usage rides ``ad_usage``; the node ``usage0``
-    still includes it). Podset topology groups and admission fair
-    sharing (``afs``) raise UnsupportedProblem.
+    still includes it). ``afs`` (an ``AfsManager``) exports the
+    admission-fair-sharing inputs with usage decayed to ``now``. Podset
+    topology groups raise UnsupportedProblem.
     """
-    if afs is not None:
-        raise UnsupportedProblem(
-            "admission fair sharing needs the AFS drain, which this port "
-            "does not have yet")
     forest = build_snapshot(store).forest
 
     nodes = order_nodes(forest)
@@ -525,6 +527,7 @@ def export_problem(
     class_toks: dict[tuple, int] = {}
     tok_root: list[int] = []
     toks = np.full(W, -1, dtype=np.int64)
+    row_totals: list[dict[str, int]] = []
     for w, info in enumerate(all_infos):
         cid = wl_cqid_l[w]
         spec = store.cluster_queues[info.cluster_queue]
@@ -544,6 +547,7 @@ def export_problem(
         for psr in info.total_requests:
             for rname, q in psr.requests.items():
                 totals[rname] = totals.get(rname, 0) + q
+        row_totals.append(totals)
         shape_key = (cid, wl.allowed_flavor, tuple(sorted(totals.items())),
                      tuple((tuple(sorted(ps.node_selector.items())),
                             tuple(ps.tolerations)) for ps in wl.podsets))
@@ -622,6 +626,36 @@ def export_problem(
     fr_resource = np.asarray([res_index[fr[1]] for fr in fr_list] or [0],
                              dtype=np.int32)
 
+    # ---- admission fair sharing (KEP-4136): dense LQ ids + penalties ----
+    # Only UsageBasedAdmissionFairSharing CQs participate; the penalty
+    # increment is flavor-independent (requests are per resource), so it
+    # exports as one scalar per workload (afs/entry_penalties.go).
+    wl_lq = np.zeros(W + 1, dtype=np.int32)
+    wl_afs_penalty = np.zeros(W + 1, dtype=np.float32)
+    cq_afs = np.zeros(C, dtype=bool)
+    lq_pen_list: list[float] = [0.0]
+    if afs is not None:
+        for cid, name in enumerate(cq_names):
+            scope = store.cluster_queues[name].admission_scope
+            cq_afs[cid] = (
+                scope is not None
+                and scope.admission_mode == "UsageBasedAdmissionFairSharing")
+        if cq_afs.any():
+            lq_index: dict[str, int] = {}
+            for w, info in enumerate(all_infos):
+                if not cq_afs[wl_cqid_l[w]]:
+                    continue
+                lq_key = f"{info.obj.namespace}/{info.obj.queue_name}"
+                li = lq_index.get(lq_key)
+                if li is None:
+                    li = len(lq_pen_list)
+                    lq_index[lq_key] = li
+                    lq_pen_list.append(
+                        float(afs.weighted_usage(lq_key, now)))
+                wl_lq[w] = li
+                wl_afs_penalty[w] = afs.entry_penalty(lq_key, row_totals[w])
+    lq_penalty0 = np.asarray(lq_pen_list, dtype=np.float32)
+
     return SolverProblem(
         parent=parent,
         depth=depth,
@@ -667,11 +701,11 @@ def export_problem(
         wl_class=wl_class,
         class_root=class_root,
         n_classes=n_classes,
-        wl_lq=np.zeros(W + 1, dtype=np.int32),
-        wl_afs_penalty=np.zeros(W + 1, dtype=np.float32),
+        wl_lq=wl_lq,
+        wl_afs_penalty=wl_afs_penalty,
         wl_ts_buf=wl_ts_buf,
-        lq_penalty0=np.zeros(1, dtype=np.float32),
-        cq_afs=np.zeros(C, dtype=bool),
+        lq_penalty0=lq_penalty0,
+        cq_afs=cq_afs,
         wl_raw_ts=wl_raw_ts,
         wl_raw_admit_ts=wl_raw_admit_ts,
         wl_class_tok=np.concatenate([toks, [-1]]).astype(np.int64),

@@ -13,8 +13,9 @@ order, the evicted keys, the flavors per resource group, the rounds,
 every workload's conditions (Evicted / Preempted reasons included) and
 eviction counters, the topology assignments, and the queues' heap and
 parked sets; the FULL export must equal the JAX export field by field.
-Stores that need fair sharing, admission fair sharing or podset
-topology groups must raise UnsupportedProblem."""
+Workloads with podset topology groups must raise UnsupportedProblem
+(fair sharing and admission fair sharing drain: see
+tests/test_torch_engine_fair.py)."""
 
 import numpy as np
 import pytest
@@ -264,19 +265,14 @@ def test_tas_store_with_preemption_matches_jax():
 
 
 def test_fair_sharing_afs_and_podset_groups_refuse():
+    """Only podset topology groups still refuse: fair sharing and
+    admission fair sharing drain (tests/test_torch_engine_fair.py)."""
     kw = dict(n_cohorts=1, cqs_per_cohort=2, scale=0.02)
     ps, w1, _ = baseline_preempt_store(port_types, PortStore, **kw)
     for wl in w1:
         ps.add_workload(wl)
     pq = PortQueues(ps)
-    with pytest.raises(UnsupportedProblem, match="fair sharing"):
-        PortEngine(ps, pq, device="cpu", enable_fair_sharing=True).drain()
     engine = PortEngine(ps, pq, device="cpu")
-    cq = ps.cluster_queues["cq-0-0"]
-    cq.admission_scope = port_types.AdmissionScope()
-    with pytest.raises(UnsupportedProblem, match="admission fair sharing"):
-        engine.drain()
-    cq.admission_scope = None
     # a podset-group workload never joins a drain backlog (its TAS CQ
     # stays on the host path); the export refuses it outright
     wl = ps.workloads[w1[0].key]

@@ -18,6 +18,7 @@ from kueue_oss_tpu.core.store import Store as JaxStore
 from kueue_oss_tpu.solver.engine import SolverEngine as JaxEngine
 from kueue_oss_tpu.solver.tensors import export_problem as jax_export
 from kueue_oss_tpu_torch.api import types as port_types
+from kueue_oss_tpu_torch.core.afs import AfsManager
 from kueue_oss_tpu_torch.core.queue_manager import QueueManager as PortQueues
 from kueue_oss_tpu_torch.core.store import Store as PortStore
 from kueue_oss_tpu_torch.scenarios import plan_digest, plan_rows
@@ -26,7 +27,6 @@ from kueue_oss_tpu_torch.solver import cuda_tas
 from kueue_oss_tpu_torch.solver.engine import SolverEngine as PortEngine
 from kueue_oss_tpu_torch.solver.tensors import (
     ARRAY_FIELDS,
-    UnsupportedProblem,
     export_problem as port_export,
 )
 
@@ -124,18 +124,21 @@ def test_default_device_is_cuda_and_raises_without_it():
 
 
 def test_verify_and_full_shapes_refuse():
-    """verify=True and the shapes the port still lacks a drain for
-    (admission fair sharing here; fair sharing and podset groups in
-    tests/test_torch_engine_full.py) refuse; a preemption-enabled CQ no
-    longer does: it drains through the FULL path."""
+    """verify=True refuses (podset groups refuse in
+    tests/test_torch_engine_full.py). An admission scope routes the FULL
+    path only when the queues have an AfsManager, as in the JAX engine
+    (the AFS drain: tests/test_torch_engine_fair.py); a
+    preemption-enabled CQ drains through the FULL path."""
     _, (ps, pq) = _both(640)
     engine = PortEngine(ps, pq, device="cpu")
     with pytest.raises(NotImplementedError):
         engine.drain(verify=True)
     cq = ps.cluster_queues["cq-0-0"]
     cq.admission_scope = port_types.AdmissionScope()
-    with pytest.raises(UnsupportedProblem):
-        engine.drain()
+    assert not engine.needs_full_kernel(engine.pending_backlog())
+    afs_engine = PortEngine(ps, PortQueues(ps, afs=AfsManager()),
+                            device="cpu")
+    assert afs_engine.needs_full_kernel(afs_engine.pending_backlog())
     cq.admission_scope = None
     cq.preemption.within_cluster_queue = (
         port_types.PreemptionPolicyValue.LOWER_PRIORITY)

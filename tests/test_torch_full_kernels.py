@@ -220,8 +220,7 @@ def test_walk_assign_and_entry_scan(prob):
                               prob.g_max)
         for i, (g, w) in enumerate(zip(got, want["walk"])):
             _same(g, w, f"walk_assign[{i}]")
-        p_state = {k: _t(v) for k, v in want["scan_state"].items()
-                   if k != "lq_penalty"}
+        p_state = {k: _t(v) for k, v in want["scan_state"].items()}
         g_out, *g_flags = pfk.full_round_scan(
             prob.pt, p_state, _t(want["cand_w"]),
             *(_t(a) for a in want["walk"][:4]),

@@ -1,6 +1,7 @@
 """The port stands alone: no module of kueue_oss_tpu_torch/ and not
 chip_smoke.py imports jax, jaxlib or the JAX package, and the port
-imports and drains (lean and FULL) with those modules blocked."""
+imports and drains (lean, FULL, fair sharing and admission fair
+sharing) with those modules blocked."""
 
 import ast
 import subprocess
@@ -43,6 +44,8 @@ def test_scan_sees_the_whole_port():
     assert "kueue_oss_tpu_torch/solver/engine.py" in names
     assert "kueue_oss_tpu_torch/solver/full_kernels.py" in names
     assert "kueue_oss_tpu_torch/core/eviction.py" in names
+    assert "kueue_oss_tpu_torch/solver/fair_kernels.py" in names
+    assert "kueue_oss_tpu_torch/core/afs.py" in names
     assert "chip_smoke.py" in names
     # the exact-name comparison lets the port's own name through
     assert "kueue_oss_tpu_torch" not in FORBIDDEN
@@ -75,6 +78,26 @@ def test_port_drains_with_jax_blocked():
                 store.add_workload(wl)
             full = engine.drain()
         assert full.evicted > 0, full
+        # fair sharing and admission fair sharing
+        from kueue_oss_tpu_torch.core.afs import AfsManager
+        from kueue_oss_tpu_torch.scenarios import (
+            afs_baseline_store, fair_reclaim_store)
+        store, wave1, wave2 = fair_reclaim_store(
+            types, Store, n_cohorts=1, scale=0.05)
+        engine = SolverEngine(store, QueueManager(store), device="cpu",
+                              enable_fair_sharing=True)
+        for wave in (wave1, wave2):
+            for wl in wave:
+                store.add_workload(wl)
+            fair = engine.drain()
+        assert fair.full_stats.entry_picks > 0, fair
+        store, afs, backlog = afs_baseline_store(
+            types, Store, AfsManager, n_cohorts=1, scale=0.05)
+        for wl in backlog:
+            store.add_workload(wl)
+        afs_result = SolverEngine(store, QueueManager(store, afs=afs),
+                                  device="cpu").drain(now=60.0)
+        assert afs_result.admitted > 0, afs_result
         leaked = [m for m in sys.modules
                   if m.split(".")[0] in ("jax", "jaxlib", "kueue_oss_tpu")
                   and sys.modules[m] is not None]
