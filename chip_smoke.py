@@ -30,7 +30,9 @@ Phases, in order; any failure propagates (nonzero exit, no result line):
 5. main path: the full-size TAS drain (640 nodes, 30 ClusterQueues,
    15,000 workloads; the reference Kueue TAS performance config) built
    with the port's own types and drained by ``SolverEngine(store,
-   queues).drain()`` on the card, with the launch counts reset just
+   queues).drain()`` on the card (the engine's default: delta sessions
+   on, so the drain's problem is the session's first sync, uploaded
+   into the resident device state), with the launch counts reset just
    before the drain and read just after: one tas_place_sequential launch
    placing every TAS admission, no leaf_states launch. The plan is
    checked against the JAX reference plan (admitted/rounds/parked counts
@@ -69,8 +71,33 @@ Phases, in order; any failure propagates (nonzero exit, no result line):
    ClusterQueue the ``-b`` queue admits until its entry penalties pass
    the ``-a`` queue's decayed charge of 17.4).
 
-Phases 8 and 9 run no TAS flavor: both kernels' launch counts are set
-to 0 before each drain and must still be 0 after it.
+10. storm under churn, sessions on: the baseline store of phase 6 at
+   full size, nothing cut, through one ``SolverEngine`` with delta
+   sessions on (``scenarios.storm_churn_drains``): wave 1 at t = 100,
+   wave 2 at t = 200, then the finish-and-arrive churn cycle of
+   bench.py's delta scenario (two warm-up and eight measured cycles, at
+   t = 201..210). ``churn`` is 75, but after wave 2 only 30 workloads
+   hold quota, so each cycle finishes those 30 (the whole admitted set
+   turns over; bench.py finishes about 0.5% of it) and submits 75 1-cpu
+   arrivals, which never admit: 30 parked larges take the freed quota. Every drain's
+   plan must equal the JAX engine's plan of the same sequence (sessions
+   on, no mesh; pinned below: counts, rounds, plan digest, victims'
+   reasons) and pass the quota and victim checks of phase 6; every
+   frame's kind must be the one the JAX session emitted. After the last
+   cycle every resident FULL tensor must equal a fresh upload of the
+   session's last slotted problem, and the resident state's full
+   uploads and delta updates must count the frames. A twin store run
+   through the same sequence with ``use_sessions = False`` must reach
+   the same decisions per drain (admitted set and flavors, evicted set
+   and reasons) and reports the bytes it uploads per drain. Each drain
+   prints its frame, dirty rows, update bytes and phase seconds for
+   both engines.
+
+Phases 6-9 pin the JAX engine's plans without delta sessions, so they
+run the port's engine with ``use_sessions = False``; phase 10 pins the
+plans with sessions on. Phases 8-10 run no TAS flavor: both kernels'
+launch counts are set to 0 before each drain and must still be 0 after
+it.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 is the JSON kernel report.
@@ -78,6 +105,8 @@ is the JSON kernel report.
 
 from __future__ import annotations
 
+import collections
+import gc
 import json
 import subprocess
 import sys
@@ -90,9 +119,10 @@ REFERENCE = {"admitted": 102, "rounds": 549, "evicted": 0,
                        "b2fae3232b409bfc"}
 #: the JAX package's plans of phase 6 (per wave) and phase 7: its
 #: engine with ``mesh_mode="off"`` and without delta sessions
-#: (KUEUE_SOLVER_SESSIONS=0), the port's engine; with sessions the JAX
-#: engine re-lays a later drain's rows into stable slots, which reorders
-#: wave 2's evicted keys (the same set) and changes that digest only
+#: (KUEUE_SOLVER_SESSIONS=0), and so the port's engine with
+#: ``use_sessions = False``; with sessions both engines re-lay a later
+#: drain's rows into stable slots, which reorders wave 2's evicted keys
+#: (the same set) and changes that digest only (phase 10)
 STORM_REFERENCE = [
     {"admitted": 600, "evicted": 0, "rounds": 22, "held": 600,
      "digest": "e127c72662d418820e4abaa29e4e4b0d03ed02f9d7e97c6b59a3aa27"
@@ -112,6 +142,74 @@ FAIR_REFERENCE = [
                "aab6bc"},
 ]
 FAIR_REASONS = {"InCohortReclamation": 100, "InCohortFairSharing": 100}
+#: the JAX package's plans of phase 10, per drain: its engine with
+#: ``mesh_mode="off"`` and delta sessions on, on the same sequence
+#: (``JAX_PLATFORMS=cpu python tests/test_torch_engine_sessions.py``
+#: prints them); ``frame`` is its session frame's kind ("delta" or the
+#: full sync's reason) and ``held`` counts QuotaReserved workloads,
+#: finished ones included
+STORM_CHURN_REFERENCE = [
+    {"label": "wave1", "now": 100.0, "admitted": 600, "evicted": 0,
+     "rounds": 22, "held": 600, "reasons": {},
+     "frame": "first_sync",
+     "digest": "e127c72662d418820e4abaa29e4e4b0d03ed02f9d7e97c6b59a3aa27"
+               "f87fedc9"},
+    {"label": "wave2", "now": 200.0, "admitted": 30, "evicted": 600,
+     "rounds": 6, "held": 30, "reasons": {"InClusterQueue": 600},
+     "frame": "dense_delta",
+     "digest": "b0fb9ed57388273d10976583bea4859801e80748fa8208f2de95c9a7"
+               "821571ef"},
+    {"label": "cycle1", "now": 201.0, "admitted": 30, "evicted": 0,
+     "rounds": 6, "held": 60, "reasons": {},
+     "frame": "dense_delta",
+     "digest": "5cdb03e7dadf95d9a77c59af866294c4c3997a8d426927b8f75538a6"
+               "3314e492"},
+    {"label": "cycle2", "now": 202.0, "admitted": 30, "evicted": 0,
+     "rounds": 6, "held": 90, "reasons": {},
+     "frame": "delta",
+     "digest": "54cec1760ba9c6b7839e73b711d95b02e2f60d7f7e95bb23e3cc89d7"
+               "8ba8fc0a"},
+    {"label": "cycle3", "now": 203.0, "admitted": 30, "evicted": 0,
+     "rounds": 6, "held": 120, "reasons": {},
+     "frame": "delta",
+     "digest": "2c76b639ceb43cb2fb2b1333b2605a50fb5bd44c768a828ef78d5377"
+               "4311cd60"},
+    {"label": "cycle4", "now": 204.0, "admitted": 30, "evicted": 0,
+     "rounds": 6, "held": 150, "reasons": {},
+     "frame": "delta",
+     "digest": "5577f18f1070adb335c336c652fd5c54cd54d8734852f8a45af5c3bf"
+               "868b33b9"},
+    {"label": "cycle5", "now": 205.0, "admitted": 30, "evicted": 0,
+     "rounds": 6, "held": 180, "reasons": {},
+     "frame": "delta",
+     "digest": "ae6979acfd93d4065a0527553723a007b0043cfc0c1282a3137ae98c"
+               "1a38303d"},
+    {"label": "cycle6", "now": 206.0, "admitted": 30, "evicted": 0,
+     "rounds": 6, "held": 210, "reasons": {},
+     "frame": "delta",
+     "digest": "f0300105abea815d8ae83b7cbc510de097e83522bf454b24100df228"
+               "12ce7bd1"},
+    {"label": "cycle7", "now": 207.0, "admitted": 30, "evicted": 0,
+     "rounds": 6, "held": 240, "reasons": {},
+     "frame": "delta",
+     "digest": "e311bc0f15b712511e2bf6a74e3b6cc500646e4ef8487c436fcd9253"
+               "537dc844"},
+    {"label": "cycle8", "now": 208.0, "admitted": 30, "evicted": 0,
+     "rounds": 6, "held": 270, "reasons": {},
+     "frame": "delta",
+     "digest": "ebaeaccd72b07913b3c383fe38eb2dc24dd197ce4828e9c257059fb2"
+               "02ed3aad"},
+    {"label": "cycle9", "now": 209.0, "admitted": 30, "evicted": 0,
+     "rounds": 6, "held": 300, "reasons": {},
+     "frame": "delta",
+     "digest": "16f8abd131f764d08023ca1e953e5b79085572d676a956e78a45323c"
+               "803c0a89"},
+    {"label": "cycle10", "now": 210.0, "admitted": 30, "evicted": 0,
+     "rounds": 6, "held": 330, "reasons": {},
+     "frame": "delta",
+     "digest": "1315edc0b53d2f36841976a988dd9166ee0b7287ef8b743d9d828b26"
+               "9397e051"},
+]
 AFS_REFERENCE = {
     "admitted": 600, "evicted": 0, "rounds": 22, "held": 600,
     "digest": "98a7dccfc9b09fb8e496277cf113dbb7a5107fc943c8e711863c1fda44"
@@ -436,6 +534,7 @@ def drain_with_stepwise_placer(device):
     engine = SolverEngine(store, queues)
     engine._tas_placer = StepwisePlacer(engine.device)
     before = cuda_tas.leaf_states.launches
+    _settle()
     t0 = time.monotonic()
     result = engine.drain(now=0.0)
     torch.cuda.synchronize()
@@ -454,10 +553,10 @@ def drain_with_stepwise_placer(device):
 def _quota_checks(store) -> None:
     """No ClusterQueue above nominal + borrowing limit and no cohort
     above its members' nominal quota, summed over the workloads that
-    hold quota now."""
+    hold quota now (a finished workload released its quota)."""
     cq_cpu: dict[str, int] = {}
     for wl in store.workloads.values():
-        if wl.is_quota_reserved:
+        if wl.is_quota_reserved and not wl.is_finished:
             adm = wl.status.admission
             cq_cpu[adm.cluster_queue] = cq_cpu.get(adm.cluster_queue, 0) + sum(
                 psa.resource_usage.get("cpu", 0)
@@ -520,7 +619,7 @@ def _check_storm_wave(store, result, before, reference) -> dict:
 
 def _reserved_state(store):
     reserved = {k for k, w in store.workloads.items()
-                if w.is_quota_reserved}
+                if w.is_quota_reserved and not w.is_finished}
     cq_of = {k: store.workloads[k].status.admission.cluster_queue
              for k in reserved}
     used: dict[str, int] = {}
@@ -553,6 +652,7 @@ def storm_drain() -> dict:
 
     store, wave1, wave2 = baseline_preempt_store(types, Store)
     engine = SolverEngine(store, QueueManager(store))
+    engine.use_sessions = False  # STORM_REFERENCE pins sessions off
     out = {}
     for name, now, wave, reference in (
             ("wave1", 100.0, wave1, STORM_REFERENCE[0]),
@@ -562,6 +662,7 @@ def storm_drain() -> dict:
         before = _reserved_state(store)
         cuda_tas.leaf_states.launches = 0
         cuda_tas.tas_place_sequential.launches = 0
+        _settle()
         t0 = time.monotonic()
         result = engine.drain(now=now)
         torch.cuda.synchronize()
@@ -594,9 +695,11 @@ def tas_full_drain() -> tuple:
     store = tas_drain_store(types, Store, n_workloads=1500, preempt=True)
     queues = QueueManager(store)
     engine = SolverEngine(store, queues)
+    engine.use_sessions = False
     cuda_tas.leaf_states.launches = 0
     cuda_tas.tas_place_sequential.launches = 0
     cuda_tas.tas_place_sequential.steps = 0
+    _settle()
     t0 = time.monotonic()
     result = engine.drain(now=0.0)
     torch.cuda.synchronize()
@@ -640,6 +743,15 @@ def _launches() -> int:
             + cuda_tas.tas_place_sequential.launches)
 
 
+def _settle() -> None:
+    """A full garbage-collector pass before a timed drain. Building a
+    store of thousands of workloads leaves one due, and it would land in
+    whichever phase of the next drain allocates enough first, so the
+    drains are timed without that set-up debt and their phase times do
+    not depend on where the pass falls."""
+    gc.collect()
+
+
 def _cq_shares(store) -> dict:
     """Each ClusterQueue's dominant resource share (host DRS)."""
     from kueue_oss_tpu_torch.core.quota import dominant_resource_share
@@ -653,8 +765,6 @@ def _cq_shares(store) -> dict:
 def fair_storm_drain() -> tuple:
     """Phase 8: the fair reclamation storm at full size, two waves.
     Returns (timings, TAS kernel launches)."""
-    import collections
-
     import torch
 
     from kueue_oss_tpu_torch.api import types
@@ -666,6 +776,7 @@ def fair_storm_drain() -> tuple:
     store, wave1, wave2 = fair_reclaim_store(types, Store)
     engine = SolverEngine(store, QueueManager(store),
                           enable_fair_sharing=True)
+    engine.use_sessions = False  # FAIR_REFERENCE pins sessions off
     out, launches = {}, 0
     for name, now, wave, reference in (
             ("wave1", 100.0, wave1, FAIR_REFERENCE[0]),
@@ -674,6 +785,7 @@ def fair_storm_drain() -> tuple:
             store.add_workload(wl)
         before = _reserved_state(store)
         _reset_launches()
+        _settle()
         t0 = time.monotonic()
         result = engine.drain(now=now)
         torch.cuda.synchronize()
@@ -706,8 +818,6 @@ def fair_storm_drain() -> tuple:
 def afs_drain() -> tuple:
     """Phase 9: the admission-fair-sharing backlog at full size.
     Returns (timings, TAS kernel launches)."""
-    import collections
-
     import torch
 
     from kueue_oss_tpu_torch.api import types
@@ -722,9 +832,11 @@ def afs_drain() -> tuple:
 
     store, afs, backlog = afs_baseline_store(types, Store, AfsManager)
     engine = SolverEngine(store, QueueManager(store, afs=afs))
+    engine.use_sessions = False  # AFS_REFERENCE pins sessions off
     for wl in backlog:
         store.add_workload(wl)
     _reset_launches()
+    _settle()
     t0 = time.monotonic()
     result = engine.drain(now=60.0)
     torch.cuda.synchronize()
@@ -749,6 +861,144 @@ def afs_drain() -> tuple:
     print(f"[afs] plan matches the reference {got}; FULL drain counters "
           + json.dumps(_stats(result)) + f"; {json.dumps(out)}")
     return out, launches
+
+
+def _decisions(store, result) -> tuple:
+    """A drain's decisions, row order aside: each admitted key's
+    ClusterQueue and flavors, each evicted key's Preempted reason."""
+    adm = {}
+    for key in result.admitted_keys:
+        a = store.workloads[key].status.admission
+        adm[key] = (a.cluster_queue, [sorted(p.flavors.items())
+                                      for p in a.podset_assignments])
+    ev = {k: store.workloads[k].status.conditions["Preempted"].reason
+          for k in result.evicted_keys}
+    return adm, ev
+
+
+def _frame_summary(result) -> dict:
+    """The session frame's kind, dirty rows and update bytes (the
+    row-update and replacement payload a delta ships)."""
+    import numpy as np
+
+    frame = result.frame
+    if frame is None:
+        return {"frame": None}
+    if frame.delta is None:
+        return {"frame": frame.full_reason}
+    rows = [idx for idx, _ in frame.delta.row_updates.values()]
+    dirty = int(np.unique(np.concatenate(rows)).size) if rows else 0
+    return {"frame": "delta", "dirty_rows": dirty,
+            "update_bytes": frame.delta.payload_bytes(),
+            "fields": sorted(frame.delta.row_updates),
+            "replaced": sorted(frame.delta.repl)}
+
+
+def storm_churn_drain() -> tuple:
+    """Phase 10: the baseline storm under churn, sessions on, against
+    the JAX plans, with a sessions-off twin. Returns (per-drain report,
+    TAS kernel launches)."""
+    import numpy as np
+    import torch
+
+    from kueue_oss_tpu_torch.api import types
+    from kueue_oss_tpu_torch.core.eviction import finish_workload
+    from kueue_oss_tpu_torch.core.queue_manager import QueueManager
+    from kueue_oss_tpu_torch.core.store import Store
+    from kueue_oss_tpu_torch.scenarios import (
+        baseline_preempt_store,
+        storm_churn_drains,
+    )
+    from kueue_oss_tpu_torch.solver.engine import SolverEngine
+
+    def setup(sessions: bool):
+        store, wave1, wave2 = baseline_preempt_store(types, Store)
+        queues = QueueManager(store)
+        engine = SolverEngine(store, queues)
+        engine.use_sessions = sessions
+        steps = storm_churn_drains(
+            types, store, wave1, wave2,
+            lambda key, now: finish_workload(store, queues, key, now))
+        return store, engine, steps
+
+    store, engine, steps = setup(True)
+    twin_store, twin, twin_steps = setup(False)
+    if not engine.use_sessions:
+        raise AssertionError("sessions are not the engine's default")
+    out, launches = [], 0
+    for i, ((label, now), step) in enumerate(zip(steps, twin_steps)):
+        reference = STORM_CHURN_REFERENCE[i]
+        if (label, now) != (reference["label"], reference["now"]) or (
+                step != (label, now)):
+            raise AssertionError(f"drain {i}: {label} at {now}, twin "
+                                 f"{step}, reference {reference['label']}")
+        row = {"label": label}
+        for name, st, eng, ref in (
+                ("sessions", store, engine, reference),
+                ("twin", twin_store, twin, None)):
+            before = _reserved_state(st)
+            _reset_launches()
+            _settle()
+            t0 = time.monotonic()
+            result = eng.drain(now=now)
+            torch.cuda.synchronize()
+            wall = time.monotonic() - t0
+            launches += _launches()
+            if _launches():
+                raise AssertionError("the storm has no TAS flavor, yet a "
+                                     "TAS kernel launched")
+            if ref is not None:
+                want = {k: ref[k] for k in ("admitted", "evicted", "rounds",
+                                            "held", "digest")}
+                got = _check_storm_wave(st, result, before, want)
+                reasons = dict(collections.Counter(
+                    st.workloads[k].status.conditions["Preempted"].reason
+                    for k in result.evicted_keys))
+                frame = _frame_summary(result)
+                if (reasons != ref["reasons"]
+                        or frame["frame"] != ref["frame"]):
+                    raise AssertionError(
+                        f"{label}: reasons {reasons}, frame {frame} != "
+                        f"reference {ref['reasons']}, {ref['frame']}")
+                decisions = _decisions(st, result)
+                row.update(frame)
+            else:
+                _quota_checks(st)
+                if _decisions(st, result) != decisions:
+                    raise AssertionError(f"{label}: the sessions-off twin "
+                                         f"decided otherwise")
+            row[name] = {"drain_s": wall, "rounds": result.rounds,
+                         **{f"{k}_s": v for k, v in result.phases.items()},
+                         **result.device, **result.export_stats}
+        out.append(row)
+        print(f"[storm churn {label}] plan matches the reference "
+              f"({got['admitted']} admitted, {got['evicted']} evicted, "
+              f"{got['rounds']} rounds); twin agrees; " + json.dumps(row))
+
+    dev = engine._device_states["full"]
+    slotted = engine._delta_sessions["full"]._last_slotted
+    fresh = dev._host(slotted, True)
+    for name, t, h in zip(dev.tensors._fields, dev.tensors, fresh):
+        if not torch.equal(t, torch.from_numpy(np.asarray(h)).to(t.device)):
+            raise AssertionError(f"resident {name} differs from a fresh "
+                                 f"upload of the last slotted problem")
+    kinds = [r["frame"] for r in out]
+    n_delta = kinds.count("delta")
+    if (dev.apply_faults or dev.delta_updates != n_delta
+            or dev.full_uploads != len(kinds) - n_delta):
+        raise AssertionError(
+            f"resident state: {dev.full_uploads} full uploads, "
+            f"{dev.delta_updates} delta updates, {dev.apply_faults} "
+            f"faults for frames {kinds}")
+    print(f"[storm churn] resident FULL tensors equal a fresh upload of "
+          f"the last slotted problem; {dev.full_uploads} full uploads "
+          f"({dev.donated_full_syncs} in place), {dev.delta_updates} delta "
+          f"updates, {dev.full_upload_bytes} full-upload bytes, "
+          f"{dev.donated_update_bytes} bytes written in place")
+    return {"drains": out, "full_uploads": dev.full_uploads,
+            "delta_updates": dev.delta_updates,
+            "donated_full_syncs": dev.donated_full_syncs,
+            "resident_bytes": dev.resident_bytes()}, launches
 
 
 def main() -> int:
@@ -797,6 +1047,7 @@ def main() -> int:
     cuda_tas.leaf_states.launches = 0
     cuda_tas.tas_place_sequential.launches = 0
     cuda_tas.tas_place_sequential.steps = 0
+    _settle()
     t0 = time.monotonic()
     result = engine.drain(now=0.0)
     torch.cuda.synchronize()
@@ -811,11 +1062,17 @@ def main() -> int:
             f"({steps} steps) and {leaf_launches} leaf_states launches for "
             f"{placed} placements; expected 1 ({placed}) and 0")
     check_plan(store, queues, result)
+    if (result.frame is None or result.frame.full_reason != "first_sync"
+            or result.device.get("full_uploads") != 1):
+        raise AssertionError(f"main path: session frame {result.frame}, "
+                             f"device {result.device}; expected the "
+                             f"sessions' first sync")
     replay_err = _check_place("the drain's placement batch", step_tree,
                               list(step_batch))
     print(f"[main] 1 tas_place_sequential launch, {steps} steps, "
           f"0 leaf_states launches; the drain's batch agrees exactly "
-          f"(max abs err {replay_err})")
+          f"(max abs err {replay_err}); sessions on: first_sync, "
+          f"{result.device['full_upload_bytes']} bytes uploaded")
     reports[0]["launches"] = leaf_launches
     reports[1]["launches"] = place_launches
     reports[1]["steps"] = steps
@@ -831,21 +1088,27 @@ def main() -> int:
 
     # 9. the admission-fair-sharing backlog (FULL path, AFS)
     afs, afs_launches = afs_drain()
+
+    # 10. the storm under churn with delta sessions (FULL path)
+    churn, churn_launches = storm_churn_drain()
     reports[0]["launches_by_path"] = {"tas_lean": leaf_launches,
                                       "tas_full": 0, "storm_full": 0,
                                       "fair_storm": fair_launches,
-                                      "afs": afs_launches}
+                                      "afs": afs_launches,
+                                      "storm_churn": churn_launches}
     reports[1]["launches_by_path"] = {"tas_lean": place_launches,
                                       "tas_full": tas_full_launches,
                                       "storm_full": 0,
                                       "fair_storm": fair_launches,
-                                      "afs": afs_launches}
+                                      "afs": afs_launches,
+                                      "storm_churn": churn_launches}
 
     timings = {"setup_s": setup_s, "drain_s": drain_s,
                **{f"{k}_s": v for k, v in result.phases.items()},
                "rounds": result.rounds, "admitted": result.admitted,
                "stepwise_placer": step_phases, "storm": storm,
-               "tas_full": tas_full, "fair_storm": fair, "afs": afs}
+               "tas_full": tas_full, "fair_storm": fair, "afs": afs,
+               "storm_churn": churn}
     print("[timings] " + json.dumps(timings))
     print(smi)
     print(json.dumps({"kernels": reports}))

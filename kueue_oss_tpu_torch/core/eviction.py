@@ -1,6 +1,7 @@
-"""The eviction state machine the FULL drain's plan applies.
+"""The eviction state machine the FULL drain's plan applies, and the
+finish path a workload leaves by.
 
-A copy of the part of ``Scheduler.evict_workload``
+``evict_workload`` is a copy of the part of ``Scheduler.evict_workload``
 (``kueue_oss_tpu/scheduler/scheduler.py:1444-1565``) that the solver
 engine's ``_apply_full_plan`` uses: the Evicted / Preempted /
 QuotaReserved / Admitted condition writes, the admission and its
@@ -15,6 +16,11 @@ parked neighbours). Cut from the copy:
 - the exponential requeue backoff and its heap: preemption evictions
   never pass a backoff (only PodsReady evictions do, which the drain
   never issues).
+
+``finish_workload`` is a copy of ``Scheduler.finish_workload``
+(``kueue_oss_tpu/scheduler/scheduler.py:1650-1672``) without its
+metrics: the Finished condition releases the quota, and the queue
+manager flushes the cohort's parked workloads.
 """
 
 from __future__ import annotations
@@ -59,3 +65,16 @@ def evict_workload(store: Store, queues: QueueManager, key: str,
     wl.status.conditions.pop(WorkloadConditionType.PODS_READY, None)
     store.update_workload(wl)
     queues.report_workload_evicted(wl)
+
+
+def finish_workload(store: Store, queues: QueueManager, key: str,
+                    now: float = 0.0) -> None:
+    """Mark the workload Finished and release its quota (the job
+    framework's Finished path)."""
+    wl = store.workloads.get(key)
+    if wl is None:
+        return
+    wl.set_condition(WorkloadConditionType.FINISHED, True,
+                     reason="JobFinished", now=now)
+    store.update_workload(wl)
+    queues.report_workload_finished(wl)

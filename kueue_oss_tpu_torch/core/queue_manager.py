@@ -4,7 +4,7 @@ A copy of ``kueue_oss_tpu/core/queue_manager.py`` (reference:
 pkg/cache/queue/manager.go + cluster_queue.go) for BestEffortFIFO and
 StrictFIFO queues: the heap members, ordered by (priority desc, queue-order
 timestamp asc, uid), the inadmissible (parked) set, and the cohort
-flush when capacity frees (a workload deleted or evicted). The drain
+flush when capacity frees (a workload deleted, evicted or finished). The drain
 reads ``snapshot_order`` and ``inadmissible`` and writes
 ``delete``/``park``; an eviction re-queues the workload through its
 store update and flushes its cohort. The flush is the JAX package's
@@ -173,6 +173,13 @@ class QueueManager:
         my_root = root_of(spec.cohort)
         return [name for name, other in self.store.cluster_queues.items()
                 if other.cohort and root_of(other.cohort) == my_root]
+
+    def report_workload_finished(self, wl: Workload) -> None:
+        """A finished workload's freed capacity wakes the parked
+        workloads of the cohort."""
+        cq = self._cq_for(wl)
+        if cq is not None:
+            self.flush_cohort_for(cq)
 
     def report_workload_evicted(self, wl: Workload) -> None:
         """Freed capacity wakes the parked workloads of the cohort."""

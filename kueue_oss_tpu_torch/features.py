@@ -19,6 +19,7 @@ _DEFAULTS: dict[str, bool] = {
     "ConcurrentAdmission": False,      # core/queue_manager.py CA parents
     "PriorityBoost": False,            # core/workload_info.py priority
     "SchedulingEquivalenceHashing": True,  # solver/tensors.py NoFit classes
+    "SchedulerTimestampPreemptionBuffer": False,  # solver wl_ts_buf ranks
     # read by solver/fair_kernels.py
     "PrioritySortingWithinCohort": True,      # entry tournament priority key
     "FairSharingPreemptWithinNominal": True,  # within-nominal bypass

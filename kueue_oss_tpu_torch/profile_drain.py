@@ -1,8 +1,8 @@
 """Where the drains' time goes on the card.
 
-    python3 -m kueue_oss_tpu_torch.profile_drain
+    python3 -m kueue_oss_tpu_torch.profile_drain [--churn]
 
-Three scenarios:
+Three scenarios by default:
 
 - ``tas_drain``: the lean TAS drain (``scenarios.tas_drain_store``) at
   the full tree and ClusterQueue widths but 1,500 workloads instead of
@@ -17,6 +17,15 @@ Three scenarios:
   storm's second wave (``scenarios.fair_reclaim_store`` at full size,
   7 rounds, 200 evictions), measured alone: its first wave is drained
   before the measurement starts.
+
+With ``--churn``, one scenario instead:
+
+- ``storm_churn``: the first measured cycle (cycle 3) of the baseline
+  storm under the finish-and-arrive churn
+  (``scenarios.storm_churn_drains``: both waves, two warm-up cycles of
+  30 finishes and 75 arrivals) with delta sessions on (the engine's
+  default), measured alone: the earlier drains run before the
+  measurement starts.
 
 Each scenario runs three times on the CUDA device: once plain, for the
 wall time and its phases; once under ``torch.profiler``, for the device
@@ -121,6 +130,43 @@ def _fair_wave2(around=contextlib.nullcontext):
     return [result], wall
 
 
+def _churn_cycle(around=contextlib.nullcontext):
+    """The storm's first measured churn cycle, inside ``around()``,
+    after both waves and the warm-up cycles; returns ([result], wall
+    seconds)."""
+    import torch
+
+    from kueue_oss_tpu_torch.api import types
+    from kueue_oss_tpu_torch.core.eviction import finish_workload
+    from kueue_oss_tpu_torch.core.queue_manager import QueueManager
+    from kueue_oss_tpu_torch.core.store import Store
+    from kueue_oss_tpu_torch.scenarios import (
+        StormChurn,
+        baseline_preempt_store,
+        storm_churn_drains,
+    )
+    from kueue_oss_tpu_torch.solver.engine import SolverEngine
+
+    store, wave1, wave2 = baseline_preempt_store(types, Store)
+    queues = QueueManager(store)
+    engine = SolverEngine(store, queues)
+    measured = f"cycle{StormChurn.WARM_CYCLES + 1}"
+    for label, now in storm_churn_drains(
+            types, store, wave1, wave2,
+            lambda key, t: finish_workload(store, queues, key, t)):
+        if label != measured:
+            engine.drain(now=now)
+            continue
+        torch.cuda.synchronize()
+        with around():
+            t0 = time.monotonic()
+            result = engine.drain(now=now)
+            torch.cuda.synchronize()
+            wall = time.monotonic() - t0
+        return [result], wall
+    raise AssertionError(f"no {measured} in the churn sequence")
+
+
 def _device_us(evt) -> float:
     for name in ("self_device_time_total", "self_cuda_time_total"):
         v = getattr(evt, name, None)
@@ -141,6 +187,10 @@ def main() -> int:
         check=True, timeout=60).stdout.strip().splitlines()[0]
 
     _tas_drain(n_workloads=200)  # warm-up: build, CUDA context, allocator
+    if "--churn" in sys.argv[1:]:
+        print(json.dumps({"card": smi,
+                          "storm_churn": _profile(_churn_cycle)}))
+        return 0
     print(json.dumps({"card": smi,
                       "tas_drain": _profile(_tas_drain),
                       "storm": _profile(_storm_drain),
@@ -201,6 +251,10 @@ def _profile(drain) -> dict:
         "host_syncs": sum(syncs.values()),
         "host_syncs_by_line": dict(syncs.most_common()),
         "full_stats": [vars(st) for st in full],
+        "frames": [None if r.frame is None else
+                   ("delta" if r.frame.delta is not None
+                    else r.frame.full_reason) for r in plain],
+        "device_updates": [r.device for r in plain],
     }
 
 

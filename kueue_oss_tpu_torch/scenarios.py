@@ -27,6 +27,11 @@ arguments, so identical stores (names, uids, creation times) can be
 built for any package that has the same object model; the TAS draw
 order matches ``bench.py`` exactly.
 
+``StormChurn`` is the finish-and-arrive churn cycle of ``bench.py``'s
+delta-session scenario (bench.py:769-800) over a store: each cycle
+finishes up to ``churn`` quota-holding workloads and submits ``churn``
+new single-pod ones, the steady state a deployed control plane drains in.
+
 ``drain_placer_batch`` and ``random_placer_tree`` /
 ``random_placer_requests`` make inputs of the sequential TAS placer
 (``cuda_tas.tas_place_sequential``) from a seed with numpy: the drain's
@@ -266,6 +271,74 @@ def heterogeneous_preempt_store(types, store_cls, *, n_cohorts: int = 2,
     _preempting_cqs(types, store, n_cohorts, cqs_per_cohort, groups)
     return (store,) + _waves(types, n_cohorts, cqs_per_cohort,
                              HETERO_CLASSES, scale)
+
+
+class StormChurn:
+    """The churn cycle of bench.py:769-800 on a filled store.
+
+    Built after the store's waves were added: the new workloads copy the
+    requests of the store's first workload, go round-robin over the
+    sorted LocalQueue names of its workloads, and number their uids and
+    creation times on from the largest in the store. ``cycle(c, finish)``
+    finishes the first ``churn`` quota-holding, unfinished workloads in
+    ``store.workloads`` order through ``finish(key, now)``, submits the
+    cycle's ``churn`` arrivals and returns ``now``, at which the caller
+    drains: ``t0 + c``. bench.py drains first at 0, so its cycles run at
+    ``now = c``; a caller whose earlier drains ran later passes their
+    time as ``t0`` to keep the clock monotone. ``types`` is the API types
+    module of the store's package, so identical cycles run on either
+    package's store."""
+
+    #: cycles that let the churn settle in, then the measured ones
+    WARM_CYCLES = 2
+    MEASURED_CYCLES = 8
+
+    def __init__(self, types, store, churn: int, t0: float = 0.0) -> None:
+        self.types = types
+        self.store = store
+        self.churn = churn
+        self.t0 = t0
+        wls = list(store.workloads.values())
+        self.lqs = sorted({w.queue_name for w in wls})
+        self.requests = dict(wls[0].podsets[0].requests)
+        self.uid0 = max(w.uid for w in wls) + 1
+        self.t_base = max(w.creation_time for w in wls) + 1.0
+
+    def cycle(self, c: int, finish) -> float:
+        """Finish and submit cycle ``c``'s workloads; returns the time
+        to drain at."""
+        now = self.t0 + c
+        holding = [k for k, w in self.store.workloads.items()
+                   if w.is_quota_reserved and not w.is_finished]
+        for key in holding[:self.churn]:
+            finish(key, now)
+        for j in range(self.churn):
+            i = self.uid0 + c * self.churn + j
+            self.store.add_workload(self.types.Workload(
+                name=f"churn-{c}-{j}", queue_name=self.lqs[i % len(self.lqs)],
+                uid=i, creation_time=self.t_base + c * self.churn + j,
+                podsets=[self.types.PodSet(name="main", count=1,
+                                           requests=dict(self.requests))]))
+        return now
+
+
+def storm_churn_drains(types, store, wave1, wave2, finish):
+    """The drains of the baseline storm under churn, in order: yields
+    (label, now) once the store holds what that drain must see. Wave 1
+    at now = 100, wave 2 at 200 (chip_smoke.py's phase 6), then
+    ``StormChurn`` with ``churn = n_workloads // 200`` from t0 = 200: two
+    warm-up and eight measured cycles. ``finish(key, now)`` is the
+    package's finish path; the caller drains after each yield."""
+    for wl in wave1:
+        store.add_workload(wl)
+    yield "wave1", 100.0
+    for wl in wave2:
+        store.add_workload(wl)
+    yield "wave2", 200.0
+    churn = StormChurn(types, store, len(store.workloads) // 200, t0=200.0)
+    for c in range(1, StormChurn.WARM_CYCLES + StormChurn.MEASURED_CYCLES
+                   + 1):
+        yield f"cycle{c}", churn.cycle(c, finish)
 
 
 def preempt_plan_rows(store, result) -> list:

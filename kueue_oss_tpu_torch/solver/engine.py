@@ -6,16 +6,25 @@ pending backlog on the device and commits it:
 
 - the lean drain (no ClusterQueue admitting this drain has preemption
   or more than one resource group): ``pending_backlog`` ->
-  ``export_problem`` -> ``pad_workloads`` -> ``to_device`` ->
-  ``solve_backlog`` -> ``_apply_plan``;
+  ``export_problem`` -> ``pad_workloads`` -> ``_session_encode`` ->
+  ``_local_tensors`` -> ``solve_backlog`` -> ``_apply_plan``;
 - the FULL drain (preemption, several resource groups, fair sharing
   with ``enable_fair_sharing``, or admission fair sharing with an
   ``AfsManager`` on the queues): ``export_problem(include_admitted=True,
-  parked=..., afs=..., now=...)`` -> ``_size_caps`` ->
-  ``solve_backlog_full(fs_enabled=...)`` -> ``_apply_full_plan``, which
-  applies the evictions first (``core/eviction.py``), then the
-  admissions in (round, entry) order with a flavor per resource group,
-  then the parking.
+  parked=..., afs=..., now=...)`` -> ``_size_caps`` -> the same pad,
+  encode and upload -> ``solve_backlog_full(fs_enabled=...)`` ->
+  ``_apply_full_plan``, which applies the evictions first
+  (``core/eviction.py``), then the admissions in (round, entry) order
+  with a flavor per resource group, then the parking.
+
+The export goes through the engine's cross-drain ``ExportCache`` and
+its columnar view. With delta sessions on (the default;
+``use_sessions = False`` turns them off) each kind's
+``HostDeltaSession`` re-lays the padded export into stable slots and
+ranks, and a ``DeviceResidentProblem`` keeps the tensors on the device,
+writing only a delta's dirty rows; the plan decodes the slotted
+``wl_keys``, in which a free slot holds ``""``. Without sessions every
+drain uploads the whole padded problem.
 
 Admitted topology-aware (TAS) workloads are placed by the sequential
 device placer (``_compute_tas_assignments``) before
@@ -26,8 +35,8 @@ raises ``NotImplementedError`` (the host oracle re-check is a later
 slice).
 Cut from the copy: metrics, the obs recorder and cycle ledger, tracer
 spans, persistence intents, the degradation ladder, the remote sidecar,
-mesh and relaxed-LP arms, delta sessions and resident device state, and
-the columnar export cache.
+and the mesh and relaxed-LP arms (so the pad target is the pow2
+high-water mark and the session interleave is 1).
 """
 
 from __future__ import annotations
@@ -51,6 +60,11 @@ from kueue_oss_tpu_torch.core.snapshot import build_snapshot
 from kueue_oss_tpu_torch.core.store import Store
 from kueue_oss_tpu_torch.core.workload_info import WorkloadInfo
 from kueue_oss_tpu_torch.device import resolve_device
+from kueue_oss_tpu_torch.solver.delta import (
+    DeviceResidentProblem,
+    HostDeltaSession,
+    SessionFrame,
+)
 from kueue_oss_tpu_torch.solver.fair_kernels import V_FAIR_SHARING
 from kueue_oss_tpu_torch.solver.full_kernels import (
     V_HIERARCHICAL_RECLAIM,
@@ -67,6 +81,7 @@ from kueue_oss_tpu_torch.solver.tas_engine import (
     device_tas_supported,
 )
 from kueue_oss_tpu_torch.solver.tensors import (
+    ExportCache,
     SolverProblem,
     export_problem,
     pad_workloads,
@@ -82,6 +97,10 @@ _VARIANT_REASON = {
     V_RECLAIM_WHILE_BORROWING: "InCohortReclaimWhileBorrowing",
     V_FAIR_SHARING: "InCohortFairSharing",
 }
+#: DeviceResidentProblem counters a drain reports (per-drain deltas)
+_DEVICE_COUNTERS = ("full_uploads", "delta_updates", "full_upload_bytes",
+                    "donated_update_bytes", "donated_full_syncs",
+                    "apply_faults")
 #: FULL drain lanes per round: up to the ClusterQueue count and this cap
 H_MAX_CAP = 1024
 #: the FULL drain's per-round search budget in lane x option x group
@@ -100,12 +119,23 @@ class DrainResult:
     admitted_keys: list[str] = field(default_factory=list)
     #: the evicted workloads' keys, in workload row order
     evicted_keys: list[str] = field(default_factory=list)
-    #: wall seconds by phase: export, solve, placement, apply (apply
-    #: includes placement)
+    #: wall seconds by phase: export (with its columnar split
+    #: export_walk / export_scatter), encode (the delta session),
+    #: device_put (the upload or the resident update), solve (the drain
+    #: and the plan read-back), placement, apply (includes placement)
     phases: dict[str, float] = field(default_factory=dict)
     #: the FULL drain's lanes, loop iterations and host reads (None on
     #: the lean path)
     full_stats: Optional[FullDrainStats] = None
+    #: the columnar export's mode, dirty rows and rows (empty when the
+    #: cache has no columnar view)
+    export_stats: dict = field(default_factory=dict)
+    #: the delta session's frame (None with sessions off)
+    frame: Optional[SessionFrame] = None
+    #: this drain's device upload counters: full_uploads,
+    #: full_upload_bytes, and with sessions delta_updates,
+    #: donated_update_bytes, donated_full_syncs, apply_faults
+    device: dict = field(default_factory=dict)
 
 
 class SolverEngine:
@@ -119,10 +149,22 @@ class SolverEngine:
         #: fair sharing (KEP-1714): the DRS entry order and the fair
         #: preemption strategies, on the device (solver/fair_kernels.py)
         self.enable_fair_sharing = enable_fair_sharing
+        #: pad the workload axis to at least this size (callers that
+        #: drain a growing backlog set the expected peak, so the padded
+        #: axis and the session's slot capacity never change)
+        self.pad_to = 0
         #: sticky pad high-water mark: the padded workload axis never
         #: shrinks across drains (the JAX engine's recompile guard; the
         #: axis length also sets the drain's round bound)
         self._pad_hwm = 0
+        #: cross-drain export memo (event-invalidated) with its columnar
+        #: view
+        self.export_cache = ExportCache(store)
+        #: delta sessions, one per drain kind, and the resident device
+        #: state of each kind
+        self.use_sessions = True
+        self._delta_sessions: dict[str, HostDeltaSession] = {}
+        self._device_states: dict[str, DeviceResidentProblem] = {}
         self._tas_placer: Optional[DeviceTASPlacer] = None
         #: TAS CQs on the device path for the current drain
         self._drain_tas_ready: set[str] = set()
@@ -199,15 +241,22 @@ class SolverEngine:
             return self._drain_full(now, pending)
         result = DrainResult()
         te = time.monotonic()
-        problem = export_problem(self.store, pending)
-        result.phases["export"] = time.monotonic() - te
+        problem = export_problem(self.store, pending,
+                                 cache=self.export_cache)
+        self._note_export_phase(result, time.monotonic() - te)
         if problem.n_workloads == 0:
             return result
-        self._pad_hwm = max(self._pad_hwm, pow2(problem.n_workloads))
+        # the columnar hint rides the unpadded export (its row positions
+        # survive padding)
+        hint = getattr(problem, "_columnar_hint", None)
+        self._pad_hwm = max(self._pad_hwm,
+                            pow2(max(problem.n_workloads, self.pad_to)))
         problem = pad_workloads(problem, self._pad_hwm)
+        problem, frame = self._session_encode("lean", problem, hint, result)
+        tensors = self._local_tensors(problem, frame, False, result)
 
         t0 = time.monotonic()
-        out = solve_backlog(to_device(problem, self.device))
+        out = solve_backlog(tensors)
         admitted, opt, admit_round, parked, rounds, _usage = (
             a.cpu().numpy() for a in out)
         result.rounds = int(rounds)
@@ -218,6 +267,72 @@ class SolverEngine:
                          result)
         result.phases["apply"] = time.monotonic() - t1
         return result
+
+    # -- delta sessions and resident device state --------------------------
+
+    def _note_export_phase(self, result: DrainResult,
+                           wall_s: float) -> None:
+        """The export's wall time and the columnar view's walk / scatter
+        split and dirty-row counts."""
+        result.phases["export"] = wall_s
+        col = self.export_cache.columnar
+        stats = col.last_stats if col is not None else {}
+        if stats:
+            result.phases["export_walk"] = stats.get("walk_s", 0.0)
+            result.phases["export_scatter"] = stats.get("scatter_s", 0.0)
+            result.export_stats = {
+                "export_mode": stats.get("mode", ""),
+                "export_dirty_rows": int(stats.get("dirty_rows", 0)),
+                "export_rows": int(stats.get("rows", 0))}
+
+    def _session_encode(self, kind: str, problem: SolverProblem, hint,
+                        result: DrainResult):
+        """The stable slot / rank re-encoding and its frame; (problem,
+        None) with sessions off."""
+        if not self.use_sessions:
+            return problem, None
+        sess = self._delta_sessions.get(kind)
+        if sess is None:
+            # the FULL drain has no wl_rank tensor (FIFO order rides the
+            # timestamp ranks); holding it inert keeps per-CQ rank
+            # ripples out of the FULL session's deltas
+            neutral = ("wl_rank",) if kind == "full" else ()
+            sess = HostDeltaSession(cache=self.export_cache,
+                                    neutral_fields=neutral)
+            self._delta_sessions[kind] = sess
+        sess.set_interleave(1)
+        # the session is local: no receiver recomputes state_checksum,
+        # so fast-path frames may chain the cheap delta checksum
+        sess.cheap_checksum = True
+        t0 = time.monotonic()
+        slotted, frame = sess.advance(problem, hint=hint)
+        result.phases["encode"] = time.monotonic() - t0
+        result.frame = frame
+        return slotted, frame
+
+    def _local_tensors(self, problem: SolverProblem,
+                       frame: Optional[SessionFrame], full: bool,
+                       result: DrainResult):
+        """The drain's device tensors: with a frame, the kind's resident
+        state updated by it; without, a fresh upload."""
+        t0 = time.monotonic()
+        if frame is None:
+            tensors = (to_device_full(problem, self.device) if full
+                       else to_device(problem, self.device))
+            result.device = {"full_uploads": 1, "full_upload_bytes": sum(
+                int(a.numel() * a.element_size()) for a in tensors)}
+        else:
+            kind = "full" if full else "lean"
+            dev = self._device_states.get(kind)
+            if dev is None:
+                dev = self._device_states[kind] = DeviceResidentProblem(
+                    self.device)
+            before = {k: getattr(dev, k) for k in _DEVICE_COUNTERS}
+            tensors = dev.update(problem, frame, full)
+            result.device = {k: getattr(dev, k) - before[k]
+                             for k in _DEVICE_COUNTERS}
+        result.phases["device_put"] = time.monotonic() - t0
+        return tensors
 
     def _compute_tas_assignments(self, candidates, result: DrainResult):
         """Device-place admitted TAS candidates in admission order.
@@ -367,22 +482,26 @@ class SolverEngine:
         te = time.monotonic()
         problem = export_problem(self.store, pending, include_admitted=True,
                                  parked=parked_map, afs=self.queues.afs,
-                                 now=now)
-        result.phases["export"] = time.monotonic() - te
+                                 now=now, cache=self.export_cache)
+        self._note_export_phase(result, time.monotonic() - te)
         if problem.n_workloads == 0:
             return result
+        hint = getattr(problem, "_columnar_hint", None)
         g_max = int(problem.cq_ngroups.max())
         h_max, p_max = self._size_caps(problem)
-        self._pad_hwm = max(self._pad_hwm, pow2(problem.n_workloads))
+        afs = bool(problem.cq_afs.any())
+        self._pad_hwm = max(self._pad_hwm,
+                            pow2(max(problem.n_workloads, self.pad_to)))
         problem = pad_workloads(problem, self._pad_hwm)
+        problem, frame = self._session_encode("full", problem, hint, result)
+        tensors = self._local_tensors(problem, frame, True, result)
 
         t0 = time.monotonic()
         stats = FullDrainStats()
-        out = solve_backlog_full(to_device_full(problem, self.device),
-                                 g_max=g_max, h_max=h_max, p_max=p_max,
-                                 stats=stats,
+        out = solve_backlog_full(tensors, g_max=g_max, h_max=h_max,
+                                 p_max=p_max, stats=stats,
                                  fs_enabled=self.enable_fair_sharing,
-                                 afs=bool(problem.cq_afs.any()))
+                                 afs=afs)
         (admitted, opt, admit_round, parked, rounds, _usage, _wl_usage,
          victim_reason) = (a.cpu().numpy() for a in out)
         stats.syncs += 1  # the plan's read-back

@@ -72,14 +72,21 @@ class ProblemTensors(NamedTuple):
     wl_valid: torch.Tensor
 
 
-def to_device(p: SolverProblem, device) -> ProblemTensors:
-    """Upload the problem to ``device`` (int32/bool dtypes kept)."""
+def host_tensors(p: SolverProblem) -> ProblemTensors:
+    """The lean drain's inputs as host (numpy) arrays (the resident
+    state of solver/delta.py builds its uploads from these)."""
     is_cq = np.zeros(p.parent.shape[0], dtype=bool)
     is_cq[p.cq_node] = True
     return ProblemTensors(**{
-        name: torch.as_tensor(np.ascontiguousarray(
-            is_cq if name == "is_cq" else getattr(p, name)), device=device)
+        name: is_cq if name == "is_cq" else getattr(p, name)
         for name in ProblemTensors._fields})
+
+
+def to_device(p: SolverProblem, device) -> ProblemTensors:
+    """Upload the problem to ``device`` (int32/bool dtypes kept)."""
+    return ProblemTensors(*(torch.as_tensor(np.ascontiguousarray(a),
+                                            device=device)
+                            for a in host_tensors(p)))
 
 
 # ---------------------------------------------------------------------------

@@ -13,11 +13,11 @@ fields (preemption policies, admitted rows, equivalence classes,
 option groups) are exported on every call, as the JAX package does,
 and so are the fair-sharing weights. With an ``AfsManager`` (``afs``)
 the admission-fair-sharing fields carry dense LocalQueue ids, entry
-penalties and the LocalQueues' decayed usage at ``now``. Cut from the
-copy: the
-cross-drain ``ExportCache`` and its columnar assembly view — the export
-here is the classic per-workload walk, with equivalence-class tokens
-interned afresh on every export (the JAX export with ``cache=None``).
+penalties and the LocalQueues' decayed usage at ``now``.
+
+``ExportCache`` is the cross-drain memo the engine keeps: per-workload
+rows, shapes interned for the request gather, class tokens, and the
+columnar view of ``solver/columnar.py``.
 """
 
 from __future__ import annotations
@@ -39,7 +39,7 @@ from kueue_oss_tpu_torch.api.types import (
     QueueingStrategy,
     ResourceFlavor,
 )
-from kueue_oss_tpu_torch.core.snapshot import build_snapshot
+from kueue_oss_tpu_torch.core.snapshot import Snapshot, build_snapshot
 from kueue_oss_tpu_torch.core.store import Store
 from kueue_oss_tpu_torch.core.workload_info import (
     WorkloadInfo,
@@ -54,6 +54,12 @@ BIG = np.int32(1 << 30)
 MAX_QUANTITY = 1 << 28
 
 
+#: same-priority preemption timestamp gap under the
+#: SchedulerTimestampPreemptionBuffer gate (preemption_policy.go:30; the
+#: JAX package keeps it in scheduler/preemption.py)
+TIMESTAMP_PREEMPTION_BUFFER_S = 300.0
+
+
 class UnsupportedProblem(Exception):
     """Raised when a backlog needs a drain this port does not have."""
 
@@ -64,6 +70,18 @@ def pow2(n: int) -> int:
     while p < n:
         p *= 2
     return p
+
+
+def ts_buffer_ranks(distinct_ts: np.ndarray, raw_ts: np.ndarray,
+                    inv_ts: np.ndarray) -> np.ndarray:
+    """The newer-equal threshold ranks (``wl_ts_buf``): each row's own
+    dense timestamp rank, or under the SchedulerTimestampPreemptionBuffer
+    gate the rank of the last distinct timestamp within the buffer."""
+    if features.enabled("SchedulerTimestampPreemptionBuffer"):
+        return np.searchsorted(
+            distinct_ts, raw_ts + TIMESTAMP_PREEMPTION_BUFFER_S,
+            side="right") - 1
+    return inv_ts
 
 
 #: preemption-policy encoding shared with the FULL drain
@@ -87,7 +105,9 @@ NO_THRESHOLD = np.int32(-(1 << 31) + 1)
 @dataclass
 class SolverProblem:
     """Dense drain instance. Node axis is [N+1] (last row = null node);
-    workload axis is [W+1] (last row = null workload)."""
+    workload axis is [W+1] (last row = null workload). The fields are
+    declared in the JAX ``SolverProblem``'s order, which
+    ``delta.state_checksum`` hashes them in."""
 
     # --- node (CQ + cohort) arrays, parents-first topo order -------------
     parent: np.ndarray        # [N+1] int32, null node index N for roots
@@ -106,6 +126,7 @@ class SolverProblem:
     cq_node: np.ndarray       # [C] int32 node index of each CQ
     cq_strict: np.ndarray     # [C] bool (StrictFIFO)
     cq_try_next: np.ndarray   # [C] bool (whenCanBorrow == TryNextFlavor)
+    cq_root_height: np.ndarray  # [C] int32 height of the CQ's root cohort
     cq_nflavors: np.ndarray   # [C] int32 number of flavor options
 
     # --- workload arrays --------------------------------------------------
@@ -118,7 +139,6 @@ class SolverProblem:
     wl_valid: np.ndarray      # [W+1, K] bool option exists & selectable
 
     # --- FULL drain fields ------------------------------------------------
-    cq_root_height: Optional[np.ndarray] = None  # [C] int32
     wl_parked0: Optional[np.ndarray] = None    # [W+1] bool initially parked
     wl_admitted0: Optional[np.ndarray] = None  # [W+1] bool initially admitted
     wl_evicted0: Optional[np.ndarray] = None   # [W+1] bool Evicted condition
@@ -283,50 +303,266 @@ def order_nodes(forest) -> list:
     return nodes
 
 
-def _workload_options(store: Store, info: WorkloadInfo, totals: dict,
-                      spec, fr_index: dict, K: int, F: int):
-    """(valid [K], req [K, F]) of one workload with request ``totals``:
-    for each flavor option, whether it is selectable and the request
-    totals it would charge."""
-    wl = info.obj
-    valid = np.zeros(K, dtype=bool)
-    req = np.zeros((K, F), dtype=np.int64)
-    covered = {r for rg in spec.resource_groups
-               for r in rg.covered_resources}
-    if not spec.resource_groups or any(
-            q > 0 and r not in covered for r, q in totals.items()):
-        # undeclared resource: no option can ever fit (oracle parity)
-        return valid, req
-    k = -1
-    for rg in spec.resource_groups:
-        allowed_keys = frozenset(
-            key for fq in rg.flavors
-            for key in store.resource_flavors.get(
-                fq.name, ResourceFlavor(name=fq.name)).node_labels)
-        for fq in rg.flavors:
-            k += 1
-            flavor = store.resource_flavors.get(fq.name)
-            if flavor is None:
-                continue
-            if (wl.allowed_flavor is not None
-                    and fq.name != wl.allowed_flavor):
-                continue
-            if not _flavor_compatible(info, flavor, allowed_keys):
-                continue
-            valid[k] = True
-            for rname, q in totals.items():
-                if rname in rg.covered_resources:
-                    req[k, fr_index[(fq.name, rname)]] = q
-    return valid, req
+class _WlRow:
+    """Per-workload cached export quantities (drain-invariant)."""
+
+    __slots__ = ("stamp", "cid", "prio", "uid", "raw_ts", "evicted",
+                 "shape_id", "class_tok", "lq_key", "totals",
+                 "usage_fs", "usage_qs", "admit_ts")
+
+    def __init__(self, stamp, cid, prio, uid, raw_ts, evicted, shape_id,
+                 class_tok, lq_key, totals, usage_fs, usage_qs, admit_ts):
+        self.stamp = stamp
+        self.cid = cid
+        self.prio = prio
+        self.uid = uid
+        self.raw_ts = raw_ts
+        self.evicted = evicted
+        self.shape_id = shape_id
+        self.class_tok = class_tok
+        self.lq_key = lq_key
+        self.totals = totals
+        self.usage_fs = usage_fs
+        self.usage_qs = usage_qs
+        self.admit_ts = admit_ts
+
+
+class ExportCache:
+    """Cross-drain memo for :func:`export_problem`.
+
+    Keeps per-workload rows and interns request tensors by scheduling
+    shape (CQ, pinned flavor, resource totals, per-podset selector /
+    tolerations: the inputs of the option-validity walk), so repeated
+    drains assemble ``wl_req`` / ``wl_valid`` with one gather. The
+    interning is cross-drain state: the shape stack feeds the unit
+    scale's gcd and the class tokens are session-stable, so a drain's
+    problem equals the JAX engine's only when both keep one cache.
+
+    Invalidation is event-driven: a Workload event drops that key's row;
+    any other kind bumps ``spec_gen``, which retires every derived table
+    through the stamp check on the next export. The stamp also holds
+    the FR vocabulary, the CQ name order and K; the JAX stamp's gate
+    values and requests-config generation are constants in the port
+    (``features``), so they are left out.
+    """
+
+    def __init__(self, store: Store, subscribe: bool = True) -> None:
+        self.store = store
+        self.spec_gen = 0
+        self.rows: dict[str, _WlRow] = {}
+        #: interned scheduling shapes; shape 0 is the all-invalid row
+        self._shape_ids: dict[tuple, int] = {}
+        self._shape_valid: list[np.ndarray] = []
+        self._shape_req: list[np.ndarray] = []
+        self._stack_valid: Optional[np.ndarray] = None
+        self._stack_req: Optional[np.ndarray] = None
+        #: interned (cid, scheduling_hash) -> class token; token -> root
+        self._class_toks: dict[tuple, int] = {}
+        self._tok_root: list[int] = []
+        self._stamp: Optional[tuple] = None
+        self._fr_index: dict[FlavorResource, int] = {}
+        #: per-spec-gen CQ tables: covered resources + selector key sets
+        self._cq_gen = -1
+        self._cq_covered: list[set] = []
+        self._cq_allowed_keys: list[list[frozenset]] = []
+        #: workload keys and CQ names touched since the last
+        #: consume_dirty(): delta-session frame statistics (the delta
+        #: itself compares content)
+        self.dirty_keys: set[str] = set()
+        self.dirty_cqs: set[str] = set()
+        self.events_seen = 0
+        #: incremental columnar assembly view (solver/columnar.py); only
+        #: subscribed caches get one, since an unsubscribed cache never
+        #: sees the events that invalidate its columns
+        self.columnar = None
+        if subscribe:
+            store.watch(self._on_event)
+            from kueue_oss_tpu_torch.solver.columnar import ColumnarStore
+
+            self.columnar = ColumnarStore(self)
+
+    def _on_event(self, event) -> None:
+        verb, kind, obj = event
+        self.events_seen += 1
+        if kind == "Workload":
+            self.rows.pop(obj.key, None)
+            self.dirty_keys.add(obj.key)
+            if self.columnar is not None:
+                self.columnar.note_dirty(obj.key)
+            lq = self.store.local_queues.get(
+                f"{obj.namespace}/{obj.queue_name}")
+            if lq is not None:
+                self.dirty_cqs.add(lq.cluster_queue)
+        else:
+            self.spec_gen += 1
+            name = getattr(obj, "name", None)
+            if kind == "ClusterQueue" and name:
+                self.dirty_cqs.add(name)
+
+    def consume_dirty(self) -> tuple[set[str], set[str]]:
+        """Return-and-clear the dirty sets (one delta emission's worth)."""
+        keys, cqs = self.dirty_keys, self.dirty_cqs
+        self.dirty_keys, self.dirty_cqs = set(), set()
+        return keys, cqs
+
+    def dirty_snapshot(self) -> tuple[int, frozenset, frozenset]:
+        """Non-consuming view (spec_gen, dirty keys, dirty CQs)."""
+        return (self.spec_gen, frozenset(self.dirty_keys),
+                frozenset(self.dirty_cqs))
+
+    # -- derived-table lifecycle ------------------------------------------
+
+    def refresh(self, fr_list: list, cq_names: list[str], K: int,
+                F: int) -> tuple:
+        """Return the stamp rows must carry, clearing derived state when
+        anything it covers changed since the previous export."""
+        stamp = (self.spec_gen, tuple(fr_list), tuple(cq_names), K)
+        if stamp != self._stamp:
+            self._stamp = stamp
+            self.rows.clear()
+            self._shape_ids.clear()
+            self._shape_valid = [np.zeros(K, dtype=bool)]
+            self._shape_req = [np.zeros((K, max(1, F)), dtype=np.int64)]
+            self._stack_valid = None
+            self._stack_req = None
+            self._class_toks.clear()
+            self._tok_root = []
+            self._fr_index = {fr: i for i, fr in enumerate(fr_list)}
+        return self._stamp
+
+    def cq_tables(self, cq_names: list[str]) -> None:
+        """Per-CQ covered-resource sets and selector key universes,
+        cached per spec generation."""
+        if self._cq_gen == self.spec_gen and len(self._cq_covered) == len(
+                cq_names):
+            return
+        self._cq_gen = self.spec_gen
+        self._cq_covered = []
+        self._cq_allowed_keys = []
+        for name in cq_names:
+            spec = self.store.cluster_queues[name]
+            self._cq_covered.append({r for rg in spec.resource_groups
+                                     for r in rg.covered_resources})
+            self._cq_allowed_keys.append([frozenset(
+                key for fq in rg.flavors
+                for key in self.store.resource_flavors.get(
+                    fq.name, ResourceFlavor(name=fq.name)).node_labels)
+                for rg in spec.resource_groups])
+
+    def shape_matrices(self) -> tuple[np.ndarray, np.ndarray]:
+        if (self._stack_valid is None
+                or self._stack_valid.shape[0] != len(self._shape_valid)):
+            self._stack_valid = np.stack(self._shape_valid)
+            self._stack_req = np.stack(self._shape_req)
+        return self._stack_valid, self._stack_req
+
+    # -- row building ------------------------------------------------------
+
+    def row(self, info: WorkloadInfo, cid: int, stamp: tuple,
+            strict: bool, root: int, K: int, F: int) -> _WlRow:
+        r = self.rows.get(info.key)
+        if r is not None and r.stamp is stamp:
+            return r
+        r = self._build_row(info, cid, stamp, strict, root, K, F)
+        self.rows[info.key] = r
+        return r
+
+    def _build_row(self, info: WorkloadInfo, cid: int, stamp: tuple,
+                   strict: bool, root: int, K: int, F: int) -> _WlRow:
+        wl = info.obj
+        for ps in wl.podsets:
+            if (ps.topology_request is not None
+                    and ps.topology_request.podset_group_name):
+                raise UnsupportedProblem(
+                    f"workload {info.key} uses podset topology groups")
+        totals: dict[str, int] = {}
+        for psr in info.total_requests:
+            for rname, q in psr.requests.items():
+                totals[rname] = totals.get(rname, 0) + q
+        shape_id = self._shape_id(info, cid, totals, K, F)
+        if not features.enabled("SchedulingEquivalenceHashing") or strict:
+            tok = -1
+        else:
+            ckey = (cid, info.scheduling_hash())
+            tok = self._class_toks.get(ckey)
+            if tok is None:
+                tok = len(self._tok_root)
+                self._class_toks[ckey] = tok
+                self._tok_root.append(int(root))
+        usage_fs = usage_qs = None
+        admit_ts = 0.0
+        if wl.status.admission is not None:
+            fs, qs = [], []
+            for fr, q in info.usage().items():
+                j = self._fr_index.get(fr)
+                if j is not None:
+                    fs.append(j)
+                    qs.append(q)
+            usage_fs = np.asarray(fs, dtype=np.int64)
+            usage_qs = np.asarray(qs, dtype=np.int64)
+            admit_ts = quota_reservation_time(wl, 0.0)
+        return _WlRow(
+            stamp, cid, effective_priority(wl), wl.uid,
+            queue_order_timestamp(wl), wl.is_evicted, shape_id, tok,
+            f"{wl.namespace}/{wl.queue_name}", totals, usage_fs, usage_qs,
+            admit_ts)
+
+    def _shape_id(self, info: WorkloadInfo, cid: int,
+                  totals: dict[str, int], K: int, F: int) -> int:
+        wl = info.obj
+        spec = self.store.cluster_queues[info.cluster_queue]
+        if not spec.resource_groups:
+            return 0
+        shape_key = (
+            cid, wl.allowed_flavor, tuple(sorted(totals.items())),
+            tuple((tuple(sorted(ps.node_selector.items())),
+                   tuple(ps.tolerations)) for ps in wl.podsets),
+        )
+        sid = self._shape_ids.get(shape_key)
+        if sid is not None:
+            return sid
+        covered = self._cq_covered[cid]
+        if any(q > 0 and r not in covered for r, q in totals.items()):
+            # undeclared resource: no option can ever fit (oracle
+            # parity); intern to the all-invalid row
+            self._shape_ids[shape_key] = 0
+            return 0
+        valid = np.zeros(K, dtype=bool)
+        req = np.zeros((K, max(1, F)), dtype=np.int64)
+        k = -1
+        for g, rg in enumerate(spec.resource_groups):
+            allowed_keys = self._cq_allowed_keys[cid][g]
+            for fq in rg.flavors:
+                k += 1
+                flavor = self.store.resource_flavors.get(fq.name)
+                if flavor is None:
+                    continue
+                if (wl.allowed_flavor is not None
+                        and fq.name != wl.allowed_flavor):
+                    continue
+                if not _flavor_compatible(info, flavor, allowed_keys):
+                    continue
+                valid[k] = True
+                for rname, q in totals.items():
+                    if rname in rg.covered_resources:
+                        req[k, self._fr_index[(fq.name, rname)]] = q
+        sid = len(self._shape_valid)
+        self._shape_ids[shape_key] = sid
+        self._shape_valid.append(valid)
+        self._shape_req.append(req)
+        return sid
 
 
 def export_problem(
     store: Store,
     pending: dict[str, list[WorkloadInfo]],
+    snapshot: Optional[Snapshot] = None,
     include_admitted: bool = False,
     parked: Optional[dict[str, list[WorkloadInfo]]] = None,
     afs=None,
     now: float = 0.0,
+    cache: Optional[ExportCache] = None,
+    columnar: bool = True,
 ) -> SolverProblem:
     """Build the SolverProblem from the store and the backlog.
 
@@ -339,8 +575,22 @@ def export_problem(
     still includes it). ``afs`` (an ``AfsManager``) exports the
     admission-fair-sharing inputs with usage decayed to ``now``. Podset
     topology groups raise UnsupportedProblem.
+
+    ``cache`` is the cross-drain ``ExportCache``; without one a
+    throwaway unsubscribed cache serves this export alone. A cache with
+    a columnar view answers from it (``solver/columnar.py``) unless the
+    caller pins a ``snapshot`` or passes ``columnar=False``; the view
+    hands back to the per-row walk below whenever it cannot prove its
+    answer identical (AFS-active exports).
     """
-    forest = build_snapshot(store).forest
+    col = getattr(cache, "columnar", None) if cache is not None else None
+    if col is not None and snapshot is None and columnar:
+        out = col.export(pending, include_admitted=include_admitted,
+                         parked=parked, afs=afs, now=now)
+        if out is not None:
+            return out
+
+    forest = (snapshot or build_snapshot(store)).forest
 
     nodes = order_nodes(forest)
     index = {id(n): i for i, n in enumerate(nodes)}
@@ -437,9 +687,7 @@ def export_problem(
     for cid, name in enumerate(cq_names):
         spec = store.cluster_queues[name]
         node = forest.cqs[name]
-        root = node
-        while root.parent is not None:
-            root = root.parent
+        root = node.root()
         cq_node[cid] = index[id(node)]
         cq_strict[cid] = (spec.queueing_strategy
                           == QueueingStrategy.STRICT_FIFO)
@@ -483,6 +731,14 @@ def export_problem(
     cq_id = {name: i for i, name in enumerate(cq_names)}
 
     # ---- workload rows: heap, then parked, then admitted -----------------
+    # Per-workload quantities come from ExportCache rows (built once per
+    # workload state, dropped by store events); request tensors are
+    # interned by scheduling shape and assembled with one gather.
+    if cache is None:
+        cache = ExportCache(store, subscribe=False)
+    stamp = cache.refresh(fr_list, cq_names, K, F)
+    cache.cq_tables(cq_names)
+
     all_infos: list[WorkloadInfo] = []
     wl_cqid_l, wl_rank_l = [], []
     for infos in pending.values():
@@ -504,6 +760,10 @@ def export_problem(
                 wl_cqid_l.append(cq_id[info.cluster_queue])
                 wl_rank_l.append(int(BIG))
     W = len(all_infos)
+    rows = [cache.row(info, cid, stamp, bool(cq_strict[cid]),
+                      int(cq_root[cid]), K, F)
+            for info, cid in zip(all_infos, wl_cqid_l)]
+
     wl_cqid = np.asarray(wl_cqid_l + [C], dtype=np.int32)
     wl_rank = np.asarray(wl_rank_l + [int(BIG)], dtype=np.int32)
     wl_prio = np.zeros(W + 1, dtype=np.int32)
@@ -518,59 +778,20 @@ def export_problem(
     wl_evicted0 = np.zeros(W + 1, dtype=bool)
     wl_admit_rank = np.zeros(W + 1, dtype=np.int32)
     ad_usage = np.zeros((W + 1, F), dtype=np.int64)
-    raw_ts = np.zeros(W, dtype=np.float64)
-    raw_admit = np.zeros(W, dtype=np.float64)
-    # scheduling-equivalence tokens (per CQ; StrictFIFO workloads get
-    # none and never dedup-park), interned in row order
-    hashing = features.enabled("SchedulingEquivalenceHashing")
-    shapes: dict[tuple, tuple] = {}
-    class_toks: dict[tuple, int] = {}
-    tok_root: list[int] = []
-    toks = np.full(W, -1, dtype=np.int64)
-    row_totals: list[dict[str, int]] = []
-    for w, info in enumerate(all_infos):
-        cid = wl_cqid_l[w]
-        spec = store.cluster_queues[info.cluster_queue]
-        wl = info.obj
-        for ps in wl.podsets:
-            if (ps.topology_request is not None
-                    and ps.topology_request.podset_group_name):
-                raise UnsupportedProblem(
-                    f"workload {info.key} uses podset topology groups")
-        wl_prio[w] = effective_priority(wl)
-        wl_uid[w] = wl.uid
-        wl_evicted0[w] = wl.is_evicted
-        raw_ts[w] = queue_order_timestamp(wl)
-        # the options depend on the workload only through its shape
-        # (the JAX export's ExportCache interns them the same way)
-        totals: dict[str, int] = {}
-        for psr in info.total_requests:
-            for rname, q in psr.requests.items():
-                totals[rname] = totals.get(rname, 0) + q
-        row_totals.append(totals)
-        shape_key = (cid, wl.allowed_flavor, tuple(sorted(totals.items())),
-                     tuple((tuple(sorted(ps.node_selector.items())),
-                            tuple(ps.tolerations)) for ps in wl.podsets))
-        shape = shapes.get(shape_key)
-        if shape is None:
-            shape = shapes[shape_key] = _workload_options(
-                store, info, totals, spec, fr_index, K, F)
-        wl_valid[w], wl_req[w] = shape
-        if hashing and not cq_strict[cid]:
-            ckey = (cid, info.scheduling_hash())
-            tok = class_toks.get(ckey)
-            if tok is None:
-                tok = len(tok_root)
-                class_toks[ckey] = tok
-                tok_root.append(int(cq_root[cid]))
-            toks[w] = tok
-        if w >= n_pending and wl.status.admission is not None:
-            raw_admit[w] = quota_reservation_time(wl, 0.0)
-            for fr, q in info.usage().items():
-                j = fr_index.get(fr)
-                if j is not None:
-                    ad_usage[w, j] = q
+    if W:
+        wl_prio[:W] = np.fromiter((r.prio for r in rows), np.int64, W)
+        wl_uid[:W] = np.fromiter((r.uid for r in rows), np.int64, W)
+        wl_evicted0[:W] = np.fromiter((r.evicted for r in rows), bool, W)
+        shape_ids = np.fromiter((r.shape_id for r in rows), np.int64, W)
+        stack_valid, stack_req = cache.shape_matrices()
+        wl_valid[:W] = stack_valid[shape_ids]
+        wl_req[:W] = stack_req[shape_ids]
 
+    # scheduling-equivalence classes (per CQ; StrictFIFO workloads get
+    # the sentinel class and never dedup-park): interned tokens densified
+    # per export
+    toks = (np.fromiter((r.class_tok for r in rows), np.int64, W)
+            if W else np.zeros(0, dtype=np.int64))
     pos = toks >= 0
     if pos.any():
         uniq, inv_c = np.unique(toks[pos], return_inverse=True)
@@ -578,7 +799,7 @@ def export_problem(
         wl_class = np.full(W + 1, n_classes, dtype=np.int32)
         wl_class[np.nonzero(pos)[0]] = inv_c
         class_root = np.concatenate(
-            [np.asarray(tok_root, dtype=np.int32)[uniq],
+            [np.asarray(cache._tok_root, dtype=np.int32)[uniq],
              [n_nodes]]).astype(np.int32)
     else:
         n_classes = 0
@@ -586,29 +807,37 @@ def export_problem(
         class_root = np.asarray([n_nodes], dtype=np.int32)
 
     # timestamps export as dense ranks: only relative order matters, and
-    # ties must stay ties for the uid tiebreak; with the
-    # SchedulerTimestampPreemptionBuffer gate at its default (off) the
-    # newer-equal threshold is the own rank
+    # ties must stay ties for the uid tiebreak
+    wl_ts_buf = np.zeros(W + 1, dtype=np.int32)
     wl_raw_ts = np.zeros(W + 1, dtype=np.float64)
     wl_raw_admit_ts = np.zeros(W + 1, dtype=np.float64)
     n_ts = n_admit_rank = 0
     if W:
+        raw_ts = np.fromiter((r.raw_ts for r in rows), np.float64, W)
         wl_raw_ts[:W] = raw_ts
         distinct_ts, inv_ts = np.unique(raw_ts, return_inverse=True)
         n_ts = len(distinct_ts)
         wl_ts[:W] = inv_ts
-    wl_ts_buf = wl_ts.copy()
+        wl_ts_buf[:W] = ts_buffer_ranks(distinct_ts, raw_ts, inv_ts)
     if W > n_pending:
-        wl_raw_admit_ts[n_pending:W] = raw_admit[n_pending:]
-        distinct_admit, inv_a = np.unique(raw_admit[n_pending:],
-                                          return_inverse=True)
+        raw_admit = np.fromiter((r.admit_ts for r in rows[n_pending:]),
+                                np.float64, W - n_pending)
+        wl_raw_admit_ts[n_pending:W] = raw_admit
+        distinct_admit, inv_a = np.unique(raw_admit, return_inverse=True)
         n_admit_rank = len(distinct_admit)
         wl_admit_rank[n_pending:W] = inv_a + 1
+        for w in range(n_pending, W):
+            r = rows[w]
+            if r.usage_fs is not None and r.usage_fs.size:
+                ad_usage[w, r.usage_fs] = r.usage_qs
 
     # ---- unit scaling ----------------------------------------------------
+    # the gcd covers every divided quantity; the interned shape matrix
+    # stands in for wl_req (a superset of this export's shapes, so any
+    # common divisor still divides every present quantity)
     scale = 0
     for arr in (nominal, borrow_limit[has_borrow], usage0, subtree,
-                local_quota, wl_req, ad_usage):
+                local_quota, cache.shape_matrices()[1], ad_usage):
         flat = np.asarray(arr, dtype=np.int64).ravel()
         if flat.size:
             scale = math.gcd(scale, int(np.gcd.reduce(flat)))
@@ -642,18 +871,17 @@ def export_problem(
                 and scope.admission_mode == "UsageBasedAdmissionFairSharing")
         if cq_afs.any():
             lq_index: dict[str, int] = {}
-            for w, info in enumerate(all_infos):
-                if not cq_afs[wl_cqid_l[w]]:
+            for w, r in enumerate(rows):
+                if not cq_afs[r.cid]:
                     continue
-                lq_key = f"{info.obj.namespace}/{info.obj.queue_name}"
-                li = lq_index.get(lq_key)
+                li = lq_index.get(r.lq_key)
                 if li is None:
                     li = len(lq_pen_list)
-                    lq_index[lq_key] = li
+                    lq_index[r.lq_key] = li
                     lq_pen_list.append(
-                        float(afs.weighted_usage(lq_key, now)))
+                        float(afs.weighted_usage(r.lq_key, now)))
                 wl_lq[w] = li
-                wl_afs_penalty[w] = afs.entry_penalty(lq_key, row_totals[w])
+                wl_afs_penalty[w] = afs.entry_penalty(r.lq_key, r.totals)
     lq_penalty0 = np.asarray(lq_pen_list, dtype=np.float32)
 
     return SolverProblem(
@@ -709,7 +937,7 @@ def export_problem(
         wl_raw_ts=wl_raw_ts,
         wl_raw_admit_ts=wl_raw_admit_ts,
         wl_class_tok=np.concatenate([toks, [-1]]).astype(np.int64),
-        class_tok_root=np.asarray(tok_root, dtype=np.int32),
+        class_tok_root=np.asarray(cache._tok_root, dtype=np.int32),
         n_resources=len(resources),
         ts_evict_base=n_ts + 1,
         admit_rank_base=n_admit_rank + 2,

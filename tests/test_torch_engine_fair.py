@@ -1,6 +1,6 @@
 """The port's fair-sharing and admission-fair-sharing (AFS) drains end to
 end on the CPU against the JAX engine (``mesh_mode="off"``, delta
-sessions off), tolerance 0.
+sessions off in both engines), tolerance 0.
 
 Identical stores come from one builder per case, parameterised by the
 types module. The port has no host scheduler, so both phases of a
@@ -174,9 +174,9 @@ def _fair_engines(js, ps, jafs=None, pafs=None, fs=True):
     jq, pq = JaxQueues(js, afs=jafs), PortQueues(ps, afs=pafs)
     jengine = JaxEngine(js, jq, mesh_mode="off", enable_fair_sharing=fs)
     jengine.use_sessions = False
-    return ((js, jq, jengine),
-            (ps, pq, PortEngine(ps, pq, device="cpu",
-                                enable_fair_sharing=fs)))
+    pengine = PortEngine(ps, pq, device="cpu", enable_fair_sharing=fs)
+    pengine.use_sessions = False
+    return ((js, jq, jengine), (ps, pq, pengine))
 
 
 def _reasons(store, keys):
@@ -368,6 +368,7 @@ def _afs_drain(envs, now):
     jengine = JaxEngine(jenv.store, jenv.queues, mesh_mode="off")
     jengine.use_sessions = False
     pengine = PortEngine(penv.store, penv.queues, device="cpu")
+    pengine.use_sessions = False
     assert pengine.needs_full_kernel(pengine.pending_backlog())
     # one workload axis for every case here: the cases share one JAX
     # compile

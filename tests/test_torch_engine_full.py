@@ -1,6 +1,6 @@
 """The port's FULL (preemption / multi-resource-group) drain end to end
 on the CPU against the JAX engine (``mesh_mode="off"``, delta sessions
-off), tolerance 0.
+off in both engines), tolerance 0.
 
 Identical stores come from one builder per case, parameterised by the
 types module: the Kueue baseline as a two-wave preemption storm
@@ -87,14 +87,17 @@ def _check_drain(jax_side, port_side, now):
 
 
 def _engines(js, ps):
-    """The JAX engine without a mesh and without delta sessions: both
-    re-lay workload rows into slots on later drains, which reorders
-    rows (and so the order of evicted keys) but no decision; the port
-    has neither."""
+    """The JAX engine without a mesh, and both engines without delta
+    sessions: a mesh and the sessions re-lay workload rows into slots on
+    later drains, which reorders rows (and so the order of evicted keys)
+    but no decision. The sessions-on parity tests are in
+    tests/test_torch_engine_sessions.py."""
     jq, pq = JaxQueues(js), PortQueues(ps)
     jengine = JaxEngine(js, jq, mesh_mode="off")
     jengine.use_sessions = False
-    return ((js, jq, jengine), (ps, pq, PortEngine(ps, pq, device="cpu")))
+    pengine = PortEngine(ps, pq, device="cpu")
+    pengine.use_sessions = False
+    return ((js, jq, jengine), (ps, pq, pengine))
 
 
 def _full_exports(jax_side, port_side):
