@@ -11,7 +11,8 @@ Phases, in order; any failure propagates (nonzero exit, no result line):
    reports them;
 2. build: compile every CUDA kernel from the sources in the checkout
    (one nvcc call, at first use) and report the build seconds and what
-   ptxas said about each kernel (registers, shared memory, spills);
+   ptxas said about each kernel (registers, shared memory, spills); then
+   build the verify oracle (host C++, g++) that phases 11-13 run;
 3. kernel vs plain: every kernel against its plain PyTorch version on
    the card, exact integer equality, with CUDA-event times of kernel and
    plain version at the main-path shape:
@@ -22,11 +23,12 @@ Phases, in order; any failure propagates (nonzero exit, no result line):
      preferred / unconstrained requests, pre-rejected rows, M = 0, a
      tree above 48 KB of shared memory and one above 227 KB (global
      scratch); timed plain, kernel, kernel, plain;
-4. stepwise placement: the full-size TAS drain placed by the plain
-   sequential placer with the CUDA leaf pass (one leaf_states launch per
-   podset, ~350 eager ops per podset around it), the placement path
-   before tas_place_sequential, for its placement phase; its plan must
-   be the reference plan too;
+4. stepwise placement: the TAS drain cut to its first 1,500 workloads
+   (which hold all 102 admissions of the full store: the same plan in
+   66 rounds) placed by the plain sequential placer with the CUDA leaf
+   pass (one leaf_states launch per podset, ~350 eager ops per podset
+   around it), the placement path before tas_place_sequential, for its
+   placement phase; its plan must be the JAX plan of that store;
 5. main path: the full-size TAS drain (640 nodes, 30 ClusterQueues,
    15,000 workloads; the reference Kueue TAS performance config) built
    with the port's own types and drained by ``SolverEngine(store,
@@ -92,12 +94,36 @@ Phases, in order; any failure propagates (nonzero exit, no result line):
    and reasons) and reports the bytes it uploads per drain. Each drain
    prints its frame, dirty rows, update bytes and phase seconds for
    both engines.
+11. scheduler storm (the system's entry point): the phase 6 store at
+   full size through ``Scheduler(store, queues, solver="auto")`` (its
+   engine on the card, sessions on, default ``solver_min_backlog``):
+   wave 1 by ``run_until_quiet(now=100.0, tick=0.001)``, wave 2 at
+   200.0. Per wave the JAX scheduler's record (pinned below: the
+   committed-store digest, held / evicted / reason counts, host cycles,
+   one device drain), the verify oracle native on every candidate with
+   no rejection, no plan fallback, no UnsupportedProblem or
+   SolverUnavailable fallback, and the quota and victim checks of
+   phase 6. A host-only twin (``solver=None``) on a second store must
+   reach the same store in the JAX host-only cycle counts (22 and 6).
+   Both walls are printed, with the drain's phases;
+12. scheduler TAS: the phase 5 store at full size through
+   ``Scheduler(solver="auto")``: the JAX scheduler's record (102 held,
+   14,898 parked, one drain, one empty host cycle: no host TAS head),
+   phase 5's plan digest and rounds, one tas_place_sequential launch
+   placing 102 podsets, no leaf_states launch;
+13. refused backlog: the storm with memory quotas and requests in bytes
+   (``scenarios.refused_quantity_store``), which every drain refuses at
+   export ("quantities too large for int32 solver tensors"), through
+   ``Scheduler(solver="auto")``: exactly one UnsupportedProblem
+   fallback per ``run_until_quiet`` pass (1, then 2), no drain
+   committing anything, and the host cycles reaching the JAX
+   scheduler's store (22, then 8 cycles).
 
 Phases 6-9 pin the JAX engine's plans without delta sessions, so they
-run the port's engine with ``use_sessions = False``; phase 10 pins the
-plans with sessions on. Phases 8-10 run no TAS flavor: both kernels'
-launch counts are set to 0 before each drain and must still be 0 after
-it.
+run the port's engine with ``use_sessions = False``; phases 10-13 pin
+them with sessions on. Phases 8-11 and 13 run no TAS flavor: both
+kernels' launch counts are set to 0 before each drain (or each
+``run_until_quiet``) and must still be 0 after it.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 is the JSON kernel report.
@@ -117,6 +143,11 @@ REFERENCE = {"admitted": 102, "rounds": 549, "evicted": 0,
              "parked": 14898,
              "digest": "22ede1e7cac0f0ae5e34d56ef0205e204e1ee208cd35ba8c"
                        "b2fae3232b409bfc"}
+#: phase 4's depth: the first 1,500 workloads of the same draw hold all
+#: 102 admissions of the full store, so the JAX plan (its engine,
+#: ``mesh_mode="off"``) places the same batch in 66 rounds
+STEPWISE_WORKLOADS = 1500
+STEPWISE_REFERENCE = {**REFERENCE, "rounds": 66, "parked": 1398}
 #: the JAX package's plans of phase 6 (per wave) and phase 7: its
 #: engine with ``mesh_mode="off"`` and without delta sessions
 #: (KUEUE_SOLVER_SESSIONS=0), and so the port's engine with
@@ -221,6 +252,51 @@ TAS_FULL_REFERENCE = {
     "admitted": 215, "evicted": 0, "rounds": 277, "parked": 1285,
     "digest": "1f78efb7540ae640e5f2d1ce613a9393e0c7c6c4201d882b673101623d"
               "686a0b"}
+#: the JAX package's records of phases 11-13: its Scheduler over its
+#: engine with ``mesh_mode="off"`` and sessions on, passed in as the
+#: engine instance, per run_until_quiet (``JAX_PLATFORMS=cpu python
+#: tests/torch_scheduler_pins.py`` prints them): host cycles, workloads
+#: holding quota, evicted ones and their reasons, the committed-store
+#: digest, device drains, UnsupportedProblem fallbacks and drain
+#: admissions ("storm_host" is the solver=None twin)
+SCHEDULER_REFERENCE = {
+    "storm": [
+        {"cycles": 1, "held": 600, "evicted": 0, "reasons": {},
+         "digest": "e819d84a69107c8c51e19361167bad87"
+                  "c0e0a1b93ad80eaaa5fe8bcb48ecfbad",
+         "drains": 1, "unsupported": 0, "drain_admitted": 600},
+        {"cycles": 1, "held": 30, "evicted": 600,
+         "reasons": {"InClusterQueue": 600},
+         "digest": "b85389d4099f2b5ca9b1883b4857873a"
+                  "7119681d877d61e0b708e4fdc6df140e",
+         "drains": 1, "unsupported": 0, "drain_admitted": 30},
+    ],
+    "storm_host": [
+        {"cycles": 22, "held": 600, "evicted": 0, "reasons": {},
+         "digest": "e819d84a69107c8c51e19361167bad87"
+                  "c0e0a1b93ad80eaaa5fe8bcb48ecfbad"},
+        {"cycles": 6, "held": 30, "evicted": 600,
+         "reasons": {"InClusterQueue": 600},
+         "digest": "b85389d4099f2b5ca9b1883b4857873a"
+                  "7119681d877d61e0b708e4fdc6df140e"},
+    ],
+    "tas": {"cycles": 1, "held": 102, "evicted": 0, "reasons": {},
+     "digest": "3c5c70649de0ccd9dc5e384b7fc66a88"
+              "82f1868f16091678e5111eac2290bbe2",
+     "drains": 1, "unsupported": 0, "drain_admitted": 102,
+     "parked": 14898},
+    "refused": [
+        {"cycles": 22, "held": 600, "evicted": 0, "reasons": {},
+         "digest": "aa72c45003b1ff0f3ec2a6c82310c5e1"
+                  "918c7f4bd4b38f4770f430a2f5590cd5",
+         "drains": 0, "unsupported": 1, "drain_admitted": 0},
+        {"cycles": 8, "held": 30, "evicted": 600,
+         "reasons": {"InClusterQueue": 600},
+         "digest": "f6b272f309f3787467196d78b4f8fca8"
+                  "81183ade689ebc131cf024399b48392e",
+         "drains": 0, "unsupported": 2, "drain_admitted": 0},
+    ],
+}
 #: H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, non-tensor fp32 ops/s
 HBM_BYTES_PER_S = 3.35e12
 SCALAR_OPS_PER_S = 67e12
@@ -449,7 +525,7 @@ def check_tas_place(device) -> dict:
             **_bound(nbytes, nops), "library_ms": None}
 
 
-def check_plan(store, queues, result) -> None:
+def check_plan(store, queues, result, reference=REFERENCE) -> None:
     """The JAX reference plan plus independent capacity/quota checks."""
     from kueue_oss_tpu_torch.scenarios import plan_digest
 
@@ -457,8 +533,8 @@ def check_plan(store, queues, result) -> None:
     got = {"admitted": result.admitted, "rounds": result.rounds,
            "evicted": result.evicted, "parked": parked,
            "digest": plan_digest(store, result.admitted_keys)}
-    if got != REFERENCE:
-        raise AssertionError(f"plan {got} != reference {REFERENCE}")
+    if got != reference:
+        raise AssertionError(f"plan {got} != reference {reference}")
 
     node_cpu: dict[str, int] = {}
     cq_cpu: dict[str, int] = {}
@@ -496,13 +572,13 @@ def check_plan(store, queues, result) -> None:
     print(f"[plan] matches the reference: {got}")
 
 
-def _drain_store():
+def _drain_store(n_workloads: int = 15000):
     from kueue_oss_tpu_torch.api import types
     from kueue_oss_tpu_torch.core.queue_manager import QueueManager
     from kueue_oss_tpu_torch.core.store import Store
     from kueue_oss_tpu_torch.scenarios import tas_drain_store
 
-    store = tas_drain_store(types, Store)
+    store = tas_drain_store(types, Store, n_workloads=n_workloads)
     return store, QueueManager(store)
 
 
@@ -530,7 +606,7 @@ def drain_with_stepwise_placer(device):
             return tas_kernels.make_sequential_placer_ext(
                 tree.parents, self.device)(*inputs)
 
-    store, queues = _drain_store()
+    store, queues = _drain_store(STEPWISE_WORKLOADS)
     engine = SolverEngine(store, queues)
     engine._tas_placer = StepwisePlacer(engine.device)
     before = cuda_tas.leaf_states.launches
@@ -539,7 +615,7 @@ def drain_with_stepwise_placer(device):
     result = engine.drain(now=0.0)
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
-    check_plan(store, queues, result)
+    check_plan(store, queues, result, STEPWISE_REFERENCE)
     launches = cuda_tas.leaf_states.launches - before
     if launches != _placed(store, result) or len(StepwisePlacer.batches) != 1:
         raise AssertionError(f"stepwise placer: {launches} leaf_states launches "
@@ -589,23 +665,32 @@ def _check_storm_wave(store, result, before, reference) -> dict:
            "digest": preempt_plan_digest(store, result)}
     if got != reference:
         raise AssertionError(f"plan {got} != reference {reference}")
+    _victim_checks(store, result.admitted_keys, result.evicted_keys, before)
+    return got
+
+
+def _victim_checks(store, admitted_keys, evicted_keys, before) -> None:
+    """The quota checks, and the victims' independent checks: the
+    evicted keys are exactly the workloads whose QuotaReserved flipped
+    to false, and each is below a preemptor of its own ClusterQueue in
+    priority or was admitted in a borrowing one."""
     _quota_checks(store)
     reserved0, cq_of, cq_used0 = before
     flipped = {k for k in reserved0
                if not store.workloads[k].is_quota_reserved}
-    if (len(result.evicted_keys) != len(set(result.evicted_keys))
-            or set(result.evicted_keys) != flipped):
+    if (len(evicted_keys) != len(set(evicted_keys))
+            or set(evicted_keys) != flipped):
         raise AssertionError("evicted_keys differ from the workloads whose "
                              "QuotaReserved flipped to false")
     nominal = {name: spec.resource_groups[0].flavors[0].resources[0].nominal
                for name, spec in store.cluster_queues.items()}
     preemptor_prio: dict[str, int] = {}
-    for key in result.admitted_keys:
+    for key in admitted_keys:
         wl = store.workloads[key]
         cq = wl.status.admission.cluster_queue
         preemptor_prio[cq] = max(preemptor_prio.get(cq, wl.priority),
                                  wl.priority)
-    for key in result.evicted_keys:
+    for key in evicted_keys:
         wl = store.workloads[key]
         cq = cq_of[key]
         own = preemptor_prio.get(cq)
@@ -614,7 +699,6 @@ def _check_storm_wave(store, result, before, reference) -> dict:
             raise AssertionError(f"victim {key} of {cq} is neither below a "
                                  f"preemptor of its ClusterQueue nor "
                                  f"admitted in a borrowing one")
-    return got
 
 
 def _reserved_state(store):
@@ -1001,6 +1085,244 @@ def storm_churn_drain() -> tuple:
             "resident_bytes": dev.resident_bytes()}, launches
 
 
+def committed_store_digest(store) -> str:
+    """sha256 over the sorted workload keys of each workload's
+    QuotaReserved and Admitted status, its admission (ClusterQueue, and
+    per podset the flavors, count, resource usage and topology
+    assignment), its Evicted and Preempted conditions (status, reason)
+    and its requeue state (the copy of
+    tests/torch_scheduler_pins.py's, held to it by the tests)."""
+    import hashlib
+
+    rows = []
+    for key in sorted(store.workloads):
+        wl = store.workloads[key]
+        adm = wl.status.admission
+        row = [key, wl.is_quota_reserved, wl.is_admitted]
+        if adm is None:
+            row.append(None)
+        else:
+            podsets = []
+            for psa in adm.podset_assignments:
+                ta = psa.topology_assignment
+                podsets.append([
+                    psa.name, sorted(psa.flavors.items()), psa.count,
+                    sorted(psa.resource_usage.items()),
+                    None if ta is None else
+                    [list(ta.levels),
+                     [[list(d.values), d.count] for d in ta.domains]]])
+            row.append([adm.cluster_queue, podsets])
+        for ctype in ("Evicted", "Preempted"):
+            c = wl.status.conditions.get(ctype)
+            row.append(None if c is None else [c.status, c.reason])
+        rs = wl.status.requeue_state
+        row.append(None if rs is None else [rs.count, rs.requeue_at])
+        rows.append(row)
+    return hashlib.sha256(json.dumps(
+        rows, separators=(",", ":")).encode()).hexdigest()
+
+
+def _scheduler_record(store, sched, cycles, before_counts) -> dict:
+    """A run_until_quiet's record in the form SCHEDULER_REFERENCE pins
+    it: host cycles, held / evicted workloads and the evicted ones'
+    reasons, the digest, and the device drains, UnsupportedProblem
+    fallbacks and drain admissions since ``before_counts``."""
+    evicted = [w for w in store.workloads.values() if w.is_evicted]
+    rec = {"cycles": cycles,
+           "held": sum(1 for w in store.workloads.values()
+                       if w.is_quota_reserved),
+           "evicted": len(evicted),
+           "reasons": dict(sorted(collections.Counter(
+               w.status.conditions["Preempted"].reason for w in evicted
+               if "Preempted" in w.status.conditions).items())),
+           "digest": committed_store_digest(store)}
+    if before_counts is not None:
+        c = sched.solver_counts
+        rec.update(drains=c["drains"] - before_counts["drains"],
+                   unsupported=(c["unsupported"]
+                                - before_counts["unsupported"]),
+                   drain_admitted=c["admitted"] - before_counts["admitted"])
+    return rec
+
+
+def _run_quiet(store, sched, wave, now):
+    """Add a wave and run ``run_until_quiet(now, tick=0.001)`` timed;
+    returns (record, wall seconds, reserved state before, oracle
+    counters, scheduler counts before)."""
+    import torch
+
+    from kueue_oss_tpu_torch import native
+
+    for wl in wave:
+        store.add_workload(wl)
+    before = _reserved_state(store)
+    counts0 = (dict(sched.solver_counts) if sched.solver is not None
+               else None)
+    native.reset_counters()
+    _reset_launches()
+    _settle()
+    t0 = time.monotonic()
+    cycles = sched.run_until_quiet(now=now, tick=0.001)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    rec = _scheduler_record(store, sched, cycles, counts0)
+    return rec, wall, before, dict(native.counters), counts0
+
+
+def _wave_keys(store, before):
+    """The keys admitted and evicted since ``before``."""
+    reserved0 = before[0]
+    admitted = [k for k, w in store.workloads.items()
+                if w.is_quota_reserved and not w.is_finished
+                and k not in reserved0]
+    evicted = [k for k in reserved0
+               if not store.workloads[k].is_quota_reserved]
+    return admitted, evicted
+
+
+def scheduler_storm() -> tuple:
+    """Phase 11: the baseline storm through Scheduler(solver="auto")
+    and a host-only twin. Returns (report, TAS kernel launches)."""
+    from kueue_oss_tpu_torch.api import types
+    from kueue_oss_tpu_torch.core.queue_manager import QueueManager
+    from kueue_oss_tpu_torch.core.store import Store
+    from kueue_oss_tpu_torch.scenarios import baseline_preempt_store
+    from kueue_oss_tpu_torch.scheduler.scheduler import Scheduler
+
+    store, wave1, wave2 = baseline_preempt_store(types, Store)
+    sched = Scheduler(store, QueueManager(store), solver="auto")
+    twin_store, twin1, twin2 = baseline_preempt_store(types, Store)
+    twin = Scheduler(twin_store, QueueManager(twin_store))
+    out, launches = {}, 0
+    for i, (label, now, wave, twin_wave) in enumerate((
+            ("wave1", 100.0, wave1, twin1),
+            ("wave2", 200.0, wave2, twin2))):
+        rec, wall, before, oracle, _ = _run_quiet(store, sched, wave, now)
+        launches += _launches()
+        want = SCHEDULER_REFERENCE["storm"][i]
+        if rec != want:
+            raise AssertionError(f"scheduler storm {label}: {rec} != "
+                                 f"reference {want}")
+        drain = sched.last_drain
+        c = sched.solver_counts
+        if (rec["drains"] != 1 or oracle["native_calls"] != 1
+                or oracle["python_calls"] or oracle["rejections"]
+                or oracle["entries"] != drain.verified
+                or drain.verified != drain.admitted
+                or drain.plan_fallbacks or c["plan_fallbacks"]
+                or c["unsupported"] or c["unavailable"] or _launches()):
+            raise AssertionError(
+                f"scheduler storm {label}: oracle {oracle}, counts {c}, "
+                f"drain verified {drain.verified} of {drain.admitted} "
+                f"admitted, {_launches()} TAS launches")
+        admitted, evicted = _wave_keys(store, before)
+        _victim_checks(store, admitted, evicted, before)
+        twin_rec, twin_wall, twin_before, _, _ = _run_quiet(
+            twin_store, twin, twin_wave, now)
+        want_twin = SCHEDULER_REFERENCE["storm_host"][i]
+        if twin_rec != want_twin or twin_rec["digest"] != rec["digest"]:
+            raise AssertionError(f"host-only twin {label}: {twin_rec} != "
+                                 f"reference {want_twin}")
+        t_adm, t_ev = _wave_keys(twin_store, twin_before)
+        _victim_checks(twin_store, t_adm, t_ev, twin_before)
+        out[label] = {
+            "wall_s": wall, "cycles": rec["cycles"],
+            "drain": {f"{k}_s": v for k, v in drain.phases.items()},
+            "drain_rounds": drain.rounds, "verified": drain.verified,
+            "oracle_s": oracle["seconds"],
+            "host_only": {"wall_s": twin_wall,
+                          "cycles": twin_rec["cycles"]}}
+        print(f"[scheduler storm {label}] matches the reference "
+              f"({rec['held']} held, {rec['evicted']} evicted "
+              f"{rec['reasons']}; {rec['drains']} drain, {rec['cycles']} "
+              f"host cycle); oracle native on {oracle['entries']} entries, "
+              f"0 rejected; host-only twin {twin_rec['cycles']} cycles, "
+              f"same store; " + json.dumps(out[label]))
+    return out, launches
+
+
+def scheduler_tas() -> tuple:
+    """Phase 12: the full-size TAS store through
+    Scheduler(solver="auto"). Returns (report, tas_place_sequential
+    launches, leaf_states launches)."""
+    from kueue_oss_tpu_torch.api import types
+    from kueue_oss_tpu_torch.core.queue_manager import QueueManager
+    from kueue_oss_tpu_torch.core.store import Store
+    from kueue_oss_tpu_torch.scenarios import plan_digest, tas_drain_store
+    from kueue_oss_tpu_torch.scheduler.scheduler import Scheduler
+    from kueue_oss_tpu_torch.solver import cuda_tas
+
+    store = tas_drain_store(types, Store)
+    sched = Scheduler(store, QueueManager(store), solver="auto")
+    cuda_tas.tas_place_sequential.steps = 0
+    rec, wall, _, oracle, _ = _run_quiet(store, sched, [], 0.0)
+    launches = cuda_tas.tas_place_sequential.launches
+    leaf_launches = cuda_tas.leaf_states.launches
+    steps = cuda_tas.tas_place_sequential.steps
+    rec["parked"] = sum(len(q.inadmissible)
+                        for q in sched.queues.queues.values())
+    want = SCHEDULER_REFERENCE["tas"]
+    if rec != want:
+        raise AssertionError(f"scheduler TAS: {rec} != reference {want}")
+    drain = sched.last_drain
+    if (launches != 1 or steps != REFERENCE["admitted"] or leaf_launches
+            or plan_digest(store, drain.admitted_keys) != REFERENCE["digest"]
+            or drain.rounds != REFERENCE["rounds"]
+            or rec["parked"] != REFERENCE["parked"]
+            or oracle["python_calls"] or oracle["rejections"]
+            or oracle["entries"] != drain.admitted):
+        raise AssertionError(
+            f"scheduler TAS: {launches} tas_place_sequential launches "
+            f"({steps} steps), {leaf_launches} leaf_states launches, "
+            f"oracle {oracle}, drain rounds {drain.rounds}")
+    _quota_checks(store)
+    out = {"wall_s": wall, "cycles": rec["cycles"],
+           "drain": {f"{k}_s": v for k, v in drain.phases.items()},
+           "oracle_s": oracle["seconds"]}
+    print(f"[scheduler tas] matches the reference ({rec['held']} held, "
+          f"{rec['parked']} parked, phase 5's plan digest); 1 "
+          f"tas_place_sequential launch, {steps} steps, 0 leaf_states "
+          f"launches; no host TAS head; " + json.dumps(out))
+    return out, launches, leaf_launches
+
+
+def scheduler_refused() -> tuple:
+    """Phase 13: the storm with memory in bytes, refused at export by
+    every drain, admitted by host cycles. Returns (report, TAS kernel
+    launches)."""
+    from kueue_oss_tpu_torch.api import types
+    from kueue_oss_tpu_torch.core.queue_manager import QueueManager
+    from kueue_oss_tpu_torch.core.store import Store
+    from kueue_oss_tpu_torch.scenarios import refused_quantity_store
+    from kueue_oss_tpu_torch.scheduler.scheduler import Scheduler
+
+    store, wave1, wave2 = refused_quantity_store(types, Store)
+    sched = Scheduler(store, QueueManager(store), solver="auto")
+    out, launches = {}, 0
+    for i, (label, now, wave) in enumerate((("wave1", 100.0, wave1),
+                                             ("wave2", 200.0, wave2))):
+        rec, wall, before, oracle, _ = _run_quiet(store, sched, wave, now)
+        launches += _launches()
+        want = SCHEDULER_REFERENCE["refused"][i]
+        if rec != want:
+            raise AssertionError(f"scheduler refused {label}: {rec} != "
+                                 f"reference {want}")
+        if (rec["drains"] or rec["drain_admitted"] or oracle["entries"]
+                or not rec["unsupported"] or _launches()):
+            raise AssertionError(f"scheduler refused {label}: {rec}, "
+                                 f"oracle {oracle}")
+        admitted, evicted = _wave_keys(store, before)
+        _victim_checks(store, admitted, evicted, before)
+        out[label] = {"wall_s": wall, "cycles": rec["cycles"],
+                      "unsupported": rec["unsupported"]}
+        print(f"[scheduler refused {label}] matches the reference "
+              f"({rec['held']} held, {rec['evicted']} evicted; "
+              f"{rec['unsupported']} UnsupportedProblem fallbacks, 0 "
+              f"drains, {rec['cycles']} host cycles); " + json.dumps(
+                  out[label]))
+    return out, launches
+
+
 def main() -> int:
     import torch
 
@@ -1028,6 +1350,15 @@ def main() -> int:
         if any(w in line for w in ("Compiling entry", "registers",
                                    "spill")):
             print(f"[build] ptxas: {line.strip()}")
+    # the verify oracle is host C++ (g++), built here so that no drain
+    # pays for its build
+    from kueue_oss_tpu_torch import native
+
+    t0 = time.monotonic()
+    if native.load() is None:
+        raise RuntimeError("the verify oracle did not build with g++")
+    print(f"[build] {native.library_path().name} in "
+          f"{time.monotonic() - t0:.3f} s")
 
     # 3. kernel vs plain
     device = torch.device("cuda")
@@ -1091,24 +1422,41 @@ def main() -> int:
 
     # 10. the storm under churn with delta sessions (FULL path)
     churn, churn_launches = storm_churn_drain()
+
+    # 11-13. the scheduler: the storm, the TAS store, a refused backlog
+    sched_storm, sched_storm_launches = scheduler_storm()
+    sched_tas, sched_tas_launches, sched_tas_leaf = scheduler_tas()
+    sched_refused, sched_refused_launches = scheduler_refused()
     reports[0]["launches_by_path"] = {"tas_lean": leaf_launches,
                                       "tas_full": 0, "storm_full": 0,
                                       "fair_storm": fair_launches,
                                       "afs": afs_launches,
-                                      "storm_churn": churn_launches}
+                                      "storm_churn": churn_launches,
+                                      "scheduler_storm":
+                                          sched_storm_launches,
+                                      "scheduler_tas": sched_tas_leaf,
+                                      "scheduler_refused":
+                                          sched_refused_launches}
     reports[1]["launches_by_path"] = {"tas_lean": place_launches,
                                       "tas_full": tas_full_launches,
                                       "storm_full": 0,
                                       "fair_storm": fair_launches,
                                       "afs": afs_launches,
-                                      "storm_churn": churn_launches}
+                                      "storm_churn": churn_launches,
+                                      "scheduler_storm":
+                                          sched_storm_launches,
+                                      "scheduler_tas": sched_tas_launches,
+                                      "scheduler_refused":
+                                          sched_refused_launches}
 
     timings = {"setup_s": setup_s, "drain_s": drain_s,
                **{f"{k}_s": v for k, v in result.phases.items()},
                "rounds": result.rounds, "admitted": result.admitted,
                "stepwise_placer": step_phases, "storm": storm,
                "tas_full": tas_full, "fair_storm": fair, "afs": afs,
-               "storm_churn": churn}
+               "storm_churn": churn, "scheduler_storm": sched_storm,
+               "scheduler_tas": sched_tas,
+               "scheduler_refused": sched_refused}
     print("[timings] " + json.dumps(timings))
     print(smi)
     print(json.dumps({"kernels": reports}))

@@ -1,14 +1,13 @@
-"""API object model: the subset the TAS solver drain touches.
+"""API object model: the subset the drain and the host scheduler touch.
 
 A copy of ``kueue_oss_tpu/api/types.py`` restricted to the objects the
-drain reads or writes (reference: apis/kueue/v1beta2/*_types.go). Field
-names and defaults are the JAX package's, so the same store builder
-works against either package. Quantities are plain integers in
-canonical units. Fair-sharing weights and admission scopes (AFS) are
-carried so that a store can state them; the port's drain refuses a
-backlog that needs either. Cut from the copy: node taints, priority
-classes, admission-check objects, MultiKueue and workload-slicing
-fields.
+drain and the scheduler cycle read or write (reference:
+apis/kueue/v1beta2/*_types.go). Field names and defaults are the JAX
+package's, so the same store builder works against either package.
+Quantities are plain integers in canonical units. Cut from the copy:
+node taints, priority classes, admission-check objects, and the
+workload-slicing, concurrent-admission variant and MultiKueue fields
+(their gates are off, so the scheduler reads none of them).
 """
 
 from __future__ import annotations
@@ -211,6 +210,8 @@ class ClusterQueue:
     admission_checks: list[str] = field(default_factory=list)
     admission_checks_strategy: Optional[AdmissionChecksStrategy] = None
     stop_policy: str = StopPolicy.NONE
+    #: None selects every namespace
+    namespace_selector: Optional[dict[str, str]] = None
 
     def checks_for_flavors(self, flavors) -> list[str]:
         """Effective admission checks for an assignment using

@@ -81,6 +81,11 @@ class AfsManager:
             return math.inf if self._weighted_sum(usage) > 0 else 0.0
         return self.entry_penalty(lq_key, usage)
 
+    def ordering_key(self, lq_key: str, now: float) -> float:
+        """The host cycle's AFS pop order (the queue manager's head of an
+        AFS ClusterQueue is the entry with the lowest key)."""
+        return self.weighted_usage(lq_key, now)
+
     def _weighted_sum(self, usage: dict[str, float]) -> float:
         weights = self.config.resource_weights
         total = 0.0

@@ -1,23 +1,20 @@
-"""The eviction state machine the FULL drain's plan applies, and the
-finish path a workload leaves by.
+"""The eviction state machine, and the finish path a workload leaves by.
 
-``evict_workload`` is a copy of the part of ``Scheduler.evict_workload``
-(``kueue_oss_tpu/scheduler/scheduler.py:1444-1565``) that the solver
-engine's ``_apply_full_plan`` uses: the Evicted / Preempted /
-QuotaReserved / Admitted condition writes, the admission and its
-checks cleared, the per-reason eviction counter, the PodsReady window
-closed, and the requeue with no backoff (the store update re-queues the
-workload, ordered by its eviction time; the cohort flush wakes its
-parked neighbours). Cut from the copy:
+``evict_workload`` is the state machine of ``Scheduler.evict_workload``
+(``kueue_oss_tpu/scheduler/scheduler.py:1444-1565``), kept once for
+both of its callers: the host scheduler's preemptions and the FULL
+drain's plan (through ``Scheduler.evict_workload`` when the engine has
+a scheduler, directly when it has none). It writes the Evicted /
+Preempted / QuotaReserved / Admitted conditions, clears the admission
+and its checks, counts the eviction per reason, closes the PodsReady
+window and requeues: at once, ordered by the eviction time, or behind
+an exponential backoff when the caller passes ``backoff_base_s``
+(RequeueState). The store update re-queues the workload; the cohort
+flush wakes its parked neighbours. Cut from the copy: persistence
+intents, and the decision recorder, events, logs and metrics (the port
+has no observability layer).
 
-- persistence intents: the port's store has no write-ahead log;
-- the decision recorder, events, logs and metrics: the port has no
-  observability layer;
-- the exponential requeue backoff and its heap: preemption evictions
-  never pass a backoff (only PodsReady evictions do, which the drain
-  never issues).
-
-``finish_workload`` is a copy of ``Scheduler.finish_workload``
+``finish_workload`` is ``Scheduler.finish_workload``
 (``kueue_oss_tpu/scheduler/scheduler.py:1650-1672``) without its
 metrics: the Finished condition releases the quota, and the queue
 manager flushes the cohort's parked workloads.
@@ -25,22 +22,31 @@ manager flushes the cohort's parked workloads.
 
 from __future__ import annotations
 
+from typing import Optional
+
 from kueue_oss_tpu_torch.api.types import (
+    RequeueState,
     WorkloadConditionType,
     WorkloadSchedulingStatsEviction,
 )
 from kueue_oss_tpu_torch.core.queue_manager import QueueManager
 from kueue_oss_tpu_torch.core.store import Store
 
+#: cap of an eviction's exponential requeue backoff
+EVICTION_BACKOFF_MAX_S = 3600.0
+
 
 def evict_workload(store: Store, queues: QueueManager, key: str,
                    reason: str, message: str, now: float,
                    preemption_reason: str = "",
-                   underlying_cause: str = "") -> None:
-    """Release the workload's quota and requeue it immediately."""
+                   underlying_cause: str = "",
+                   backoff_base_s: Optional[float] = None):
+    """Release the workload's quota and requeue it. Returns (workload,
+    whether it held quota), or None when there was nothing to evict."""
     wl = store.workloads.get(key)
     if wl is None or wl.is_finished:
-        return
+        return None
+    was_reserved = wl.is_quota_reserved
     wl.set_condition(WorkloadConditionType.EVICTED, True, reason=reason,
                      message=message, now=now)
     if preemption_reason:
@@ -63,8 +69,16 @@ def evict_workload(store: Store, queues: QueueManager, key: str,
     # admission being released
     wl.status.unhealthy_nodes = []
     wl.status.conditions.pop(WorkloadConditionType.PODS_READY, None)
+    if backoff_base_s is not None:
+        # exponential requeue backoff: schedulable again at requeue_at
+        rs = wl.status.requeue_state or RequeueState()
+        rs.count += 1
+        rs.requeue_at = now + min(backoff_base_s * (2 ** (rs.count - 1)),
+                                  EVICTION_BACKOFF_MAX_S)
+        wl.status.requeue_state = rs
     store.update_workload(wl)
     queues.report_workload_evicted(wl)
+    return wl, was_reserved
 
 
 def finish_workload(store: Store, queues: QueueManager, key: str,

@@ -1,39 +1,59 @@
 """Pending-workload queues, one per ClusterQueue.
 
 A copy of ``kueue_oss_tpu/core/queue_manager.py`` (reference:
-pkg/cache/queue/manager.go + cluster_queue.go) for BestEffortFIFO and
-StrictFIFO queues: the heap members, ordered by (priority desc, queue-order
-timestamp asc, uid), the inadmissible (parked) set, and the cohort
-flush when capacity frees (a workload deleted, evicted or finished). The drain
-reads ``snapshot_order`` and ``inadmissible`` and writes
-``delete``/``park``; an eviction re-queues the workload through its
-store update and flushes its cohort. The flush is the JAX package's
-eager one: parked entries move back into the heap at once, ordered by
-the same ``_order_key``, so the drain exports the same pending and
-parked rows as the JAX engine over a queue manager without lazy
-flushing. Under admission fair sharing the manager only holds the
-``AfsManager`` (``afs``): the drain exports the heap order and picks a
-UsageBasedAdmissionFairSharing queue's head (the entry of the
-LocalQueue with the lowest decayed usage) on the device. Cut from the
-copy: the host AFS pop order, the TAS second-pass queue,
-solver-managed lazy flushes (no stale entries),
-scheduling-equivalence no-fit hashes (only host cycles record them),
-metric dirty sets, and the lock/condition the threaded host scheduler
-waits on.
+pkg/cache/queue/manager.go + cluster_queue.go): per-ClusterQueue heaps
+ordered by (priority desc, queue-order timestamp asc, uid), StrictFIFO
+and BestEffortFIFO requeue behaviour, inadmissible (parked) workloads
+and the cohort flush when capacity frees (a workload deleted, evicted
+or finished).
+
+The host scheduler pops one head per ClusterQueue (``heads``) and
+requeues what it did not admit (``requeue_workload``); a BestEffortFIFO
+queue records the scheduling-equivalence class of a parked workload as
+known NoFit and parks its equivalent heap entries with it, until the
+next flush. The drain reads ``snapshot_order``, ``inadmissible`` and
+the stale entries and writes ``delete`` / ``park``. With lazy flushing
+(``set_lazy_flush(True)``, which the scheduler turns on while the
+device drain serves floods) a flush marks the parked entries stale
+instead of re-heaping them: the drain exports them as pending and the
+host path re-heaps them (``materialize_stale``) before it schedules.
+Under admission fair sharing the head of an AFS ClusterQueue is the
+entry of the LocalQueue with the lowest decayed usage.
+
+Cut from the copy: the TAS second-pass queue (delayed topology
+assignment; host TAS placement is ROADMAP Queue A item 4), the metric
+dirty sets and pending totals, and the lock and condition the threaded
+``serve`` loop waits on (``serve`` is ROADMAP Queue A item 3).
 """
 
 from __future__ import annotations
 
+import heapq
+import itertools
 from typing import Iterable, Optional
 
 from kueue_oss_tpu_torch import features
-from kueue_oss_tpu_torch.api.types import StopPolicy, Workload
+from kueue_oss_tpu_torch.api.types import (
+    QueueingStrategy,
+    StopPolicy,
+    Workload,
+)
 from kueue_oss_tpu_torch.core.store import Store
 from kueue_oss_tpu_torch.core.workload_info import (
     WorkloadInfo,
     effective_priority,
     queue_order_timestamp,
 )
+
+
+class RequeueReason:
+    """Reference parity: pkg/cache/queue RequeueReason values."""
+
+    GENERIC = "Generic"
+    FAILED_AFTER_NOMINATION = "FailedAfterNomination"
+    PENDING_PREEMPTION = "PendingPreemption"
+    PREEMPTION_FAILED = "PreemptionFailed"
+    NAMESPACE_MISMATCH = "NamespaceMismatch"
 
 
 def _order_key(info: WorkloadInfo) -> tuple:
@@ -45,44 +65,182 @@ def _order_key(info: WorkloadInfo) -> tuple:
 class ClusterQueuePendingQueue:
     """Heap + inadmissible parking for one ClusterQueue."""
 
-    def __init__(self, name: str) -> None:
-        self.name = name
-        #: heap members by key; the host scheduler's pop order is
-        #: ``snapshot_order`` (the drain never pops)
-        self.in_heap: dict[str, WorkloadInfo] = {}
-        self.inadmissible: dict[str, WorkloadInfo] = {}
-        self.active = True
+    _HEAP, _INADM = 1, 2
 
-    def push(self, info: WorkloadInfo) -> None:
-        self.inadmissible.pop(info.key, None)
-        if info.key in self.in_heap:
+    def __init__(self, name: str, strategy: str) -> None:
+        self.name = name
+        self.strategy = strategy
+        self._heap: list[tuple[tuple, int, WorkloadInfo]] = []
+        self._in_heap: dict[str, WorkloadInfo] = {}
+        self._counter = itertools.count()
+        self.inadmissible: dict[str, WorkloadInfo] = {}
+        #: cycle at which inadmissible workloads were last re-queued
+        self.queue_inadmissible_cycle = -1
+        self.active = True
+        #: admission-fair-sharing rank (info -> decayed LQ usage), set by
+        #: the manager for UsageBasedAdmissionFairSharing CQs
+        self.afs_key = None
+        #: scheduling-equivalence classes known NoFit since the last
+        #: capacity-freed flush (cluster_queue.go noFitSchedulingHashes)
+        self.no_fit_hashes: set = set()
+        #: XOR over (key, heap|inadmissible) membership, updated O(1)
+        #: per transition (run_until_quiet's quiescence probe)
+        self.state_hash = 0
+        #: solver-managed mode: a flush marks parked entries stale
+        #: instead of re-heaping them
+        self.lazy_flush = False
+        #: parked entries owed a retry since the latest flush
+        self._stale: dict[str, WorkloadInfo] = {}
+
+    def _hx(self, key: str, state: int) -> None:
+        self.state_hash ^= hash((key, state))
+
+    def push(self, info: WorkloadInfo, check_no_fit: bool = False) -> None:
+        """Insert into the heap. With check_no_fit (the PushOrUpdate
+        path, cluster_queue.go:371) a BestEffortFIFO queue parks a
+        workload whose equivalence class is already known NoFit."""
+        if (check_no_fit
+                and self.strategy == QueueingStrategy.BEST_EFFORT_FIFO
+                and info.key not in self._in_heap
+                and self.no_fit_hashes
+                and features.enabled("SchedulingEquivalenceHashing")
+                and info.scheduling_hash() in self.no_fit_hashes):
+            if info.key not in self.inadmissible:
+                self._hx(info.key, self._INADM)
+            self.inadmissible[info.key] = info
+            self._stale.pop(info.key, None)  # updated shape: parked anew
+            return
+        if info.key in self.inadmissible:
+            del self.inadmissible[info.key]
+            self._stale.pop(info.key, None)
+            self._hx(info.key, self._INADM)
+        if info.key in self._in_heap:
             self.delete(info.key)  # re-push with fresh ordering
-        self.in_heap[info.key] = info
+        self._in_heap[info.key] = info
+        self._hx(info.key, self._HEAP)
+        heapq.heappush(self._heap, (_order_key(info), next(self._counter),
+                                    info))
+
+    def pop_head(self) -> Optional[WorkloadInfo]:
+        if self.afs_key is not None and self._in_heap:
+            # admission fair sharing: the entry whose LocalQueue has the
+            # lowest decayed usage, the heap order breaking ties; O(n),
+            # since usage decays between cycles
+            info = min(self._in_heap.values(),
+                       key=lambda i: (self.afs_key(i), _order_key(i)))
+            del self._in_heap[info.key]
+            self._hx(info.key, self._HEAP)
+            # this path never pops _heap: rebuild once dead tuples
+            # dominate (amortized O(1))
+            if len(self._heap) > 2 * len(self._in_heap):
+                self._heap = [(k, c, i) for k, c, i in self._heap
+                              if self._in_heap.get(i.key) is i]
+                heapq.heapify(self._heap)
+            return info
+        while self._heap:
+            _, _, info = heapq.heappop(self._heap)
+            if self._in_heap.get(info.key) is info:
+                del self._in_heap[info.key]
+                self._hx(info.key, self._HEAP)
+                return info
+        return None
 
     def delete(self, key: str) -> None:
-        self.in_heap.pop(key, None)
+        if self._in_heap.pop(key, None) is not None:
+            self._hx(key, self._HEAP)
+        if key in self.inadmissible:
+            self._hx(key, self._INADM)
         self.inadmissible.pop(key, None)
+        self._stale.pop(key, None)
 
     def snapshot_order(self) -> list[WorkloadInfo]:
         """Heap contents in pop (rank) order, without consuming them."""
-        return sorted(self.in_heap.values(), key=_order_key)
+        return sorted(self._in_heap.values(), key=_order_key)
 
     def park(self, key: str) -> None:
-        """Move a heap entry to the inadmissible set."""
-        info = self.in_heap.get(key)
+        """Move a heap entry to the inadmissible set (an external
+        decision). Re-parking a parked entry refreshes it: a stale entry
+        the solver retried and could not admit is owed no retry until
+        the next flush."""
+        info = self._in_heap.get(key)
         if info is not None:
             self.delete(key)
             self.inadmissible[key] = info
+            self._hx(key, self._INADM)
+        elif key in self.inadmissible:
+            self._stale.pop(key, None)
 
-    def queue_inadmissible(self) -> bool:
-        """Move every parked workload back into the heap (capacity may
-        have freed, inadmissible_workloads.go:174)."""
+    def requeue_if_not_present(self, info: WorkloadInfo, reason: str,
+                               pop_cycle: int = -1) -> bool:
+        """cluster_queue.go requeueIfNotPresent: StrictFIFO always goes
+        back to the heap; BestEffortFIFO parks a generically
+        inadmissible workload until a cohort event frees capacity, and
+        sends scheduling-affecting reasons, or a workload popped before
+        a flush that fired since, back to the heap."""
+        if info.key in self._in_heap or info.key in self.inadmissible:
+            return False
+        if (self.strategy == QueueingStrategy.STRICT_FIFO
+                or reason != RequeueReason.GENERIC
+                or (pop_cycle >= 0
+                    and self.queue_inadmissible_cycle >= pop_cycle)):
+            self.push(info)
+            return True
+        self.inadmissible[info.key] = info
+        self._hx(info.key, self._INADM)
+        self._handle_inadmissible_hash(info)
+        return False
+
+    def _handle_inadmissible_hash(self, info: WorkloadInfo) -> None:
+        """Record the parked workload's equivalence class as NoFit and
+        park equivalent heap entries with it (cluster_queue.go
+        handleInadmissibleHash, :559-575)."""
+        if (self.strategy != QueueingStrategy.BEST_EFFORT_FIFO
+                or not features.enabled("SchedulingEquivalenceHashing")):
+            return
+        h = info.scheduling_hash()
+        self.no_fit_hashes.add(h)
+        for k in [k for k, i in self._in_heap.items()
+                  if i.scheduling_hash() == h]:
+            self.park(k)
+
+    def queue_inadmissible(self, cycle: int) -> bool:
+        """Move every parked workload back into the heap; known-NoFit
+        classes reset (inadmissible_workloads.go:174). In lazy mode the
+        parked entries only become stale."""
+        self.no_fit_hashes.clear()
+        if self.lazy_flush:
+            self.queue_inadmissible_cycle = cycle
+            if not self.inadmissible:
+                return False
+            for k, info in self.inadmissible.items():
+                self._stale.setdefault(k, info)
+            return True
         if not self.inadmissible:
+            self.queue_inadmissible_cycle = cycle
             return False
         parked = list(self.inadmissible.values())
         self.inadmissible.clear()
         for info in parked:
+            self._stale.pop(info.key, None)
+            self._hx(info.key, self._INADM)
             self.push(info)
+        self.queue_inadmissible_cycle = cycle
+        return True
+
+    def stale_infos(self) -> list[WorkloadInfo]:
+        """Parked entries owed a retry since the last flush."""
+        return list(self._stale.values())
+
+    def materialize_stale(self) -> bool:
+        """Physically re-heap the stale entries (host-path handoff)."""
+        if not self._stale:
+            return False
+        for k in list(self._stale):
+            info = self.inadmissible.pop(k, None)
+            self._stale.pop(k, None)
+            if info is not None:
+                self._hx(k, self._INADM)
+                self.push(info)
         return True
 
 
@@ -91,9 +249,19 @@ class QueueManager:
 
     def __init__(self, store: Store, afs=None) -> None:
         self.store = store
+        self.queues: dict[str, ClusterQueuePendingQueue] = {}
+        self.cycle = 0
         #: optional AfsManager (admission fair sharing, KEP-4136)
         self.afs = afs
-        self.queues: dict[str, ClusterQueuePendingQueue] = {}
+        #: the current scheduling cycle's time, the AFS decay reference
+        self.current_time = 0.0
+        #: solver-managed lazy capacity-freed flushes (set_lazy_flush)
+        self.lazy_flush = False
+        #: monotone count of new pending entries (each key counted once,
+        #: the first time it queues): the scheduler's re-engagement gate
+        #: diffs it to see a fresh arrival flood
+        self.new_pending_total = 0
+        self._counted_pending: set[str] = set()
         for cq in store.cluster_queues.values():
             self.add_cluster_queue(cq.name)
         # initial LIST: enqueue pending workloads already in the store
@@ -101,18 +269,34 @@ class QueueManager:
             self.add_or_update_workload(wl)
         store.watch(self._on_event)
 
+    # -- CQ lifecycle ------------------------------------------------------
+
     def add_cluster_queue(self, name: str) -> None:
         spec = self.store.cluster_queues[name]
         if name not in self.queues:
-            self.queues[name] = ClusterQueuePendingQueue(name)
-        self.queues[name].active = spec.stop_policy == StopPolicy.NONE
+            self.queues[name] = ClusterQueuePendingQueue(
+                name, spec.queueing_strategy)
+            self.queues[name].lazy_flush = self.lazy_flush
+        q = self.queues[name]
+        q.strategy = spec.queueing_strategy
+        q.active = spec.stop_policy == StopPolicy.NONE
+        if (self.afs is not None and spec.admission_scope is not None
+                and features.enabled("AdmissionFairSharing")
+                and spec.admission_scope.admission_mode
+                == "UsageBasedAdmissionFairSharing"):
+            q.afs_key = lambda info: self.afs.ordering_key(
+                f"{info.obj.namespace}/{info.obj.queue_name}",
+                self.current_time)
+        else:
+            q.afs_key = None
 
     def _on_event(self, event) -> None:
         verb, kind, obj = event
         if kind == "ClusterQueue":
             self.add_cluster_queue(obj.name)
-            self.queues[obj.name].queue_inadmissible()
+            self.queues[obj.name].queue_inadmissible(self.cycle)
         elif kind == "LocalQueue":
+            # a resumed or stopped LQ re-evaluates its pending workloads
             for wl in list(self.store.workloads.values()):
                 if (wl.namespace == obj.namespace
                         and wl.queue_name == obj.name):
@@ -121,10 +305,13 @@ class QueueManager:
             if verb in ("add", "update"):
                 self.add_or_update_workload(obj)
             elif verb == "delete":
+                self._counted_pending.discard(obj.key)
                 cq = self._cq_for(obj)
                 if cq is not None:
                     self.queues[cq].delete(obj.key)
                     self.flush_cohort_for(cq)
+
+    # -- workload flow -----------------------------------------------------
 
     def _cq_for(self, wl: Workload) -> Optional[str]:
         cq = self.store.cluster_queue_for(wl)
@@ -137,7 +324,8 @@ class QueueManager:
         return lq is not None and lq.stop_policy != StopPolicy.NONE
 
     def add_or_update_workload(self, wl: Workload) -> bool:
-        """Queue a workload if it is pending (active, no quota reserved)."""
+        """Queue a workload if it is pending (active, no quota
+        reserved)."""
         cq = self._cq_for(wl)
         if cq is None:
             return False
@@ -149,10 +337,86 @@ class QueueManager:
             return False
         rs = wl.status.requeue_state
         if rs is not None and rs.requeue_at is not None:
-            self.queues[cq].delete(wl.key)  # eviction backoff pending
+            # eviction backoff pending; Scheduler.requeue_due clears it
+            self.queues[cq].delete(wl.key)
             return False
-        self.queues[cq].push(WorkloadInfo(wl, cluster_queue=cq))
+        if wl.key not in self._counted_pending:
+            self._counted_pending.add(wl.key)
+            self.new_pending_total += 1
+        self.queues[cq].push(WorkloadInfo(wl, cluster_queue=cq),
+                             check_no_fit=True)
         return True
+
+    def requeue_workload(self, info: WorkloadInfo, reason: str) -> bool:
+        """Re-fetch the latest object state and requeue
+        (manager.go:645)."""
+        wl = self.store.workloads.get(info.key)
+        if (wl is None or not wl.active or wl.is_quota_reserved
+                or wl.is_finished or self._local_queue_stopped(wl)):
+            return False
+        fresh = WorkloadInfo(wl, cluster_queue=info.cluster_queue)
+        fresh.last_assignment = info.last_assignment
+        q = self.queues.get(info.cluster_queue)
+        if q is None:
+            return False
+        return q.requeue_if_not_present(fresh, reason,
+                                        pop_cycle=info.pop_cycle)
+
+    # -- heads -------------------------------------------------------------
+
+    def heads(self) -> list[WorkloadInfo]:
+        """Pop the head of every active ClusterQueue (one per CQ); the
+        scheduler requeues the heads it does not admit."""
+        self.cycle += 1
+        out: list[WorkloadInfo] = []
+        for q in self.queues.values():
+            if not q.active:
+                continue
+            head = q.pop_head()
+            if head is not None:
+                head.pop_cycle = self.cycle
+                out.append(head)
+        return out
+
+    def has_pending(self) -> bool:
+        return any(q._in_heap or q._stale
+                   for q in self.queues.values() if q.active)
+
+    def set_lazy_flush(self, on: bool) -> None:
+        """Toggle solver-managed lazy flushing; turning it off hands any
+        stale entries back to the host path."""
+        self.lazy_flush = on
+        for q in self.queues.values():
+            q.lazy_flush = on
+            if not on:
+                q.materialize_stale()
+
+    def any_stale(self) -> bool:
+        return any(q._stale for q in self.queues.values() if q.active)
+
+    def materialize_stale_all(self) -> bool:
+        """Re-heap every stale entry (before host cycles run with the
+        solver disengaged)."""
+        moved = False
+        for q in self.queues.values():
+            moved = q.materialize_stale() or moved
+        return moved
+
+    def solver_backlog_count(self) -> int:
+        """Pending work the solver would drain: heap entries plus stale
+        parked entries owed a retry."""
+        return sum(len(q._in_heap) + len(q._stale)
+                   for q in self.queues.values() if q.active)
+
+    def membership_fingerprint(self) -> int:
+        """Order-insensitive digest of every queue's (key, heap|parked)
+        membership (run_until_quiet's quiescence probe)."""
+        acc = 0
+        for name, q in self.queues.items():
+            acc ^= hash((name, q.state_hash))
+        return acc
+
+    # -- capacity-freed events ---------------------------------------------
 
     def _cohort_members(self, cq_name: str) -> Iterable[str]:
         spec = self.store.cluster_queues.get(cq_name)
@@ -174,22 +438,20 @@ class QueueManager:
         return [name for name, other in self.store.cluster_queues.items()
                 if other.cohort and root_of(other.cohort) == my_root]
 
+    def flush_cohort_for(self, cq_name: str) -> None:
+        """Re-queue inadmissible workloads across the whole cohort
+        (QueueAssociatedInadmissibleWorkloadsAfter)."""
+        for member in self._cohort_members(cq_name):
+            q = self.queues.get(member)
+            if q is not None:
+                q.queue_inadmissible(self.cycle)
+
     def report_workload_finished(self, wl: Workload) -> None:
-        """A finished workload's freed capacity wakes the parked
-        workloads of the cohort."""
         cq = self._cq_for(wl)
         if cq is not None:
             self.flush_cohort_for(cq)
 
     def report_workload_evicted(self, wl: Workload) -> None:
-        """Freed capacity wakes the parked workloads of the cohort."""
         cq = self._cq_for(wl)
         if cq is not None:
             self.flush_cohort_for(cq)
-
-    def flush_cohort_for(self, cq_name: str) -> None:
-        """Re-queue inadmissible workloads across the whole cohort."""
-        for member in self._cohort_members(cq_name):
-            q = self.queues.get(member)
-            if q is not None:
-                q.queue_inadmissible()

@@ -7,9 +7,10 @@ subtree quota is its own nominal plus what each child shares upward;
 usage bubbles past local capacity. The drain export reads these node
 quantities. The host dominant resource share (DRS,
 pkg/cache/scheduler/fair_sharing.go:140-191) is the scalar form of the
-fair drain's ``fair_kernels.drs_all``. Cut from the copy: the scalar
-``available`` walk and the usage removal (the drain computes both on
-the device).
+fair drain's ``fair_kernels.drs_all``. The scalar ``available`` walk,
+``fits`` and the usage removal serve the host scheduler cycle; the
+verify oracle (``native/``) walks the same algebra over flat arrays.
+Cut from the copy: the forest's ``cq_usage`` seed argument (no caller).
 """
 
 from __future__ import annotations
@@ -58,6 +59,22 @@ class QuotaNode:
         q = self.quotas.get(fr)
         return q.borrowing_limit if q is not None else None
 
+    def available(self, fr: FlavorResource) -> int:
+        """Capacity this node can still use for fr, borrowing included
+        (negative under overadmission, as in the reference)."""
+        if self.parent is None:
+            return self.subtree_quota.get(fr, 0) - self.usage.get(fr, 0)
+        parent_available = self.parent.available(fr)
+        bl = self.borrowing_limit(fr)
+        if bl is not None:
+            stored_in_parent = (self.subtree_quota.get(fr, 0)
+                                - self.local_quota(fr))
+            used_in_parent = max(0, self.usage.get(fr, 0)
+                                 - self.local_quota(fr))
+            parent_available = min(stored_in_parent - used_in_parent + bl,
+                                   parent_available)
+        return self.local_available(fr) + parent_available
+
     def potential_available(self, fr: FlavorResource) -> int:
         """Max capacity reachable assuming the whole tree were empty."""
         if self.parent is None:
@@ -80,6 +97,25 @@ class QuotaNode:
         self.usage[fr] = self.usage.get(fr, 0) + val
         if self.parent is not None and val > local_available:
             self.parent.add_usage(fr, val - local_available)
+
+    def remove_usage(self, fr: FlavorResource, val: int) -> None:
+        usage_stored_in_parent = self.usage.get(fr, 0) - self.local_quota(fr)
+        self.usage[fr] = self.usage.get(fr, 0) - val
+        if usage_stored_in_parent <= 0 or self.parent is None:
+            return
+        self.parent.remove_usage(fr, min(val, usage_stored_in_parent))
+
+    def borrowing_with(self, fr: FlavorResource, val: int) -> bool:
+        """Whether usage + val would exceed this node's subtree quota."""
+        return self.usage.get(fr, 0) + val > self.subtree_quota.get(fr, 0)
+
+    def fits(self, requests: dict[FlavorResource, int]) -> bool:
+        """Whether requests fit the available capacity of the chain."""
+        return all(v <= self.available(fr) for fr, v in requests.items())
+
+    def is_within_nominal(self, frs: Iterable[FlavorResource]) -> bool:
+        return all(self.usage.get(fr, 0) <= self.subtree_quota.get(fr, 0)
+                   for fr in frs)
 
 
 class CohortCycleError(Exception):

@@ -4,7 +4,8 @@ and commits to.
 A copy of ``kueue_oss_tpu/core/store.py`` with the same watch contract:
 writers emit ``(verb, kind, obj)`` events to subscribers (the queue
 manager). Cut from the copy: metrics (retained-finished gauges),
-persistence hooks, ``clone`` and the conditional-write client path.
+persistence hooks, ``clone``, the deletes of queues and nodes, and the
+conditional-write client path.
 """
 
 from __future__ import annotations
@@ -36,8 +37,13 @@ class Store:
         self.workloads: dict[str, Workload] = {}  # key "ns/name"
         self.nodes: dict[str, Node] = {}
         self._watchers: list[Callable[[Event], None]] = []
+        self.namespaces: dict[str, dict[str, str]] = {"default": {}}
+        #: bumped whenever a CQ's spec changes; invalidates flavor cursors
+        self.cq_generation: dict[str, int] = {}
         #: workloads currently holding quota, maintained on every write
         self._admitted: dict[str, Workload] = {}
+        #: cached WorkloadInfo of admitted workloads; dropped on write
+        self._admitted_infos: dict[str, object] = {}
 
     # -- watch -------------------------------------------------------------
 
@@ -53,6 +59,7 @@ class Store:
     def upsert_cluster_queue(self, cq: ClusterQueue) -> None:
         verb = "update" if cq.name in self.cluster_queues else "add"
         self.cluster_queues[cq.name] = cq
+        self.cq_generation[cq.name] = self.cq_generation.get(cq.name, 0) + 1
         self._emit(verb, "ClusterQueue", cq)
 
     def upsert_cohort(self, cohort: Cohort) -> None:
@@ -92,6 +99,7 @@ class Store:
     def delete_workload(self, key: str) -> Optional[Workload]:
         wl = self.workloads.pop(key, None)
         self._admitted.pop(key, None)
+        self._admitted_infos.pop(key, None)
         if wl is not None:
             self._emit("delete", "Workload", wl)
         return wl
@@ -101,6 +109,8 @@ class Store:
             self._admitted[wl.key] = wl
         else:
             self._admitted.pop(wl.key, None)
+        # the cached info reflects the pre-write state
+        self._admitted_infos.pop(wl.key, None)
 
     # -- readers -----------------------------------------------------------
 
@@ -110,16 +120,23 @@ class Store:
 
     def admitted_infos(self) -> list:
         """WorkloadInfo for every workload holding quota, charged to the
-        CQ recorded in its admission (workload.go:299)."""
+        CQ recorded in its admission (workload.go:299); cached per
+        workload until its next write."""
         from kueue_oss_tpu_torch.core.workload_info import WorkloadInfo
 
         out = []
-        for wl in self._admitted.values():
-            if wl.status.admission is not None:
-                cq_name = wl.status.admission.cluster_queue
-            else:
-                cq_name = self.cluster_queue_for(wl)
-                if cq_name is None:
-                    continue
-            out.append(WorkloadInfo(wl, cluster_queue=cq_name))
+        for key, wl in self._admitted.items():
+            info = self._admitted_infos.get(key)
+            if info is None:
+                if wl.status.admission is not None:
+                    info = WorkloadInfo(
+                        wl, cluster_queue=wl.status.admission.cluster_queue)
+                    self._admitted_infos[key] = info
+                else:
+                    # the LocalQueue may be repointed: resolve every call
+                    cq_name = self.cluster_queue_for(wl)
+                    if cq_name is None:
+                        continue
+                    info = WorkloadInfo(wl, cluster_queue=cq_name)
+            out.append(info)
         return out

@@ -1,15 +1,17 @@
 """Workload domain logic: request totals, priority, queue order.
 
 A copy of ``kueue_oss_tpu/core/workload_info.py`` (reference:
-pkg/workload/workload.go). Cut from the copy: the request-shaping
-config (LimitRange defaults and resource transformations, empty by
-default; the port has no Configuration loader) and the flavor cursor,
-which only the host scheduler reads.
+pkg/workload/workload.go) with the flavor cursor the host scheduler
+carries across cycles (``AssignmentClusterQueueState``). Cut from the
+copy: the request-shaping config (LimitRange defaults, resource
+transformations and QuotaCheckStrategy, empty by default; the port has
+no Configuration loader) and the AFS LocalQueue usage field.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
+from typing import Optional
 
 from kueue_oss_tpu_torch import features
 from kueue_oss_tpu_torch.api.types import (
@@ -45,8 +47,23 @@ class PodSetResources:
         return PodSetResources(self.name, scaled, count, dict(self.flavors))
 
 
+@dataclass
+class AssignmentClusterQueueState:
+    """Flavor cursor carried across cycles (reference: LastAssignment),
+    invalidated when the ClusterQueue's generation changes
+    (flavorassigner.go:571-577)."""
+
+    last_tried_flavor_idx: list[dict[str, int]] = field(default_factory=list)
+    cluster_queue_generation: int = -1
+
+    def next_flavor_to_try(self, ps_idx: int, resource: str) -> int:
+        if ps_idx < len(self.last_tried_flavor_idx):
+            return self.last_tried_flavor_idx[ps_idx].get(resource, -1) + 1
+        return 0
+
+
 class WorkloadInfo:
-    """A Workload enriched with request totals."""
+    """A Workload enriched with request totals and scheduling state."""
 
     def __init__(self, obj: Workload, cluster_queue: str = "") -> None:
         self.obj = obj
@@ -75,6 +92,11 @@ class WorkloadInfo:
                 psr.scaled_to(max(0, psr.count - rp.get(psr.name, 0)))
                 if rp.get(psr.name, 0) else psr
                 for psr in self.total_requests]
+        self.last_assignment: Optional[AssignmentClusterQueueState] = None
+        #: queue-manager cycle at which this head was popped (for the
+        #: mid-cycle capacity-freed flush check on requeue)
+        self.pop_cycle = -1
+        self._scheduling_hash: Optional[tuple] = None
 
     @property
     def key(self) -> str:
@@ -95,6 +117,8 @@ class WorkloadInfo:
     def scheduling_hash(self) -> tuple:
         """Shape key of the BestEffortFIFO NoFit dedup: same podset
         shapes, priority and ClusterQueue (workload.go:227-230)."""
+        if self._scheduling_hash is not None:
+            return self._scheduling_hash
         podsets = {ps.name: ps for ps in self.obj.podsets}
 
         def ps_shape(psr: PodSetResources) -> tuple:
@@ -110,9 +134,11 @@ class WorkloadInfo:
                     ps.min_count if ps is not None else None,
                     topo, tuple(sorted(psr.requests.items())))
 
-        return (self.cluster_queue, effective_priority(self.obj),
-                self.obj.allowed_flavor,
-                tuple(ps_shape(psr) for psr in self.total_requests))
+        self._scheduling_hash = (
+            self.cluster_queue, effective_priority(self.obj),
+            self.obj.allowed_flavor,
+            tuple(ps_shape(psr) for psr in self.total_requests))
+        return self._scheduling_hash
 
     def can_be_partially_admitted(self) -> bool:
         return any(ps.min_count is not None for ps in self.obj.podsets)

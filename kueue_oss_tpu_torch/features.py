@@ -24,6 +24,10 @@ _DEFAULTS: dict[str, bool] = {
     "PrioritySortingWithinCohort": True,      # entry tournament priority key
     "FairSharingPreemptWithinNominal": True,  # within-nominal bypass
     "FairSharingPrioritizeNonBorrowing": True,  # entry tournament step 1
+    # read by the host scheduler cycle (scheduler/)
+    "PartialAdmission": True,          # podset reduction
+    "FlavorFungibility": True,         # flavor_assigner custom policy
+    "AdmissionFairSharing": True,      # queue_manager AFS ordering key
 }
 
 

@@ -27,6 +27,11 @@ arguments, so identical stores (names, uids, creation times) can be
 built for any package that has the same object model; the TAS draw
 order matches ``bench.py`` exactly.
 
+``refused_quantity_store`` is the baseline storm with memory quotas and
+requests stated in bytes, as a deployment states them (4 GiB a cpu):
+no quantity scale makes them fit int32 tensors, so every drain refuses
+the backlog at export and the host cycles admit it.
+
 ``StormChurn`` is the finish-and-arrive churn cycle of ``bench.py``'s
 delta-session scenario (bench.py:769-800) over a store: each cycle
 finishes up to ``churn`` quota-holding workloads and submits ``churn``
@@ -184,6 +189,38 @@ def baseline_preempt_store(types, store_cls, *, n_cohorts: int = 5,
                for name, count, cpu, prio, interval in BASELINE_CLASSES]
     return (store,) + _waves(types, n_cohorts, cqs_per_cohort, classes,
                              scale)
+
+
+#: bytes of memory per cpu in ``refused_quantity_store``
+GIB = 1 << 30
+MEMORY_PER_CPU = 4 * GIB
+
+
+def refused_quantity_store(types, store_cls, *, n_cohorts: int = 5,
+                           cqs_per_cohort: int = 6, scale: float = 1.0):
+    """``baseline_preempt_store`` with a second resource, memory in
+    bytes (4 GiB per cpu in every quota and request), in the same
+    resource group. Every quantity is a multiple of the 1-cpu request's
+    gcd 1, so the 4 GiB of a small workload (2^32) stays above the
+    export's int32 quantity limit: both packages' drains raise
+    UnsupportedProblem ("quantities too large for int32 solver
+    tensors") and the scheduler admits the backlog in host cycles.
+    Returns (store, wave1, wave2)."""
+    store, wave1, wave2 = baseline_preempt_store(
+        types, store_cls, n_cohorts=n_cohorts,
+        cqs_per_cohort=cqs_per_cohort, scale=scale)
+    for name, cq in list(store.cluster_queues.items()):
+        rg = cq.resource_groups[0]
+        rg.covered_resources = ["cpu", "memory"]
+        cpu = rg.flavors[0].resources[0]
+        rg.flavors[0].resources.append(types.ResourceQuota(
+            name="memory", nominal=cpu.nominal * MEMORY_PER_CPU,
+            borrowing_limit=cpu.borrowing_limit * MEMORY_PER_CPU))
+        store.upsert_cluster_queue(cq)
+    for wl in wave1 + wave2:
+        for ps in wl.podsets:
+            ps.requests["memory"] = ps.requests["cpu"] * MEMORY_PER_CPU
+    return store, wave1, wave2
 
 
 def fair_reclaim_store(types, store_cls, *, n_cohorts: int = 5,

@@ -1,0 +1,866 @@
+"""The scheduling cycle, and its seam to the device drain.
+
+A copy of ``kueue_oss_tpu/scheduler/scheduler.py`` (reference:
+pkg/scheduler/scheduler.go). One cycle pops the queue heads, snapshots
+the store, nominates (flavor assignment and preemption targets), orders
+the entries (the classical sort or the fair-sharing DRS tournament),
+then admits or preempts with at most one cohort-conflicting admission
+per cycle and requeues the rest.
+
+With ``solver="auto"`` (or a ``SolverEngine`` instance) ``run_until_quiet``
+first drains the backlog on the device with ``engine.drain(verify=True)``
+(every plan entry re-checked by the verify oracle before it commits)
+whenever the routing gates let it: ``solver_min_backlog``, the benefit
+gate over freed capacity and arrivals, and the drain and host cost
+EMAs. Host cycles then mop up what the drain left, or everything when
+the drain refuses the backlog (``UnsupportedProblem``) or the backend is
+unavailable (``SolverUnavailable``). The ``"auto"`` engine runs on
+``device`` ("cuda" unless the caller asks for "cpu"); a host-only
+scheduler (``solver=None``) touches no device.
+
+Cut from the copy, each with its ROADMAP Queue A item:
+
+- ``serve``, the streaming admitter and ``micro_drain`` (item 3):
+  ``streaming`` must be None or False;
+- ``solver_config``, i.e. the sidecar socket, the breaker and the
+  relaxed-arm knobs (items 6 and 8): it must be None;
+- (no ROADMAP item: nothing in the port would set them) the
+  ``clock``, ``eviction_backoff_max_s`` and ``enable_partial_admission``
+  arguments: cycles time themselves on ``time.monotonic``, an eviction
+  backoff is capped at ``core.eviction.EVICTION_BACKOFF_MAX_S`` (3600
+  s) and partial admission follows its PartialAdmission gate (on);
+  ``evict_workload``'s ``requeue``, ``underlying_cause`` and
+  ``backoff_max_s``; and ``SolverEngine.supported()``, since the port's
+  engine has no mesh or sidecar state that makes a drain unsupported and
+  refuses a backlog shape only by raising ``UnsupportedProblem`` at
+  export;
+- the host TAS placement (item 4): ``_update_assignment_for_tas``,
+  ``_assume_tas_usage`` / ``_tas_fits`` and the second pass. A head
+  that needs a host topology placement raises ``NotImplementedError``
+  from the flavor assigner; it is never left pending in silence nor
+  admitted without a placement. Without a host placement no entry
+  carries a topology assignment, so the TAS fit re-check and the
+  delayed-topology admission (admission-check CQs) have nothing to do;
+- metrics, the decision recorder, the SLO engine, events, the cycle
+  ledger and persistence intents (the port has no observability layer);
+- workload slicing, concurrent admission and MultiKueue orchestrated
+  preemption: their gates (ElasticJobsViaWorkloadSlices,
+  ConcurrentAdmission, MultiKueueOrchestratedPreemption) are off by
+  default, and the port has no gate override, so the JAX scheduler at
+  those defaults never reaches them either.
+
+``solver_counts`` counts the drains that ran, what they admitted and
+evicted, the plan entries they handed back to the host
+(``plan_fallbacks``) and the passes that fell back
+(``unsupported``, ``unavailable``).
+"""
+
+from __future__ import annotations
+
+import functools
+import heapq
+import time
+from dataclasses import dataclass, field
+from typing import Optional
+
+from kueue_oss_tpu_torch import features
+from kueue_oss_tpu_torch.api.types import (
+    Admission,
+    AdmissionCheckState,
+    PodSetAssignment,
+    Workload,
+    WorkloadConditionType,
+)
+from kueue_oss_tpu_torch.core import eviction
+from kueue_oss_tpu_torch.core.queue_manager import QueueManager, RequeueReason
+from kueue_oss_tpu_torch.core.quota import compare_drs
+from kueue_oss_tpu_torch.core.snapshot import (
+    ClusterQueueSnapshot,
+    Snapshot,
+    build_snapshot,
+)
+from kueue_oss_tpu_torch.core.store import Store
+from kueue_oss_tpu_torch.core.workload_info import (
+    WorkloadInfo,
+    effective_priority,
+    queue_order_timestamp,
+)
+from kueue_oss_tpu_torch.scheduler import flavor_assigner as fa
+from kueue_oss_tpu_torch.scheduler.flavor_assigner import (
+    Assignment,
+    FlavorAssigner,
+    PodSetReducer,
+)
+from kueue_oss_tpu_torch.scheduler.preemption import Preemptor, Target
+from kueue_oss_tpu_torch.util.expectations import ExpectationsStore
+
+# entry status (scheduler.go entryStatus)
+NOT_NOMINATED = ""
+NOMINATED = "nominated"
+ASSUMED = "assumed"
+SKIPPED = "skipped"
+EVICTED = "evicted"
+
+
+@dataclass
+class Entry:
+    info: WorkloadInfo
+    assignment: Assignment = field(default_factory=Assignment)
+    status: str = NOT_NOMINATED
+    inadmissible_msg: str = ""
+    requeue_reason: str = RequeueReason.GENERIC
+    preemption_targets: list[Target] = field(default_factory=list)
+    cq_snapshot: Optional[ClusterQueueSnapshot] = None
+
+    def assignment_usage(self):
+        if self.info.obj.is_quota_reserved:
+            return {}
+        return dict(self.assignment.usage_quota)
+
+
+@dataclass
+class CycleStats:
+    cycle: int = 0
+    heads: int = 0
+    admitted: int = 0
+    preempted: int = 0
+    skipped: int = 0
+    inadmissible: int = 0
+    duration_s: float = 0.0
+
+
+class Scheduler:
+    """One-process scheduler over the in-memory store."""
+
+    def __init__(
+        self,
+        store: Store,
+        queues: QueueManager,
+        enable_fair_sharing: bool = False,
+        solver=None,
+        solver_min_backlog: int = 256,
+        solver_reengage_fraction: float = 0.05,
+        solver_config=None,
+        streaming=None,
+        device="cuda",
+    ) -> None:
+        if solver_config is not None:
+            raise NotImplementedError(
+                "solver_config (sidecar socket, breaker, relaxed arm): "
+                "ROADMAP Queue A items 6 and 8")
+        if streaming:
+            raise NotImplementedError(
+                "streaming admission: ROADMAP Queue A item 3")
+        self.store = store
+        self.queues = queues
+        self.enable_fair_sharing = enable_fair_sharing
+        self.preemptor = Preemptor(enable_fair_sharing=enable_fair_sharing)
+        self.cycle_count = 0
+        #: device drain backend: None (host cycles only), "auto" (a
+        #: SolverEngine over this store and queues on ``device``) or a
+        #: SolverEngine instance
+        self.solver = solver
+        self._solver_instance = None
+        self.device = device
+        if solver == "auto":
+            from kueue_oss_tpu_torch.device import resolve_device
+
+            self.device = resolve_device(device)  # raises without CUDA
+        #: skip the device drain below this many pending workloads:
+        #: floods go to the device, trickles stay on host cycles
+        #: (0 = always drain)
+        self.solver_min_backlog = solver_min_backlog
+        #: benefit-aware re-engagement after a flood drain: freed
+        #: capacity (or arrivals) must reach max(solver_min_backlog,
+        #: fraction * backlog) before the device re-walks the parked
+        #: backlog (0 = re-engage on every pass)
+        self.solver_reengage_fraction = solver_reengage_fraction
+        self._solver_drained_once = False
+        self._solver_freed_since_drain = 0
+        #: queues.new_pending_total at the last drain
+        self._solver_arrivals_mark = 0
+        #: arrival-triggered drains back off exponentially while they
+        #: admit nothing; a productive drain resets the multiplier
+        self._solver_arrival_mult = 1
+        self._solver_drain_trigger = None
+        #: routing cost EMAs: drain wall per exported workload and the
+        #: host cycle's wall per admission (None until measured)
+        self._drain_cost_ema: Optional[float] = None
+        self._host_s_per_adm: Optional[float] = None
+        #: min-heap of (requeue_at, workload key) pending backoff expiry
+        self._requeue_heap: list[tuple[float, str]] = []
+        #: in-flight preemption tracking (pkg/util/expectations)
+        self.preemption_expectations = ExpectationsStore()
+        #: the device drains and the fallbacks of this scheduler
+        self.solver_counts = {"drains": 0, "admitted": 0, "evicted": 0,
+                              "plan_fallbacks": 0, "unsupported": 0,
+                              "unavailable": 0}
+        #: the DrainResult of the last drain that ran
+        self.last_drain = None
+
+    # ------------------------------------------------------------------
+    # Cycle
+    # ------------------------------------------------------------------
+
+    def schedule(self, now: Optional[float] = None) -> CycleStats:
+        start = time.monotonic()
+        now = now if now is not None else start
+        self.cycle_count += 1
+        stats = CycleStats(cycle=self.cycle_count)
+        self.queues.current_time = now  # AFS decay reference point
+        self.requeue_due(now)
+
+        heads = self.queues.heads()
+        stats.heads = len(heads)
+        if not heads:
+            return stats
+
+        snapshot = build_snapshot(self.store)
+        entries, inadmissible = self._nominate(heads, snapshot, now)
+        stats.inadmissible = len(inadmissible)
+
+        iterator = self._make_iterator(entries, snapshot)
+        preempted_workloads: dict[str, WorkloadInfo] = {}
+        while iterator.has_next():
+            self._process_entry(iterator.pop(), snapshot,
+                                preempted_workloads, stats, now)
+
+        for e in entries:
+            if e.status not in (ASSUMED, EVICTED):
+                self._requeue_and_update(e)
+        for e in inadmissible:
+            self._requeue_and_update(e)
+
+        stats.duration_s = time.monotonic() - start
+        if stats.admitted:
+            per_adm = stats.duration_s / stats.admitted
+            self._host_s_per_adm = (
+                per_adm if self._host_s_per_adm is None
+                else 0.7 * self._host_s_per_adm + 0.3 * per_adm)
+        return stats
+
+    def _solver_engine(self):
+        if self.solver is None:
+            return None
+        if self.solver == "auto":
+            if self._solver_instance is None:
+                from kueue_oss_tpu_torch.solver.engine import SolverEngine
+
+                self._solver_instance = SolverEngine(
+                    self.store, self.queues, device=self.device,
+                    scheduler=self,
+                    enable_fair_sharing=self.enable_fair_sharing)
+            return self._solver_instance
+        return self.solver
+
+    def _solver_drain(self, now: Optional[float]) -> bool:
+        """Drain the backlog on the device when the gates let it.
+
+        Returns True if a drain changed something. Backlogs the drain
+        refuses (podset topology groups, quantities beyond int32) fall
+        through to the host cycle loop."""
+        engine = self._solver_engine()
+        if engine is None or not self.queues.has_pending():
+            return False
+        from kueue_oss_tpu_torch.solver.resilience import SolverUnavailable
+        from kueue_oss_tpu_torch.solver.tensors import UnsupportedProblem
+
+        if self.solver_min_backlog > 0:
+            # heap-count heuristic; stale parked entries count, they are
+            # owed a retry. Lazy flushing engages only while the device
+            # drains floods; at trickle scale the host path runs with
+            # exact eager flushes.
+            backlog = self.queues.solver_backlog_count()
+            if backlog < self.solver_min_backlog:
+                if self.queues.lazy_flush:
+                    self.queues.set_lazy_flush(False)  # materializes
+                # flood processed: the next crossing is a fresh flood
+                self._solver_drained_once = False
+                return False
+            if self._solver_drained_once and self.solver_reengage_fraction:
+                # benefit gate: a re-drain re-walks the parked backlog,
+                # so it must beat the host cycles it replaces; adaptive
+                # once both cost estimates exist, else the flood-sized
+                # batch rule
+                arrivals = (self.queues.new_pending_total
+                            - self._solver_arrivals_mark)
+                batch = min(self._solver_freed_since_drain + arrivals,
+                            backlog)
+                freed = self._solver_freed_since_drain
+                if (self._drain_cost_ema is not None
+                        and self._host_s_per_adm is not None):
+                    predicted = self._drain_cost_ema * backlog
+                    freed_ok = freed * self._host_s_per_adm >= predicted
+                    arrivals_ok = (batch * self._host_s_per_adm
+                                   >= predicted
+                                   * self._solver_arrival_mult)
+                else:
+                    need = max(self.solver_min_backlog,
+                               int(self.solver_reengage_fraction
+                                   * backlog))
+                    freed_ok = freed >= need
+                    arrivals_ok = (arrivals
+                                   >= need * self._solver_arrival_mult)
+                if not (freed_ok or arrivals_ok):
+                    # an over-estimated drain cost must not latch the
+                    # gate shut: decay it per skipped evaluation
+                    if self._drain_cost_ema is not None:
+                        self._drain_cost_ema *= 0.99
+                    if self.queues.lazy_flush:
+                        self.queues.set_lazy_flush(False)
+                    return False
+                self._solver_drain_trigger = (
+                    "freed" if freed_ok else "arrivals")
+            if not self.queues.lazy_flush:
+                self.queues.set_lazy_flush(True)
+        try:
+            backlog_now = max(1, self.queues.solver_backlog_count())
+            t0 = time.monotonic()
+            result = engine.drain(now=now if now is not None else 0.0,
+                                  verify=True)
+            per_wl = (time.monotonic() - t0) / backlog_now
+            if self._drain_cost_ema is None:
+                self._drain_cost_ema = per_wl
+            else:
+                self._drain_cost_ema = (0.7 * self._drain_cost_ema
+                                        + 0.3 * per_wl)
+        except UnsupportedProblem:
+            self.queues.materialize_stale_all()
+            self._solver_drain_trigger = None
+            self.solver_counts["unsupported"] += 1
+            return False
+        except SolverUnavailable:
+            # the backend cannot plan now: the round completes on the
+            # host cycle loop
+            self.queues.materialize_stale_all()
+            self._solver_drain_trigger = None
+            self.solver_counts["unavailable"] += 1
+            return False
+        self.last_drain = result
+        self.solver_counts["drains"] += 1
+        self.solver_counts["admitted"] += result.admitted
+        self.solver_counts["evicted"] += result.evicted
+        self.solver_counts["plan_fallbacks"] += result.plan_fallbacks
+        self._solver_drained_once = True
+        self._solver_freed_since_drain = 0
+        self._solver_arrivals_mark = self.queues.new_pending_total
+        if self._solver_drain_trigger == "arrivals":
+            if result.admitted < self.solver_min_backlog // 4:
+                self._solver_arrival_mult = min(
+                    64, self._solver_arrival_mult * 2)
+            else:
+                self._solver_arrival_mult = 1
+        elif result.admitted:
+            self._solver_arrival_mult = 1
+        self._solver_drain_trigger = None
+        # progress = the plan changed something
+        return bool(result.admitted or result.evicted)
+
+    def run_until_quiet(self, max_cycles: int = 10_000,
+                        now: Optional[float] = None,
+                        tick: float = 0.0) -> int:
+        """Run cycles until the pending state stops changing.
+
+        With a solver backend the backlog first drains on the device;
+        host cycles then mop up what the drain could not model or
+        verify. ``tick`` advances the clock per cycle."""
+        cycles = 0
+        prev_probe = None
+        while cycles < max_cycles:
+            self._solver_drain(None if now is None
+                               else now + cycles * tick)
+            stalled = False
+            while cycles < max_cycles:
+                pre = self._queue_fingerprint()
+                n = None if now is None else now + cycles * tick
+                stats = self.schedule(now=n)
+                cycles += 1
+                if stats.heads == 0:
+                    break
+                if (stats.admitted == 0 and stats.preempted == 0
+                        and self._queue_fingerprint() == pre):
+                    stalled = True
+                    break
+            # mid-loop evictions may have lazily flushed parked entries
+            # (stale): loop back so the solver (or the host, after
+            # materializing them) retries them before quiescence
+            if stalled or not self.queues.any_stale():
+                break
+            # a full pass that changed neither membership nor the
+            # retryable backlog changes nothing more
+            probe = (self._queue_fingerprint(),
+                     self.queues.solver_backlog_count())
+            if probe == prev_probe:
+                break
+            prev_probe = probe
+        return cycles
+
+    def _queue_fingerprint(self):
+        return self.queues.membership_fingerprint()
+
+    # ------------------------------------------------------------------
+    # Nomination
+    # ------------------------------------------------------------------
+
+    def _nominate(self, heads: list[WorkloadInfo], snapshot: Snapshot,
+                  now: float) -> tuple[list[Entry], list[Entry]]:
+        entries: list[Entry] = []
+        inadmissible: list[Entry] = []
+        for info in heads:
+            e = Entry(info=info)
+            e.cq_snapshot = snapshot.cluster_queue(info.cluster_queue)
+            if info.cluster_queue in snapshot.inactive_cluster_queues:
+                e.inadmissible_msg = (
+                    f"ClusterQueue {info.cluster_queue} is inactive")
+            elif e.cq_snapshot is None:
+                e.inadmissible_msg = (
+                    f"ClusterQueue {info.cluster_queue} not found")
+            elif not self._namespace_matches(e.cq_snapshot, info.obj):
+                e.inadmissible_msg = (
+                    "Workload namespace doesn't match ClusterQueue selector")
+                e.requeue_reason = RequeueReason.NAMESPACE_MISMATCH
+            else:
+                assignment, targets = self._assign(info, snapshot, now)
+                e.assignment = assignment
+                e.preemption_targets = targets
+                e.inadmissible_msg = assignment.message()
+                info.last_assignment = assignment.last_state
+                entries.append(e)
+                continue
+            inadmissible.append(e)
+        return entries, inadmissible
+
+    def _namespace_matches(self, cq: ClusterQueueSnapshot,
+                           wl: Workload) -> bool:
+        selector = cq.spec.namespace_selector
+        if selector is None:
+            return True
+        labels = self.store.namespaces.get(wl.namespace, {})
+        return all(labels.get(k) == v for k, v in selector.items())
+
+    def _assign(self, info: WorkloadInfo, snapshot: Snapshot,
+                now: float) -> tuple[Assignment, list[Target]]:
+        """scheduler.go getInitialAssignments: full fit, else preempt,
+        else partial admission. (The TAS recomputation with the victims
+        removed is not needed: an assignment that needs a host topology
+        placement raised in the flavor assigner already.)"""
+        cq = snapshot.cluster_queue(info.cluster_queue)
+        assert cq is not None
+        assigner = FlavorAssigner(
+            info, cq, snapshot.resource_flavors, oracle=self.preemptor,
+            enable_fair_sharing=self.enable_fair_sharing)
+        full = assigner.assign()
+        mode = full.representative_mode()
+        if mode == fa.FIT:
+            return full, []
+        if mode == fa.PREEMPT:
+            targets = self.preemptor.get_targets(info, full, snapshot, now)
+            if targets:
+                return full, targets
+
+        if (features.enabled("PartialAdmission")
+                and info.can_be_partially_admitted()):
+            def probe(counts):
+                assignment = assigner.assign(counts)
+                m = assignment.representative_mode()
+                if m == fa.FIT:
+                    return (assignment, []), True
+                if m == fa.PREEMPT:
+                    t = self.preemptor.get_targets(info, assignment,
+                                                   snapshot, now)
+                    if t:
+                        return (assignment, t), True
+                return None, False
+
+            result, found = PodSetReducer(info.obj.podsets, probe).search()
+            if found:
+                return result
+        return full, []
+
+    # ------------------------------------------------------------------
+    # Iterators
+    # ------------------------------------------------------------------
+
+    def _make_iterator(self, entries: list[Entry], snapshot: Snapshot):
+        if self.enable_fair_sharing:
+            return _FairSharingIterator(entries)
+        return _ClassicalIterator(entries)
+
+    # ------------------------------------------------------------------
+    # Entry processing
+    # ------------------------------------------------------------------
+
+    def _process_entry(self, e: Entry, snapshot: Snapshot,
+                       preempted_workloads: dict[str, WorkloadInfo],
+                       stats: CycleStats, now: float) -> None:
+        cq = e.cq_snapshot
+        assert cq is not None
+
+        mode = e.assignment.representative_mode()
+        if mode == fa.NO_FIT:
+            stats.skipped += 1
+            return
+
+        if mode == fa.PREEMPT and not e.preemption_targets:
+            # preemption needed but no targets: reserve the capacity the
+            # entry is entitled to so lower entries can't squat on it
+            # (scheduler.go reserveCapacityForUnreclaimablePreempt)
+            cq.add_usage(self._quota_to_reserve(e, cq))
+            stats.skipped += 1
+            return
+
+        # one cohort-conflicting admission per cycle
+        if any(t.info.key in preempted_workloads
+               for t in e.preemption_targets):
+            e.status = SKIPPED
+            e.inadmissible_msg = ("Workload has overlapping preemption "
+                                  "targets with another workload")
+            stats.skipped += 1
+            return
+
+        # in-flight preemption guard (preemption.go:207-221)
+        if mode == fa.PREEMPT and e.preemption_targets:
+            pending = self.preemption_expectations.pending_uids()
+            if not self.preemption_expectations.satisfied(e.info.key) or any(
+                    t.info.obj.uid in pending for t in e.preemption_targets):
+                e.status = SKIPPED
+                e.requeue_reason = RequeueReason.PENDING_PREEMPTION
+                e.inadmissible_msg = ("Workload is waiting for previously "
+                                      "issued preemptions")
+                stats.skipped += 1
+                return
+
+        usage = e.assignment_usage()
+        if not self._fits(snapshot, cq, usage, preempted_workloads,
+                          e.preemption_targets):
+            e.status = SKIPPED
+            e.inadmissible_msg = ("Workload no longer fits after "
+                                  "processing another workload")
+            stats.skipped += 1
+            return
+        for t in e.preemption_targets:
+            preempted_workloads[t.info.key] = t.info
+        cq.add_usage(usage)
+
+        if mode == fa.PREEMPT:
+            self._issue_preemptions(e, now)
+            stats.preempted += len(e.preemption_targets)
+            return
+
+        e.status = NOMINATED
+        self._admit(e, now)
+        stats.admitted += 1
+
+    @staticmethod
+    def _fits(snapshot: Snapshot, cq: ClusterQueueSnapshot, usage,
+              preempted_workloads: dict[str, WorkloadInfo],
+              targets: list[Target]) -> bool:
+        infos = list(preempted_workloads.values()) + [t.info
+                                                      for t in targets]
+        revert = snapshot.simulate_workload_removal(infos)
+        try:
+            return cq.fits(usage)
+        finally:
+            revert()
+
+    def _quota_to_reserve(self, e: Entry, cq: ClusterQueueSnapshot):
+        """scheduler.go quotaResourcesToReserve for Preempt-mode
+        entries."""
+        reserved = {}
+        borrowing = e.assignment.borrows() > 0
+        for fr, usage in e.assignment.usage_quota.items():
+            quota = cq.quota_for(fr)
+            if borrowing:
+                if quota.borrowing_limit is None:
+                    reserved[fr] = usage
+                else:
+                    reserved[fr] = min(
+                        usage,
+                        quota.nominal + quota.borrowing_limit
+                        - cq.node.usage.get(fr, 0))
+            else:
+                reserved[fr] = max(
+                    0, min(usage, quota.nominal - cq.node.usage.get(fr, 0)))
+        return reserved
+
+    # ------------------------------------------------------------------
+    # Admission / preemption / eviction
+    # ------------------------------------------------------------------
+
+    def _admit(self, e: Entry, now: float) -> None:
+        """Reserve quota and write the Admission into the store
+        (scheduler.go admit / assumeWorkload)."""
+        wl = self.store.workloads.get(e.info.key)
+        if wl is None:
+            e.status = SKIPPED
+            e.inadmissible_msg = "Workload vanished from the store"
+            return
+        admission = Admission(
+            cluster_queue=e.info.cluster_queue,
+            podset_assignments=[
+                PodSetAssignment(
+                    name=psa.name,
+                    flavors={r: rec.name for r, rec in psa.flavors.items()},
+                    resource_usage=dict(psa.requests),
+                    count=psa.count,
+                    topology_assignment=psa.topology_assignment,
+                )
+                for psa in e.assignment.podsets
+            ],
+        )
+        wl.status.admission = admission
+        wl.set_condition(WorkloadConditionType.QUOTA_RESERVED, True,
+                         reason="QuotaReserved", now=now)
+        if wl.is_evicted:
+            # a quota reservation supersedes a previous eviction
+            wl.set_condition(WorkloadConditionType.EVICTED, False,
+                             reason="QuotaReserved", now=now)
+        # re-admission clears the backoff gate but keeps the count
+        if wl.status.requeue_state is not None:
+            wl.status.requeue_state.requeue_at = None
+        cq_spec = self.store.cluster_queues[e.info.cluster_queue]
+        effective_checks = cq_spec.checks_for_flavors(
+            admission.assigned_flavors())
+        if effective_checks:
+            for name in effective_checks:
+                wl.status.admission_checks.setdefault(
+                    name, AdmissionCheckState(name=name))
+        else:
+            wl.set_condition(WorkloadConditionType.ADMITTED, True,
+                             reason="Admitted", now=now)
+        self.store.update_workload(wl)
+        e.status = ASSUMED
+        if (self.queues.afs is not None
+                and cq_spec.admission_scope is not None
+                and cq_spec.admission_scope.admission_mode
+                == "UsageBasedAdmissionFairSharing"):
+            # entry penalty: charge the admitted usage to the LocalQueue
+            # at once (afs/entry_penalties.go)
+            by_resource: dict[str, int] = {}
+            for (_, r), q in e.assignment.usage_quota.items():
+                by_resource[r] = by_resource.get(r, 0) + q
+            self.queues.afs.record_admission(
+                f"{wl.namespace}/{wl.queue_name}", by_resource, now)
+
+    def _issue_preemptions(self, e: Entry, now: float) -> None:
+        # expectations first; each synchronous eviction is observed at
+        # once (expectations/store.go)
+        self.preemption_expectations.expect_uids(
+            e.info.key, [t.info.obj.uid for t in e.preemption_targets])
+        for target in e.preemption_targets:
+            self.evict_workload(
+                target.info.key, reason="Preempted",
+                message=f"Preempted to accommodate {e.info.key} due to "
+                        f"{target.reason}",
+                now=now, preemption_reason=target.reason)
+        e.inadmissible_msg += (f". Pending the preemption of "
+                               f"{len(e.preemption_targets)} workload(s)")
+        e.requeue_reason = RequeueReason.PENDING_PREEMPTION
+        e.info.last_assignment = None
+
+    def evict_workload(self, key: str, reason: str, message: str,
+                       now: float, preemption_reason: str = "",
+                       backoff_base_s: Optional[float] = None) -> None:
+        """Evict and finalize through ``core.eviction.evict_workload``
+        (one state machine for the host cycle and the drain's plan),
+        plus the scheduler's own books: the freed-capacity count of the
+        routing gate, the backoff heap and the preemption
+        expectations."""
+        out = eviction.evict_workload(
+            self.store, self.queues, key, reason=reason, message=message,
+            now=now, preemption_reason=preemption_reason,
+            backoff_base_s=backoff_base_s)
+        if out is None:
+            return
+        wl, was_reserved = out
+        if was_reserved:
+            self._solver_freed_since_drain += 1
+        rs = wl.status.requeue_state
+        if (backoff_base_s is not None and rs is not None
+                and rs.requeue_at is not None):
+            heapq.heappush(self._requeue_heap, (rs.requeue_at, key))
+        self.preemption_expectations.observe(wl.uid)
+
+    def requeue_due(self, now: float) -> bool:
+        """Re-queue evicted workloads whose backoff expired (a min-heap
+        of (requeue_at, key); stale entries are skipped)."""
+        added = False
+        while self._requeue_heap and self._requeue_heap[0][0] <= now:
+            due_at, key = heapq.heappop(self._requeue_heap)
+            wl = self.store.workloads.get(key)
+            if wl is None:
+                continue
+            rs = wl.status.requeue_state
+            if rs is None or rs.requeue_at != due_at:
+                continue  # cleared or rescheduled since
+            if not wl.active or wl.is_quota_reserved or wl.is_finished:
+                continue
+            rs.requeue_at = None
+            added |= self.queues.add_or_update_workload(wl)
+        return added
+
+    def next_requeue_at(self) -> Optional[float]:
+        while self._requeue_heap:
+            due_at, key = self._requeue_heap[0]
+            wl = self.store.workloads.get(key)
+            rs = wl.status.requeue_state if wl is not None else None
+            if (wl is None or rs is None or rs.requeue_at != due_at
+                    or wl.is_finished or not wl.active):
+                heapq.heappop(self._requeue_heap)
+                continue
+            return due_at
+        return None
+
+    def finish_workload(self, key: str, now: float = 0.0) -> None:
+        """Mark Finished and release quota (the jobframework Finished
+        path, ``core.eviction.finish_workload``)."""
+        wl = self.store.workloads.get(key)
+        if wl is None:
+            return
+        if wl.is_quota_reserved:
+            self._solver_freed_since_drain += 1
+        eviction.finish_workload(self.store, self.queues, key, now)
+
+    def _requeue_and_update(self, e: Entry) -> None:
+        if (e.status != NOT_NOMINATED
+                and e.requeue_reason == RequeueReason.GENERIC):
+            e.requeue_reason = RequeueReason.FAILED_AFTER_NOMINATION
+        self.queues.requeue_workload(e.info, e.requeue_reason)
+
+
+# ---------------------------------------------------------------------------
+# Entry iterators
+# ---------------------------------------------------------------------------
+
+
+class _ClassicalIterator:
+    """scheduler.go makeClassicalIterator: quota-reserved first, fewer
+    borrows first, higher priority, FIFO."""
+
+    def __init__(self, entries: list[Entry]) -> None:
+        priority_step = features.enabled("PrioritySortingWithinCohort")
+
+        def cmp(a: Entry, b: Entry) -> int:
+            aq = a.info.obj.is_quota_reserved
+            bq = b.info.obj.is_quota_reserved
+            if aq != bq:
+                return -1 if aq else 1
+            ab, bb = a.assignment.borrows(), b.assignment.borrows()
+            if ab != bb:
+                return -1 if ab < bb else 1
+            if priority_step:
+                pa = effective_priority(a.info.obj)
+                pb = effective_priority(b.info.obj)
+                if pa != pb:
+                    return -1 if pa > pb else 1
+            ta = queue_order_timestamp(a.info.obj)
+            tb = queue_order_timestamp(b.info.obj)
+            if ta != tb:
+                return -1 if ta < tb else 1
+            return 0
+
+        self.entries = sorted(entries, key=functools.cmp_to_key(cmp))
+        self._idx = 0
+
+    def has_next(self) -> bool:
+        return self._idx < len(self.entries)
+
+    def pop(self) -> Entry:
+        e = self.entries[self._idx]
+        self._idx += 1
+        return e
+
+
+class _FairSharingIterator:
+    """fair_sharing_iterator.go: per-cohort tournament picking, at every
+    level, the child whose nominated workload yields the lowest DRS."""
+
+    def __init__(self, entries: list[Entry]) -> None:
+        self.cq_to_entry: dict[ClusterQueueSnapshot, Entry] = {}
+        for e in entries:
+            assert e.cq_snapshot is not None
+            self.cq_to_entry[e.cq_snapshot] = e
+
+    def has_next(self) -> bool:
+        return bool(self.cq_to_entry)
+
+    def pop(self) -> Entry:
+        cq = next(iter(self.cq_to_entry))
+        if not cq.has_parent():
+            return self.cq_to_entry.pop(cq)
+        root = cq.parent().root()
+        drs_values, requested_frs = self._compute_drs(root)
+        winner = self._run_tournament(root, drs_values, requested_frs)
+        assert winner is not None
+        del self.cq_to_entry[winner.cq_snapshot]
+        return winner
+
+    def _compute_drs(self, root):
+        drs_values: dict[tuple[str, str], object] = {}
+        requested_frs: dict[str, dict] = {}
+        for cq in root.subtree_cluster_queues():
+            entry = self.cq_to_entry.get(cq)
+            if entry is None:
+                continue
+            usage = entry.assignment_usage()
+            requested_frs[entry.info.key] = usage
+            revert = cq.simulate_usage_addition(usage)
+            try:
+                share = cq.dominant_resource_share()
+                for ancestor in cq.path_parent_to_root():
+                    drs_values[(ancestor.name, entry.info.key)] = share
+                    share = ancestor.dominant_resource_share()
+            finally:
+                revert()
+        return drs_values, requested_frs
+
+    def _run_tournament(self, cohort, drs_values,
+                        requested_frs) -> Optional[Entry]:
+        candidates: list[Entry] = []
+        for child in cohort.child_cohorts():
+            c = self._run_tournament(child, drs_values, requested_frs)
+            if c is not None:
+                candidates.append(c)
+        for child_cq in cohort.child_cqs():
+            if child_cq in self.cq_to_entry:
+                candidates.append(self.cq_to_entry[child_cq])
+        if not candidates:
+            return None
+
+        non_borrowing_first = features.enabled(
+            "FairSharingPrioritizeNonBorrowing")
+        priority_step = features.enabled("PrioritySortingWithinCohort")
+
+        def less(a: Entry, b: Entry) -> bool:
+            a_drs = drs_values.get((cohort.name, a.info.key))
+            b_drs = drs_values.get((cohort.name, b.info.key))
+            if a_drs is not None and b_drs is not None:
+                if non_borrowing_first:
+                    # 1: a subtree not borrowing on the workload's
+                    # requested flavors at this level wins
+                    # (fair_sharing_iterator.go:180-193)
+                    ab = a_drs.is_borrowing_on(
+                        requested_frs.get(a.info.key, {}))
+                    bb = b_drs.is_borrowing_on(
+                        requested_frs.get(b.info.key, {}))
+                    if ab != bb:
+                        return not ab
+                # 2: DRF
+                c = compare_drs(a_drs, b_drs)
+                if c != 0:
+                    return c < 0
+            # 3: effective priority (gated like the reference)
+            if priority_step:
+                pa = effective_priority(a.info.obj)
+                pb = effective_priority(b.info.obj)
+                if pa != pb:
+                    return pa > pb
+            # 4: FIFO
+            return (queue_order_timestamp(a.info.obj)
+                    < queue_order_timestamp(b.info.obj))
+
+        best = candidates[0]
+        for cur in candidates[1:]:
+            if less(cur, best):
+                best = cur
+        return best

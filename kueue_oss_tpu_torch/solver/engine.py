@@ -27,16 +27,25 @@ writing only a delta's dirty rows; the plan decodes the slotted
 drain uploads the whole padded problem.
 
 Admitted topology-aware (TAS) workloads are placed by the sequential
-device placer (``_compute_tas_assignments``) before
+device placer (``_compute_tas_assignments``). With ``verify=True`` (the
+scheduler always drains so) the verify oracle (``native.BatchOracle``,
+C++ built with g++, or its Python walk) then re-checks the candidates
+in commit order against a fresh snapshot's quota forest, as the
+scheduler's fits re-check would: an entry it rejects is not committed
+and stays queued for the host cycle, counted in
+``DrainResult.plan_fallbacks`` with the failed TAS placements.
 ``_commit_admission`` writes the admission, its conditions and the
-queue transitions, and charges an AFS admission to its LocalQueue.
-Podset topology groups raise ``UnsupportedProblem``; ``verify=True``
-raises ``NotImplementedError`` (the host oracle re-check is a later
-slice).
+queue transitions, and charges an AFS admission to its LocalQueue. The
+FULL plan's evictions go through the scheduler's ``evict_workload``
+when the engine has a scheduler, else through ``core/eviction.py``: one
+state machine either way. Stale parked entries (the queue manager's
+lazy flushes) export as pending, in rank order. Podset topology groups
+and quantities beyond int32 raise ``UnsupportedProblem``.
 Cut from the copy: metrics, the obs recorder and cycle ledger, tracer
-spans, persistence intents, the degradation ladder, the remote sidecar,
-and the mesh and relaxed-LP arms (so the pad target is the pow2
-high-water mark and the session interleave is 1).
+spans, persistence intents, the degradation ladder and breaker, the
+remote sidecar (so no ``SolverUnavailable`` is raised), pipelined
+dispatch, and the mesh and relaxed-LP arms (so the pad target is the
+pow2 high-water mark and the session interleave is 1).
 """
 
 from __future__ import annotations
@@ -55,11 +64,17 @@ from kueue_oss_tpu_torch.api.types import (
     WorkloadConditionType,
 )
 from kueue_oss_tpu_torch.core.eviction import evict_workload
-from kueue_oss_tpu_torch.core.queue_manager import QueueManager
+from kueue_oss_tpu_torch.core.queue_manager import QueueManager, _order_key
 from kueue_oss_tpu_torch.core.snapshot import build_snapshot
 from kueue_oss_tpu_torch.core.store import Store
 from kueue_oss_tpu_torch.core.workload_info import WorkloadInfo
 from kueue_oss_tpu_torch.device import resolve_device
+from kueue_oss_tpu_torch.native import BatchOracle
+from kueue_oss_tpu_torch.scheduler.preemption import (
+    _VARIANT_REASON,
+    IN_CLUSTER_QUEUE,
+    IN_COHORT_FAIR_SHARING,
+)
 from kueue_oss_tpu_torch.solver.delta import (
     DeviceResidentProblem,
     HostDeltaSession,
@@ -67,10 +82,6 @@ from kueue_oss_tpu_torch.solver.delta import (
 )
 from kueue_oss_tpu_torch.solver.fair_kernels import V_FAIR_SHARING
 from kueue_oss_tpu_torch.solver.full_kernels import (
-    V_HIERARCHICAL_RECLAIM,
-    V_RECLAIM_WHILE_BORROWING,
-    V_RECLAIM_WITHOUT_BORROWING,
-    V_WITHIN_CQ,
     FullDrainStats,
     solve_backlog_full,
     to_device_full,
@@ -88,15 +99,9 @@ from kueue_oss_tpu_torch.solver.tensors import (
     pow2,
 )
 
-#: Preempted-condition reason of each candidate variant
-#: (preemption.go; scheduler/preemption.py _VARIANT_REASON)
-_VARIANT_REASON = {
-    V_WITHIN_CQ: "InClusterQueue",
-    V_HIERARCHICAL_RECLAIM: "InCohortReclamation",
-    V_RECLAIM_WITHOUT_BORROWING: "InCohortReclamation",
-    V_RECLAIM_WHILE_BORROWING: "InCohortReclaimWhileBorrowing",
-    V_FAIR_SHARING: "InCohortFairSharing",
-}
+#: Preempted-condition reason of each candidate variant of the drain
+#: (preemption.go): the classical variants and the fair strategy rules
+_REASON_OF = {**_VARIANT_REASON, V_FAIR_SHARING: IN_COHORT_FAIR_SHARING}
 #: DeviceResidentProblem counters a drain reports (per-drain deltas)
 _DEVICE_COUNTERS = ("full_uploads", "delta_updates", "full_upload_bytes",
                     "donated_update_bytes", "donated_full_syncs",
@@ -136,16 +141,27 @@ class DrainResult:
     #: full_upload_bytes, and with sessions delta_updates,
     #: donated_update_bytes, donated_full_syncs, apply_faults
     device: dict = field(default_factory=dict)
+    #: plan entries the verify oracle re-checked (verify=True)
+    verified: int = 0
+    #: plan entries not committed and left queued for the host cycle:
+    #: oracle rejections and failed TAS placements (the JAX engine's
+    #: solver_plan_fallbacks_total)
+    plan_fallbacks: int = 0
 
 
 class SolverEngine:
     """Drains pending backlogs through the device kernels."""
 
     def __init__(self, store: Store, queues: QueueManager,
-                 device="cuda", enable_fair_sharing: bool = False) -> None:
+                 device="cuda", enable_fair_sharing: bool = False,
+                 scheduler=None) -> None:
         self.store = store
         self.queues = queues
         self.device = resolve_device(device)
+        #: host scheduler whose evict_workload applies the FULL plan's
+        #: evictions (its freed-capacity and expectation books); None
+        #: evicts through core/eviction.py directly
+        self.scheduler = scheduler
         #: fair sharing (KEP-1714): the DRS entry order and the fair
         #: preemption strategies, on the device (solver/fair_kernels.py)
         self.enable_fair_sharing = enable_fair_sharing
@@ -205,13 +221,17 @@ class SolverEngine:
         if spec is None:
             return False
         return all(device_tas_supported(info, self.store, spec)
-                   for info in list(q.in_heap.values())
+                   for info in list(q._in_heap.values())
                    + list(q.inadmissible.values()))
 
     def pending_backlog(self) -> dict[str, list[WorkloadInfo]]:
-        """Heap contents per active CQ in rank (pop) order. TAS CQs join
-        when their whole backlog is device-placeable; elsewhere
-        topology-requesting workloads stay for the host path."""
+        """Heap contents per active CQ in rank (pop) order, merged with
+        the stale parked entries owed a retry (a lazy flush, in the same
+        ``_order_key`` order a physical flush gives). TAS CQs join when
+        their whole backlog is device-placeable, else their stale
+        entries go back to the heap for the host path; elsewhere
+        topology-requesting workloads stay for the host path, and a
+        stale one takes its queue's stale entries back to the heap."""
         out: dict[str, list[WorkloadInfo]] = {}
         self._drain_tas_ready = set()
         for name, q in self.queues.queues.items():
@@ -219,26 +239,37 @@ class SolverEngine:
                 continue
             if self._is_tas_cq(name):
                 if not self._tas_device_ready(name, q):
+                    q.materialize_stale()
                     continue
                 self._drain_tas_ready.add(name)
+                stale = q.stale_infos()
                 infos = q.snapshot_order()
-            else:
-                infos = [i for i in q.snapshot_order()
-                         if all(ps.topology_request is None
-                                for ps in i.obj.podsets)]
+                if stale:
+                    infos = sorted(infos + stale, key=_order_key)
+                if infos:
+                    out[name] = infos
+                continue
+            stale = q.stale_infos()
+            if stale and any(ps.topology_request is not None
+                             for i in stale for ps in i.obj.podsets):
+                q.materialize_stale()
+                stale = []
+            infos = q.snapshot_order()
+            if stale:
+                infos = sorted(infos + stale, key=_order_key)
+            infos = [i for i in infos
+                     if all(ps.topology_request is None
+                            for ps in i.obj.podsets)]
             if infos:
                 out[name] = infos
         return out
 
     def drain(self, now: float = 0.0, verify: bool = False) -> DrainResult:
-        """Solve the whole backlog on the device and commit the plan."""
-        if verify:
-            raise NotImplementedError(
-                "verify=True needs the host oracle re-check, which this "
-                "port does not have yet")
+        """Solve the whole backlog on the device and commit the plan;
+        with ``verify`` the oracle re-checks every entry first."""
         pending = self.pending_backlog()
         if self.needs_full_kernel(pending):
-            return self._drain_full(now, pending)
+            return self._drain_full(now, pending, verify)
         result = DrainResult()
         te = time.monotonic()
         problem = export_problem(self.store, pending,
@@ -264,7 +295,7 @@ class SolverEngine:
 
         t1 = time.monotonic()
         self._apply_plan(problem, admitted, opt, admit_round, parked, now,
-                         result)
+                         result, verify)
         result.phases["apply"] = time.monotonic() - t1
         return result
 
@@ -360,16 +391,32 @@ class SolverEngine:
             if cq_name in self._drain_tas_ready and info.key in submitted:
                 ta = placements.get(info.key)
                 if ta is None:
+                    result.plan_fallbacks += 1
                     continue  # stays queued for the host path
                 topo_of[info.key] = ta
             kept.append(cand)
         result.phases["placement"] = time.monotonic() - t0
         return kept, topo_of
 
+    def _verify(self, candidates, verify: bool,
+                result: DrainResult) -> np.ndarray:
+        """The oracle's verdict per candidate, in commit order, over a
+        fresh snapshot's quota forest (scheduler.go:427 fits
+        re-check); rejections are counted as plan fallbacks. Without
+        ``verify`` every candidate passes."""
+        if not (verify and candidates):
+            return np.ones(len(candidates), dtype=np.uint8)
+        oracle = BatchOracle(build_snapshot(self.store).forest.cqs)
+        ok = oracle.verify_and_apply(
+            [(cq_name, usage) for _, cq_name, _, _, usage in candidates])
+        result.verified += len(candidates)
+        result.plan_fallbacks += int(len(candidates) - int(ok.sum()))
+        return ok
+
     def _apply_plan(self, problem: SolverProblem, admitted: np.ndarray,
                     opt: np.ndarray, admit_round: np.ndarray,
                     parked: np.ndarray, now: float,
-                    result: DrainResult) -> None:
+                    result: DrainResult, verify: bool = False) -> None:
         adm_ws = np.nonzero(admitted[:-1])[0]
         order = adm_ws[np.argsort(admit_round[adm_ws], kind="stable")]
         candidates = []
@@ -399,7 +446,10 @@ class SolverEngine:
 
         candidates, topo_of = self._compute_tas_assignments(candidates,
                                                             result)
-        for wl, cq_name, flavor, info, _ in candidates:
+        ok = self._verify(candidates, verify, result)
+        for passed, (wl, cq_name, flavor, info, _) in zip(ok, candidates):
+            if not passed:
+                continue  # stays queued for the host cycle
             flavor_of = {r: flavor for psr in info.total_requests
                          for r in psr.requests}
             self._commit_admission(wl, cq_name, flavor_of, info, now,
@@ -463,7 +513,8 @@ class SolverEngine:
                       + int(adm_counts[rn]))
         return h_max, pow2(max(8, min(pop, max(8, cap))))
 
-    def _drain_full(self, now: float, pending) -> DrainResult:
+    def _drain_full(self, now: float, pending,
+                    verify: bool = False) -> DrainResult:
         """Drain a preemption-enabled, multi-resource-group, fair-sharing
         or admission-fair-sharing backlog through solve_backlog_full and
         apply the net plan (reference cycle contract:
@@ -474,9 +525,12 @@ class SolverEngine:
             if not q.inadmissible or (self._is_tas_cq(name)
                                       and name not in self._drain_tas_ready):
                 continue
-            infos = [i for i in q.inadmissible.values()
-                     if all(ps.topology_request is None
-                            for ps in i.obj.podsets)]
+            # stale entries export as pending (pending_backlog); only
+            # the still-parked ones export as parked
+            infos = [i for k, i in q.inadmissible.items()
+                     if k not in q._stale
+                     and all(ps.topology_request is None
+                             for ps in i.obj.podsets)]
             if infos:
                 parked_map[name] = infos
         te = time.monotonic()
@@ -511,13 +565,26 @@ class SolverEngine:
 
         t1 = time.monotonic()
         self._apply_full_plan(problem, admitted, opt, admit_round, parked,
-                              victim_reason, now, result)
+                              victim_reason, now, result, verify)
         result.phases["apply"] = time.monotonic() - t1
         return result
 
+    def _evict(self, key: str, reason: str, now: float) -> None:
+        """Evict a victim of the plan through the one state machine:
+        the scheduler's books when there is a scheduler."""
+        message = "Preempted by the solver drain plan"
+        if self.scheduler is not None:
+            self.scheduler.evict_workload(key, reason="Preempted",
+                                          message=message, now=now,
+                                          preemption_reason=reason)
+        else:
+            evict_workload(self.store, self.queues, key, reason="Preempted",
+                           message=message, now=now,
+                           preemption_reason=reason)
+
     def _apply_full_plan(self, problem: SolverProblem, admitted, opt,
                          admit_round, parked, victim_reason, now: float,
-                         result: DrainResult) -> None:
+                         result: DrainResult, verify: bool = False) -> None:
         """Evictions first, then admissions in (round, entry) order with
         a flavor per resource group, then the parking decisions."""
         W = problem.n_workloads
@@ -531,11 +598,8 @@ class SolverEngine:
             wl = self.store.workloads.get(key)
             if wl is None or not wl.is_quota_reserved:
                 continue
-            evict_workload(
-                self.store, self.queues, key, reason="Preempted",
-                message="Preempted by the solver drain plan", now=now,
-                preemption_reason=_VARIANT_REASON.get(
-                    int(victim_reason[w]), "InClusterQueue"))
+            self._evict(key, _REASON_OF.get(int(victim_reason[w]),
+                                            IN_CLUSTER_QUEUE), now)
             if not admitted[w]:
                 result.evicted += 1
                 result.evicted_keys.append(key)
@@ -561,9 +625,14 @@ class SolverEngine:
                         fr = (flavor_of[r], r)
                         plan_usage[fr] = plan_usage.get(fr, 0) + q
             candidates.append((wl, cq_name, flavor_of, info, plan_usage))
+        # failed placements drop out of the plan before the verify, so
+        # the oracle's sequential walk matches what commits
         candidates, topo_of = self._compute_tas_assignments(candidates,
                                                             result)
-        for wl, cq_name, flavor_of, info, _ in candidates:
+        ok = self._verify(candidates, verify, result)
+        for passed, (wl, cq_name, flavor_of, info, _) in zip(ok, candidates):
+            if not passed:
+                continue  # stays queued for the host cycle
             self._commit_admission(wl, cq_name, flavor_of, info, now,
                                    result, topology=topo_of.get(wl.key))
 

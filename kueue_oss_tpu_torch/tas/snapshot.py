@@ -2,12 +2,13 @@
 
 A copy of the tree half of ``kueue_oss_tpu/tas/snapshot.py``
 (reference: pkg/cache/scheduler/tas_flavor_snapshot.go, KEP-2724):
-leaves carry free capacity (node allocatable) and assumed TAS usage;
-every ancestor domain is registered per level, keyed by its level
-values (a domain's parent is its id without the last value).
+leaves carry free capacity (node allocatable) and assumed TAS usage,
+which the host scheduler's snapshot adds and removes with admitted
+workloads; every ancestor domain is registered per level, keyed by its
+level values (a domain's parent is its id without the last value).
 ``solver/tas_kernels.build_levels`` flattens the tree into the dense
-per-level arrays the device placer runs on. Cut from the copy: the host
-two-phase placement algorithm (balanced placement, multi-layer slices,
+per-level arrays the device placer runs on. Cut from the copy (ROADMAP
+Queue A item 4): the host two-phase placement algorithm (balanced placement, multi-layer slices,
 leader groups, node replacement, taint filtering) — on the drain path
 the device placer replaces it — and the gated device fill-in-counts
 caller (``TASDeviceFillCounts``, off by default).
@@ -17,7 +18,7 @@ from __future__ import annotations
 
 from typing import Iterable, Optional
 
-from kueue_oss_tpu_torch.api.types import HOSTNAME_LABEL, Node
+from kueue_oss_tpu_torch.api.types import HOSTNAME_LABEL, Node, PodSet
 
 Requests = dict[str, int]
 
@@ -90,6 +91,14 @@ class TASFlavorSnapshot:
         _add(leaf.tas_usage, single_pod_requests, scale=count)
         leaf.tas_usage["pods"] = leaf.tas_usage.get("pods", 0) + count
 
+    def remove_tas_usage(self, domain_values: Iterable[str],
+                         single_pod_requests: Requests, count: int) -> None:
+        leaf = self._leaf_for_values(tuple(domain_values))
+        if leaf is None:
+            return
+        _add(leaf.tas_usage, single_pod_requests, scale=-count)
+        leaf.tas_usage["pods"] = leaf.tas_usage.get("pods", 0) - count
+
     def _leaf_for_values(self,
                          values: tuple[str, ...]) -> Optional[LeafDomain]:
         """Resolve assignment values (hostname-only or full path)."""
@@ -107,6 +116,31 @@ class TASFlavorSnapshot:
             return self.levels.index(key)
         except ValueError:
             return None
+
+    def has_level(self, podset: PodSet) -> bool:
+        """Whether the tree has the levels a podset's topology request
+        names (the flavor assigner's TAS flavor match)."""
+        tr = podset.topology_request
+        key = self._level_key(podset)
+        if key is None or self.level_index(key) is None:
+            return False
+        if tr is not None and tr.podset_slice_required_topology is not None:
+            if self.level_index(tr.podset_slice_required_topology) is None:
+                return False
+        return True
+
+    def _level_key(self, podset: PodSet) -> Optional[str]:
+        tr = podset.topology_request
+        if tr is not None:
+            if tr.required is not None:
+                return tr.required
+            if tr.preferred is not None:
+                return tr.preferred
+            if tr.podset_slice_required_topology is not None:
+                return self.levels[0]
+            if tr.unconstrained:
+                return self.levels[-1]
+        return None
 
 
 def build_tas_flavor_snapshot(

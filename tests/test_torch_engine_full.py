@@ -80,7 +80,7 @@ def _check_drain(jax_side, port_side, now):
     for name in jq.queues:
         assert (sorted(pq.queues[name].inadmissible)
                 == sorted(jq.queues[name].inadmissible)), name
-        assert (sorted(pq.queues[name].in_heap)
+        assert (sorted(pq.queues[name]._in_heap)
                 == sorted(jq.queues[name]._in_heap)), name
     assert got.full_stats is not None and got.full_stats.lanes > 0
     return want, got

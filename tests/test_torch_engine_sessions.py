@@ -108,7 +108,7 @@ class _Side:
             self.sched.finish_workload(key, now=now)
 
     def heap_and_parked(self):
-        heap = "in_heap" if self.port else "_in_heap"
+        heap = "_in_heap"
         return {name: (sorted(getattr(q, heap)), sorted(q.inadmissible))
                 for name, q in self.queues.queues.items()}
 

@@ -64,7 +64,7 @@ def test_tas_drain_matches_jax(seed):
     for name in jq.queues:
         assert (sorted(pq.queues[name].inadmissible)
                 == sorted(jq.queues[name].inadmissible)), name
-        assert (sorted(pq.queues[name].in_heap)
+        assert (sorted(pq.queues[name]._in_heap)
                 == sorted(jq.queues[name]._in_heap)), name
 
 
@@ -124,15 +124,15 @@ def test_default_device_is_cuda_and_raises_without_it():
 
 
 def test_verify_and_full_shapes_refuse():
-    """verify=True refuses (podset groups refuse in
-    tests/test_torch_engine_full.py). An admission scope routes the FULL
-    path only when the queues have an AfsManager, as in the JAX engine
+    """Which shapes the lean drain hands to the FULL path: an admission
+    scope only when the queues have an AfsManager, as in the JAX engine
     (the AFS drain: tests/test_torch_engine_fair.py); a
-    preemption-enabled CQ drains through the FULL path."""
+    preemption-enabled CQ always. Podset groups refuse in
+    tests/test_torch_engine_full.py. The name dates from when
+    ``verify=True`` refused as well; it now drains
+    (test_drain_verify_rechecks_every_entry)."""
     _, (ps, pq) = _both(640)
     engine = PortEngine(ps, pq, device="cpu")
-    with pytest.raises(NotImplementedError):
-        engine.drain(verify=True)
     cq = ps.cluster_queues["cq-0-0"]
     cq.admission_scope = port_types.AdmissionScope()
     assert not engine.needs_full_kernel(engine.pending_backlog())
@@ -143,3 +143,14 @@ def test_verify_and_full_shapes_refuse():
     cq.preemption.within_cluster_queue = (
         port_types.PreemptionPolicyValue.LOWER_PRIORITY)
     assert engine.drain().full_stats is not None
+
+
+def test_drain_verify_rechecks_every_entry():
+    """verify=True drains the TAS backlog and re-checks every committed
+    entry; the oracle rejects none (the verdicts are held against the
+    JAX engine in tests/test_torch_oracle.py)."""
+    _, (vs, vq) = _both(640)
+    verified = PortEngine(vs, vq, device="cpu").drain(verify=True)
+    assert verified.admitted > 0
+    assert verified.verified == verified.admitted
+    assert verified.plan_fallbacks == 0

@@ -46,6 +46,8 @@ def test_scan_sees_the_whole_port():
     assert "kueue_oss_tpu_torch/core/eviction.py" in names
     assert "kueue_oss_tpu_torch/solver/fair_kernels.py" in names
     assert "kueue_oss_tpu_torch/core/afs.py" in names
+    assert "kueue_oss_tpu_torch/native/__init__.py" in names
+    assert "kueue_oss_tpu_torch/scheduler/scheduler.py" in names
     assert "chip_smoke.py" in names
     # the exact-name comparison lets the port's own name through
     assert "kueue_oss_tpu_torch" not in FORBIDDEN
@@ -98,6 +100,19 @@ def test_port_drains_with_jax_blocked():
         afs_result = SolverEngine(store, QueueManager(store, afs=afs),
                                   device="cpu").drain(now=60.0)
         assert afs_result.admitted > 0, afs_result
+        # the scheduler over the device drain, its oracle re-check and
+        # the host cycles that mop up
+        from kueue_oss_tpu_torch.scheduler.scheduler import Scheduler
+        store, wave1, wave2 = baseline_preempt_store(
+            types, Store, n_cohorts=1, cqs_per_cohort=2, scale=0.05)
+        sched = Scheduler(store, QueueManager(store), solver="auto",
+                          device="cpu", solver_min_backlog=4)
+        for wave in (wave1, wave2):
+            for wl in wave:
+                store.add_workload(wl)
+            sched.run_until_quiet(now=100.0)
+        assert sched.solver_counts["drains"] == 2, sched.solver_counts
+        assert sched.last_drain.verified > 0, sched.last_drain
         leaked = [m for m in sys.modules
                   if m.split(".")[0] in ("jax", "jaxlib", "kueue_oss_tpu")
                   and sys.modules[m] is not None]
