@@ -118,9 +118,31 @@ Phases, in order; any failure propagates (nonzero exit, no result line):
    fallback per ``run_until_quiet`` pass (1, then 2), no drain
    committing anything, and the host cycles reaching the JAX
    scheduler's store (22, then 8 cycles).
+14. scheduler TAS, host placement: the mixed TAS store
+   (``scenarios.tas_mixed_store``: phase 5's cluster and queues in
+   millicores, 15,000 workloads of bench.py's plain and extended TAS
+   mixes, leader + workers groups only in ClusterQueues 3-5 of each
+   cohort), nothing cut, in four ``run_until_quiet(now=100.0,
+   tick=0.001)`` runs: (a) ``Scheduler(solver="auto")`` with
+   TASDeviceFillCounts off, (b) the same with it on, (c) host-only
+   (``solver=None, device="cuda"``) with it on, (d) host-only with it
+   off. Each run must equal the JAX scheduler's record (digest, held,
+   parked and leader-group counts, host cycles, device drains, the
+   host placement's ``_fill_in_counts`` calls); the pins of (a) and
+   (b), and of (c) and (d), are equal (the tests hold them so), so the
+   two fill modes give the same digest; ``leaf_states`` launches once
+   per fill in (b) and (c) and never in (a) and (d);
+   ``tas_place_sequential`` launches once per drain in (a) and (b) and
+   never in (c) and (d).
+   With the gate on, every fill's five states on every domain are held
+   against the host roll-up of the same leaves. Every admitted workload
+   passes independent topology checks: no node over its allocatable,
+   a required-rack podset (and a leader group) in one rack, every slice
+   whole in its slice domain. One fill's leaf tile is timed through
+   the kernel and its plain version.
 
 Phases 6-9 pin the JAX engine's plans without delta sessions, so they
-run the port's engine with ``use_sessions = False``; phases 10-13 pin
+run the port's engine with ``use_sessions = False``; phases 10-14 pin
 them with sessions on. Phases 8-11 and 13 run no TAS flavor: both
 kernels' launch counts are set to 0 before each drain (or each
 ``run_until_quiet``) and must still be 0 after it.
@@ -297,6 +319,33 @@ SCHEDULER_REFERENCE = {
          "drains": 0, "unsupported": 2, "drain_admitted": 0},
     ],
 }
+#: the JAX package's records of phase 14 (its Scheduler as for phases
+#: 11-13; ``TAS_MIXED_RUNS`` of tests/torch_scheduler_pins.py): per run
+#: the record of phases 11-13 plus parked workloads, leader groups
+#: holding quota and the host placement's ``_fill_in_counts`` calls
+SCHEDULER_REFERENCE["tas_mixed"] = {
+    "auto": {"cycles": 13, "held": 49, "evicted": 0, "reasons": {},
+             "digest": "e093ff81bc614e9afde59f6305ee6879"
+                       "52f22414eb22fa67f4384607cc599710",
+             "drains": 1, "unsupported": 0, "drain_admitted": 49,
+             "parked": 14951, "groups": 0, "fills": 90},
+    "auto_fill": {"cycles": 13, "held": 49, "evicted": 0, "reasons": {},
+                  "digest": "e093ff81bc614e9afde59f6305ee6879"
+                            "52f22414eb22fa67f4384607cc599710",
+                  "drains": 1, "unsupported": 0, "drain_admitted": 49,
+                  "parked": 14951, "groups": 0, "fills": 90},
+    "host_fill": {"cycles": 23, "held": 62, "evicted": 0, "reasons": {},
+                  "digest": "f2e3562e733ee8685910b5f15d8cdf37"
+                            "bffa8c49bd29b00274a543c28d9638f0",
+                  "parked": 14938, "groups": 2, "fills": 385},
+    "host": {"cycles": 23, "held": 62, "evicted": 0, "reasons": {},
+             "digest": "f2e3562e733ee8685910b5f15d8cdf37"
+                       "bffa8c49bd29b00274a543c28d9638f0",
+             "parked": 14938, "groups": 2, "fills": 385},
+}
+#: phase 14's runs: (name, solver="auto", TASDeviceFillCounts on)
+TAS_MIXED_RUNS = (("auto", True, False), ("auto_fill", True, True),
+                  ("host_fill", False, True), ("host", False, False))
 #: H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, non-tensor fp32 ops/s
 HBM_BYTES_PER_S = 3.35e12
 SCALAR_OPS_PER_S = 67e12
@@ -1323,6 +1372,232 @@ def scheduler_refused() -> tuple:
     return out, launches
 
 
+def _checked_device_fill(fill, check_s: list):
+    """``TASFlavorSnapshot._device_fill`` that, after the device fill,
+    recomputes every domain's five states with the host path (the leaf
+    division of ``_fill_in_counts`` and ``_roll_up``) from the same
+    leaves and raises on any difference; ``check_s[0]`` sums the
+    check's seconds."""
+    from kueue_oss_tpu_torch.tas.snapshot import count_in
+
+    def checked(self, req, leader_req, slice_size, slice_level_idx,
+                stats):
+        _, per_level = self._device_tree_arrays()
+        remaining = [leaf._remaining for leaf in per_level[-1]]
+        fill(self, req, leader_req, slice_size, slice_level_idx, stats)
+        t0 = time.perf_counter()
+        fields = ("state", "state_with_leader", "leader_state",
+                  "slice_state", "slice_state_with_leader")
+        got = [[getattr(d, f) for f in fields]
+               for doms in per_level for d in doms]
+        for dom in self.domains.values():
+            for f in fields:
+                setattr(dom, f, 0)
+        for leaf, rem in zip(per_level[-1], remaining):
+            if rem is None:
+                continue  # filtered out
+            rem = dict(rem)
+            leaf.state = count_in(req, rem)
+            if leader_req is not None and count_in(leader_req, rem) > 0:
+                leaf.leader_state = 1
+                for r, q in leader_req.items():
+                    rem[r] = rem.get(r, 0) - q
+            leaf.state_with_leader = count_in(req, rem)
+        for root in self.roots.values():
+            self._roll_up(root, slice_size, slice_level_idx, 0,
+                          leader_req is not None)
+        want = [[getattr(d, f) for f in fields]
+                for doms in per_level for d in doms]
+        if got != want:
+            bad = next(i for i, (g, w) in enumerate(zip(got, want))
+                       if g != w)
+            raise AssertionError(
+                f"device fill differs from the host roll-up at domain "
+                f"{bad}: {got[bad]} != {want[bad]}")
+        check_s[0] += time.perf_counter() - t0
+
+    return checked
+
+
+def _topology_checks(store) -> int:
+    """Phase 14's independent checks on every workload holding quota:
+    its podsets' domains place exactly their counts; no node holds more
+    than its allocatable (cpu and pods); a required-rack podset, and a
+    leader group as a whole, sits in one rack; every slice lies whole
+    in its slice domain. Returns the podsets checked."""
+    from kueue_oss_tpu_torch.scenarios import BLOCK, HOSTNAME, RACK
+
+    node_use: dict[str, dict] = {}
+    checked = 0
+    for key, wl in store.workloads.items():
+        if not wl.is_quota_reserved:
+            continue
+        podsets = {ps.name: ps for ps in wl.podsets}
+        group_racks: dict[str, set] = {}
+        for psa in wl.status.admission.podset_assignments:
+            ps = podsets[psa.name]
+            ta = psa.topology_assignment
+            if ta is None or sum(d.count for d in ta.domains) != psa.count:
+                raise AssertionError(f"{key}/{psa.name}: {ta} does not "
+                                     f"place its {psa.count} pods")
+            tr = ps.topology_request
+            racks = set()
+            per_slice_domain: dict[str, int] = {}
+            for d in ta.domains:
+                node = store.nodes[d.values[-1]]
+                use = node_use.setdefault(node.name, {"pods": 0})
+                use["pods"] += d.count
+                for r, q in ps.requests.items():
+                    use[r] = use.get(r, 0) + q * d.count
+                racks.add(node.labels[RACK])
+                if tr.podset_slice_required_topology is not None:
+                    dom = {RACK: node.labels[RACK], HOSTNAME: node.name,
+                           BLOCK: node.labels[BLOCK]}[
+                               tr.podset_slice_required_topology]
+                    per_slice_domain[dom] = (per_slice_domain.get(dom, 0)
+                                             + d.count)
+            if tr.required == RACK and len(racks) != 1:
+                raise AssertionError(f"{key}/{psa.name}: required rack, "
+                                     f"placed on racks {sorted(racks)}")
+            if any(n % tr.podset_slice_size
+                   for n in per_slice_domain.values()):
+                raise AssertionError(f"{key}/{psa.name}: slices of "
+                                     f"{tr.podset_slice_size} split: "
+                                     f"{per_slice_domain}")
+            if tr.podset_group_name:
+                group_racks.setdefault(tr.podset_group_name, set()).update(
+                    racks)
+            checked += 1
+        for group, racks in group_racks.items():
+            if len(racks) != 1:
+                raise AssertionError(f"{key}: group {group} spans racks "
+                                     f"{sorted(racks)}")
+    for name, use in node_use.items():
+        alloc = store.nodes[name].allocatable
+        if any(q > alloc.get(r, 0) for r, q in use.items()):
+            raise AssertionError(f"node {name} over its allocatable: "
+                                 f"{use} > {alloc}")
+    return checked
+
+
+def scheduler_tas_host() -> tuple:
+    """Phase 14: the mixed TAS store through the scheduler in four runs.
+    Returns (report, leaf_states launches, tas_place_sequential
+    launches, leaf_states kernel entry at one fill's shape)."""
+    import torch
+
+    from kueue_oss_tpu_torch import features
+    from kueue_oss_tpu_torch.api import types
+    from kueue_oss_tpu_torch.core.queue_manager import QueueManager
+    from kueue_oss_tpu_torch.core.store import Store
+    from kueue_oss_tpu_torch.scenarios import tas_mixed_store
+    from kueue_oss_tpu_torch.scheduler.scheduler import Scheduler
+    from kueue_oss_tpu_torch.solver import cuda_tas, tas_kernels
+    from kueue_oss_tpu_torch.tas.snapshot import TASFlavorSnapshot
+
+    fill_in_counts = TASFlavorSnapshot._fill_in_counts
+    device_fill = TASFlavorSnapshot._device_fill
+    fill_counts_ext = tas_kernels.fill_counts_ext
+    calls = [0]
+    check_s = [0.0]
+    tiles = []
+
+    def counted(self, *args, **kw):
+        calls[0] += 1
+        return fill_in_counts(self, *args, **kw)
+
+    def kept(parents, leaf_capacity, *args, **kw):
+        if not tiles:
+            tiles.append((leaf_capacity,) + args[:3])
+        return fill_counts_ext(parents, leaf_capacity, *args, **kw)
+
+    out = {}
+    leaf_total = place_total = 0
+    TASFlavorSnapshot._fill_in_counts = counted
+    TASFlavorSnapshot._device_fill = _checked_device_fill(device_fill,
+                                                          check_s)
+    tas_kernels.fill_counts_ext = kept
+    try:
+        for name, solver, fill in TAS_MIXED_RUNS:
+            store = tas_mixed_store(types, Store)
+            sched = Scheduler(store, QueueManager(store),
+                              solver="auto" if solver else None,
+                              device="cuda")
+            features.set_gates({"TASDeviceFillCounts": fill})
+            calls[0] = 0
+            check_s[0] = 0.0
+            counts0 = dict(sched.solver_counts) if solver else None
+            _reset_launches()
+            _settle()
+            t0 = time.monotonic()
+            cycles = sched.run_until_quiet(now=100.0, tick=0.001)
+            torch.cuda.synchronize()
+            wall = time.monotonic() - t0
+            features.reset()
+            leaf = cuda_tas.leaf_states.launches
+            place = cuda_tas.tas_place_sequential.launches
+            rec = _scheduler_record(store, sched, cycles, counts0)
+            rec["parked"] = sum(len(q.inadmissible)
+                                for q in sched.queues.queues.values())
+            rec["groups"] = sum(1 for w in store.workloads.values()
+                                if w.is_quota_reserved
+                                and len(w.podsets) == 2)
+            rec["fills"] = calls[0]
+            want = SCHEDULER_REFERENCE["tas_mixed"][name]
+            if rec != want:
+                raise AssertionError(f"scheduler TAS host {name}: {rec} != "
+                                     f"reference {want}")
+            if (leaf != (rec["fills"] if fill else 0)
+                    or place != (rec["drains"] if solver else 0)):
+                raise AssertionError(
+                    f"scheduler TAS host {name}: {leaf} leaf_states "
+                    f"launches for {rec['fills']} fills, {place} "
+                    f"tas_place_sequential launches")
+            checked = _topology_checks(store)
+            _quota_checks(store)
+            leaf_total += leaf
+            place_total += place
+            out[name] = {"wall_s": wall, "cycles": cycles,
+                         "fills": rec["fills"], "leaf_states": leaf,
+                         "tas_place_sequential": place,
+                         "fill_check_s": check_s[0],
+                         "podsets_checked": checked}
+            if solver:
+                out[name]["drain"] = {
+                    f"{k}_s": v for k, v in sched.last_drain.phases.items()}
+            print(f"[scheduler tas host {name}] matches the reference "
+                  f"({rec['held']} held, {rec['groups']} leader groups, "
+                  f"{rec['parked']} parked, {rec['fills']} fills); "
+                  + json.dumps(out[name]))
+    finally:
+        TASFlavorSnapshot._fill_in_counts = fill_in_counts
+        TASFlavorSnapshot._device_fill = device_fill
+        tas_kernels.fill_counts_ext = fill_counts_ext
+        features.reset()
+    # one fill's leaf tile, kernel against plain (launches made here to
+    # compare and time are not counted above)
+    cap, per_pod, leader, flag = tiles[0]
+    got = cuda_tas.leaf_states(cap, per_pod, leader, flag)
+    want = cuda_tas.leaf_states_reference(cap, per_pod, leader, flag)
+    torch.cuda.synchronize()
+    err = max(int((g.long() - w.long()).abs().max())
+              for g, w in zip(got, want))
+    if err:
+        raise AssertionError(f"leaf_states at the fill's tile: max abs "
+                             f"err {err}")
+    D, R = cap.shape
+    tile = {"shape": [D, R], "max_abs_err": err,
+            "ms": _time_ms(lambda: cuda_tas.leaf_states(
+                cap, per_pod, leader, flag)),
+            "plain_ms": _time_ms(lambda: cuda_tas.leaf_states_reference(
+                cap, per_pod, leader, flag)),
+            **_bound(4 * (D * R + 2 * R + 1 + 3 * D), 8 * D * R)}
+    out["fill_tile"] = tile
+    print(f"[scheduler tas host] leaf_states at the fill's {D}x{R} "
+          f"tile: " + json.dumps(tile))
+    return out, leaf_total, place_total
+
+
 def main() -> int:
     import torch
 
@@ -1404,7 +1679,6 @@ def main() -> int:
           f"0 leaf_states launches; the drain's batch agrees exactly "
           f"(max abs err {replay_err}); sessions on: first_sync, "
           f"{result.device['full_upload_bytes']} bytes uploaded")
-    reports[0]["launches"] = leaf_launches
     reports[1]["launches"] = place_launches
     reports[1]["steps"] = steps
 
@@ -1427,6 +1701,9 @@ def main() -> int:
     sched_storm, sched_storm_launches = scheduler_storm()
     sched_tas, sched_tas_launches, sched_tas_leaf = scheduler_tas()
     sched_refused, sched_refused_launches = scheduler_refused()
+
+    # 14. the scheduler's host TAS placement and its device fill
+    sched_host, host_leaf, host_place = scheduler_tas_host()
     reports[0]["launches_by_path"] = {"tas_lean": leaf_launches,
                                       "tas_full": 0, "storm_full": 0,
                                       "fair_storm": fair_launches,
@@ -1436,7 +1713,14 @@ def main() -> int:
                                           sched_storm_launches,
                                       "scheduler_tas": sched_tas_leaf,
                                       "scheduler_refused":
-                                          sched_refused_launches}
+                                          sched_refused_launches,
+                                      "scheduler_tas_host": host_leaf}
+    # leaf_states' own path since the drain fused it away: phase 14's
+    # host placement with the fill gate on
+    reports[0]["launches"] = host_leaf
+    reports[0]["launches_path"] = "scheduler_tas_host"
+    reports[1]["launches_path"] = "tas_lean"
+    reports[0]["scheduler_tas_host_tile"] = sched_host["fill_tile"]
     reports[1]["launches_by_path"] = {"tas_lean": place_launches,
                                       "tas_full": tas_full_launches,
                                       "storm_full": 0,
@@ -1447,7 +1731,8 @@ def main() -> int:
                                           sched_storm_launches,
                                       "scheduler_tas": sched_tas_launches,
                                       "scheduler_refused":
-                                          sched_refused_launches}
+                                          sched_refused_launches,
+                                      "scheduler_tas_host": host_place}
 
     timings = {"setup_s": setup_s, "drain_s": drain_s,
                **{f"{k}_s": v for k, v in result.phases.items()},
@@ -1456,7 +1741,8 @@ def main() -> int:
                "tas_full": tas_full, "fair_storm": fair, "afs": afs,
                "storm_churn": churn, "scheduler_storm": sched_storm,
                "scheduler_tas": sched_tas,
-               "scheduler_refused": sched_refused}
+               "scheduler_refused": sched_refused,
+               "scheduler_tas_host": sched_host}
     print("[timings] " + json.dumps(timings))
     print(smi)
     print(json.dumps({"kernels": reports}))

@@ -156,6 +156,7 @@ class Node:
     labels: dict[str, str] = field(default_factory=dict)
     #: allocatable capacity in canonical units; "pods" defaults to 110
     allocatable: dict[str, int] = field(default_factory=dict)
+    taints: list[Taint] = field(default_factory=list)
     ready: bool = True
 
     def __post_init__(self) -> None:
@@ -323,6 +324,7 @@ class PodSetAssignment:
     resource_usage: dict[str, int] = field(default_factory=dict)
     count: int = 0
     topology_assignment: Optional[TopologyAssignment] = None
+    delayed_topology_request: Optional[str] = None  # "Pending" | "Ready"
 
 
 @dataclass

@@ -20,10 +20,14 @@ host path re-heaps them (``materialize_stale``) before it schedules.
 Under admission fair sharing the head of an AFS ClusterQueue is the
 entry of the LocalQueue with the lowest decayed usage.
 
-Cut from the copy: the TAS second-pass queue (delayed topology
-assignment; host TAS placement is ROADMAP Queue A item 4), the metric
-dirty sets and pending totals, and the lock and condition the threaded
-``serve`` loop waits on (``serve`` is ROADMAP Queue A item 3).
+The second-pass queue holds quota-reserved workloads whose topology
+assignment was delayed (admission-check ClusterQueues), with a 1 s ->
+30 s exponential backoff per attempt; the scheduler's second pass
+takes the ready ones at the start of each cycle.
+
+Cut from the copy: the metric dirty sets and pending totals, and the
+lock and condition the threaded ``serve`` loop waits on (``serve`` is
+ROADMAP Queue A item 3).
 """
 
 from __future__ import annotations
@@ -262,12 +266,44 @@ class QueueManager:
         #: diffs it to see a fresh arrival flood
         self.new_pending_total = 0
         self._counted_pending: set[str] = set()
+        #: second-pass queue (second_pass_queue.go): min-heap of
+        #: (ready_at, workload key) plus per-key attempt counts driving
+        #: the 1s -> 30s exponential backoff
+        self._second_pass_heap: list[tuple[float, str]] = []
+        self._second_pass_iteration: dict[str, int] = {}
         for cq in store.cluster_queues.values():
             self.add_cluster_queue(cq.name)
         # initial LIST: enqueue pending workloads already in the store
         for wl in store.workloads.values():
             self.add_or_update_workload(wl)
         store.watch(self._on_event)
+
+    # -- second pass (TAS delayed assignment; second_pass_queue.go) ---------
+
+    SECOND_PASS_INITIAL_BACKOFF_S = 1.0
+    SECOND_PASS_MAX_BACKOFF_S = 30.0
+
+    def queue_second_pass(self, key: str, now: float) -> float:
+        """Schedule a workload for a second scheduling pass with
+        exponential delay (manager.go:868 QueueSecondPassIfNeeded).
+        Returns the ready-at time."""
+        it = self._second_pass_iteration.get(key, 0) + 1
+        self._second_pass_iteration[key] = it
+        delay = min(self.SECOND_PASS_INITIAL_BACKOFF_S * (2 ** (it - 1)),
+                    self.SECOND_PASS_MAX_BACKOFF_S)
+        ready_at = now + delay
+        heapq.heappush(self._second_pass_heap, (ready_at, key))
+        return ready_at
+
+    def take_second_pass_ready(self, now: float) -> list[str]:
+        out = []
+        while self._second_pass_heap and self._second_pass_heap[0][0] <= now:
+            _, key = heapq.heappop(self._second_pass_heap)
+            out.append(key)
+        return out
+
+    def clear_second_pass(self, key: str) -> None:
+        self._second_pass_iteration.pop(key, None)
 
     # -- CQ lifecycle ------------------------------------------------------
 

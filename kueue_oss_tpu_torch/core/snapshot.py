@@ -8,10 +8,10 @@ available, borrowing, usage simulation, dominant resource share) and
 one TAS domain tree per TAS flavor with admitted topology usage
 assumed. The snapshot is built once per cycle (and per drain) and then
 mutated freely (usage simulation, workload removal) without touching
-the store. Cut from the copy: the host topology placement
-``find_topology_assignments_for_workload`` (ROADMAP Queue A item 4; the
-flavor assigner raises where it would be needed) and the mixed TAS
-profile option.
+the store. ``ClusterQueueSnapshot.find_topology_assignments_for_workload``
+places a workload's TAS podsets on those trees (the host placement of
+``tas/snapshot.py``); the trees run their fill-in counts on ``device``
+when the TASDeviceFillCounts gate is on, and touch no device otherwise.
 """
 
 from __future__ import annotations
@@ -38,7 +38,9 @@ from kueue_oss_tpu_torch.core.workload_info import (
     effective_per_pod_requests,
 )
 from kueue_oss_tpu_torch.tas.snapshot import (
+    TASAssignmentResult,
     TASFlavorSnapshot,
+    TASPodSetRequest,
     build_tas_flavor_snapshot,
 )
 
@@ -122,6 +124,25 @@ class ClusterQueueSnapshot:
     def is_tas_only(self) -> bool:
         """Every flavor of the CQ is a TAS flavor (IsTASOnly)."""
         return self._tas_only
+
+    def find_topology_assignments_for_workload(
+        self,
+        tas_requests: dict[str, list[TASPodSetRequest]],
+        simulate_empty: bool = False,
+        workload=None,
+    ) -> dict[str, TASAssignmentResult]:
+        """Per-flavor placement (clusterqueue_snapshot.go:191)."""
+        result: dict[str, TASAssignmentResult] = {}
+        for flavor, requests in tas_requests.items():
+            snap = self._snapshot.tas_flavors.get(flavor)
+            if snap is None:
+                for tr in requests:
+                    result[tr.podset.name] = TASAssignmentResult(
+                        failure=f"flavor {flavor} has no TAS information")
+                continue
+            result.update(snap.find_topology_assignments(
+                requests, simulate_empty=simulate_empty, workload=workload))
+        return result
 
     # -- hierarchy ---------------------------------------------------------
 
@@ -297,10 +318,11 @@ class Snapshot:
         return revert
 
 
-def build_snapshot(store: Store) -> Snapshot:
-    """A snapshot of the store's current state (the drain's placement
-    uses the BestFit profile, as the JAX package's ``build_snapshot``
-    does by default)."""
+def build_snapshot(store: Store, device="cuda") -> Snapshot:
+    """A snapshot of the store's current state. Its TAS trees use the
+    BestFit profile, as the JAX package's ``build_snapshot`` does by
+    default; ``device`` is where they run their fill-in counts under
+    TASDeviceFillCounts."""
     forest = QuotaForest()
     forest.build(store.cluster_queues.values(), store.cohorts.values())
 
@@ -314,8 +336,9 @@ def build_snapshot(store: Store) -> Snapshot:
         if topology is None:
             continue
         tas_flavors[rf.name] = build_tas_flavor_snapshot(
-            topology.levels, store.nodes.values(),
-            flavor_node_labels=rf.node_labels, profile_mixed=False)
+            topology.name, topology.levels, store.nodes.values(),
+            flavor_node_labels=rf.node_labels, tolerations=rf.tolerations,
+            profile_mixed=False, device=device)
 
     cqs: dict[str, ClusterQueueSnapshot] = {}
     snapshot = Snapshot(

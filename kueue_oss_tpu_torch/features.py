@@ -1,21 +1,25 @@
-"""Feature-gate defaults read by the port.
+"""Feature gates read by the port.
 
-The JAX package keeps a mutable gate registry
-(``kueue_oss_tpu/features``); the port reads the same gates at their
-reference defaults and has no override path. The JAX package's
-process-wide requests config (``core/workload_info.py``: LimitRange
-defaults, resource transformations, QuotaCheckStrategy=IgnoreUndeclared)
-is likewise at its default, empty, and so is not read at all.
+A copy of the JAX package's gate registry (``kueue_oss_tpu/features``)
+cut to the gates the port reads, at their reference defaults.
+``set_gates`` overrides gates process-wide and ``reset`` restores the
+defaults, with the JAX package's signatures, so tests and chip_smoke.py
+can run the gated modes (the TAS placement's balanced, multi-layer and
+device fill-in-counts modes). The JAX package's process-wide requests
+config (``core/workload_info.py``: LimitRange defaults, resource
+transformations, QuotaCheckStrategy=IgnoreUndeclared) is at its
+default, empty, and so is not read at all.
 """
 
 from __future__ import annotations
+
+import threading
 
 _DEFAULTS: dict[str, bool] = {
     "LendingLimit": True,              # core/quota.py local quota
     "HierarchicalCohorts": True,       # core/store.py cohort parent edges
     "ReclaimablePods": True,           # core/workload_info.py totals
     "TopologyAwareScheduling": True,   # core/snapshot.py TAS snapshots
-    "TASBalancedPlacement": False,     # solver/tas_engine.py shape gate
     "ConcurrentAdmission": False,      # core/queue_manager.py CA parents
     "PriorityBoost": False,            # core/workload_info.py priority
     "SchedulingEquivalenceHashing": True,  # solver/tensors.py NoFit classes
@@ -28,9 +32,42 @@ _DEFAULTS: dict[str, bool] = {
     "PartialAdmission": True,          # podset reduction
     "FlavorFungibility": True,         # flavor_assigner custom policy
     "AdmissionFairSharing": True,      # queue_manager AFS ordering key
+    # topology-aware scheduling (tas/snapshot.py)
+    "TASProfileMixed": True,           # LeastFreeCapacity for unconstrained
+    "TASFailedNodeReplacement": True,  # replacement path
+    "TASBalancedPlacement": False,     # balanced algorithm; tas_engine gate
+    "TASMultiLayerTopology": False,    # nested slice layers
+    # phase-1 fill-in counts on the device (_device_fill), phase-2
+    # tie-breaks on the host
+    "TASDeviceFillCounts": False,
 }
+
+_lock = threading.Lock()
+_overrides: dict[str, bool] = {}
+
+
+class UnknownFeatureGate(KeyError):
+    pass
 
 
 def enabled(name: str) -> bool:
-    """Default of a registered gate; unknown names raise KeyError."""
-    return _DEFAULTS[name]
+    """A registered gate's value; unknown names raise."""
+    if name not in _DEFAULTS:
+        raise UnknownFeatureGate(name)
+    v = _overrides.get(name)
+    return _DEFAULTS[name] if v is None else v
+
+
+def set_gates(gates: dict[str, bool]) -> None:
+    """Apply overrides (Configuration.featureGates / --feature-gates)."""
+    unknown = sorted(set(gates) - set(_DEFAULTS))
+    if unknown:
+        raise UnknownFeatureGate(", ".join(unknown))
+    with _lock:
+        _overrides.update(gates)
+
+
+def reset() -> None:
+    """Restore defaults (test isolation)."""
+    with _lock:
+        _overrides.clear()

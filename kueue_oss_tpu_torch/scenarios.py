@@ -9,6 +9,13 @@ borrowing limit of 100 on one TAS flavor, and a backlog of 1/5/20-cpu
 single-pod workloads with required / preferred / unconstrained rack
 requests drawn from ``random.Random(seed)``.
 
+``tas_mixed_store`` is the same cluster and queues in millicores with
+both TAS mixes of ``bench.py``: the plain one and the extended one of
+rack-bound and host-bound slices and leader + workers groups (two
+podsets of one ``podset_group_name``). The leader groups go only to
+ClusterQueues 3-5 of each cohort, so ClusterQueues 0-2 stay placeable
+by the drain's device placer and the rest need the host placement.
+
 With ``preempt=True`` every ClusterQueue also preempts
 (``withinClusterQueue: LowerPriority``, ``reclaimWithinCohort: Any``),
 which routes the drain through the FULL path.
@@ -105,6 +112,92 @@ def tas_drain_store(types, store_cls, *, n_racks: int = 10,
             podsets=[types.PodSet(name="main", count=1,
                                   requests={"cpu": cpu},
                                   topology_request=tr)]))
+    return store
+
+
+#: tas_mixed_store's plain shapes (bench.py:362-380): (pods, millicores)
+TAS_PLAIN_MIX = ((2, 500), (5, 2000), (20, 5000))
+
+
+def tas_mixed_store(types, store_cls, *, n_workloads: int = 15000,
+                    seed: int = 641):
+    """Build the mixed TAS store: 640 nodes (1 block x 10 racks x 64
+    hosts) of 96,000 m cpu, 5 cohorts x 6 ClusterQueues with nominal
+    20,000 m and a borrowing limit of 100,000 m, and ``n_workloads``
+    workloads (15,000 by default) drawn from ``random.Random(seed)``.
+
+    Per workload the draw takes a ClusterQueue, then a shape: in
+    ClusterQueues 0-2 of a cohort one of five single-podset shapes, in
+    ClusterQueues 3-5 one of six, the sixth being the leader group:
+
+    0-2. the plain mix, 2 x 500 m, 5 x 2,000 m or 20 x 5,000 m, then
+         a required-rack, preferred-rack or unconstrained request;
+    3.   8 x 4,000 m as 2 rack-bound slices of 4 (required block);
+    4.   8 x 4,000 m as 4 host-bound slices of 2 (required rack);
+    5.   a leader (1 x 8,000 m) and 6 workers x 4,000 m, two podsets of
+         one podset group, required rack.
+    """
+    store = store_cls()
+    store.upsert_topology(types.Topology(name="default",
+                                         levels=[BLOCK, RACK, HOSTNAME]))
+    store.upsert_resource_flavor(types.ResourceFlavor(
+        name="tas", topology_name="default"))
+    for r in range(10):
+        for h in range(64):
+            store.upsert_node(types.Node(
+                name=f"n-{r}-{h}", labels={BLOCK: "b0", RACK: f"r{r}"},
+                allocatable={"cpu": 96_000}))
+    for c in range(5):
+        store.upsert_cohort(types.Cohort(name=f"co{c}"))
+        for qi in range(6):
+            name = f"cq-{c}-{qi}"
+            store.upsert_cluster_queue(types.ClusterQueue(
+                name=name, cohort=f"co{c}",
+                resource_groups=[types.ResourceGroup(
+                    covered_resources=["cpu"],
+                    flavors=[types.FlavorQuotas(name="tas", resources=[
+                        types.ResourceQuota(name="cpu", nominal=20_000,
+                                            borrowing_limit=100_000)])])]))
+            store.upsert_local_queue(types.LocalQueue(
+                name=f"lq-{c}-{qi}", cluster_queue=name))
+    TR = types.PodSetTopologyRequest
+    rng = random.Random(seed)
+    for i in range(n_workloads):
+        c, qi = rng.randrange(5), rng.randrange(6)
+        kind = rng.randrange(5 if qi < 3 else 6)
+        if kind < 3:
+            pods, cpu = TAS_PLAIN_MIX[kind]
+            mode = rng.randrange(3)
+            tr = (TR(required=RACK) if mode == 0
+                  else TR(preferred=RACK) if mode == 1
+                  else TR(unconstrained=True))
+            podsets = [types.PodSet(name="main", count=pods,
+                                    requests={"cpu": cpu},
+                                    topology_request=tr)]
+        elif kind == 3:
+            podsets = [types.PodSet(
+                name="main", count=8, requests={"cpu": 4000},
+                topology_request=TR(required=BLOCK,
+                                    podset_slice_required_topology=RACK,
+                                    podset_slice_size=4))]
+        elif kind == 4:
+            podsets = [types.PodSet(
+                name="main", count=8, requests={"cpu": 4000},
+                topology_request=TR(required=RACK,
+                                    podset_slice_required_topology=HOSTNAME,
+                                    podset_slice_size=2))]
+        else:
+            podsets = [
+                types.PodSet(name="leader", count=1, requests={"cpu": 8000},
+                             topology_request=TR(required=RACK,
+                                                 podset_group_name="group")),
+                types.PodSet(name="workers", count=6,
+                             requests={"cpu": 4000},
+                             topology_request=TR(required=RACK,
+                                                 podset_group_name="group"))]
+        store.add_workload(types.Workload(
+            name=f"w{i}", queue_name=f"lq-{c}-{qi}", uid=i + 1,
+            creation_time=float(i), podsets=podsets))
     return store
 
 

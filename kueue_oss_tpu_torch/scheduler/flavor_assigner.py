@@ -7,13 +7,12 @@ flavor into a mode lattice NoFit < Preempt < Fit with a borrowing level,
 honoring the FlavorFungibility early-stop policy and resuming from the
 last-tried flavor cursor across cycles; taints and node selectors filter
 flavors, and ``PodSetReducer`` searches reduced counts for partial
-admission. Cut from the copy (ROADMAP Queue A item 4): the host topology
-placement after the quota assignment. A podset that ``is_tas_requested``
-and got a TAS flavor needs one, so ``FlavorAssigner.assign`` raises
-``NotImplementedError`` for it instead of assigning without a placement.
-Also cut: QuotaCheckStrategy=IgnoreUndeclared (the port has no requests
-config; an undeclared resource never fits) and the decision recorder's
-``skip_detail``.
+admission. After the quota assignment, the podsets that
+``is_tas_requested`` and got a TAS flavor are placed on the topology
+(``_update_for_tas``: Fit places with the real usage, Preempt on an
+empty tree). Cut from the copy: QuotaCheckStrategy=IgnoreUndeclared
+(the port has no requests config; an undeclared resource never fits)
+and the decision recorder's ``skip_detail``.
 """
 
 from __future__ import annotations
@@ -37,9 +36,9 @@ from kueue_oss_tpu_torch.core.snapshot import ClusterQueueSnapshot
 from kueue_oss_tpu_torch.core.workload_info import (
     AssignmentClusterQueueState,
     WorkloadInfo,
+    effective_per_pod_requests,
 )
-
-HOST_TAS_PLACEMENT = "host TAS placement: ROADMAP Queue A item 4"
+from kueue_oss_tpu_torch.tas.snapshot import TASPodSetRequest
 
 # FlavorAssignmentMode — public lattice (flavorassigner.go:362-377).
 NO_FIT = 0
@@ -292,25 +291,45 @@ def tas_flavor_mismatch(podset: PodSet, flavor: ResourceFlavor,
     return None
 
 
-def needs_host_tas_placement(wl: WorkloadInfo, cq: ClusterQueueSnapshot,
-                             assignment: Assignment) -> bool:
-    """Whether a quota-assigned workload has a podset that the host
-    topology placement would place (the podsets for which
-    Assignment.WorkloadsTopologyRequests, tas_flavorassigner.go:40-84,
-    makes a request); a TAS podset without a TAS flavor gets the reason
-    the reference gives it."""
-    needs = False
+def workload_topology_requests(
+    wl: WorkloadInfo, cq: ClusterQueueSnapshot, assignment: Assignment
+) -> dict[str, list[TASPodSetRequest]]:
+    """Per-flavor TAS placement requests for a quota-assigned workload
+    (Assignment.WorkloadsTopologyRequests, tas_flavorassigner.go:40-84)."""
+    out: dict[str, list[TASPodSetRequest]] = {}
     for ps in wl.obj.podsets:
         if not is_tas_requested(ps, cq):
             continue
         psa = assignment.podset_by_name(ps.name)
         if psa is None or not psa.flavors or psa.count == 0:
             continue
-        if any(rec.name in cq.tas_flavors for rec in psa.flavors.values()):
-            needs = True
-        else:
+        tas_flavor = next(
+            (rec.name for rec in psa.flavors.values()
+             if rec.name in cq.tas_flavors), None)
+        if tas_flavor is None:
             psa.reasons.append("no TAS flavor assigned")
-    return needs
+            continue
+        out.setdefault(tas_flavor, []).append(TASPodSetRequest(
+            podset=ps,
+            single_pod_requests=effective_per_pod_requests(
+                ps, wl.obj.namespace),
+            count=psa.count,
+            flavor=tas_flavor,
+            implied=ps.topology_request is None,
+            podset_group_name=(
+                ps.topology_request.podset_group_name
+                if ps.topology_request is not None else None),
+        ))
+    return out
+
+
+def update_for_tas_result(assignment: Assignment, result: dict) -> None:
+    """Attach successful topology assignments to their podsets
+    (Assignment.UpdateForTASResult, flavorassigner.go:81-92)."""
+    for name, res in result.items():
+        psa = assignment.podset_by_name(name)
+        if psa is not None and res.assignment is not None:
+            psa.topology_assignment = res.assignment
 
 
 # ---------------------------------------------------------------------------
@@ -403,13 +422,50 @@ class FlavorAssigner:
         return assignment
 
     def _update_for_tas(self, assignment: Assignment) -> None:
-        """Topology placement after the quota assignment (flavorassigner.go
-        assignFlavors TAS tail, :733-765): not ported. An assignment that
-        would need one raises; one that needs none is left as it is."""
+        """Topology placement after quota assignment (flavorassigner.go
+        assignFlavors TAS tail, :733-765).
+
+        Fit: place with real usage; a placement failure downgrades the
+        failing podset to Preempt. Preempt (not node-replacement): place
+        on an empty cluster; failure means NoFit even after preempting
+        everything, success keeps the TAS podsets at Preempt because
+        the free quota may be fragmented across domains.
+        """
         if assignment.representative_mode() == NO_FIT:
             return
-        if needs_host_tas_placement(self.wl, self.cq, assignment):
-            raise NotImplementedError(HOST_TAS_PLACEMENT)
+        tas_requests = workload_topology_requests(self.wl, self.cq, assignment)
+        if not tas_requests:
+            return
+        if assignment.representative_mode() == FIT:
+            result = self.cq.find_topology_assignments_for_workload(
+                tas_requests, workload=self.wl.obj)
+            failed = False
+            for name, res in result.items():
+                if res.failure:
+                    psa = assignment.podset_by_name(name)
+                    if psa is not None:
+                        psa.reasons.append(res.failure)
+                        psa.set_mode(PREEMPT)
+                    failed = True
+                    break
+            if not failed:
+                update_for_tas_result(assignment, result)
+        if (assignment.representative_mode() == PREEMPT
+                and not self.wl.obj.status.unhealthy_nodes):
+            result = self.cq.find_topology_assignments_for_workload(
+                tas_requests, simulate_empty=True)
+            for name, res in result.items():
+                if res.failure:
+                    psa = assignment.podset_by_name(name)
+                    if psa is not None:
+                        psa.reasons.append(res.failure)
+                        psa.set_mode(NO_FIT)
+                    return
+            for requests in tas_requests.values():
+                for tr in requests:
+                    psa = assignment.podset_by_name(tr.podset.name)
+                    if psa is not None:
+                        psa.cap_mode(PREEMPT)
 
     def _append(self, assignment: Assignment,
                 psa: PodSetAssignmentResult, ps_idx: int) -> None:

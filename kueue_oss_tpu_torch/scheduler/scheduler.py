@@ -15,8 +15,13 @@ gate over freed capacity and arrivals, and the drain and host cost
 EMAs. Host cycles then mop up what the drain left, or everything when
 the drain refuses the backlog (``UnsupportedProblem``) or the backend is
 unavailable (``SolverUnavailable``). The ``"auto"`` engine runs on
-``device`` ("cuda" unless the caller asks for "cpu"); a host-only
-scheduler (``solver=None``) touches no device.
+``device`` ("cuda" unless the caller asks for "cpu"). The host cycle
+places TAS podsets on the snapshot's topology trees (the flavor
+assigner, the placement with preemption victims removed, the in-cycle
+TAS fit re-check and assumed usage, and the second pass for delayed
+topology assignments); under the TASDeviceFillCounts gate those trees
+run their fill-in counts on ``device`` too, so a host-only scheduler
+(``solver=None``) touches the device only with that gate on.
 
 Cut from the copy, each with its ROADMAP Queue A item:
 
@@ -34,20 +39,14 @@ Cut from the copy, each with its ROADMAP Queue A item:
   engine has no mesh or sidecar state that makes a drain unsupported and
   refuses a backlog shape only by raising ``UnsupportedProblem`` at
   export;
-- the host TAS placement (item 4): ``_update_assignment_for_tas``,
-  ``_assume_tas_usage`` / ``_tas_fits`` and the second pass. A head
-  that needs a host topology placement raises ``NotImplementedError``
-  from the flavor assigner; it is never left pending in silence nor
-  admitted without a placement. Without a host placement no entry
-  carries a topology assignment, so the TAS fit re-check and the
-  delayed-topology admission (admission-check CQs) have nothing to do;
 - metrics, the decision recorder, the SLO engine, events, the cycle
   ledger and persistence intents (the port has no observability layer);
 - workload slicing, concurrent admission and MultiKueue orchestrated
   preemption: their gates (ElasticJobsViaWorkloadSlices,
   ConcurrentAdmission, MultiKueueOrchestratedPreemption) are off by
-  default, and the port has no gate override, so the JAX scheduler at
-  those defaults never reaches them either.
+  default and the port does not register them (``features.set_gates``
+  refuses them), so the JAX scheduler at those defaults never reaches
+  them either.
 
 ``solver_counts`` counts the drains that ran, what they admitted and
 evicted, the plan entries they handed back to the host
@@ -64,6 +63,7 @@ from dataclasses import dataclass, field
 from typing import Optional
 
 from kueue_oss_tpu_torch import features
+from kueue_oss_tpu_torch import tas as tas_pkg
 from kueue_oss_tpu_torch.api.types import (
     Admission,
     AdmissionCheckState,
@@ -82,6 +82,7 @@ from kueue_oss_tpu_torch.core.snapshot import (
 from kueue_oss_tpu_torch.core.store import Store
 from kueue_oss_tpu_torch.core.workload_info import (
     WorkloadInfo,
+    effective_per_pod_requests,
     effective_priority,
     queue_order_timestamp,
 )
@@ -209,13 +210,14 @@ class Scheduler:
         stats = CycleStats(cycle=self.cycle_count)
         self.queues.current_time = now  # AFS decay reference point
         self.requeue_due(now)
+        self._run_second_pass(now)
 
         heads = self.queues.heads()
         stats.heads = len(heads)
         if not heads:
             return stats
 
-        snapshot = build_snapshot(self.store)
+        snapshot = build_snapshot(self.store, device=self.device)
         entries, inadmissible = self._nominate(heads, snapshot, now)
         stats.inadmissible = len(inadmissible)
 
@@ -441,9 +443,7 @@ class Scheduler:
     def _assign(self, info: WorkloadInfo, snapshot: Snapshot,
                 now: float) -> tuple[Assignment, list[Target]]:
         """scheduler.go getInitialAssignments: full fit, else preempt,
-        else partial admission. (The TAS recomputation with the victims
-        removed is not needed: an assignment that needs a host topology
-        placement raised in the flavor assigner already.)"""
+        else partial admission."""
         cq = snapshot.cluster_queue(info.cluster_queue)
         assert cq is not None
         assigner = FlavorAssigner(
@@ -456,6 +456,8 @@ class Scheduler:
         if mode == fa.PREEMPT:
             targets = self.preemptor.get_targets(info, full, snapshot, now)
             if targets:
+                self._update_assignment_for_tas(
+                    info, cq, snapshot, full, targets)
                 return full, targets
 
         if (features.enabled("PartialAdmission")
@@ -474,8 +476,35 @@ class Scheduler:
 
             result, found = PodSetReducer(info.obj.podsets, probe).search()
             if found:
+                if result[1]:
+                    self._update_assignment_for_tas(
+                        info, cq, snapshot, result[0], result[1])
                 return result
         return full, []
+
+    def _update_assignment_for_tas(self, info: WorkloadInfo,
+                                   cq: ClusterQueueSnapshot,
+                                   snapshot: Snapshot,
+                                   assignment: Assignment,
+                                   targets: list[Target]) -> None:
+        """Recompute topology assignments assuming the preemption victims
+        are gone (scheduler.go updateAssignmentForTAS, :759-783)."""
+        if assignment.representative_mode() != fa.PREEMPT:
+            return
+        if not any(fa.is_tas_requested(ps, cq) for ps in info.obj.podsets):
+            return
+        if info.obj.status.unhealthy_nodes:
+            return
+        tas_requests = fa.workload_topology_requests(info, cq, assignment)
+        if not tas_requests:
+            return
+        revert = snapshot.simulate_workload_removal(
+            [t.info for t in targets])
+        try:
+            result = cq.find_topology_assignments_for_workload(tas_requests)
+        finally:
+            revert()
+        fa.update_for_tas_result(assignment, result)
 
     # ------------------------------------------------------------------
     # Iterators
@@ -532,7 +561,7 @@ class Scheduler:
 
         usage = e.assignment_usage()
         if not self._fits(snapshot, cq, usage, preempted_workloads,
-                          e.preemption_targets):
+                          e.preemption_targets, e):
             e.status = SKIPPED
             e.inadmissible_msg = ("Workload no longer fits after "
                                   "processing another workload")
@@ -547,21 +576,94 @@ class Scheduler:
             stats.preempted += len(e.preemption_targets)
             return
 
+        # Delayed topology assignment: on a CQ gated by admission checks
+        # the topology is computed in a second pass after the checks turn
+        # Ready (provisioned capacity may change the tree), so the TAS
+        # usage must not be assumed now (KEP-2724 delayed assignment).
+        if not self._delays_topology(e):
+            self._assume_tas_usage(e, snapshot)
         e.status = NOMINATED
         self._admit(e, now)
         stats.admitted += 1
 
     @staticmethod
+    def _delays_topology(e: Entry) -> bool:
+        cq = e.cq_snapshot
+        return (cq is not None and bool(cq.spec.admission_checks)
+                and any(psa.topology_assignment is not None
+                        for psa in e.assignment.podsets))
+
+    @staticmethod
+    def _assume_tas_usage(e: Entry, snapshot: Snapshot) -> None:
+        """Charge the entry's topology assignment to the TAS snapshots so
+        later entries in this cycle see the domain usage (mirrors the
+        reference's assume path covering TAS usage in the cache)."""
+        podsets = {ps.name: ps for ps in e.info.obj.podsets}
+        for psa in e.assignment.podsets:
+            ta = psa.topology_assignment
+            if ta is None:
+                continue
+            flavor = next(
+                (rec.name for rec in psa.flavors.values()
+                 if rec.name in snapshot.tas_flavors), None)
+            if flavor is None:
+                continue
+            ps = podsets.get(psa.name)
+            per_pod = (effective_per_pod_requests(ps, e.info.obj.namespace)
+                       if ps is not None else {})
+            for dom in ta.domains:
+                snapshot.tas_flavors[flavor].add_tas_usage(
+                    dom.values, per_pod, dom.count)
+
+    @staticmethod
     def _fits(snapshot: Snapshot, cq: ClusterQueueSnapshot, usage,
               preempted_workloads: dict[str, WorkloadInfo],
-              targets: list[Target]) -> bool:
+              targets: list[Target], e: Entry) -> bool:
         infos = list(preempted_workloads.values()) + [t.info
                                                       for t in targets]
         revert = snapshot.simulate_workload_removal(infos)
         try:
-            return cq.fits(usage)
+            return cq.fits(usage) and Scheduler._tas_fits(e, snapshot)
         finally:
             revert()
+
+    @staticmethod
+    def _tas_fits(e: Entry, snapshot: Snapshot) -> bool:
+        """Re-validate the entry's topology assignment against current
+        domain usage: earlier admissions in this cycle charged the TAS
+        snapshots (_assume_tas_usage), which can invalidate a placement
+        computed during nomination."""
+        if e.info.obj.is_quota_reserved:
+            return True
+        podsets = {ps.name: ps for ps in e.info.obj.podsets}
+        # Accumulate the whole entry's demand per (flavor, leaf) first: a
+        # multi-podset workload (leader+workers) or several domains landing
+        # on the same leaf must be checked jointly, not one domain at a time.
+        demand: dict[tuple[str, tuple[str, ...]], dict[str, int]] = {}
+        for psa in e.assignment.podsets:
+            ta = psa.topology_assignment
+            if ta is None:
+                continue
+            flavor = next(
+                (rec.name for rec in psa.flavors.values()
+                 if rec.name in snapshot.tas_flavors), None)
+            if flavor is None:
+                continue
+            ps = podsets.get(psa.name)
+            per_pod = (effective_per_pod_requests(ps, e.info.obj.namespace)
+                       if ps is not None else {})
+            for dom in ta.domains:
+                bucket = demand.setdefault((flavor, tuple(dom.values)), {})
+                for r, q in per_pod.items():
+                    bucket[r] = bucket.get(r, 0) + q * dom.count
+                bucket["pods"] = bucket.get("pods", 0) + dom.count
+        for (flavor, values), need in demand.items():
+            remaining = snapshot.tas_flavors[flavor].remaining_capacity(values)
+            if remaining is None:
+                return False
+            if any(q > remaining.get(r, 0) for r, q in need.items()):
+                return False
+        return True
 
     def _quota_to_reserve(self, e: Entry, cq: ClusterQueueSnapshot):
         """scheduler.go quotaResourcesToReserve for Preempt-mode
@@ -595,6 +697,7 @@ class Scheduler:
             e.status = SKIPPED
             e.inadmissible_msg = "Workload vanished from the store"
             return
+        delay_tas = self._delays_topology(e)
         admission = Admission(
             cluster_queue=e.info.cluster_queue,
             podset_assignments=[
@@ -603,7 +706,11 @@ class Scheduler:
                     flavors={r: rec.name for r, rec in psa.flavors.items()},
                     resource_usage=dict(psa.requests),
                     count=psa.count,
-                    topology_assignment=psa.topology_assignment,
+                    topology_assignment=(
+                        None if delay_tas else psa.topology_assignment),
+                    delayed_topology_request=(
+                        "Pending" if delay_tas
+                        and psa.topology_assignment is not None else None),
                 )
                 for psa in e.assignment.podsets
             ],
@@ -710,6 +817,54 @@ class Scheduler:
                 continue
             return due_at
         return None
+
+    def _run_second_pass(self, now: float) -> None:
+        """Compute delayed topology assignments for quota-reserved
+        workloads whose admission checks turned Ready (scheduler second
+        pass, second_pass_queue.go + scheduler.go delayed TAS)."""
+        keys = self.queues.take_second_pass_ready(now)
+        if not keys:
+            return
+        snapshot = build_snapshot(self.store, device=self.device)
+        for key in keys:
+            wl = self.store.workloads.get(key)
+            if (wl is None or not wl.is_quota_reserved or wl.is_evicted
+                    or wl.is_finished or wl.status.admission is None):
+                self.queues.clear_second_pass(key)
+                continue
+            cq = snapshot.cluster_queue(wl.status.admission.cluster_queue)
+            if cq is None:
+                self.queues.queue_second_pass(key, now)
+                continue
+            tas_requests = tas_pkg.requests_from_admission(
+                wl, cq, only_pending=True)
+            if not tas_requests:
+                self.queues.clear_second_pass(key)
+                continue
+            result = cq.find_topology_assignments_for_workload(tas_requests)
+            if any(res.failure for res in result.values()):
+                # Capacity not there yet: retry with backoff (1s -> 30s).
+                self.queues.queue_second_pass(key, now)
+                continue
+            podsets = {ps.name: ps for ps in wl.podsets}
+            for psa in wl.status.admission.podset_assignments:
+                res = result.get(psa.name)
+                if res is not None and res.assignment is not None:
+                    psa.topology_assignment = res.assignment
+                    psa.delayed_topology_request = "Ready"
+                    # Charge the new placement so later workloads in this
+                    # batch see the domain usage.
+                    flavor = next((f for f in psa.flavors.values()
+                                   if f in snapshot.tas_flavors), None)
+                    ps = podsets.get(psa.name)
+                    if flavor is not None and ps is not None:
+                        for dom in res.assignment.domains:
+                            snapshot.tas_flavors[flavor].add_tas_usage(
+                                dom.values,
+                                effective_per_pod_requests(ps, wl.namespace),
+                                dom.count)
+            self.queues.clear_second_pass(key)
+            self.store.update_workload(wl)
 
     def finish_workload(self, key: str, now: float = 0.0) -> None:
         """Mark Finished and release quota (the jobframework Finished

@@ -48,6 +48,7 @@ def test_scan_sees_the_whole_port():
     assert "kueue_oss_tpu_torch/core/afs.py" in names
     assert "kueue_oss_tpu_torch/native/__init__.py" in names
     assert "kueue_oss_tpu_torch/scheduler/scheduler.py" in names
+    assert "kueue_oss_tpu_torch/tas/snapshot.py" in names
     assert "chip_smoke.py" in names
     # the exact-name comparison lets the port's own name through
     assert "kueue_oss_tpu_torch" not in FORBIDDEN
@@ -113,6 +114,18 @@ def test_port_drains_with_jax_blocked():
             sched.run_until_quiet(now=100.0)
         assert sched.solver_counts["drains"] == 2, sched.solver_counts
         assert sched.last_drain.verified > 0, sched.last_drain
+        # the host TAS placement, its fill-in counts on the device path
+        from kueue_oss_tpu_torch import features
+        from kueue_oss_tpu_torch.scenarios import tas_mixed_store
+        features.set_gates({"TASDeviceFillCounts": True})
+        store = tas_mixed_store(types, Store, n_workloads=60)
+        sched = Scheduler(store, QueueManager(store), device="cpu")
+        sched.run_until_quiet(now=100.0)
+        features.reset()
+        assert any(w.is_quota_reserved and all(
+            psa.topology_assignment is not None
+            for psa in w.status.admission.podset_assignments)
+            for w in store.workloads.values())
         leaked = [m for m in sys.modules
                   if m.split(".")[0] in ("jax", "jaxlib", "kueue_oss_tpu")
                   and sys.modules[m] is not None]

@@ -10,8 +10,8 @@ partial admission) run on identical stores of both packages through
 the same calls. After every step the committed-store digest
 (``tests/torch_scheduler_pins.py``), the cycle statistics, the scheduler's
 cycle count and each queue's heap and parked sets must be equal. A last
-test holds the port to its refusal: a head that needs a host topology
-placement raises ``NotImplementedError``.
+test runs heads that need a host topology placement (the reduced TAS
+store) through both schedulers.
 """
 
 import pytest
@@ -466,13 +466,53 @@ def test_reference_outcomes_hold():
     assert (psa.count, psa.resource_usage) == (3, {"cpu": 3000})
 
 
-def test_host_tas_head_raises():
+def test_host_tas_head_admitted_as_jax():
+    """The same cycle of the reduced TAS store through both host-only
+    schedulers admits the same heads with the same topology
+    assignments."""
     from kueue_oss_tpu_torch import scenarios
 
-    store = scenarios.tas_drain_store(port_types, PortStore, n_racks=2,
-                                      n_hosts=4, n_cohorts=1, n_cqs=2,
-                                      n_workloads=10)
-    s = PortScheduler(store, PortQueues(store))
-    with pytest.raises(NotImplementedError,
-                       match="host TAS placement: ROADMAP Queue A item 4"):
-        s.schedule(now=1.0)
+    out = {}
+    for pkg in ("jax", "port"):
+        t, store_cls, queues_cls, sched_cls = PACKAGES[pkg]
+        store = scenarios.tas_drain_store(t, store_cls, n_racks=2,
+                                          n_hosts=4, n_cohorts=1, n_cqs=2,
+                                          n_workloads=10)
+        stats = sched_cls(store, queues_cls(store)).schedule(now=1.0)
+        out[pkg] = ((stats.heads, stats.admitted, stats.skipped),
+                    P.committed_store_digest(store),
+                    [w.status.admission.podset_assignments[0]
+                     .topology_assignment is not None
+                     for w in store.workloads.values()
+                     if w.is_quota_reserved])
+    assert out["port"] == out["jax"]
+    assert out["jax"][0][1] > 0 and all(out["jax"][2])
+
+
+def test_host_tas_head_raises():
+    """With TASDeviceFillCounts on, a host TAS head on a CUDA device
+    that cannot be used raises out of the cycle: the fill never falls
+    back to the host roll-up. With the gate off the same scheduler
+    touches no device and admits the head."""
+    import torch
+
+    from kueue_oss_tpu_torch import features, scenarios
+
+    device = f"cuda:{torch.cuda.device_count()}"  # one past the last card
+    t, store_cls, queues_cls, sched_cls = PACKAGES["port"]
+    admitted = {}
+    for fill in (True, False):
+        store = scenarios.tas_drain_store(t, store_cls, n_racks=2,
+                                          n_hosts=4, n_cohorts=1, n_cqs=2,
+                                          n_workloads=10)
+        sched = sched_cls(store, queues_cls(store), device=device)
+        features.set_gates({"TASDeviceFillCounts": fill})
+        try:
+            if fill:
+                with pytest.raises(RuntimeError, match="CUDA"):
+                    sched.schedule(now=1.0)
+            else:
+                admitted[fill] = sched.schedule(now=1.0).admitted
+        finally:
+            features.reset()
+    assert admitted[False] > 0

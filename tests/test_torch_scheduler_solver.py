@@ -122,11 +122,31 @@ def test_refused_quantities_fall_back_to_host_cycles(jax_pkg, port_pkg):
     assert [(r["held"], r["evicted"]) for r in want] == [(600, 0), (30, 600)]
 
 
-def test_host_tas_head_raises(port_pkg):
-    with pytest.raises(NotImplementedError,
-                       match="host TAS placement: ROADMAP Queue A item 4"):
-        P.run_tas(port_pkg, solver=False, n_racks=2, n_hosts=4,
-                  n_cohorts=1, n_cqs=2, n_workloads=20)
+def test_host_tas_head_admitted_as_jax(jax_pkg, port_pkg):
+    """A host-only scheduler on a TAS store: the same record as the JAX
+    host-only scheduler."""
+    want = _both(P.run_tas, jax_pkg, port_pkg, solver=False, n_racks=2,
+                 n_hosts=4, n_cohorts=1, n_cqs=2, n_workloads=20)
+    assert want["held"] > 0
+
+
+def test_host_tas_head_raises(port_pkg, monkeypatch):
+    """With TASDeviceFillCounts on, a failing device fill raises out of
+    the host-only scheduler's run: there is no host fallback."""
+    from kueue_oss_tpu_torch import features
+    from kueue_oss_tpu_torch.solver import tas_kernels
+
+    def broken(*args, **kwargs):
+        raise RuntimeError("leaf_states launch failed")
+
+    monkeypatch.setattr(tas_kernels, "fill_counts_ext", broken)
+    features.set_gates({"TASDeviceFillCounts": True})
+    try:
+        with pytest.raises(RuntimeError, match="leaf_states launch failed"):
+            P.run_tas(port_pkg, solver=False, n_racks=2, n_hosts=4,
+                      n_cohorts=1, n_cqs=2, n_workloads=20)
+    finally:
+        features.reset()
 
 
 def test_auto_needs_cuda_unless_cpu_is_asked():
@@ -280,7 +300,8 @@ def test_pin_computation_at_reduced_size():
     run admits."""
     kw = dict(storm_scale=0.1,
               tas_kwargs=dict(n_racks=4, n_hosts=8, n_cohorts=2, n_cqs=3,
-                              n_workloads=600))
+                              n_workloads=600),
+              tas_mixed_kwargs=dict(n_workloads=100))
     pins = P.reference_pins(**kw)
     port = P.port_package("cpu")
     assert pins["storm"] == P.run_waves(
@@ -290,6 +311,19 @@ def test_pin_computation_at_reduced_size():
     assert pins["refused"] == P.run_waves(
         port, scenarios.refused_quantity_store, solver=True, **STORM)
     assert pins["tas"] == P.run_tas(port, **kw["tas_kwargs"])
+    assert pins["tas_mixed"] == {
+        name: P.run_tas_mixed(port, solver=solver, fill=fill,
+                              **kw["tas_mixed_kwargs"])
+        for name, solver, fill in P.TAS_MIXED_RUNS}
+
+
+def test_phase14_pins_agree_across_fill_modes():
+    """Each phase-14 run must equal its pin, so the two fill modes give
+    the same result on the card when their pins are equal: auto with
+    auto_fill, host_fill with host."""
+    pins = _chip_smoke().SCHEDULER_REFERENCE["tas_mixed"]
+    assert pins["auto"] == pins["auto_fill"]
+    assert pins["host_fill"] == pins["host"]
 
 
 @pytest.mark.slow

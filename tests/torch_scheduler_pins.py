@@ -1,9 +1,11 @@
-"""The scheduler runs of chip_smoke.py's phases 11-13, for either package.
+"""The scheduler runs of chip_smoke.py's phases 11-14, for either package.
 
 Phase 11 drives the baseline preemption storm through
 ``Scheduler(solver="auto")`` wave by wave, with a host-only twin
 (``solver=None``); phase 12 the TAS drain store; phase 13 the storm
-with memory in bytes, which every drain refuses at export. Each run
+with memory in bytes, which every drain refuses at export; phase 14
+the mixed TAS store (``run_tas_mixed``) in four runs: with and without
+the device drain, each with TASDeviceFillCounts off and on. Each run
 records, per wave: the committed-store digest, the workloads holding
 quota, the evicted ones and their Preempted reasons, the host cycles
 ``run_until_quiet`` took, the device drains and the drains that raised
@@ -214,9 +216,71 @@ def run_tas(package, *, solver: bool = True, **kwargs) -> dict:
     return rec
 
 
+def _package_module(types, name: str):
+    """The module ``name`` of the package that ``types`` belongs to."""
+    import importlib
+
+    return importlib.import_module(
+        f"{types.__name__.split('.')[0]}.{name}")
+
+
+def queue_state(queues) -> dict:
+    """Each ClusterQueue's heap and parked keys, and the second-pass
+    queue (heap and per-key attempts)."""
+    return {"queues": {n: (sorted(q._in_heap), sorted(q.inadmissible))
+                       for n, q in sorted(queues.queues.items())},
+            "second_pass": (sorted(queues._second_pass_heap),
+                            sorted(queues._second_pass_iteration.items()))}
+
+
+def run_tas_mixed(package, *, solver: bool, fill: bool,
+                  with_queues: bool = False, **kwargs) -> dict:
+    """The mixed TAS store (``tas_mixed_store``) through one
+    ``run_until_quiet(now=100.0, tick=0.001)``, with the
+    TASDeviceFillCounts gate set to ``fill`` for the run. The record
+    adds the parked workloads, the leader groups holding quota and the
+    ``_fill_in_counts`` calls of the host placement (and, with
+    ``with_queues``, ``queue_state``)."""
+    types, store_cls, make, _ = package
+    features = _package_module(types, "features")
+    snap_cls = _package_module(types, "tas.snapshot").TASFlavorSnapshot
+    store = scenarios.tas_mixed_store(types, store_cls, **kwargs)
+    sched, drains = make(store, solver)
+    calls = [0]
+    fill_in_counts = snap_cls._fill_in_counts
+
+    def counted(self, *args, **kw):
+        calls[0] += 1
+        return fill_in_counts(self, *args, **kw)
+
+    was = features.enabled("TASDeviceFillCounts")
+    features.set_gates({"TASDeviceFillCounts": fill})
+    snap_cls._fill_in_counts = counted
+    try:
+        cycles = sched.run_until_quiet(now=100.0, tick=0.001)
+    finally:
+        snap_cls._fill_in_counts = fill_in_counts
+        features.set_gates({"TASDeviceFillCounts": was})
+    rec = _record(store, sched, drains, cycles)
+    rec["parked"] = sum(len(q.inadmissible)
+                        for q in sched.queues.queues.values())
+    rec["groups"] = sum(1 for w in store.workloads.values()
+                        if w.is_quota_reserved and len(w.podsets) == 2)
+    rec["fills"] = calls[0]
+    if with_queues:
+        rec.update(queue_state(sched.queues))
+    return rec
+
+
+#: phase 14's four runs: (name, solver="auto", TASDeviceFillCounts)
+TAS_MIXED_RUNS = (("auto", True, False), ("auto_fill", True, True),
+                  ("host_fill", False, True), ("host", False, False))
+
+
 def reference_pins(*, storm_scale: float = 1.0, storm_cohorts: int = 5,
-                   storm_cqs: int = 6, tas_kwargs=None) -> dict:
-    """The JAX package's records of phases 11-13 (full size by
+                   storm_cqs: int = 6, tas_kwargs=None,
+                   tas_mixed_kwargs=None) -> dict:
+    """The JAX package's records of phases 11-14 (full size by
     default)."""
     jax = jax_package()
     storm = dict(n_cohorts=storm_cohorts, cqs_per_cohort=storm_cqs,
@@ -229,6 +293,9 @@ def reference_pins(*, storm_scale: float = 1.0, storm_cohorts: int = 5,
         "tas": run_tas(jax, **(tas_kwargs or {})),
         "refused": run_waves(jax, scenarios.refused_quantity_store,
                              solver=True, **storm),
+        "tas_mixed": {name: run_tas_mixed(jax, solver=solver, fill=fill,
+                                          **(tas_mixed_kwargs or {}))
+                      for name, solver, fill in TAS_MIXED_RUNS},
     }
 
 
