@@ -140,12 +140,44 @@ Phases, in order; any failure propagates (nonzero exit, no result line):
    a required-rack podset (and a leader group) in one rack, every slice
    whole in its slice domain. One fill's leaf tile is timed through
    the kernel and its plain version.
+15. streaming admission: bench.py's streaming arm
+   (``scenarios.streaming_store`` / ``streaming_ticks``, bench.py:
+   2153-2276) through ``Scheduler(solver="auto", solver_min_backlog=0,
+   streaming=...)``: a full drain at t = 0 arms the fences, then per 10
+   ms virtual tick a ``micro_drain`` and the tick's arrivals, and a full
+   ``engine.drain(verify=True)`` every 100 ticks. (a) the ``single``
+   fleet (32 standalone one-flavor ClusterQueues, nominal 10,000,000,
+   requests 100 cpu) at 128 arrivals a tick for 200 ticks (25,600
+   workloads; bench.py runs 400 ticks: cut for the phase's time, two
+   boundaries kept), so every micro-drain is a 128-entry burst that runs the
+   lean drain on the card: the micro-solve twin and the host-walk twin
+   (``micro_solve = False``) in step, equal after every micro-drain
+   (outcome, the admitted keys' admissions, every queue's heap and
+   parked sets) and at every boundary, and a batch twin
+   (``streaming=False``); (b) the ``wide`` fleet (multi-flavor and
+   borrow-capable cohort ClusterQueues: the flavor-pick witness and the
+   reserved-headroom walk on the host, the boundary drains on the card)
+   at bench.py's 16 arrivals a tick for 400 ticks, stream and batch
+   twins. Every twin's record (digests at each boundary with and
+   without the QuotaReserved times, counts, time-to-admit p50 / p95,
+   micro-solve entries) must equal the JAX package's pin, every stream
+   twin's committed digests those of its batch twin, and every
+   micro-solve must have run on the card. Each boundary drain prints its
+   export mode, session frame, dirty rows and bytes written. (c)
+   ``serve(stop)`` in a thread over a fresh ``single`` fleet with
+   ``StreamingConfig(enabled=True, watch_driven=True)``: 8 bursts of
+   128 and then 8 single arrivals injected from the main thread are all
+   admitted, the watch
+   worker's micro-drains run the lean drain on the card, the serve and
+   worker threads stay alive until ``stop`` and are joined, and an
+   exception in either fails the phase.
 
 Phases 6-9 pin the JAX engine's plans without delta sessions, so they
-run the port's engine with ``use_sessions = False``; phases 10-14 pin
-them with sessions on. Phases 8-11 and 13 run no TAS flavor: both
+run the port's engine with ``use_sessions = False``; phases 10-15 pin
+them with sessions on. Phases 8-11, 13 and 15 run no TAS flavor: both
 kernels' launch counts are set to 0 before each drain (or each
-``run_until_quiet``) and must still be 0 after it.
+``run_until_quiet``, or each fleet of phase 15) and must still be 0
+after it.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 is the JSON kernel report.
@@ -346,6 +378,97 @@ SCHEDULER_REFERENCE["tas_mixed"] = {
 #: phase 14's runs: (name, solver="auto", TASDeviceFillCounts on)
 TAS_MIXED_RUNS = (("auto", True, False), ("auto_fill", True, True),
                   ("host_fill", False, True), ("host", False, False))
+#: the JAX package's records of phase 15 (its Scheduler over a JAX
+#: SolverEngine with mesh_mode="off"; ``JAX_PLATFORMS=cpu python
+#: tests/torch_streaming_pins.py`` prints them): per twin the workloads,
+#: those holding quota, the virtual time-to-admit p50 / p95 in ms, the
+#: streamed admissions, the micro-solve entries and the micro-drains
+#: that ran one, and at each boundary the timestamped and the committed
+#: digests. The micro and host twins share their digests; every stream
+#: twin shares the committed digests of its batch twin.
+_SINGLE_STREAM = [
+    "b2f632ecd256b58b2c0ca83b02c43007"
+    "935a1e65dc9817b2070b27deb37b037f",
+    "ce15f31856a3464457a5c50810e4c114"
+    "58552b25b972a7d0a764124f3ee58051",
+]
+_SINGLE_BATCH = [
+    "4d94d4cae0cea236f434f384fd7e2b98"
+    "fb7548c0767107d3150b5ca23884a29d",
+    "4e11743b25b592c38b2ae16e3c05e6f4"
+    "cc0b5427cb9e765f56e8bfaac39928e7",
+]
+_SINGLE_COMMITTED = [
+    "10d1699048ae4f43c35fb133b0cee789"
+    "40fceb0900000f2c0e97b1a1704d921c",
+    "ef94cb7ce0c7f387ae368836d931ca3f"
+    "ad822d5879f8cc0d45b8a7abd4e20a23",
+]
+_WIDE_STREAM = [
+    "5be2d5067b1eea8f3699d6dfef646ce3"
+    "2a6f29003300103913b2b4e92ca07efd",
+    "4dfa126ca4db123b04ddbc5377347930"
+    "6f4354bb731eb7dc7b24976045f5aa98",
+    "ce8126c2b327b5705e9dcfa0e63c4110"
+    "d070b5538e94b38e4ed772b10f32673d",
+    "b9092cb28bbff41e81db30afa118df03"
+    "a252acd3469e339cb50b20d61811352d",
+]
+_WIDE_BATCH = [
+    "d304913989fb272a04874ee455270f5a"
+    "9081d91261674a9049c6a8ef23337036",
+    "66777a97dcf4f81a3b68637324144fd9"
+    "a6e5197e62e8c814e525f72186a0a1f2",
+    "542871be6a9ab29ee73ee24560ff6377"
+    "d6de3ca8cf33e9582cc93e304bdd8370",
+    "77286cce5f730d056518fed4b30d8c77"
+    "97786dd748962caef2348dadafe61b13",
+]
+_WIDE_COMMITTED = [
+    "f75f8959f890c2c0b95395f766fa5e37"
+    "eb5b2c339fe6484315626eddb54909d5",
+    "906bc06cf6906b5c010e67cf9ab36757"
+    "d9b94f597a2f976bc86d2be9d5b56d33",
+    "e5531b8669c9f80763ee4e1009393cbf"
+    "772ad0789a20cabfa29f763d2d89fffe",
+    "edf831debbf5bfcfaa8a23fbd5d2c322"
+    "837a643e41b7d50c9cad8b1044bf7995",
+]
+STREAMING_REFERENCE = {
+    "single": {
+        "micro": {
+            "workloads": 25600, "admitted": 25600, "tta_ms_p50": 10.0,
+            "tta_ms_p95": 10.0, "stream_admitted": 25344,
+            "micro_entries": 25344, "micro_solves": 198,
+            "boundaries": _SINGLE_STREAM, "committed": _SINGLE_COMMITTED},
+        "host": {
+            "workloads": 25600, "admitted": 25600, "tta_ms_p50": 10.0,
+            "tta_ms_p95": 10.0, "stream_admitted": 25344, "micro_entries": 0,
+            "micro_solves": 0, "boundaries": _SINGLE_STREAM,
+            "committed": _SINGLE_COMMITTED},
+        "batch": {
+            "workloads": 25600, "admitted": 25600, "tta_ms_p50": 490.0,
+            "tta_ms_p95": 940.0, "stream_admitted": 0, "micro_entries": 0,
+            "micro_solves": 0, "boundaries": _SINGLE_BATCH,
+            "committed": _SINGLE_COMMITTED},
+    },
+    "wide": {
+        "stream": {
+            "workloads": 6400, "admitted": 6400, "tta_ms_p50": 10.0,
+            "tta_ms_p95": 10.0, "stream_admitted": 6336, "micro_entries": 0,
+            "micro_solves": 0, "boundaries": _WIDE_STREAM,
+            "committed": _WIDE_COMMITTED},
+        "batch": {
+            "workloads": 6400, "admitted": 6400, "tta_ms_p50": 490.0,
+            "tta_ms_p95": 940.0, "stream_admitted": 0, "micro_entries": 0,
+            "micro_solves": 0, "boundaries": _WIDE_BATCH,
+            "committed": _WIDE_COMMITTED},
+    },
+}
+#: phase 15's fleets: (arrivals a tick, ticks, twins), as
+#: tests/torch_streaming_pins.py's STREAMING_RUNS
+STREAMING_RUNS = {"single": (128, 200, ("micro", "host", "batch")),
+                  "wide": (16, 400, ("stream", "batch"))}
 #: H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, non-tensor fp32 ops/s
 HBM_BYTES_PER_S = 3.35e12
 SCALAR_OPS_PER_S = 67e12
@@ -1598,6 +1721,424 @@ def scheduler_tas_host() -> tuple:
     return out, leaf_total, place_total
 
 
+def timed_store_digest(store) -> str:
+    """``committed_store_digest`` plus each workload's QuotaReserved
+    transition time (the copy of tests/torch_streaming_pins.py's, held
+    to it by the tests)."""
+    import hashlib
+
+    times = []
+    for key in sorted(store.workloads):
+        c = store.workloads[key].status.conditions.get("QuotaReserved")
+        times.append(None if c is None else [c.status,
+                                             c.last_transition_time])
+    return hashlib.sha256(json.dumps(
+        [committed_store_digest(store), times],
+        separators=(",", ":")).encode()).hexdigest()
+
+
+def _queue_state(queues) -> dict:
+    """Each ClusterQueue's heap and parked keys."""
+    return {name: (sorted(q._in_heap), sorted(q.inadmissible))
+            for name, q in sorted(queues.queues.items())}
+
+
+def _admission_rows(store, keys) -> list:
+    """The committed admission of each key: ClusterQueue, per podset
+    the flavors, count and usage, and the QuotaReserved and Admitted
+    conditions with their times."""
+    rows = []
+    for key in keys:
+        wl = store.workloads[key]
+        adm = wl.status.admission
+        rows.append([key, adm.cluster_queue,
+                     [[sorted(p.flavors.items()), p.count,
+                       sorted(p.resource_usage.items())]
+                      for p in adm.podset_assignments],
+                     [(c.status, c.last_transition_time) for t, c in
+                      sorted(wl.status.conditions.items())]])
+    return rows
+
+
+class _StreamTwin:
+    """One twin of bench.py's streaming arm on the port: a fresh fleet,
+    ``Scheduler(solver="auto", solver_min_backlog=0, streaming=...)`` on
+    ``device`` and the tick driver, stepped one event at a time with its
+    wall, its micro-solve entries and seconds, and its boundary digests,
+    frames and export modes."""
+
+    def __init__(self, profile, twin, device, per_tick, ticks,
+                 solve_every) -> None:
+        from kueue_oss_tpu_torch.api import types
+        from kueue_oss_tpu_torch.core.queue_manager import QueueManager
+        from kueue_oss_tpu_torch.core.store import Store
+        from kueue_oss_tpu_torch.scenarios import (
+            streaming_store,
+            streaming_ticks,
+        )
+        from kueue_oss_tpu_torch.scheduler.scheduler import Scheduler
+
+        self.twin = twin
+        self.device = device
+        self.store = streaming_store(types, Store, profile=profile)
+        self.queues = QueueManager(self.store)
+        self.sched = Scheduler(self.store, self.queues, solver="auto",
+                               solver_min_backlog=0,
+                               streaming=twin != "batch", device=device)
+        if twin == "host":
+            self.sched._streaming_admitter().micro_solve = False
+        self.events = streaming_ticks(
+            types, self.store, self.sched, ticks=ticks,
+            per_tick=per_tick, stream=twin != "batch",
+            solve_every=solve_every)
+        self.wall = self.export_s = self.solve_s = 0.0
+        self.micro_entries = self.micro_solves = 0
+        self.boundaries, self.committed, self.frames = [], [], []
+
+    def step(self):
+        """The next event of the tick driver, timed; None at the end."""
+        import torch
+
+        t0 = time.monotonic()
+        ev = next(self.events, None)
+        if self.device == "cuda":
+            torch.cuda.synchronize()
+        self.wall += time.monotonic() - t0
+        if ev is None:
+            return None
+        kind, tick, res = ev
+        if kind == "micro":
+            self.micro_entries += res.micro_batch
+            self.micro_solves += res.micro_batch > 0
+            self.export_s += res.micro_export_s
+            self.solve_s += res.micro_solve_s
+        else:
+            self.boundaries.append(timed_store_digest(self.store))
+            self.committed.append(committed_store_digest(self.store))
+            self.frames.append({
+                "tick": tick, "admitted": res.admitted,
+                "rounds": res.rounds, **res.export_stats,
+                **_frame_summary(res),
+                "device_put_bytes": res.device.get(
+                    "donated_update_bytes", 0) + res.device.get(
+                    "full_upload_bytes", 0),
+                **{f"{k}_s": v for k, v in res.phases.items()}})
+        return ev
+
+    def run(self) -> None:
+        while self.step() is not None:
+            pass
+
+    def record(self) -> dict:
+        """The twin's record in the form STREAMING_REFERENCE pins it."""
+        from kueue_oss_tpu_torch.scenarios import time_to_admit_ms
+
+        sa = self.sched._streaming_instance
+        return {"workloads": len(self.store.workloads),
+                **time_to_admit_ms(self.store),
+                "stream_admitted": (sa.counts["stream_admitted_total"]
+                                    if sa is not None else 0),
+                "micro_entries": self.micro_entries,
+                "micro_solves": self.micro_solves,
+                "boundaries": self.boundaries,
+                "committed": self.committed}
+
+    def report(self) -> dict:
+        rec = self.record()
+        out = {"wall_s": self.wall, "tta_ms_p50": rec["tta_ms_p50"],
+               "tta_ms_p95": rec["tta_ms_p95"],
+               "stream_admitted": rec["stream_admitted"],
+               "boundary_drains": self.frames}
+        if self.micro_solves:
+            out.update(micro_solves=self.micro_solves,
+                       micro_entries=self.micro_entries,
+                       export_s_per_micro_solve=(self.export_s
+                                                 / self.micro_solves),
+                       solve_s_per_micro_solve=(self.solve_s
+                                                / self.micro_solves))
+        return out
+
+
+def _lockstep(a: _StreamTwin, b: _StreamTwin) -> int:
+    """Step two streaming twins together; after every micro-drain their
+    outcomes, the committed admissions of the keys admitted (as a set:
+    the commit order may differ) and every
+    queue's heap and parked sets must be equal (a micro-drain changes
+    nothing else in the store), and at every boundary their timestamped
+    digests. Returns the micro-drains compared."""
+    compared = 0
+    while True:
+        ea, eb = a.step(), b.step()
+        if ea is None or eb is None:
+            if ea is not eb:
+                raise AssertionError("streaming twins ended apart")
+            return compared
+        if ea[:2] != eb[:2]:
+            raise AssertionError(f"streaming twins out of step: {ea[:2]} "
+                                 f"!= {eb[:2]}")
+        kind, tick, ra = ea
+        rb = eb[2]
+        if kind == "micro":
+            # the micro-solve commits in (round, entry) order, the host
+            # walk ClusterQueue by ClusterQueue: the same set
+            keys = sorted(ra.admitted_keys)
+            if ((ra.admitted, ra.parked, ra.deferred_cqs, keys)
+                    != (rb.admitted, rb.parked, rb.deferred_cqs,
+                        sorted(rb.admitted_keys))
+                    or _admission_rows(a.store, keys)
+                    != _admission_rows(b.store, keys)
+                    or _queue_state(a.queues) != _queue_state(b.queues)):
+                raise AssertionError(
+                    f"{a.twin} and {b.twin} twins differ after the "
+                    f"micro-drain of tick {tick}")
+            compared += 1
+        elif a.boundaries[-1] != b.boundaries[-1]:
+            raise AssertionError(f"{a.twin} and {b.twin} twins differ at "
+                                 f"the boundary of tick {tick}")
+
+
+def _counted_micro_solves(log: list):
+    """Wrap the admitter's lean-drain entry to log (thread, device,
+    padded workloads) per micro-solve; returns the restore call."""
+    import threading
+
+    from kueue_oss_tpu_torch.scheduler import streaming
+
+    inner = streaming.solve_backlog
+
+    def counted(t):
+        log.append((threading.current_thread().name,
+                    t.wl_rank.device.type, int(t.wl_rank.shape[0])))
+        return inner(t)
+
+    streaming.solve_backlog = counted
+
+    def restore():
+        streaming.solve_backlog = inner
+
+    return restore
+
+
+def streaming_fleets(device="cuda", runs=None, reference=None,
+                     solve_every: int = 100) -> tuple:
+    """Phase 15 (a) and (b): bench.py's streaming arm through the
+    port's scheduler, every twin against its JAX pin. Returns (report,
+    TAS kernel launches)."""
+    runs = runs or STREAMING_RUNS
+    reference = reference or STREAMING_REFERENCE
+    out, launches = {}, 0
+    log: list = []
+    restore = _counted_micro_solves(log)
+    try:
+        for profile, (per_tick, ticks, twins) in runs.items():
+            made = {t: _StreamTwin(profile, t, device, per_tick, ticks,
+                                   solve_every) for t in twins}
+            _reset_launches()
+            _settle()
+            compared = 0
+            if "micro" in made:
+                # the device micro-solve against the host walk
+                compared = _lockstep(made["micro"], made["host"])
+            for tw in made.values():
+                tw.run()
+            launches += _launches()
+            stream = made.get("micro") or made["stream"]
+            for name, tw in made.items():
+                rec = tw.record()
+                want = reference[profile][name]
+                if rec != want:
+                    raise AssertionError(
+                        f"streaming {profile} {name}: {rec} != reference "
+                        f"{want}")
+            if stream.committed != made["batch"].committed:
+                raise AssertionError(f"streaming {profile}: the stream "
+                                     f"and batch twins differ at a "
+                                     f"boundary")
+            if _launches():
+                raise AssertionError(f"streaming {profile}: "
+                                     f"{_launches()} TAS kernel launches")
+            solves = [e for e in log if e[0] != "stream-watch-drain"]
+            if "micro" in made and (
+                    len(solves) != stream.micro_solves
+                    or any(dev != device for _, dev, _ in solves)):
+                raise AssertionError(
+                    f"streaming {profile}: {len(solves)} micro-solves "
+                    f"logged on {sorted({d for _, d, _ in solves})} for "
+                    f"{stream.micro_solves} micro-drains")
+            log.clear()
+            out[profile] = {name: tw.report() for name, tw in made.items()}
+            out[profile]["micro_drains_compared"] = compared
+            print(f"[streaming {profile}] every twin matches its JAX pin "
+                  f"({per_tick} arrivals a tick, {ticks} ticks); stream = "
+                  f"batch at {len(stream.committed)} boundaries"
+                  + (f"; micro-solve = host walk after {compared} "
+                     f"micro-drains" if compared else "")
+                  + "; " + json.dumps(out[profile]))
+    finally:
+        restore()
+    return out, launches
+
+
+def streaming_serve(device="cuda", bursts: int = 8,
+                    per_burst: int = 128, singles: int = 8) -> dict:
+    """Phase 15 (c): ``serve(stop)`` in a thread over a fresh ``single``
+    fleet with the watch-driven worker; ``bursts`` bursts of
+    ``per_burst`` injected from this thread. Each burst is added while
+    this thread holds the cycle lock and the queue lock, and the cycle
+    lock is handed over first, so the worker (woken by the arrivals)
+    takes it before the serve loop can: the burst then coalesces into
+    one micro-drain on the worker thread. Each burst's wall from
+    injection to the last admission (``burst_handover_s``) holds that
+    0.1 s hand-over and is no serve latency. Then ``singles`` arrivals
+    are added one at a time with no lock held, each waited on until it
+    holds quota: ``single_admit_s`` is one arrival's wall from
+    ``add_workload`` to its admission by whichever thread takes it. A
+    thread that dies fails the phase."""
+    import threading
+
+    from kueue_oss_tpu_torch.api import types
+    from kueue_oss_tpu_torch.config import StreamingConfig
+    from kueue_oss_tpu_torch.core.queue_manager import QueueManager
+    from kueue_oss_tpu_torch.core.store import Store
+    from kueue_oss_tpu_torch.scenarios import streaming_store
+    from kueue_oss_tpu_torch.scheduler.scheduler import Scheduler
+
+    store = streaming_store(types, Store, profile="single")
+    queues = QueueManager(store)
+    sched = Scheduler(store, queues, solver="auto", device=device,
+                      streaming=StreamingConfig(enabled=True,
+                                                watch_driven=True))
+    sched._solver_engine().drain(now=time.monotonic(), verify=True)
+    sa = sched._streaming_admitter()
+    drains: list = []
+    inner_drain = sa.drain
+
+    def logged_drain(now=0.0):
+        res = inner_drain(now)
+        drains.append((threading.current_thread().name, res.micro_batch,
+                       res.admitted))
+        return res
+
+    sa.drain = logged_drain
+    errors: list = []
+    hook = threading.excepthook
+
+    def excepthook(args):
+        errors.append(f"{args.thread.name if args.thread else '?'}: "
+                      f"{args.exc_type.__name__}: {args.exc_value}")
+        hook(args)
+
+    log: list = []
+    restore = _counted_micro_solves(log)
+    threading.excepthook = excepthook
+    stop = threading.Event()
+    server = threading.Thread(target=sched.serve, args=(stop,),
+                              kwargs={"poll": 0.01}, name="serve")
+    n_cqs = len(store.cluster_queues)
+    latencies, single_latencies = [], []
+    try:
+        server.start()
+        deadline = time.monotonic() + 30.0
+        while sa._notify is None and time.monotonic() < deadline:
+            time.sleep(0.005)
+        workers = [t for t in threading.enumerate()
+                   if t.name == "stream-watch-drain"]
+        if sa._notify is None or len(workers) != 1:
+            raise AssertionError(f"serve did not start its worker "
+                                 f"({len(workers)} found)")
+        uid = 1
+        for _ in range(bursts):
+            keys = []
+            sched._cycle_mu.acquire()
+            queues._mu.acquire()
+            try:
+                t_inj = time.monotonic()
+                for _ in range(per_burst):
+                    wl = types.Workload(
+                        name=f"s{uid}", queue_name=f"lq{uid % n_cqs}",
+                        uid=uid, creation_time=t_inj,
+                        podsets=[types.PodSet(count=1,
+                                              requests={"cpu": 100})])
+                    store.add_workload(wl)
+                    keys.append(wl.key)
+                    uid += 1
+            finally:
+                sched._cycle_mu.release()
+                # the woken worker takes the cycle lock while the serve
+                # loop still waits for the queue lock
+                time.sleep(0.1)
+                queues._mu.release()
+            deadline = time.monotonic() + 60.0
+            while (not all(store.workloads[k].is_quota_reserved
+                           for k in keys)
+                   and time.monotonic() < deadline and not errors):
+                time.sleep(0.002)
+            latencies.append(time.monotonic() - t_inj)
+            if not all(store.workloads[k].is_quota_reserved for k in keys):
+                raise AssertionError(f"serve: a burst was not admitted "
+                                     f"within 60 s ({errors})")
+        for _ in range(singles):
+            t_inj = time.monotonic()
+            wl = types.Workload(
+                name=f"s{uid}", queue_name=f"lq{uid % n_cqs}", uid=uid,
+                creation_time=t_inj,
+                podsets=[types.PodSet(count=1, requests={"cpu": 100})])
+            store.add_workload(wl)
+            uid += 1
+            deadline = t_inj + 60.0
+            while (not store.workloads[wl.key].is_quota_reserved
+                   and time.monotonic() < deadline and not errors):
+                time.sleep(0.0005)
+            single_latencies.append(time.monotonic() - t_inj)
+            if not store.workloads[wl.key].is_quota_reserved:
+                raise AssertionError(f"serve: a single arrival was not "
+                                     f"admitted within 60 s ({errors})")
+        alive = server.is_alive() and workers[0].is_alive()
+    finally:
+        stop.set()
+        server.join(timeout=30.0)
+        workers_left = [t for t in threading.enumerate()
+                        if t.name == "stream-watch-drain"]
+        for t in workers_left:
+            t.join(timeout=30.0)
+        threading.excepthook = hook
+        restore()
+        sa.drain = inner_drain
+    if errors:
+        raise AssertionError(f"serve: a thread died: {errors}")
+    if not alive:
+        raise AssertionError("serve: the serve or worker thread ended "
+                             "before stop")
+    if server.is_alive() or any(t.is_alive() for t in workers_left):
+        raise AssertionError("serve: a thread outlived stop")
+    worker_micro = sum(m for name, m, _ in drains
+                       if name == "stream-watch-drain")
+    worker_solves = [e for e in log if e[0] == "stream-watch-drain"]
+    if not worker_micro or any(dev != device for _, dev, _ in worker_solves):
+        raise AssertionError(f"serve: the worker's micro-solves "
+                             f"{worker_solves} (entries {worker_micro})")
+    held = sum(1 for w in store.workloads.values() if w.is_quota_reserved)
+    if held != bursts * per_burst + singles:
+        raise AssertionError(f"serve: {held} of "
+                             f"{bursts * per_burst + singles} admitted")
+    counts = sa.counts
+    out = {"admitted": held,
+           "stream_admitted": counts["stream_admitted_total"],
+           "worker_drains": sum(1 for d in drains
+                                if d[0] == "stream-watch-drain"),
+           "worker_micro_entries": worker_micro,
+           "worker_micro_solves": len(worker_solves),
+           "serve_micro_entries": sum(m for name, m, _ in drains
+                                      if name == "serve"),
+           "watch_coalesced": counts["stream_demotions_total"][
+               "watch_coalesced"],
+           "burst_handover_s": latencies,
+           "single_admit_s": single_latencies}
+    print("[streaming serve] all admitted; the worker ran micro-solves on "
+          f"{device}; threads joined; " + json.dumps(out))
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1704,6 +2245,11 @@ def main() -> int:
 
     # 14. the scheduler's host TAS placement and its device fill
     sched_host, host_leaf, host_place = scheduler_tas_host()
+
+    # 15. streaming admission: micro-drains through the lean drain on
+    # the card, and serve with its watch-driven worker
+    stream_fleets, stream_launches = streaming_fleets()
+    stream_serve = streaming_serve()
     reports[0]["launches_by_path"] = {"tas_lean": leaf_launches,
                                       "tas_full": 0, "storm_full": 0,
                                       "fair_storm": fair_launches,
@@ -1714,7 +2260,8 @@ def main() -> int:
                                       "scheduler_tas": sched_tas_leaf,
                                       "scheduler_refused":
                                           sched_refused_launches,
-                                      "scheduler_tas_host": host_leaf}
+                                      "scheduler_tas_host": host_leaf,
+                                      "streaming": stream_launches}
     # leaf_states' own path since the drain fused it away: phase 14's
     # host placement with the fill gate on
     reports[0]["launches"] = host_leaf
@@ -1732,7 +2279,8 @@ def main() -> int:
                                       "scheduler_tas": sched_tas_launches,
                                       "scheduler_refused":
                                           sched_refused_launches,
-                                      "scheduler_tas_host": host_place}
+                                      "scheduler_tas_host": host_place,
+                                      "streaming": stream_launches}
 
     timings = {"setup_s": setup_s, "drain_s": drain_s,
                **{f"{k}_s": v for k, v in result.phases.items()},
@@ -1742,7 +2290,8 @@ def main() -> int:
                "storm_churn": churn, "scheduler_storm": sched_storm,
                "scheduler_tas": sched_tas,
                "scheduler_refused": sched_refused,
-               "scheduler_tas_host": sched_host}
+               "scheduler_tas_host": sched_host,
+               "streaming": stream_fleets, "streaming_serve": stream_serve}
     print("[timings] " + json.dumps(timings))
     print(smi)
     print(json.dumps({"kernels": reports}))

@@ -12,11 +12,13 @@ TAS placement's fill-in counts under the TASDeviceFillCounts gate).
 The system's entry point is the host scheduler (``scheduler/``):
 ``Scheduler(solver="auto")`` drains a flood on the device, re-checks
 every plan entry with the C++ verify oracle (``native/``) and admits the
-rest in host cycles. The package keeps its own copies of the host layer
-it needs (API types, store, queue manager, quota forest, TAS domain
-tree and placement, scheduler) and mirrors the JAX package's layout (``api/``,
-``core/``, ``tas/``, ``solver/``, ``scheduler/``, ``native/``,
-``util/``).
+rest in host cycles; with ``streaming`` it admits arrivals between full
+drains (``micro_drain``, ``serve``; a large burst as one lean drain on
+the device). The package keeps its own copies of the host layer it
+needs (API types, store, queue manager, quota forest, TAS domain tree
+and placement, scheduler, streaming admitter) and mirrors the JAX
+package's layout (``api/``, ``config/``, ``core/``, ``tas/``,
+``solver/``, ``scheduler/``, ``native/``, ``util/``).
 Entry points run on ``device="cuda"`` unless the caller passes
 ``device="cpu"``.
 """

@@ -25,15 +25,19 @@ assignment was delayed (admission-check ClusterQueues), with a 1 s ->
 30 s exponential backoff per attempt; the scheduler's second pass
 takes the ready ones at the start of each cycle.
 
-Cut from the copy: the metric dirty sets and pending totals, and the
-lock and condition the threaded ``serve`` loop waits on (``serve`` is
-ROADMAP Queue A item 3).
+Every queue mutation of the manager runs under one reentrant mutex,
+and its condition signals new pending work: the scheduler's threaded
+``serve`` loop blocks in ``wait_for_pending`` as the reference's
+manager blocks the scheduler's Heads() on a sync.Cond.
+
+Cut from the copy: the metric dirty sets and pending totals.
 """
 
 from __future__ import annotations
 
 import heapq
 import itertools
+import threading
 from typing import Iterable, Optional
 
 from kueue_oss_tpu_torch import features
@@ -253,6 +257,11 @@ class QueueManager:
 
     def __init__(self, store: Store, afs=None) -> None:
         self.store = store
+        #: guards all queue mutations; the condition signals new pending
+        #: work the way the reference's manager blocks scheduler Heads()
+        #: on a sync.Cond (manager.go Heads/CleanUpOnContext)
+        self._mu = threading.RLock()
+        self._cond = threading.Condition(self._mu)
         self.queues: dict[str, ClusterQueuePendingQueue] = {}
         self.cycle = 0
         #: optional AfsManager (admission fair sharing, KEP-4136)
@@ -327,6 +336,11 @@ class QueueManager:
             q.afs_key = None
 
     def _on_event(self, event) -> None:
+        with self._mu:
+            self._on_event_locked(event)
+            self._cond.notify_all()
+
+    def _on_event_locked(self, event) -> None:
         verb, kind, obj = event
         if kind == "ClusterQueue":
             self.add_cluster_queue(obj.name)
@@ -362,6 +376,13 @@ class QueueManager:
     def add_or_update_workload(self, wl: Workload) -> bool:
         """Queue a workload if it is pending (active, no quota
         reserved)."""
+        with self._mu:
+            queued = self._add_or_update_locked(wl)
+            if queued:
+                self._cond.notify_all()
+            return queued
+
+    def _add_or_update_locked(self, wl: Workload) -> bool:
         cq = self._cq_for(wl)
         if cq is None:
             return False
@@ -386,71 +407,108 @@ class QueueManager:
     def requeue_workload(self, info: WorkloadInfo, reason: str) -> bool:
         """Re-fetch the latest object state and requeue
         (manager.go:645)."""
-        wl = self.store.workloads.get(info.key)
-        if (wl is None or not wl.active or wl.is_quota_reserved
-                or wl.is_finished or self._local_queue_stopped(wl)):
-            return False
-        fresh = WorkloadInfo(wl, cluster_queue=info.cluster_queue)
-        fresh.last_assignment = info.last_assignment
-        q = self.queues.get(info.cluster_queue)
-        if q is None:
-            return False
-        return q.requeue_if_not_present(fresh, reason,
-                                        pop_cycle=info.pop_cycle)
+        with self._mu:
+            wl = self.store.workloads.get(info.key)
+            if (wl is None or not wl.active or wl.is_quota_reserved
+                    or wl.is_finished or self._local_queue_stopped(wl)):
+                return False
+            fresh = WorkloadInfo(wl, cluster_queue=info.cluster_queue)
+            fresh.last_assignment = info.last_assignment
+            q = self.queues.get(info.cluster_queue)
+            if q is None:
+                return False
+            requeued = q.requeue_if_not_present(
+                fresh, reason, pop_cycle=info.pop_cycle)
+            if requeued:
+                self._cond.notify_all()
+            return requeued
 
     # -- heads -------------------------------------------------------------
 
     def heads(self) -> list[WorkloadInfo]:
         """Pop the head of every active ClusterQueue (one per CQ); the
         scheduler requeues the heads it does not admit."""
-        self.cycle += 1
-        out: list[WorkloadInfo] = []
-        for q in self.queues.values():
-            if not q.active:
-                continue
-            head = q.pop_head()
-            if head is not None:
-                head.pop_cycle = self.cycle
-                out.append(head)
-        return out
+        with self._mu:
+            self.cycle += 1
+            out: list[WorkloadInfo] = []
+            for q in self.queues.values():
+                if not q.active:
+                    continue
+                head = q.pop_head()
+                if head is not None:
+                    head.pop_cycle = self.cycle
+                    out.append(head)
+            return out
+
+    def wait_for_pending(self, timeout: Optional[float] = None) -> bool:
+        """Block until some queue has pending work (or timeout); the
+        reference scheduler blocks in manager.Heads() the same way."""
+        with self._cond:
+            if self.has_pending():
+                return True
+            self._cond.wait(timeout)
+            return self.has_pending()
+
+    def wakeup(self) -> None:
+        """Wake any blocked wait_for_pending (shutdown / external
+        nudge)."""
+        with self._cond:
+            self._cond.notify_all()
 
     def has_pending(self) -> bool:
-        return any(q._in_heap or q._stale
-                   for q in self.queues.values() if q.active)
+        with self._mu:
+            return any(len(q._in_heap) > 0 or len(q._stale) > 0
+                       for q in self.queues.values() if q.active)
 
     def set_lazy_flush(self, on: bool) -> None:
         """Toggle solver-managed lazy flushing; turning it off hands any
         stale entries back to the host path."""
-        self.lazy_flush = on
-        for q in self.queues.values():
-            q.lazy_flush = on
-            if not on:
-                q.materialize_stale()
+        with self._mu:
+            self.lazy_flush = on
+            for q in self.queues.values():
+                q.lazy_flush = on
+                if not on:
+                    q.materialize_stale()
+            self._cond.notify_all()
 
     def any_stale(self) -> bool:
-        return any(q._stale for q in self.queues.values() if q.active)
+        with self._mu:
+            return any(q._stale for q in self.queues.values() if q.active)
 
     def materialize_stale_all(self) -> bool:
         """Re-heap every stale entry (before host cycles run with the
         solver disengaged)."""
-        moved = False
-        for q in self.queues.values():
-            moved = q.materialize_stale() or moved
-        return moved
+        with self._mu:
+            moved = False
+            for q in self.queues.values():
+                moved = q.materialize_stale() or moved
+            if moved:
+                self._cond.notify_all()
+            return moved
 
     def solver_backlog_count(self) -> int:
         """Pending work the solver would drain: heap entries plus stale
         parked entries owed a retry."""
-        return sum(len(q._in_heap) + len(q._stale)
-                   for q in self.queues.values() if q.active)
+        with self._mu:
+            return sum(len(q._in_heap) + len(q._stale)
+                       for q in self.queues.values() if q.active)
+
+    def cqs_with_pending(self) -> list[str]:
+        """Active CQs holding any drainable work (heap or stale) —
+        the streaming fast path's per-tick candidate list
+        (scheduler/streaming.py), read in one pass under the mutex."""
+        with self._mu:
+            return [name for name, q in self.queues.items()
+                    if q.active and (q._in_heap or q._stale)]
 
     def membership_fingerprint(self) -> int:
         """Order-insensitive digest of every queue's (key, heap|parked)
         membership (run_until_quiet's quiescence probe)."""
-        acc = 0
-        for name, q in self.queues.items():
-            acc ^= hash((name, q.state_hash))
-        return acc
+        with self._mu:
+            acc = 0
+            for name, q in self.queues.items():
+                acc ^= hash((name, q.state_hash))
+            return acc
 
     # -- capacity-freed events ---------------------------------------------
 
@@ -477,10 +535,12 @@ class QueueManager:
     def flush_cohort_for(self, cq_name: str) -> None:
         """Re-queue inadmissible workloads across the whole cohort
         (QueueAssociatedInadmissibleWorkloadsAfter)."""
-        for member in self._cohort_members(cq_name):
-            q = self.queues.get(member)
-            if q is not None:
-                q.queue_inadmissible(self.cycle)
+        with self._mu:
+            for member in self._cohort_members(cq_name):
+                q = self.queues.get(member)
+                if q is not None:
+                    q.queue_inadmissible(self.cycle)
+            self._cond.notify_all()
 
     def report_workload_finished(self, wl: Workload) -> None:
         cq = self._cq_for(wl)

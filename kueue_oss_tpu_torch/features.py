@@ -31,6 +31,7 @@ _DEFAULTS: dict[str, bool] = {
     # read by the host scheduler cycle (scheduler/)
     "PartialAdmission": True,          # podset reduction
     "FlavorFungibility": True,         # flavor_assigner custom policy
+    "SchedulerLongRequeueInterval": False,  # scheduler.serve requeue sweep
     "AdmissionFairSharing": True,      # queue_manager AFS ordering key
     # topology-aware scheduling (tas/snapshot.py)
     "TASProfileMixed": True,           # LeastFreeCapacity for unconstrained

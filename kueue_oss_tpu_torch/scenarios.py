@@ -44,6 +44,14 @@ delta-session scenario (bench.py:769-800) over a store: each cycle
 finishes up to ``churn`` quota-holding workloads and submits ``churn``
 new single-pod ones, the steady state a deployed control plane drains in.
 
+``streaming_store`` builds the fleet of ``bench.py``'s streaming arm
+(bench.py:2153-2276): 32 ClusterQueues of one flavor (``single``) or of
+two flavor options and borrow-capable cohorts (``wide``);
+``streaming_ticks`` is its tick driver (arrivals every 10 ms virtual
+tick, a micro-drain per tick on the streaming twin, a full drain every
+100 ticks) and ``time_to_admit_ms`` its creation-to-QuotaReserved
+percentiles.
+
 ``drain_placer_batch`` and ``random_placer_tree`` /
 ``random_placer_requests`` make inputs of the sequential TAS placer
 (``cuda_tas.tas_place_sequential``) from a seed with numpy: the drain's
@@ -469,6 +477,102 @@ def storm_churn_drains(types, store, wave1, wave2, finish):
     for c in range(1, StormChurn.WARM_CYCLES + StormChurn.MEASURED_CYCLES
                    + 1):
         yield f"cycle{c}", churn.cycle(c, finish)
+
+
+#: the streaming arm's virtual clock (bench.py:2180-2181): a 10 ms tick
+#: and a full solve every 100 ticks (1 s)
+STREAM_TICK_S = 0.01
+STREAM_SOLVE_EVERY = 100
+#: the streaming arm's fleet size (bench.py:2180's default)
+STREAM_CQS = 32
+
+
+def streaming_store(types, store_cls, *, profile: str = "single"):
+    """The fleet of bench.py's streaming arm (bench.py:2183-2223):
+    ``single`` is ``STREAM_CQS`` standalone ClusterQueues with one flavor
+    (nominal 10,000,000 cpu); ``wide`` makes every even ClusterQueue a
+    standalone one with two flavor options (``small`` before ``large``)
+    and every odd one a borrow-capable member of cohort ``co{c // 8}``,
+    so every admission rides the flavor-pick witness or the
+    reserved-headroom walk. One LocalQueue ``lq{c}`` per ClusterQueue."""
+    store = store_cls()
+    for f in ("default", "small", "large"):
+        store.upsert_resource_flavor(types.ResourceFlavor(name=f))
+
+    def quota(flavor):
+        return types.FlavorQuotas(name=flavor, resources=[
+            types.ResourceQuota(name="cpu", nominal=10_000_000)])
+
+    if profile == "wide":
+        for c in range(0, STREAM_CQS, 8):
+            store.upsert_cohort(types.Cohort(name=f"co{c // 8}"))
+    for c in range(STREAM_CQS):
+        if profile == "wide" and c % 2 == 0:
+            cq = types.ClusterQueue(name=f"cq{c}", resource_groups=[
+                types.ResourceGroup(covered_resources=["cpu"],
+                                    flavors=[quota("small"),
+                                             quota("large")])])
+        else:
+            cq = types.ClusterQueue(
+                name=f"cq{c}",
+                cohort=f"co{c // 8}" if profile == "wide" else None,
+                resource_groups=[types.ResourceGroup(
+                    covered_resources=["cpu"],
+                    flavors=[quota("default")])])
+        store.upsert_cluster_queue(cq)
+        store.upsert_local_queue(
+            types.LocalQueue(name=f"lq{c}", cluster_queue=f"cq{c}"))
+    return store
+
+
+def streaming_ticks(types, store, sched, *, ticks: int = 400,
+                    per_tick: int = 16, stream: bool = True,
+                    solve_every: int = STREAM_SOLVE_EVERY):
+    """The streaming arm's tick driver (bench.py:2233-2254) as a
+    generator: a full drain at t = 0 arms the fences; then per tick
+    ``micro_drain(now)`` first when ``stream`` (it picks up the previous
+    tick's arrivals: one tick of pickup latency), then the tick's
+    ``per_tick`` arrivals round-robin over the ClusterQueues, and every
+    ``solve_every`` ticks (bench.py: 100; tests cut it with the ticks) a
+    full ``drain(now, verify=True)`` on the scheduler's solver engine.
+    Yields ``("micro", tick, MicroDrainResult)`` after each micro-drain
+    and ``("boundary", tick, DrainResult)`` after each full drain, so a
+    caller can hold twins in step."""
+    n_cqs = len(store.cluster_queues)
+    engine = sched._solver_engine()
+    engine.drain(now=0.0, verify=True)
+    uid = 1
+    for tick in range(1, ticks + 1):
+        now = tick * STREAM_TICK_S
+        if stream:
+            yield "micro", tick, sched.micro_drain(now)
+        for j in range(per_tick):
+            c = (tick * per_tick + j) % n_cqs
+            store.add_workload(types.Workload(
+                name=f"w{uid}", queue_name=f"lq{c}", uid=uid,
+                creation_time=now,
+                podsets=[types.PodSet(count=1, requests={"cpu": 100})]))
+            uid += 1
+        if tick % solve_every == 0:
+            yield "boundary", tick, engine.drain(now=now, verify=True)
+
+
+def time_to_admit_ms(store) -> dict:
+    """Virtual time-to-admit of the quota-holding workloads, creation to
+    the QuotaReserved transition (bench.py:2256-2267): the count, p50
+    and p95 in ms rounded to 3 places (None when nothing holds quota)."""
+    waits = sorted(
+        c.last_transition_time - wl.creation_time
+        for wl in store.workloads.values()
+        if (c := wl.status.conditions.get("QuotaReserved")) is not None
+        and c.status)
+
+    def pct(p):
+        return (round(waits[int(p * (len(waits) - 1))] * 1000, 3)
+                if waits else None)
+
+    return {"admitted": len(waits), "tta_ms_p50": pct(0.50),
+            "tta_ms_p95": pct(0.95)}
 
 
 def preempt_plan_rows(store, result) -> list:

@@ -23,15 +23,27 @@ topology assignments); under the TASDeviceFillCounts gate those trees
 run their fill-in counts on ``device`` too, so a host-only scheduler
 (``solver=None``) touches the device only with that gate on.
 
+With ``streaming`` (True or a ``config.StreamingConfig``) and a solver
+backend, a ``StreamingAdmitter`` (``scheduler/streaming.py``) rides the
+engine: ``micro_drain(now)`` admits in-order arrivals to uncontended
+ClusterQueues between full solves (a burst of at least
+``micro_solve_min`` entries as one lean drain on ``device``), and every
+``engine.drain`` re-arms its fences. ``serve(stop)`` is the threaded
+loop: it blocks on the queue manager's condition, runs micro-drains and
+full cycles under ``_cycle_mu``, and with ``watch_driven`` (the
+default) starts the ``stream-watch-drain`` worker that the store watch
+wakes on every arrival.
+
 Cut from the copy, each with its ROADMAP Queue A item:
 
-- ``serve``, the streaming admitter and ``micro_drain`` (item 3):
-  ``streaming`` must be None or False;
 - ``solver_config``, i.e. the sidecar socket, the breaker and the
   relaxed-arm knobs (items 6 and 8): it must be None;
 - (no ROADMAP item: nothing in the port would set them) the
-  ``clock``, ``eviction_backoff_max_s`` and ``enable_partial_admission``
-  arguments: cycles time themselves on ``time.monotonic``, an eviction
+  ``clock`` (also ``serve``'s), ``eviction_backoff_max_s`` and
+  ``enable_partial_admission`` arguments and ``serve``'s ``backoff``:
+  cycles, ``serve`` and ``micro_drain`` without ``now`` time themselves
+  on ``time.monotonic``, ``serve`` sleeps on its own fixed ``Backoff``
+  (2 ms doubling up to ``poll``), an eviction
   backoff is capped at ``core.eviction.EVICTION_BACKOFF_MAX_S`` (3600
   s) and partial admission follows its PartialAdmission gate (on);
   ``evict_workload``'s ``requeue``, ``underlying_cause`` and
@@ -58,6 +70,7 @@ from __future__ import annotations
 
 import functools
 import heapq
+import threading
 import time
 from dataclasses import dataclass, field
 from typing import Optional
@@ -94,6 +107,7 @@ from kueue_oss_tpu_torch.scheduler.flavor_assigner import (
 )
 from kueue_oss_tpu_torch.scheduler.preemption import Preemptor, Target
 from kueue_oss_tpu_torch.util.expectations import ExpectationsStore
+from kueue_oss_tpu_torch.util.primitives import Backoff
 
 # entry status (scheduler.go entryStatus)
 NOT_NOMINATED = ""
@@ -149,9 +163,6 @@ class Scheduler:
             raise NotImplementedError(
                 "solver_config (sidecar socket, breaker, relaxed arm): "
                 "ROADMAP Queue A items 6 and 8")
-        if streaming:
-            raise NotImplementedError(
-                "streaming admission: ROADMAP Queue A item 3")
         self.store = store
         self.queues = queues
         self.enable_fair_sharing = enable_fair_sharing
@@ -184,6 +195,23 @@ class Scheduler:
         #: admit nothing; a productive drain resets the multiplier
         self._solver_arrival_mult = 1
         self._solver_drain_trigger = None
+        #: streaming micro-batched admission between full solves
+        #: (scheduler/streaming.py): None/False = off (the cycle-batch
+        #: model, unchanged), True = defaults, or a
+        #: config.StreamingConfig. Requires a solver backend — commits
+        #: ride the engine's commit path so streamed admissions are
+        #: indistinguishable in the store from batched ones.
+        self.streaming = streaming
+        self._streaming_instance = None
+        #: serializes cycle bodies and micro-drains across the serve
+        #: loop and the watch-driven drain worker (reentrant: the
+        #: serve loop's cycle body calls micro_drain itself)
+        self._cycle_mu = threading.RLock()
+        #: wall of the most recent full schedule() cycle; the serve
+        #: loop refuses to skip host cycles longer than the streaming
+        #: config's max_cycle_gap (requeue backoffs must expire, even
+        #: while micro-drains serve)
+        self._last_full_cycle_wall = 0.0
         #: routing cost EMAs: drain wall per exported workload and the
         #: host cycle's wall per admission (None until measured)
         self._drain_cost_ema: Optional[float] = None
@@ -252,8 +280,103 @@ class Scheduler:
                     self.store, self.queues, device=self.device,
                     scheduler=self,
                     enable_fair_sharing=self.enable_fair_sharing)
+            self._ensure_streaming(self._solver_instance)
             return self._solver_instance
+        self._ensure_streaming(self.solver)
         return self.solver
+
+    def _streaming_on(self) -> bool:
+        """Whether streaming is enabled: truthy value, AND — for a
+        StreamingConfig — its ``enabled`` master switch."""
+        cfg = self.streaming
+        if not cfg:
+            return False
+        return cfg is True or getattr(cfg, "enabled", True)
+
+    def _ensure_streaming(self, engine) -> None:
+        """Wire the StreamingAdmitter onto a freshly resolved engine
+        (idempotent; also the path that arms fences on the engine's
+        full-solve boundaries via engine.streaming)."""
+        if (not self._streaming_on() or engine is None
+                or self._streaming_instance is not None):
+            return
+        from kueue_oss_tpu_torch.scheduler.streaming import (
+            StreamingAdmitter,
+        )
+
+        cfg = self.streaming
+        kwargs = {}
+        if cfg is not True and cfg is not None:
+            kwargs["max_batch"] = getattr(cfg, "max_batch", 512)
+        self._streaming_instance = StreamingAdmitter(
+            self.store, self.queues, engine, **kwargs)
+        engine.streaming = self._streaming_instance
+
+    def _streaming_admitter(self):
+        """The lazily built StreamingAdmitter, or None (streaming off
+        or no solver backend configured)."""
+        if not self._streaming_on():
+            return None
+        if self._streaming_instance is None:
+            self._ensure_streaming(self._solver_engine())
+        return self._streaming_instance
+
+    def _streaming_max_gap(self) -> float:
+        cfg = self.streaming
+        if cfg is True or cfg is None:
+            return 1.0
+        return getattr(cfg, "max_cycle_gap_seconds", 1.0)
+
+    def _streaming_watch_driven(self) -> bool:
+        """Whether serve() runs the watch-driven drain worker (on by
+        default with streaming): arrivals signal the worker straight
+        from the store watch stream, so micro-drain latency stays
+        event-bound even while the serve loop sleeps on its SlowDown
+        backoff or poll tick."""
+        if not self._streaming_on():
+            return False
+        cfg = self.streaming
+        if cfg is True:
+            return True
+        return getattr(cfg, "watch_driven", True)
+
+    def _watch_drain_loop(self, sa, wake, stop) -> None:
+        """Watch-driven drain worker: blocks on the arrival signal
+        (set by the admitter's store-watch classifier), coalesces
+        whatever burst accumulated while a drain ran, and drains
+        under the cycle lock. Full-solve requests are deferred to the
+        serve loop — the worker only ever runs micro-drains."""
+        while not stop.is_set():
+            if not wake.wait(timeout=0.2):
+                continue
+            wake.clear()
+            if stop.is_set():
+                return
+            n = sa.take_arrival_signals()
+            if n <= 0:
+                continue
+            if n > 1:
+                # burst backpressure: n arrival signals collapsed
+                # into this one drain
+                sa.count("stream_demotions_total", "watch_coalesced",
+                         by=n - 1)
+            with self._cycle_mu:
+                sa.drain(time.monotonic())
+            if sa.full_solve_pending:
+                # spec edit observed mid-window: the HEAVY cycle is
+                # the serve loop's job — nudge its condition wait
+                self.queues.wakeup()
+
+    def micro_drain(self, now: Optional[float] = None):
+        """One streaming micro-batch: admit in-order arrivals for
+        every uncontended fast-path CQ sub-cycle (between full
+        solves). Returns the MicroDrainResult, or None when streaming
+        is off/unarmed."""
+        sa = self._streaming_admitter()
+        if sa is None:
+            return None
+        with self._cycle_mu:
+            return sa.drain(now if now is not None else time.monotonic())
 
     def _solver_drain(self, now: Optional[float]) -> bool:
         """Drain the backlog on the device when the gates let it.
@@ -399,6 +522,127 @@ class Scheduler:
 
     def _queue_fingerprint(self):
         return self.queues.membership_fingerprint()
+
+    def serve(self, stop, poll: float = 0.05) -> int:
+        """Event-driven scheduler loop for threaded deployments: block on
+        the queue manager's condition until pending work arrives, run a
+        cycle, repeat until `stop` is set (the reference scheduler
+        blocks in manager.Heads() the same way, and wraps the cycle in
+        untilWithBackoff). A cycle that makes NO progress — heads that
+        immediately requeue (StrictFIFO blocked head, pending
+        preemption) keep the queues non-empty — signals SlowDown: the
+        loop sleeps on an exponential backoff instead of spinning, and
+        any queue event resets it. Returns cycles run."""
+        backoff = Backoff(initial=0.002, cap=max(poll, 0.002), factor=2.0)
+        # Watch-driven micro-drains: arrivals signal a dedicated
+        # drain worker straight from the store watch stream, so the
+        # sub-cycle path stays event-bound even while this loop
+        # sleeps (poll timeout, SlowDown backoff). The worker and
+        # this loop serialize through _cycle_mu.
+        sa_watch = (self._streaming_admitter()
+                    if self._streaming_watch_driven() else None)
+        watch_wake = None
+        watch_thread = None
+        if sa_watch is not None:
+            watch_wake = threading.Event()
+            sa_watch.set_arrival_notifier(watch_wake.set)
+            watch_thread = threading.Thread(
+                target=self._watch_drain_loop,
+                args=(sa_watch, watch_wake, stop),
+                name="stream-watch-drain", daemon=True)
+            watch_thread.start()
+        try:
+            return self._serve_loop(stop, poll, backoff)
+        finally:
+            if sa_watch is not None:
+                sa_watch.set_arrival_notifier(None)
+                watch_wake.set()
+                watch_thread.join(timeout=1.0)
+
+    def _serve_loop(self, stop, poll, backoff) -> int:
+        # requeue sweeps batch like the reference requeuer
+        # (inadmissible_workloads.go:37-47): 1s normally, 10s under
+        # SchedulerLongRequeueInterval (re-read per tick so live gate
+        # flips take effect like every other gate)
+        clock = time.monotonic
+        last_sweep = -1e18
+        cycles = 0
+        idle_rounds = 0
+        while not stop.is_set():
+            if not self.queues.wait_for_pending(timeout=poll):
+                # timeout: re-check stop, serve due requeues/second pass
+                # on the batch cadence
+                now_c = clock()
+                requeue_period = (10.0 if features.enabled(
+                    "SchedulerLongRequeueInterval") else 1.0)
+                if now_c - last_sweep >= requeue_period:
+                    last_sweep = now_c
+                    self.requeue_due(now_c)
+                # a spec edit (quota/flavor change) landing while the
+                # queues are idle must not sit fenced until the next
+                # arrival: drain() observes the spec-gen bump even
+                # with nothing pending, and the requested full solve
+                # runs NOW so capacity changes propagate immediately
+                sa = self._streaming_admitter()
+                if sa is not None:
+                    with self._cycle_mu:
+                        sa.drain(now_c)
+                        if sa.consume_full_solve_request():
+                            sa.count("stream_spec_solves_total")
+                            stats = self.schedule(now=clock())
+                            self._last_full_cycle_wall = clock()
+                            cycles += 1
+                            if stats.admitted or stats.preempted:
+                                idle_rounds = 0
+                continue
+            # Streaming fast path (scheduler/streaming.py): between
+            # full solves, in-order arrivals to uncontended CQs admit
+            # sub-cycle; when the micro-batch resolved everything
+            # pending, the heavy cycle is skipped — p50 time-to-admit
+            # decouples from the full-solve cadence. Host cycles still
+            # run at least every max_cycle_gap (requeue backoffs) and
+            # whenever fenced work waits.
+            skip_heavy = False
+            with self._cycle_mu:
+                micro_admitted = 0
+                sa = self._streaming_admitter()
+                if sa is not None:
+                    now_c = clock()
+                    micro = sa.drain(now_c)
+                    micro_admitted = micro.admitted
+                    if sa.consume_full_solve_request():
+                        # spec edit observed mid-window: fall through
+                        # to the full cycle right now — never skip it
+                        sa.count("stream_spec_solves_total")
+                    elif ((micro.admitted or micro.parked)
+                            and not self.queues.has_pending()
+                            and (now_c - self._last_full_cycle_wall
+                                 < self._streaming_max_gap())):
+                        skip_heavy = True
+                if not skip_heavy:
+                    # Flood-to-solver routing (run_until_quiet
+                    # parity): a backlog past solver_min_backlog
+                    # drains through the device in one batched
+                    # invocation; the host cycle below mops up the
+                    # trickle and anything the solver could not model
+                    # or verify.
+                    drained = (self._solver_drain(clock())
+                               if self.solver else False)
+                    pre = self._queue_fingerprint()
+                    stats = self.schedule(now=clock())
+                    self._last_full_cycle_wall = clock()
+                    cycles += 1
+            if skip_heavy:
+                idle_rounds = 0
+                continue
+            if (drained or micro_admitted or stats.admitted
+                    or stats.preempted
+                    or self._queue_fingerprint() != pre):
+                idle_rounds = 0  # KeepGoing
+            else:
+                idle_rounds += 1  # SlowDown
+                stop.wait(backoff.wait_time(idle_rounds))
+        return cycles
 
     # ------------------------------------------------------------------
     # Nomination

@@ -38,7 +38,12 @@ and stays queued for the host cycle, counted in
 queue transitions, and charges an AFS admission to its LocalQueue. The
 FULL plan's evictions go through the scheduler's ``evict_workload``
 when the engine has a scheduler, else through ``core/eviction.py``: one
-state machine either way. Stale parked entries (the queue manager's
+state machine either way. With a streaming admitter attached
+(``engine.streaming``, wired by ``Scheduler(streaming=...)``) every
+drain is a full-solve boundary: ``note_solve_begin`` before it, and
+``note_full_solve`` (or ``note_solve_abort`` when the drain raised)
+after it; ``flavor_witness`` serves the admitter's flavor-pick witness
+per ``ExportCache.spec_gen``. Stale parked entries (the queue manager's
 lazy flushes) export as pending, in rank order. Podset topology groups
 and quantities beyond int32 raise ``UnsupportedProblem``.
 Cut from the copy: metrics, the obs recorder and cycle ledger, tracer
@@ -95,6 +100,7 @@ from kueue_oss_tpu_torch.solver.tensors import (
     ExportCache,
     SolverProblem,
     export_problem,
+    flavor_option_ceilings,
     pad_workloads,
     pow2,
 )
@@ -176,6 +182,11 @@ class SolverEngine:
         #: cross-drain export memo (event-invalidated) with its columnar
         #: view
         self.export_cache = ExportCache(store)
+        #: (spec_gen, ceilings) memo backing flavor_witness()
+        self._flavor_witness_cache: Optional[tuple[int, dict]] = None
+        #: the StreamingAdmitter whose fences re-arm at every drain
+        #: (scheduler/streaming.py); None without streaming
+        self.streaming = None
         #: delta sessions, one per drain kind, and the resident device
         #: state of each kind
         self.use_sessions = True
@@ -213,6 +224,22 @@ class SolverEngine:
                 if fl is not None and fl.topology_name is not None:
                     return True
         return False
+
+    def flavor_witness(self) -> dict[str, dict]:
+        """Per-CQ static flavor-option capacity ceilings for the
+        streaming flavor-pick witness, cached by ``ExportCache.spec_gen``
+        (any quota/flavor/cohort edit invalidates it together with the
+        export tensors it mirrors). The streaming admitter combines
+        these with the post-solve window snapshot to decide whether a
+        multi-flavor pick could be flipped by a capacity event
+        (tensors.flavor_option_ceilings, scheduler/streaming.py)."""
+        gen = self.export_cache.spec_gen
+        cached = self._flavor_witness_cache
+        if cached is not None and cached[0] == gen:
+            return cached[1]
+        witness = flavor_option_ceilings(self.store)
+        self._flavor_witness_cache = (gen, witness)
+        return witness
 
     def _tas_device_ready(self, name: str, q) -> bool:
         """Whether this TAS CQ's ENTIRE backlog (heap + parked) is
@@ -267,6 +294,29 @@ class SolverEngine:
     def drain(self, now: float = 0.0, verify: bool = False) -> DrainResult:
         """Solve the whole backlog on the device and commit the plan;
         with ``verify`` the oracle re-checks every entry first."""
+        completed = False
+        if self.streaming is not None:
+            # mark which fences this solve's export can cover: events
+            # landing mid-solve keep their subtree fenced past
+            # note_full_solve (the solve never saw them)
+            self.streaming.note_solve_begin()
+        try:
+            result = self._drain(now, verify)
+            completed = True
+            return result
+        finally:
+            if self.streaming is not None:
+                # full-solve boundary: the streaming fences reset
+                # against the post-solve store (a failed drain keeps
+                # them down — host fallback cycles are not a parity
+                # baseline — but must stop attributing events to the
+                # dead solve)
+                if completed:
+                    self.streaming.note_full_solve()
+                else:
+                    self.streaming.note_solve_abort()
+
+    def _drain(self, now: float, verify: bool) -> DrainResult:
         pending = self.pending_backlog()
         if self.needs_full_kernel(pending):
             return self._drain_full(now, pending, verify)

@@ -17,7 +17,8 @@ penalties and the LocalQueues' decayed usage at ``now``.
 
 ``ExportCache`` is the cross-drain memo the engine keeps: per-workload
 rows, shapes interned for the request gather, class tokens, and the
-columnar view of ``solver/columnar.py``.
+columnar view of ``solver/columnar.py``. ``flavor_option_ceilings`` is
+the capacity side of the streaming admitter's flavor-pick witness.
 """
 
 from __future__ import annotations
@@ -288,6 +289,72 @@ def _flavor_compatible(info: WorkloadInfo, flavor: ResourceFlavor,
         if not _selector_matches(ps, flavor, allowed_keys):
             return False
     return True
+
+
+def flavor_option_ceilings(
+    store: Store,
+) -> dict[str, dict[FlavorResource, int]]:
+    """Static zero-usage capacity ceilings per CQ flavor option.
+
+    For every ClusterQueue and every (flavor, resource) quota it
+    declares, the most capacity the batch oracle could EVER grant the
+    CQ on that option: its nominal quota plus — when borrowing is
+    permitted — the rest of its cohort root subtree's nominal pool
+    (capped by the borrowing limit). Pure spec data, so the result is
+    valid for one ``ExportCache.spec_gen`` and is the capacity side of
+    the streaming flavor-pick witness: a mid-window capacity event can
+    raise an option's availability at most to this ceiling, so a
+    flavor pick is event-stable iff every earlier compatible option's
+    ceiling sits below the request (scheduler/streaming.py).
+    """
+    def cohort_root(name: str) -> str:
+        seen: set[str] = set()
+        cur = name
+        while cur not in seen:
+            seen.add(cur)
+            spec_c = store.cohorts.get(cur)
+            if spec_c is None or not spec_c.parent:
+                break
+            cur = spec_c.parent
+        return cur
+
+    # nominal pool per cohort root: every member CQ's quotas plus any
+    # cohort-level quotas along the subtree
+    pool: dict[str, dict[FlavorResource, int]] = {}
+
+    def add_quotas(root: str, resource_groups) -> None:
+        tot = pool.setdefault(root, {})
+        for rg in resource_groups:
+            for fq in rg.flavors:
+                for rq in fq.resources:
+                    fr = (fq.name, rq.name)
+                    tot[fr] = tot.get(fr, 0) + rq.nominal
+
+    for spec in store.cluster_queues.values():
+        if spec.cohort:
+            add_quotas(cohort_root(spec.cohort), spec.resource_groups)
+    for cname, cspec in store.cohorts.items():
+        add_quotas(cohort_root(cname), cspec.resource_groups)
+
+    out: dict[str, dict[FlavorResource, int]] = {}
+    for name, spec in store.cluster_queues.items():
+        ceilings: dict[FlavorResource, int] = {}
+        root_pool = pool.get(cohort_root(spec.cohort),
+                             {}) if spec.cohort else {}
+        for rg in spec.resource_groups:
+            for fq in rg.flavors:
+                for rq in fq.resources:
+                    fr = (fq.name, rq.name)
+                    ceil = rq.nominal
+                    bl = rq.borrowing_limit
+                    if spec.cohort and (bl is None or bl > 0):
+                        lendable = max(
+                            0, root_pool.get(fr, 0) - rq.nominal)
+                        ceil += (lendable if bl is None
+                                 else min(bl, lendable))
+                    ceilings[fr] = ceil
+        out[name] = ceilings
+    return out
 
 
 def order_nodes(forest) -> list:

@@ -1,7 +1,7 @@
 """The port stands alone: no module of kueue_oss_tpu_torch/ and not
 chip_smoke.py imports jax, jaxlib or the JAX package, and the port
 imports and drains (lean, FULL, fair sharing and admission fair
-sharing) with those modules blocked."""
+sharing), schedules and streams with those modules blocked."""
 
 import ast
 import subprocess
@@ -49,6 +49,10 @@ def test_scan_sees_the_whole_port():
     assert "kueue_oss_tpu_torch/native/__init__.py" in names
     assert "kueue_oss_tpu_torch/scheduler/scheduler.py" in names
     assert "kueue_oss_tpu_torch/tas/snapshot.py" in names
+    assert "kueue_oss_tpu_torch/scheduler/streaming.py" in names
+    assert "kueue_oss_tpu_torch/config/configuration.py" in names
+    assert "kueue_oss_tpu_torch/config/__init__.py" in names
+    assert "kueue_oss_tpu_torch/util/primitives.py" in names
     assert "chip_smoke.py" in names
     # the exact-name comparison lets the port's own name through
     assert "kueue_oss_tpu_torch" not in FORBIDDEN
@@ -126,6 +130,27 @@ def test_port_drains_with_jax_blocked():
             psa.topology_assignment is not None
             for psa in w.status.admission.podset_assignments)
             for w in store.workloads.values())
+        # streaming: micro-drains through the lean drain between full
+        # drains, a serve loop with its watch-driven worker
+        import threading
+        from kueue_oss_tpu_torch.config import StreamingConfig
+        from kueue_oss_tpu_torch.scenarios import (
+            streaming_store, streaming_ticks)
+        store = streaming_store(types, Store)
+        sched = Scheduler(store, QueueManager(store), solver="auto",
+                          device="cpu", solver_min_backlog=0,
+                          streaming=StreamingConfig(enabled=True))
+        micro = [res.micro_batch for kind, _, res in streaming_ticks(
+            types, store, sched, ticks=3, per_tick=64, solve_every=2)
+            if kind == "micro"]
+        assert sum(micro) > 0, micro
+        stop = threading.Event()
+        server = threading.Thread(target=sched.serve, args=(stop,),
+                                  kwargs={"poll": 0.01})
+        server.start()
+        stop.set()
+        server.join(timeout=30)
+        assert not server.is_alive()
         leaked = [m for m in sys.modules
                   if m.split(".")[0] in ("jax", "jaxlib", "kueue_oss_tpu")
                   and sys.modules[m] is not None]

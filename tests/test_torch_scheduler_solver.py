@@ -161,12 +161,17 @@ def test_auto_needs_cuda_unless_cpu_is_asked():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             Scheduler(store, QueueManager(store), solver="auto")
+        with pytest.raises(RuntimeError, match="CUDA"):
+            Scheduler(store, QueueManager(store), solver="auto",
+                      streaming=True)
     host = Scheduler(store, QueueManager(store))  # no device touched
     assert host._solver_engine() is None
     with pytest.raises(NotImplementedError, match="items 6 and 8"):
         Scheduler(store, QueueManager(store), solver_config=object())
-    with pytest.raises(NotImplementedError, match="item 3"):
-        Scheduler(store, QueueManager(store), streaming=True)
+    # streaming rides a solver backend: without one it stays off
+    host = Scheduler(store, QueueManager(store), streaming=True)
+    assert host._streaming_admitter() is None
+    assert host.micro_drain() is None
     assert types.Workload(name="w").podsets
 
 
