@@ -172,12 +172,41 @@ Phases, in order; any failure propagates (nonzero exit, no result line):
    worker threads stay alive until ``stop`` and are joined, and an
    exception in either fails the phase.
 
+16. perf runner (Kueue's test/performance/scheduler runner, the
+   port's ``perf.runner``): (a) ``Simulator(*generate(GeneratorConfig.
+   baseline()))`` host only (15,000 arrivals on the virtual clock, fake
+   runs, finishes that free quota, nothing cut): its SimStats record
+   (admitted, finished, preemptions, cycles, simulated makespan,
+   time-to-admission per class) and the committed-store digest with
+   the QuotaReserved times must equal the JAX package's, and
+   ``check(stats, BASELINE_SPEC)`` must report no violation; (b) the
+   same with ``solver="auto"`` on the card, both routing cost EMAs reset
+   before every routing decision (the wall-clock gate would route
+   differently on every machine): the JAX ``solver="auto"`` record and
+   device drain count, every drain re-checked by the native oracle with
+   no plan fallback and no UnsupportedProblem or SolverUnavailable
+   fallback; (c) ``drain_benchmark`` on Kueue's large-scale config
+   without preemption (1,000 ClusterQueues, 50,000 workloads; after an
+   untimed warm-up run on a 10-ClusterQueue store): the JAX plan's
+   admissions, rounds and plan digest, with ``solve_seconds`` and
+   ``cycle_ms`` printed.
+17. what-if sweep (the port's ``sim``): (a) bench.py's whatif shape
+   (bench.py:1465-1497, uncut: 128 scenarios over W = 160, C = 8)
+   through ``solve_scenarios`` on the card, against
+   ``solve_scenarios_sequential`` on the card with parity on all 128
+   and the stacked plan's digest pinned to the JAX vmapped batch's;
+   (b) ``WhatIfEngine(store).run(specs)`` on the baseline backlog
+   (15,000 pending at t0) with an 8 x 4 quota x arrival grid and the
+   default ``SimulatorConfig``: ``canonical_json()`` byte-identical to
+   the JAX report's (sha256 pinned), 3 bucketed dispatches, parity on
+   2. Per-dispatch walls and host reads are printed.
+
 Phases 6-9 pin the JAX engine's plans without delta sessions, so they
 run the port's engine with ``use_sessions = False``; phases 10-15 pin
-them with sessions on. Phases 8-11, 13 and 15 run no TAS flavor: both
+them with sessions on. Phases 8-11, 13 and 15-17 run no TAS flavor: both
 kernels' launch counts are set to 0 before each drain (or each
-``run_until_quiet``, or each fleet of phase 15) and must still be 0
-after it.
+``run_until_quiet``, each fleet of phase 15, or each run of phases
+16-17) and must still be 0 after it.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 is the JSON kernel report.
@@ -469,6 +498,46 @@ STREAMING_REFERENCE = {
 #: tests/torch_streaming_pins.py's STREAMING_RUNS
 STREAMING_RUNS = {"single": (128, 200, ("micro", "host", "batch")),
                   "wide": (16, 400, ("stream", "batch"))}
+#: the JAX package's records of phases 16-17 (``JAX_PLATFORMS=cpu python
+#: tests/torch_sim_pins.py``): its Simulator host-only and with
+#: solver="auto" over a mesh_mode="off" engine, both cost EMAs reset
+#: before every routing decision; drain_benchmark's plan; the vmapped
+#: batch of bench.py's whatif shape; the WhatIfEngine report
+_SIM_TTA = {"large": 0.0, "medium": 26148.474576271186,
+            "small": 55434.28571428572}
+_SIM_DIGEST = ("d936867412ec4e7d89395d8625abfa13"
+               "90e453a84bfca3fc4fd197de47c0de90")
+SIM_REFERENCE = {
+    "host": {"admitted": 15000, "finished": 15000, "preemptions": 5850,
+             "cycles": 1490, "sim_wall_ms": 75900,
+             "tta_ms_by_class": _SIM_TTA, "digest": _SIM_DIGEST},
+    "auto": {"admitted": 15000, "finished": 15000, "preemptions": 5850,
+             "cycles": 855, "sim_wall_ms": 75900,
+             "tta_ms_by_class": _SIM_TTA, "digest": _SIM_DIGEST,
+             "drains": 71, "unsupported": 0, "drain_admitted": 16230},
+}
+DRAIN_LARGE_REFERENCE = {
+    "workloads": 50000, "cluster_queues": 1000, "admitted": 1000,
+    "rounds": 51,
+    "plan_digest": "90acdd4444669bb1cfa1c4b05ad2d74e"
+                   "28ba9b1110e36ca8bbd782dde32d877b"}
+WHATIF_BENCH_REFERENCE = {
+    "scenarios": 128, "max_rounds": 22, "rounds_sum": 2520,
+    "admitted_sum": 2216,
+    "plan_digest": "864e4c900936b008c372d1b00ed5e7e3"
+                   "529fd1d4008545da6cb490ccdc72a6f3"}
+WHATIF_BASELINE_REFERENCE = {
+    "canonical_sha256": "7dac59809a2a1d74577912d681379044"
+                        "bce295427125582748089d5201a8c9ae",
+    "max_rounds": 503, "rounds_sum": 10068, "admitted_sum": 6940,
+    "parity": {"checked": 2, "identical": True, "mismatches": []},
+    "batch_dispatches": 3,
+    "round_buckets": {"128": 8, "256": 8, "512": 16}}
+#: phase 17's grids: bench.py's whatif sweep, and (b)'s 8 x 4 worlds
+BENCH_QUOTA = (0.25, 0.5, 0.75, 1.25, 1.5, 2.0, 3.0)
+BENCH_ARRIVAL = (0.5, 0.75, 1.25, 1.5, 2.0, 2.5, 3.0)
+WHATIF_QUOTA = (0.25, 0.5, 0.75, 1.25, 1.5, 2.0, 3.0)
+WHATIF_ARRIVAL = (0.25, 0.5, 0.75)
 #: H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, non-tensor fp32 ops/s
 HBM_BYTES_PER_S = 3.35e12
 SCALAR_OPS_PER_S = 67e12
@@ -2139,6 +2208,330 @@ def streaming_serve(device="cuda", bursts: int = 8,
     return out
 
 
+def pin_cost_gates(sched) -> None:
+    """Reset the scheduler's two routing cost EMAs before every routing
+    decision (a wrapper on the instance), so the count-based gate routes
+    as it did for the JAX pins (the copy of tests/torch_sim_pins.py's,
+    held to it by the tests)."""
+    inner = sched._solver_drain
+
+    def solver_drain(now):
+        sched._drain_cost_ema = None
+        sched._host_s_per_adm = None
+        return inner(now)
+
+    sched._solver_drain = solver_drain
+
+
+def plan_digest(arrays) -> str:
+    """sha256 over each array's dtype, shape and bytes (the copy of
+    tests/torch_sim_pins.py's, held to it by the tests)."""
+    import hashlib
+
+    import numpy as np
+
+    h = hashlib.sha256()
+    for a in arrays:
+        a = a.cpu().numpy() if hasattr(a, "cpu") else a
+        a = np.ascontiguousarray(a)
+        h.update(f"{a.dtype}{a.shape}".encode())
+        h.update(a.tobytes())
+    return h.hexdigest()
+
+
+def _sim_record(stats, store) -> dict:
+    return {"admitted": stats.admitted, "finished": stats.finished,
+            "preemptions": stats.preemptions, "cycles": stats.cycles,
+            "sim_wall_ms": stats.sim_wall_ms,
+            "tta_ms_by_class": dict(sorted(stats.tta_ms_by_class.items())),
+            "digest": timed_store_digest(store)}
+
+
+def _large_scale(gen, per_cq=(35, 11, 4), n_cohorts=10,
+                 cqs_per_cohort=100):
+    """Kueue's large-scale config without preemption."""
+    cfg = gen.GeneratorConfig.large_scale(preemption=False)
+    cfg.n_cohorts, cfg.cqs_per_cohort = n_cohorts, cqs_per_cohort
+    for wc, n in zip(cfg.classes, per_cq):
+        wc.count = n
+    return cfg
+
+
+def perf_runner(smi: str) -> tuple:
+    """Phase 16: the perf runner, host only (a) and auto (b) on the
+    baseline config, and drain_benchmark on the large-scale config (c).
+    Returns (report, TAS kernel launches)."""
+    import torch
+
+    from kueue_oss_tpu_torch import native
+    from kueue_oss_tpu_torch.perf import (
+        BASELINE_SPEC,
+        GeneratorConfig,
+        Simulator,
+        check,
+        drain_benchmark,
+        generate,
+    )
+    from kueue_oss_tpu_torch.perf import generator
+    from kueue_oss_tpu_torch.solver import kernels
+    from kueue_oss_tpu_torch.solver.tensors import UnsupportedProblem
+
+    out = {}
+    launches = 0
+    # (a) host cycles only
+    store, schedule = generate(GeneratorConfig.baseline())
+    sim = Simulator(store, schedule)
+    _reset_launches()
+    _settle()
+    stats = sim.run()
+    launches += _launches()
+    rec = _sim_record(stats, store)
+    if rec != SIM_REFERENCE["host"]:
+        raise AssertionError(f"perf runner host-only: {rec}; expected "
+                             f"{SIM_REFERENCE['host']}")
+    violations = check(stats, BASELINE_SPEC)
+    if violations:
+        raise AssertionError(f"perf runner host-only: BASELINE_SPEC "
+                             f"violations {violations}")
+    out["host"] = {"wall_s": stats.real_seconds,
+                   "admissions_per_real_second":
+                       stats.admissions_per_real_second}
+    print(f"[perf runner] (a) host only: the JAX record ({stats.summary()}"
+          f"); BASELINE_SPEC holds; wall {stats.real_seconds:.3f} s "
+          f"({smi})")
+
+    # (b) solver="auto" on the card, the cost gates pinned
+    store, schedule = generate(GeneratorConfig.baseline())
+    sim = Simulator(store, schedule, solver="auto")
+    sched = sim.scheduler
+    pin_cost_gates(sched)
+    engine = sched._solver_engine()
+    inner = engine.drain
+    results, unsupported = [], [0]
+
+    def drain(*args, **kwargs):
+        try:
+            result = inner(*args, **kwargs)
+        except UnsupportedProblem:
+            unsupported[0] += 1
+            raise
+        results.append(result)
+        return result
+
+    engine.drain = drain
+    native.reset_counters()
+    _reset_launches()
+    _settle()
+    t0 = time.monotonic()
+    stats = sim.run()
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches += _launches()
+    rec = _sim_record(stats, store)
+    rec.update(drains=len(results), unsupported=unsupported[0],
+               drain_admitted=sum(r.admitted for r in results))
+    counts = sched.solver_counts
+    oracle = dict(native.counters)
+    if rec != SIM_REFERENCE["auto"]:
+        raise AssertionError(f"perf runner auto: {rec}; expected "
+                             f"{SIM_REFERENCE['auto']}")
+    if (counts["drains"] != len(results) or counts["plan_fallbacks"]
+            or counts["unsupported"] or counts["unavailable"]
+            or any(r.plan_fallbacks for r in results)
+            or any(r.admitted and not r.verified for r in results)
+            or oracle["python_calls"] or not oracle["native_calls"]):
+        raise AssertionError(f"perf runner auto: solver counts {counts}, "
+                             f"oracle {oracle}")
+    phases = collections.Counter()
+    for r in results:
+        phases.update(r.phases)
+    rounds = sum(r.rounds for r in results)
+    out["auto"] = {"wall_s": wall, "drains": len(results),
+                   "rounds": rounds, "verified": sum(r.verified
+                                                     for r in results),
+                   "phases_s": dict(phases)}
+    print(f"[perf runner] (b) auto: the JAX record ({stats.summary()}); "
+          f"{len(results)} drains, {rounds} rounds, every one re-checked "
+          f"by the native oracle ({int(oracle['native_calls'])} calls), 0 "
+          f"fallbacks; wall {wall:.3f} s, drains' phases "
+          f"{json.dumps({k: round(v, 3) for k, v in phases.items()})} "
+          f"({smi})")
+
+    # (c) drain_benchmark at Kueue's large-scale size, after an untimed
+    # warm-up run on a small store (the first launches of the process)
+    drain_benchmark(*generate(_large_scale(generator, n_cohorts=2,
+                                           cqs_per_cohort=5)))
+    plans = []
+    solve = kernels.solve_backlog
+
+    def recorded(t):
+        plans.append(solve(t))
+        return plans[-1]
+
+    store, schedule = generate(_large_scale(generator))
+    _reset_launches()
+    _settle()
+    kernels.solve_backlog = recorded
+    try:
+        bench = drain_benchmark(store, schedule)
+    finally:
+        kernels.solve_backlog = solve
+    launches += _launches()
+    rec = {k: bench[k] for k in ("workloads", "cluster_queues",
+                                 "admitted", "rounds")}
+    rec["plan_digest"] = plan_digest(plans[0])
+    if len(plans) != 1 or rec != DRAIN_LARGE_REFERENCE:
+        raise AssertionError(f"drain_benchmark: {rec} over {len(plans)} "
+                             f"solves; expected {DRAIN_LARGE_REFERENCE}")
+    out["drain_large"] = {k: bench[k] for k in (
+        "solve_seconds", "cycle_ms", "admissions_per_second")}
+    print(f"[perf runner] (c) drain_benchmark: the JAX plan "
+          f"({bench['admitted']} of {bench['workloads']} admitted over "
+          f"{bench['cluster_queues']} ClusterQueues in {bench['rounds']} "
+          f"rounds); solve_seconds {bench['solve_seconds']:.3f}, cycle_ms "
+          f"{bench['cycle_ms']:.3f} (after a warm-up run) ({smi})")
+    if launches:
+        raise AssertionError(f"perf runner: {launches} TAS kernel "
+                             f"launches; expected 0")
+    return out, launches
+
+
+def bench_whatif_problem():
+    """bench.py's whatif shape on the port (the copy of
+    tests/torch_sim_pins.py's ``bench_whatif_problem``): 2 x 4
+    ClusterQueues with 14 / 4 / 2 workloads each (W = 160, padded to
+    256), 128 scenarios of the quota x arrival grid, tiled."""
+    from kueue_oss_tpu_torch import sim
+    from kueue_oss_tpu_torch.core.queue_manager import QueueManager
+    from kueue_oss_tpu_torch.perf import generator
+    from kueue_oss_tpu_torch.solver import tensors
+
+    store, schedule = generator.generate(_large_scale(
+        generator, (14, 4, 2), n_cohorts=2, cqs_per_cohort=4))
+    for g in schedule:
+        store.add_workload(g.workload)
+    pending = sim.pending_backlog(store, QueueManager(store))
+    problem = tensors.export_problem(
+        store, pending, cache=tensors.ExportCache(store, subscribe=False))
+    problem = tensors.pad_workloads(problem,
+                                    tensors.pow2(problem.n_workloads))
+    specs = sim.cross(sim.quota_sweep(BENCH_QUOTA),
+                      sim.arrival_sweep(BENCH_ARRIVAL))
+    specs = (specs * (128 // len(specs) + 1))[:128]
+    return problem, [s.overlay(problem, replicas=1) for s in specs]
+
+
+def whatif_sweeps(smi: str) -> tuple:
+    """Phase 17: bench.py's whatif shape batched against the sequential
+    oracle (a), and WhatIfEngine on the baseline backlog (b). Returns
+    (report, TAS kernel launches)."""
+    import hashlib
+
+    from kueue_oss_tpu_torch import sim
+    from kueue_oss_tpu_torch.perf import GeneratorConfig, generate
+    from kueue_oss_tpu_torch.sim import batch as sim_batch
+
+    out = {}
+    launches = 0
+    # (a) 128 scenarios over W = 160, C = 8
+    problem, overlays = bench_whatif_problem()
+    _reset_launches()
+    _settle()
+    batch = sim.solve_scenarios(problem, overlays)
+    again = sim.solve_scenarios(problem, overlays)
+    seq = sim.solve_scenarios_sequential(problem, overlays)
+    launches += _launches()
+    parity = sim.check_parity(batch, seq, range(len(overlays)))
+    rec = {"scenarios": len(overlays),
+           "max_rounds": int(batch.rounds.max()),
+           "rounds_sum": int(batch.rounds.sum()),
+           "admitted_sum": int(batch.admitted.sum()),
+           "plan_digest": plan_digest((
+               batch.admitted, batch.opt, batch.admit_round, batch.parked,
+               batch.rounds, batch.usage))}
+    if rec != WHATIF_BENCH_REFERENCE or not parity.identical:
+        raise AssertionError(f"whatif bench: {rec}, parity "
+                             f"{parity.mismatches[:4]}; expected "
+                             f"{WHATIF_BENCH_REFERENCE}")
+    if plan_digest((again.admitted, again.opt, again.admit_round,
+                    again.parked, again.rounds, again.usage)) != (
+            rec["plan_digest"]):
+        raise AssertionError("whatif bench: a second batch differs")
+    ratio = seq.solve_seconds / again.solve_seconds
+    out["bench"] = {"batched_s": [batch.solve_seconds, again.solve_seconds],
+                    "sequential_s": seq.solve_seconds,
+                    "scenarios_per_s": len(overlays) / again.solve_seconds,
+                    "sequential_over_batched": ratio,
+                    "batch_width": batch.batch_width,
+                    "host_reads": batch.host_reads,
+                    "sequential_host_reads": seq.host_reads}
+    print(f"[whatif] (a) bench shape: the JAX plans of 128 scenarios "
+          f"(max {rec['max_rounds']} rounds), batched == sequential on "
+          f"all 128; batched {batch.solve_seconds:.3f} s / "
+          f"{again.solve_seconds:.3f} s ({batch.host_reads} host reads), "
+          f"{len(overlays) / again.solve_seconds:.1f} scenarios/s; "
+          f"sequential {seq.solve_seconds:.3f} s ({seq.host_reads} host "
+          f"reads), {ratio:.1f}x the batch ({smi})")
+
+    # (b) WhatIfEngine on the baseline backlog, 15,000 pending at t0
+    store, schedule = generate(GeneratorConfig.baseline())
+    for g in schedule:
+        store.add_workload(g.workload)
+    specs = sim.cross(sim.quota_sweep(WHATIF_QUOTA),
+                      sim.arrival_sweep(WHATIF_ARRIVAL))
+    dispatches = []
+    solve = sim_batch.solve_scenarios
+
+    def logged(*args, **kwargs):
+        r = solve(*args, **kwargs)
+        dispatches.append({"width": r.batch_width,
+                           "max_rounds": int(r.rounds.max()),
+                           "wall_s": r.solve_seconds,
+                           "host_reads": r.host_reads})
+        return r
+
+    _reset_launches()
+    _settle()
+    sim_batch.solve_scenarios = logged
+    try:
+        t0 = time.monotonic()
+        report = sim.WhatIfEngine(store).run(specs)
+        wall = time.monotonic() - t0
+    finally:
+        sim_batch.solve_scenarios = solve
+    launches += _launches()
+    rows = report.scenarios
+    rec = {"canonical_sha256": hashlib.sha256(
+               report.canonical_json().encode()).hexdigest(),
+           "max_rounds": max(r["rounds"] for r in rows),
+           "rounds_sum": sum(r["rounds"] for r in rows),
+           "admitted_sum": sum(r["admitted"] for r in rows),
+           "parity": report.parity,
+           "batch_dispatches": report.timing["batch_dispatches"],
+           "round_buckets": report.timing["round_buckets"]}
+    if (rec != WHATIF_BASELINE_REFERENCE
+            or len(dispatches) != rec["batch_dispatches"]):
+        raise AssertionError(f"whatif baseline: {rec}, dispatches "
+                             f"{dispatches}; expected "
+                             f"{WHATIF_BASELINE_REFERENCE}")
+    timing = report.timing
+    out["baseline"] = {"wall_s": wall, "dispatches": dispatches,
+                       **{k: timing[k] for k in (
+                           "build_seconds", "solve_seconds",
+                           "parity_seconds", "report_seconds",
+                           "scenarios_per_sec")}}
+    print(f"[whatif] (b) baseline backlog: canonical_json equals the JAX "
+          f"report (sha256 {rec['canonical_sha256'][:16]}), {len(specs)} "
+          f"scenarios in {len(dispatches)} dispatches "
+          f"{json.dumps(dispatches)}, parity identical on 2 "
+          f"({timing['parity_seconds']:.3f} s); wall {wall:.3f} s, solve "
+          f"{timing['solve_seconds']:.3f} s ({smi})")
+    if launches:
+        raise AssertionError(f"whatif: {launches} TAS kernel launches; "
+                             f"expected 0")
+    return out, launches
+
+
 def main() -> int:
     import torch
 
@@ -2250,6 +2643,14 @@ def main() -> int:
     # the card, and serve with its watch-driven worker
     stream_fleets, stream_launches = streaming_fleets()
     stream_serve = streaming_serve()
+
+    # 16. the perf runner: Kueue's baseline run host only and auto, and
+    # drain_benchmark at the large-scale size
+    perf, perf_launches = perf_runner(smi)
+
+    # 17. the what-if sweep: bench.py's shape batched, and the engine on
+    # the baseline backlog
+    whatif, whatif_launches = whatif_sweeps(smi)
     reports[0]["launches_by_path"] = {"tas_lean": leaf_launches,
                                       "tas_full": 0, "storm_full": 0,
                                       "fair_storm": fair_launches,
@@ -2261,7 +2662,9 @@ def main() -> int:
                                       "scheduler_refused":
                                           sched_refused_launches,
                                       "scheduler_tas_host": host_leaf,
-                                      "streaming": stream_launches}
+                                      "streaming": stream_launches,
+                                      "perf_runner": perf_launches,
+                                      "whatif": whatif_launches}
     # leaf_states' own path since the drain fused it away: phase 14's
     # host placement with the fill gate on
     reports[0]["launches"] = host_leaf
@@ -2280,7 +2683,9 @@ def main() -> int:
                                       "scheduler_refused":
                                           sched_refused_launches,
                                       "scheduler_tas_host": host_place,
-                                      "streaming": stream_launches}
+                                      "streaming": stream_launches,
+                                      "perf_runner": perf_launches,
+                                      "whatif": whatif_launches}
 
     timings = {"setup_s": setup_s, "drain_s": drain_s,
                **{f"{k}_s": v for k, v in result.phases.items()},
@@ -2291,7 +2696,8 @@ def main() -> int:
                "scheduler_tas": sched_tas,
                "scheduler_refused": sched_refused,
                "scheduler_tas_host": sched_host,
-               "streaming": stream_fleets, "streaming_serve": stream_serve}
+               "streaming": stream_fleets, "streaming_serve": stream_serve,
+               "perf_runner": perf, "whatif": whatif}
     print("[timings] " + json.dumps(timings))
     print(smi)
     print(json.dumps({"kernels": reports}))

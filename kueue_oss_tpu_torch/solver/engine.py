@@ -291,6 +291,18 @@ class SolverEngine:
                 out[name] = infos
         return out
 
+    def export(
+            self,
+            pending: Optional[dict[str, list[WorkloadInfo]]] = None,
+    ) -> tuple[SolverProblem, dict[str, list[WorkloadInfo]]]:
+        """The lean export of ``pending`` (default: the backlog) through
+        the engine's export cache, unpadded."""
+        if pending is None:
+            pending = self.pending_backlog()
+        problem = export_problem(self.store, pending,
+                                 cache=self.export_cache)
+        return problem, pending
+
     def drain(self, now: float = 0.0, verify: bool = False) -> DrainResult:
         """Solve the whole backlog on the device and commit the plan;
         with ``verify`` the oracle re-checks every entry first."""

@@ -49,6 +49,7 @@ from kueue_oss_tpu_torch.solver.ops import (
     arange,
     resource_sum,
     segment_min,
+    segment_min_rows,
 )
 from kueue_oss_tpu_torch.solver.tensors import (
     POLICY_ANY,
@@ -61,8 +62,6 @@ from kueue_oss_tpu_torch.solver.tensors import (
 #: V_* codes live in full_kernels; the engine maps it to
 #: InCohortFairSharing)
 V_FAIR_SHARING = 5
-
-_INT32_MAX = torch.iinfo(INT32).max
 
 
 def lendable_by_resource(t, pot):
@@ -142,15 +141,6 @@ def _lca_of(t, my_path, other_cq_node):
     node = torch.gather(my_path, 1, torch.clamp(lca_d, max=D - 1)
                         .long()[:, None])[:, 0]
     return node, lca_d
-
-
-def _lane_segment_min(data, segment_ids, num_segments: int):
-    """Per-row segment minima of [L, P] int32 data, [L, num_segments];
-    empty segments hold INT32_MAX (jax.ops.segment_min under vmap)."""
-    out = torch.full((data.shape[0], num_segments), _INT32_MAX,
-                     dtype=data.dtype, device=data.device)
-    return out.scatter_reduce_(1, segment_ids.long(), data, reduce="amin",
-                               include_self=True)
 
 
 def fair_search(t, lendable_r, usage0_round, wl_usage, admitted, evicted_f,
@@ -262,7 +252,7 @@ def fair_search(t, lendable_r, usage0_round, wl_usage, admitted, evicted_f,
         above where none."""
         ok = cand_valid & ~consumed & (~only_retry[:, None] | retry)
         eff = torch.where(ok, p_idx, p_max)
-        return _lane_segment_min(eff, slot_cqid, C + 1)[:, :C]
+        return segment_min_rows(eff, slot_cqid, C + 1)[:, :C]
 
     def tournament(zwb, share, borrowing, unw, pruned_cq, pruned_cohort,
                    heads):

@@ -78,12 +78,26 @@ def resource_sum(x: torch.Tensor, fr_resource: torch.Tensor,
     return out.index_add_(x.dim() - 1, fr_resource.long(), x)
 
 
+def segment_min_rows(data: torch.Tensor, segment_ids: torch.Tensor,
+                     num_segments: int) -> torch.Tensor:
+    """Per-row segment minima of [L, P] integer data, [L, num_segments]
+    (``jax.ops.segment_min`` under ``vmap``); empty segments hold the
+    dtype's max."""
+    out = torch.full((data.shape[0], num_segments),
+                     torch.iinfo(data.dtype).max, dtype=data.dtype,
+                     device=data.device)
+    return out.scatter_reduce_(1, segment_ids.long(), data, reduce="amin",
+                               include_self=True)
+
+
 def lexsort(keys: Sequence[torch.Tensor]) -> torch.Tensor:
-    """``jnp.lexsort``: indices sorting by the LAST key first, ties
-    broken by the earlier keys, stable; int32."""
-    order = torch.argsort(keys[0], stable=True)
+    """``jnp.lexsort`` along the last axis: indices sorting by the LAST
+    key first, ties broken by the earlier keys, stable; int32. Leading
+    axes are batch axes (each row sorts alone)."""
+    order = torch.argsort(keys[0], dim=-1, stable=True)
     for k in keys[1:]:
-        order = order[torch.argsort(k[order], stable=True)]
+        order = order.gather(-1, torch.argsort(k.gather(-1, order),
+                                               dim=-1, stable=True))
     return order.to(INT32)
 
 

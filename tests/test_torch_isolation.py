@@ -1,7 +1,8 @@
 """The port stands alone: no module of kueue_oss_tpu_torch/ and not
 chip_smoke.py imports jax, jaxlib or the JAX package, and the port
 imports and drains (lean, FULL, fair sharing and admission fair
-sharing), schedules and streams with those modules blocked."""
+sharing), schedules, streams, runs the perf simulator and a what-if
+sweep with those modules blocked."""
 
 import ast
 import subprocess
@@ -53,6 +54,10 @@ def test_scan_sees_the_whole_port():
     assert "kueue_oss_tpu_torch/config/configuration.py" in names
     assert "kueue_oss_tpu_torch/config/__init__.py" in names
     assert "kueue_oss_tpu_torch/util/primitives.py" in names
+    for name in ("perf/__init__.py", "perf/generator.py", "perf/runner.py",
+                 "perf/checker.py", "sim/__init__.py", "sim/scenario.py",
+                 "sim/batch.py", "sim/report.py", "sim/engine.py"):
+        assert f"kueue_oss_tpu_torch/{name}" in names, name
     assert "chip_smoke.py" in names
     # the exact-name comparison lets the port's own name through
     assert "kueue_oss_tpu_torch" not in FORBIDDEN
@@ -151,6 +156,24 @@ def test_port_drains_with_jax_blocked():
         stop.set()
         server.join(timeout=30)
         assert not server.is_alive()
+        # the perf runner host only, and a what-if sweep on the CPU
+        from kueue_oss_tpu_torch.perf import (
+            GeneratorConfig, Simulator, generate)
+        from kueue_oss_tpu_torch.sim import (
+            WhatIfEngine, arrival_sweep, cross, quota_sweep)
+        cfg = GeneratorConfig(n_cohorts=1, cqs_per_cohort=2)
+        for wc in cfg.classes:
+            wc.count = 5
+        store, schedule = generate(cfg)
+        stats = Simulator(store, schedule).run()
+        assert stats.admitted == stats.finished == 30, stats.summary()
+        store, schedule = generate(cfg)
+        for g in schedule:
+            store.add_workload(g.workload)
+        report = WhatIfEngine(store, device="cpu").run(cross(
+            quota_sweep((0.5, 2.0)), arrival_sweep((0.5, 1.5))))
+        assert report.parity["identical"], report.parity
+        assert len(report.scenarios) == 9
         leaked = [m for m in sys.modules
                   if m.split(".")[0] in ("jax", "jaxlib", "kueue_oss_tpu")
                   and sys.modules[m] is not None]
