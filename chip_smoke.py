@@ -10,7 +10,8 @@ Phases, in order; any failure propagates (nonzero exit, no result line):
 1. device: the card's name, and its name and power limit as nvidia-smi
    reports them;
 2. build: compile every CUDA kernel from the sources in the checkout
-   (one nvcc call, at first use) and report the build seconds and what
+   (``leaf_states.cu``, ``tas_place.cu``, ``relax_lp.cu``; one nvcc
+   call, at first use) and report the build seconds and what
    ptxas said about each kernel (registers, shared memory, spills); then
    build the verify oracle (host C++, g++) that phases 11-13 run;
 3. kernel vs plain: every kernel against its plain PyTorch version on
@@ -200,13 +201,42 @@ Phases, in order; any failure propagates (nonzero exit, no result line):
    default ``SimulatorConfig``: ``canonical_json()`` byte-identical to
    the JAX report's (sha256 pinned), 3 bucketed dispatches, parity on
    2. Per-dispatch walls and host reads are printed.
+18. the relaxed LP arm (``solver/relax.py``, ``csrc/relax_lp.cu``): (a)
+   ``cuda_relax.relax_lp`` against the plain ``relax.lp_loop`` run on
+   the CPU (float ``index_add_`` on the card adds in any order), x bit
+   for bit, at the LPs of phase 16 (c)'s large-scale backlog (W+1 =
+   65,537, C = 1,000), of the what-if engine's baseline backlog (W+1 =
+   16,385, C = 30) and of (d)'s 32 scenarios in one launch, with CUDA
+   event times of the kernel and of the plain loop on the card; (b)
+   ``relax.solve_relaxed`` on the card over phase 16 (c)'s backlog
+   padded to a power of two (bench.py's ``relax_arm`` shape): the JAX
+   record (support size and digest, repair rounds, admissions, plan
+   digest, and ``plans_agree`` with phase 16 (c)'s exact plan, reused,
+   not solved again), one relax_lp launch, ``lp_seconds`` and
+   ``repair_seconds``; (c) bench.py's relax churn (bench.py:2053-2090) on
+   its ``small`` shape (2 x 10 ClusterQueues): ``relax_force``, a host
+   ``Scheduler`` attached, ``drain(verify=True)`` and 4 cycles of 32
+   finishes and 32 arrivals, run with ``relax_audit_every = 1`` (every
+   drain audited) and with 3 (the arm serves drains 2, 4 and 5 and
+   commits its own plan; the served drain 2 syncs the exact arm's
+   resident state, which the audited drain 3 solves on without an
+   upload): the JAX record of each (served and audited counts, no
+   oracle rejection, the committed-store digest), one relax_lp launch a
+   drain; (d)
+   ``sim.solve_scenarios_relax`` over the first 32 of phase 17 (a)'s 128
+   scenarios (cut from 128 for the phase's time): every scenario's plan
+   equals the JAX package's, one relax_lp launch for all 32. The relax
+   pins are the JAX package's under tests/conftest.py's XLA flags
+   (tests/torch_relax_pins.py).
 
 Phases 6-9 pin the JAX engine's plans without delta sessions, so they
 run the port's engine with ``use_sessions = False``; phases 10-15 pin
-them with sessions on. Phases 8-11, 13 and 15-17 run no TAS flavor: both
-kernels' launch counts are set to 0 before each drain (or each
-``run_until_quiet``, each fleet of phase 15, or each run of phases
-16-17) and must still be 0 after it.
+them with sessions on. The relaxed arm's router decides by wall clock,
+so phases 5 and 10-16 pin it off (``relax_off``) on both sides, and
+relax_lp must not have launched before phase 18. Phases 8-11, 13 and
+15-18 run no TAS flavor: both TAS kernels' launch counts are set to 0
+before each drain (or each ``run_until_quiet``, each fleet of phase 15,
+or each run of phases 16-18) and must still be 0 after it.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 is the JSON kernel report.
@@ -533,6 +563,38 @@ WHATIF_BASELINE_REFERENCE = {
     "parity": {"checked": 2, "identical": True, "mismatches": []},
     "batch_dispatches": 3,
     "round_buckets": {"128": 8, "256": 8, "512": 16}}
+#: the JAX package's records of phase 18 (``JAX_PLATFORMS=cpu python
+#: tests/torch_relax_pins.py``, under tests/conftest.py's XLA flags):
+#: solve_relaxed on the padded large-scale backlog, bench.py's relax churn
+#: on its small shape, and the relax tier over 32 whatif scenarios
+RELAX_REFERENCE = {
+    "relax_arm": {
+        "live": 50000, "support": 7000, "support_padded": 8191,
+        "support_digest": ("d0565339883328a4c947079e42ed76c8"
+                           "15234c990007c1cc961fb79d940f32e9"),
+        "repair_rounds": 8, "admitted": 1000,
+        "plan_digest": ("6808dafc609e9892547114ac1e841156"
+                        "78c828277b812e01b7ea0907ba064521"),
+        "plans_agree": True},
+    "churn": {
+        "drains": 5, "admitted": [20, 20, 20, 20, 80],
+        "audit_match": 5, "audit_diverged": 0, "served": 0, "error": 0,
+        "oracle_rejections": 0,
+        "digest": ("a3850886ee3fd9e3ee01c3586d9bc514"
+                   "f18904b272487da7e76cb29c611b3e78")},
+    "churn_served": {
+        "drains": 5, "admitted": [20, 20, 20, 20, 80],
+        "audit_match": 2, "audit_diverged": 0, "served": 3, "error": 0,
+        "oracle_rejections": 0,
+        "digest": ("a3850886ee3fd9e3ee01c3586d9bc514"
+                   "f18904b272487da7e76cb29c611b3e78")},
+    "relax_tier": {
+        "scenarios": 32,
+        "plan_digest": ("9dc3f1901eb1e21dd4e6f95521fa23ff"
+                        "9c2b1139f270176fb81db9c36b9252d0"),
+        "admitted": [8] * 8 + [2] * 8 + [4] * 8 + [6] * 8,
+        "rounds": [7] * 10 + [6] + [7] * 14 + [8, 8] + [7] * 5},
+}
 #: phase 17's grids: bench.py's whatif sweep, and (b)'s 8 x 4 worlds
 BENCH_QUOTA = (0.25, 0.5, 0.75, 1.25, 1.5, 2.0, 3.0)
 BENCH_ARRIVAL = (0.5, 0.75, 1.25, 1.5, 2.0, 2.5, 3.0)
@@ -1239,7 +1301,7 @@ def storm_churn_drain() -> tuple:
     def setup(sessions: bool):
         store, wave1, wave2 = baseline_preempt_store(types, Store)
         queues = QueueManager(store)
-        engine = SolverEngine(store, queues)
+        engine = relax_off(SolverEngine(store, queues))
         engine.use_sessions = sessions
         steps = storm_churn_drains(
             types, store, wave1, wave2,
@@ -1432,6 +1494,7 @@ def scheduler_storm() -> tuple:
 
     store, wave1, wave2 = baseline_preempt_store(types, Store)
     sched = Scheduler(store, QueueManager(store), solver="auto")
+    relax_off(sched._solver_engine())
     twin_store, twin1, twin2 = baseline_preempt_store(types, Store)
     twin = Scheduler(twin_store, QueueManager(twin_store))
     out, launches = {}, 0
@@ -1495,6 +1558,7 @@ def scheduler_tas() -> tuple:
 
     store = tas_drain_store(types, Store)
     sched = Scheduler(store, QueueManager(store), solver="auto")
+    relax_off(sched._solver_engine())
     cuda_tas.tas_place_sequential.steps = 0
     rec, wall, _, oracle, _ = _run_quiet(store, sched, [], 0.0)
     launches = cuda_tas.tas_place_sequential.launches
@@ -1539,6 +1603,7 @@ def scheduler_refused() -> tuple:
 
     store, wave1, wave2 = refused_quantity_store(types, Store)
     sched = Scheduler(store, QueueManager(store), solver="auto")
+    relax_off(sched._solver_engine())
     out, launches = {}, 0
     for i, (label, now, wave) in enumerate((("wave1", 100.0, wave1),
                                              ("wave2", 200.0, wave2))):
@@ -1715,6 +1780,8 @@ def scheduler_tas_host() -> tuple:
             sched = Scheduler(store, QueueManager(store),
                               solver="auto" if solver else None,
                               device="cuda")
+            if solver:
+                relax_off(sched._solver_engine())
             features.set_gates({"TASDeviceFillCounts": fill})
             calls[0] = 0
             check_s[0] = 0.0
@@ -1854,6 +1921,7 @@ class _StreamTwin:
         self.sched = Scheduler(self.store, self.queues, solver="auto",
                                solver_min_backlog=0,
                                streaming=twin != "batch", device=device)
+        relax_off(self.sched._solver_engine())
         if twin == "host":
             self.sched._streaming_admitter().micro_solve = False
         self.events = streaming_ticks(
@@ -2077,7 +2145,8 @@ def streaming_serve(device="cuda", bursts: int = 8,
     sched = Scheduler(store, queues, solver="auto", device=device,
                       streaming=StreamingConfig(enabled=True,
                                                 watch_driven=True))
-    sched._solver_engine().drain(now=time.monotonic(), verify=True)
+    relax_off(sched._solver_engine()).drain(now=time.monotonic(),
+                                            verify=True)
     sa = sched._streaming_admitter()
     drains: list = []
     inner_drain = sa.drain
@@ -2208,6 +2277,14 @@ def streaming_serve(device="cuda", bursts: int = 8,
     return out
 
 
+def relax_off(engine):
+    """Pin the engine's relaxed arm off (returns the engine): its router
+    decides by wall clock, and the JAX pins of phases 5 and 10-16 were
+    computed with the arm off on both sides (tests/torch_*_pins.py)."""
+    engine.relax_enabled = False
+    return engine
+
+
 def pin_cost_gates(sched) -> None:
     """Reset the scheduler's two routing cost EMAs before every routing
     decision (a wrapper on the instance), so the count-based gate routes
@@ -2260,7 +2337,8 @@ def _large_scale(gen, per_cq=(35, 11, 4), n_cohorts=10,
 def perf_runner(smi: str) -> tuple:
     """Phase 16: the perf runner, host only (a) and auto (b) on the
     baseline config, and drain_benchmark on the large-scale config (c).
-    Returns (report, TAS kernel launches)."""
+    Returns (report, TAS kernel launches, (c)'s store and exact plan,
+    which phase 18 (b) reuses)."""
     import torch
 
     from kueue_oss_tpu_torch import native
@@ -2305,7 +2383,7 @@ def perf_runner(smi: str) -> tuple:
     sim = Simulator(store, schedule, solver="auto")
     sched = sim.scheduler
     pin_cost_gates(sched)
-    engine = sched._solver_engine()
+    engine = relax_off(sched._solver_engine())
     inner = engine.drain
     results, unsupported = [], [0]
 
@@ -2393,7 +2471,7 @@ def perf_runner(smi: str) -> tuple:
     if launches:
         raise AssertionError(f"perf runner: {launches} TAS kernel "
                              f"launches; expected 0")
-    return out, launches
+    return out, launches, (store, plans[0])
 
 
 def bench_whatif_problem():
@@ -2532,6 +2610,312 @@ def whatif_sweeps(smi: str) -> tuple:
     return out, launches
 
 
+def _relax_index_on(lp, device):
+    """The kernel's row and child lists of a numpy RelaxLP, on the card
+    (made once, outside the timed launches)."""
+    import torch
+
+    from kueue_oss_tpu_torch.solver import cuda_relax
+
+    n_cqs = lp.cq_node.shape[-1]
+    return cuda_relax.LPIndex(*(torch.as_tensor(a, device=device) for a in
+                                cuda_relax.lp_index(lp.wl_cqid, lp.parent,
+                                                    lp.cq_node, n_cqs)))
+
+
+def _relax_work(lp, iters: int) -> tuple[int, int]:
+    """Bytes and float32 operations of relax_lp on a numpy RelaxLP: each
+    LP field read once and x written once; per iteration and scenario,
+    the multiply-add of every listed row into its CQ's load, the level
+    adds of the tree, the relative overflow of every node, the path sums
+    and, for every live row, its price pull and update."""
+    import numpy as np
+
+    f = lp.r.shape[-1]
+    nbytes = sum(int(np.asarray(a).nbytes) for a in lp) + 4 * lp.s.size
+    cqid = np.atleast_2d(lp.wl_cqid)
+    n_cqs = lp.cq_node.shape[-1]
+    listed = int((cqid < n_cqs).sum())
+    live = int(np.asarray(lp.live).sum())
+    depth = np.atleast_2d(lp.depth)
+    levels = lp.path_cq.shape[-1]
+    n1 = depth.shape[-1]
+    s = depth.shape[0]
+    per_iter = (2 * listed * f + s * (levels - 1) * n1 * f
+                + 4 * s * n1 * f + s * n_cqs * f * levels
+                + live * (4 * f + 7))
+    return nbytes, iters * per_iter
+
+
+def check_relax_lp(device, cases) -> dict:
+    """Phase 18 (a): ``relax_lp`` against the plain ``relax.lp_loop`` run
+    on the CPU (float ``index_add_`` on the card adds in any order), x
+    bit for bit, on each case (name, numpy RelaxLP, iterations); CUDA
+    event times of the kernel and of the plain loop on the card. Returns
+    the report of the first case (the main path's shape)."""
+    import numpy as np
+
+    from kueue_oss_tpu_torch.solver import cuda_relax, relax
+
+    report = None
+    for name, lp, iters in cases:
+        dl = relax.lp_to_device(lp, device)
+        index = _relax_index_on(lp, device)
+        got = cuda_relax.relax_lp(dl, iters, index).cpu().numpy()
+        want = relax.lp_loop(relax.lp_to_device(lp, "cpu"), iters).numpy()
+        err = float(np.abs(got - want).max())
+        if got.shape != want.shape or not np.array_equal(
+                got.view(np.int32), want.view(np.int32)):
+            raise AssertionError(
+                f"relax_lp differs from the plain loop on {name!r} "
+                f"(max abs err {err})")
+        ms = _time_ms(lambda: cuda_relax.relax_lp(dl, iters, index),
+                      iters=20, warmup=3)
+        plain_ms = _time_ms(lambda: relax.lp_loop(dl, iters), iters=3,
+                            warmup=1)
+        nbytes, nops = _relax_work(lp, iters)
+        inside = float(((want > 0) & (want < 1)).mean())
+        print(f"[kernel] relax_lp == lp_loop (CPU) bit for bit on {name} "
+              f"{list(lp.r.shape)} C={lp.cq_node.shape[-1]} "
+              f"iters={iters}: {ms:.4f} ms, plain on the card "
+              f"{plain_ms:.3f} ms, bound "
+              f"{_bound(nbytes, nops)['bound_ms']:.2e} ms; "
+              f"{inside:.3f} of x strictly inside (0, 1)")
+        if report is None:
+            report = {"name": "relax_lp", "route": "cuda",
+                      "source": "kueue_oss_tpu_torch/csrc/relax_lp.cu",
+                      "replaces": "kueue_oss_tpu/solver/relax.py:144",
+                      "replaces_kind": "lp_loop, an XLA program (no "
+                                       "Pallas kernel)",
+                      "max_abs_err": err, "exact": err == 0.0,
+                      "shape": list(lp.r.shape), "iters": iters,
+                      "ms": ms, "plain_ms": plain_ms,
+                      **_bound(nbytes, nops), "library_ms": None,
+                      "cases": []}
+        report["cases"].append({"name": name, "shape": list(lp.r.shape),
+                                "ms": ms, "plain_ms": plain_ms,
+                                **_bound(nbytes, nops)})
+    return report
+
+
+def _relax_churn(audit_every: int) -> tuple:
+    """Phase 18 (c): bench.py's relax churn (bench.py:2053-2090) on its
+    small shape (2 x 10 ClusterQueues) through the router: ``relax_force``,
+    ``relax_audit_every``, a host ``Scheduler`` attached,
+    ``drain(verify=True)``, then 4 cycles of 32 finishes and 32 arrivals,
+    each drained; held to the JAX record. Returns (record, the drains'
+    results, wall seconds, relax_lp launches)."""
+    import torch
+
+    from kueue_oss_tpu_torch import native
+    from kueue_oss_tpu_torch.api import types
+    from kueue_oss_tpu_torch.core.queue_manager import QueueManager
+    from kueue_oss_tpu_torch.perf import generate, generator
+    from kueue_oss_tpu_torch.scheduler.scheduler import Scheduler
+    from kueue_oss_tpu_torch.solver import cuda_relax
+    from kueue_oss_tpu_torch.solver.engine import SolverEngine
+
+    cfg = _large_scale(generator, n_cohorts=2, cqs_per_cohort=10)
+    store, schedule = generate(cfg)
+    for g in schedule:
+        store.add_workload(g.workload)
+    queues = QueueManager(store)
+    engine = SolverEngine(store, queues)
+    sched = Scheduler(store, queues)
+    engine.scheduler = sched
+    engine.relax_force = True
+    engine.relax_audit_every = audit_every
+    engine.pad_to = len(schedule) + 512
+    native.reset_counters()
+    cuda_relax.relax_lp.launches = 0
+    _reset_launches()
+    _settle()
+    t0 = time.monotonic()
+    results = [engine.drain(now=0.0, verify=True)]
+    lqs = sorted({w.queue_name for w in store.workloads.values()})
+    uid = max(w.uid for w in store.workloads.values()) + 1
+    for c in range(1, 5):
+        admitted = [k for k, w in store.workloads.items()
+                    if w.is_quota_reserved and not w.is_finished]
+        for k in admitted[:32]:
+            sched.finish_workload(k, now=float(c))
+        for j in range(32):
+            i = uid + c * 32 + j
+            store.add_workload(types.Workload(
+                name=f"churn-{c}-{j}", queue_name=lqs[i % len(lqs)], uid=i,
+                creation_time=1e6 + c * 32 + j,
+                podsets=[types.PodSet(name="main", count=1,
+                                      requests={"cpu": 1})]))
+        results.append(engine.drain(now=float(c), verify=True))
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    n = cuda_relax.relax_lp.launches
+    counts = engine.relax_counts["solver_relax_drains_total"]
+    rec = {"drains": len(results),
+           "admitted": [r.admitted for r in results],
+           "audit_match": counts["audit_match"],
+           "audit_diverged": counts["audit_diverged"],
+           "served": counts["served"], "error": counts["error"],
+           "oracle_rejections": sum(r.plan_fallbacks for r in results),
+           "digest": committed_store_digest(store)}
+    want = RELAX_REFERENCE["churn" if audit_every == 1 else "churn_served"]
+    oracle = dict(native.counters)
+    if (rec != want or n != len(results) or oracle["python_calls"]
+            or not oracle["native_calls"]):
+        raise AssertionError(f"relax churn (audit every {audit_every}): "
+                             f"{rec}, {n} relax_lp launches, oracle "
+                             f"{oracle}; expected {want}")
+    return rec, results, wall, n
+
+
+def relax_phase(smi: str, large_store, large_exact) -> tuple:
+    """Phase 18: the relaxed arm. (a) the kernel against its plain
+    version at the main path's LPs; (b) ``solve_relaxed`` over the
+    large-scale backlog of phase 16 (c), against its exact plan; (c)
+    bench.py's relax churn through the router on bench's small shape;
+    (d) the relax tier over 32 whatif scenarios. Returns (report,
+    relax_lp kernel report, TAS kernel launches)."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from kueue_oss_tpu_torch import sim
+    from kueue_oss_tpu_torch.core.queue_manager import QueueManager
+    from kueue_oss_tpu_torch.perf import GeneratorConfig, generate
+    from kueue_oss_tpu_torch.sim import batch as sim_batch
+    from kueue_oss_tpu_torch.solver import cuda_relax, relax, tensors
+    from kueue_oss_tpu_torch.solver.engine import SolverEngine
+
+    device = torch.device("cuda")
+    out = {}
+    # the main path's problems: the large-scale backlog (b), the
+    # baseline backlog of the what-if engine (W+1 = 16,385, C = 30),
+    # and the 32 whatif worlds of (d)
+    problem, _ = SolverEngine(large_store,
+                              QueueManager(large_store)).export()
+    padded = tensors.pad_workloads(problem,
+                                   tensors.pow2(problem.n_workloads))
+    store, schedule = generate(GeneratorConfig.baseline())
+    for g in schedule:
+        store.add_workload(g.workload)
+    base = tensors.export_problem(
+        store, sim.pending_backlog(store, QueueManager(store)),
+        cache=tensors.ExportCache(store, subscribe=False))
+    base = tensors.pad_workloads(base, tensors.pow2(base.n_workloads))
+    bench, overlays = bench_whatif_problem()
+    overlays = overlays[:32]
+    _, _, stacked = sim_batch.stack_relax_lps(bench, overlays)
+
+    # (a) the kernel against its plain version
+    kernel = check_relax_lp(device, [
+        ("drain_large_scale", relax.build_lp(padded), 32),
+        ("whatif_baseline", relax.build_lp(base), 32),
+        ("relax tier S=32", stacked, 32)])
+
+    # (b) the arm at full width
+    launches = 0
+    cuda_relax.relax_lp.launches = 0
+    _reset_launches()
+    _settle()
+    t0 = time.monotonic()
+    plan, stats = relax.solve_relaxed(padded, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    arm_launches = cuda_relax.relax_lp.launches
+    launches += _launches()
+    lp = relax.build_lp(padded)
+    sel = relax.rounded_support(stats.x, padded, lp.live)
+    exact = tuple(a.cpu().numpy() for a in large_exact)
+    rec = {"live": stats.live, "support": stats.support,
+           "support_padded": stats.support_padded,
+           "support_digest": hashlib.sha256(
+               np.ascontiguousarray(sel).tobytes()).hexdigest(),
+           "repair_rounds": stats.repair_rounds,
+           "admitted": int(plan[0].sum()), "plan_digest": plan_digest(plan),
+           "plans_agree": bool(relax.plans_agree(plan, exact,
+                                                 len(exact[0]) - 1))}
+    if rec != RELAX_REFERENCE["relax_arm"] or arm_launches != 1:
+        raise AssertionError(f"relax arm: {rec}, {arm_launches} relax_lp "
+                             f"launches; expected "
+                             f"{RELAX_REFERENCE['relax_arm']} and 1")
+    out["arm"] = {"wall_s": wall, "lp_seconds": stats.lp_seconds,
+                  "repair_seconds": stats.repair_seconds,
+                  "support": stats.support, "repair_rounds":
+                      stats.repair_rounds}
+    print(f"[relax] (b) solve_relaxed on the large-scale backlog "
+          f"({padded.wl_cqid.shape[0]} rows, C = {padded.n_cqs}): the JAX "
+          f"record (support {stats.support} padded to "
+          f"{stats.support_padded}, {stats.repair_rounds} repair rounds, "
+          f"{rec['admitted']} admitted, plans_agree with phase 16 (c)'s "
+          f"exact plan: {rec['plans_agree']}); 1 relax_lp launch; "
+          f"lp_seconds {stats.lp_seconds:.3f}, repair_seconds "
+          f"{stats.repair_seconds:.3f}, wall {wall:.3f} ({smi})")
+
+    # (c) bench.py's relax churn through the router: every drain
+    # audited, then the arm serving drains 2, 4 and 5
+    churn_launches = 0
+    for key, audit_every in (("churn", 1), ("churn_served", 3)):
+        rec, results, wall, n = _relax_churn(audit_every)
+        churn_launches += n
+        launches += _launches()
+        if key == "churn_served":
+            # the served drain 2 synced the exact arm's resident state,
+            # and the audited drain 3 solved on it without an upload
+            dev = results[1].device
+            if (dev.get("delta_updates", 0) + dev.get("donated_full_syncs", 0)
+                    != 1 or results[2].device.get("full_uploads") != 0):
+                raise AssertionError(f"relax churn: served drain 2 device "
+                                     f"{dev}, drain 3 "
+                                     f"{results[2].device}")
+        phases = collections.Counter()
+        for r in results:
+            phases.update(r.phases)
+        out[key] = {"audit_every": audit_every, "wall_s": wall,
+                    "phases_s": dict(phases)}
+        print(f"[relax] (c) churn through the router, relax_audit_every "
+              f"{audit_every}: the JAX record ({rec['served']} drains "
+              f"served, {rec['audit_match']} audited drains agree, "
+              f"{rec['oracle_rejections']} oracle rejections, digest "
+              f"{rec['digest'][:16]}); {n} relax_lp launches; "
+              f"wall {wall:.3f} s, phases "
+              f"{json.dumps({k: round(v, 3) for k, v in phases.items()})} "
+              f"({smi})")
+
+    # (d) the relax tier over 32 whatif worlds
+    cuda_relax.relax_lp.launches = 0
+    _reset_launches()
+    _settle()
+    result = sim.solve_scenarios_relax(bench, overlays)
+    torch.cuda.synchronize()
+    tier_launches = cuda_relax.relax_lp.launches
+    launches += _launches()
+    rec = {"scenarios": len(overlays),
+           "plan_digest": plan_digest((result.admitted, result.opt,
+                                       result.admit_round, result.parked,
+                                       result.rounds, result.usage)),
+           "admitted": [int(a.sum()) for a in result.admitted],
+           "rounds": [int(r) for r in result.rounds]}
+    if rec != RELAX_REFERENCE["relax_tier"] or tier_launches != 1:
+        raise AssertionError(f"relax tier: {rec}, {tier_launches} relax_lp "
+                             f"launches; expected "
+                             f"{RELAX_REFERENCE['relax_tier']} and 1")
+    out["tier"] = {"solve_seconds": result.solve_seconds,
+                   "scenarios_per_s": len(overlays) / result.solve_seconds}
+    print(f"[relax] (d) relax tier: the JAX plans of {len(overlays)} "
+          f"scenarios in 1 relax_lp launch; {result.solve_seconds:.3f} s, "
+          f"{len(overlays) / result.solve_seconds:.1f} scenarios/s ({smi})")
+    if launches:
+        raise AssertionError(f"relax: {launches} TAS kernel launches; "
+                             f"expected 0")
+    kernel["launches"] = arm_launches + churn_launches + tier_launches
+    kernel["launches_by_path"] = {"relax_arm": arm_launches,
+                                  "relax_churn": churn_launches,
+                                  "relax_tier": tier_launches}
+    kernel["scenarios_by_tier_launch"] = len(overlays)
+    return out, kernel, launches
+
+
 def main() -> int:
     import torch
 
@@ -2582,7 +2966,7 @@ def main() -> int:
 
     t0 = time.monotonic()
     store, queues = _drain_store()
-    engine = SolverEngine(store, queues)
+    engine = relax_off(SolverEngine(store, queues))
     setup_s = time.monotonic() - t0
     cuda_tas.leaf_states.launches = 0
     cuda_tas.tas_place_sequential.launches = 0
@@ -2646,11 +3030,23 @@ def main() -> int:
 
     # 16. the perf runner: Kueue's baseline run host only and auto, and
     # drain_benchmark at the large-scale size
-    perf, perf_launches = perf_runner(smi)
+    perf, perf_launches, (large_store, large_plan) = perf_runner(smi)
 
     # 17. the what-if sweep: bench.py's shape batched, and the engine on
     # the baseline backlog
     whatif, whatif_launches = whatif_sweeps(smi)
+
+    # 18. the relaxed arm: its kernel against the plain loop, the arm on
+    # the large-scale backlog, the router's audited churn, the relax tier
+    from kueue_oss_tpu_torch.solver import cuda_relax
+
+    if cuda_relax.relax_lp.launches:
+        raise AssertionError(f"phases 1-17 launched relax_lp "
+                             f"{cuda_relax.relax_lp.launches} times; the "
+                             f"arm is pinned off there")
+    relaxed, relax_report, relax_launches = relax_phase(
+        smi, large_store, large_plan)
+    reports.append(relax_report)
     reports[0]["launches_by_path"] = {"tas_lean": leaf_launches,
                                       "tas_full": 0, "storm_full": 0,
                                       "fair_storm": fair_launches,
@@ -2664,7 +3060,8 @@ def main() -> int:
                                       "scheduler_tas_host": host_leaf,
                                       "streaming": stream_launches,
                                       "perf_runner": perf_launches,
-                                      "whatif": whatif_launches}
+                                      "whatif": whatif_launches,
+                                      "relax": relax_launches}
     # leaf_states' own path since the drain fused it away: phase 14's
     # host placement with the fill gate on
     reports[0]["launches"] = host_leaf
@@ -2685,7 +3082,8 @@ def main() -> int:
                                       "scheduler_tas_host": host_place,
                                       "streaming": stream_launches,
                                       "perf_runner": perf_launches,
-                                      "whatif": whatif_launches}
+                                      "whatif": whatif_launches,
+                                      "relax": relax_launches}
 
     timings = {"setup_s": setup_s, "drain_s": drain_s,
                **{f"{k}_s": v for k, v in result.phases.items()},
@@ -2697,7 +3095,7 @@ def main() -> int:
                "scheduler_refused": sched_refused,
                "scheduler_tas_host": sched_host,
                "streaming": stream_fleets, "streaming_serve": stream_serve,
-               "perf_runner": perf, "whatif": whatif}
+               "perf_runner": perf, "whatif": whatif, "relax": relaxed}
     print("[timings] " + json.dumps(timings))
     print(smi)
     print(json.dumps({"kernels": reports}))

@@ -3,7 +3,8 @@
 
 from kueue_oss_tpu_torch.config.configuration import (
     SimulatorConfig,
+    SolverBackendConfig,
     StreamingConfig,
 )
 
-__all__ = ["SimulatorConfig", "StreamingConfig"]
+__all__ = ["SimulatorConfig", "SolverBackendConfig", "StreamingConfig"]

@@ -1,16 +1,84 @@
 """Framework configuration.
 
-Copies of ``StreamingConfig`` and ``SimulatorConfig`` from
-``kueue_oss_tpu/config/configuration.py``: the knobs of
-``Scheduler(streaming=StreamingConfig(...))`` and of the what-if
-engine's lean sweep. The rest of the configuration (the Configuration
-tree, the solver backend, SLO and persistence settings) waits for
-ROADMAP Queue A items 6 and 8.
+Copies of ``StreamingConfig``, ``SimulatorConfig`` and
+``SolverBackendConfig`` from ``kueue_oss_tpu/config/configuration.py``:
+the knobs of ``Scheduler(streaming=StreamingConfig(...))``, of the
+what-if engine's lean sweep and of ``Scheduler(solver_config=...)``. The
+rest of the configuration (the Configuration tree and its loader, SLO
+and persistence settings) waits for ROADMAP Queue A item 8.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, fields
+from typing import Optional
+
+
+@dataclass
+class SolverBackendConfig:
+    """Knobs of the solver backend (JAX ``SolverBackendConfig``).
+
+    Ported: delta sessions (``sessions_enabled``: None reads
+    KUEUE_SOLVER_SESSIONS, default on) and the relaxed fast-path arm
+    (``relax_*``), which ``Scheduler(solver_config=...)`` wires onto its
+    engine. The remote sidecar and its breaker (ROADMAP Queue A item 8)
+    and the mesh and pod-scale coordinator (item 9) are not ported: a
+    field of theirs set away from its default raises.
+    """
+
+    #: unix socket of the sidecar; None = solve in-process
+    socket_path: Optional[str] = None
+    tenant: str = ""
+    max_sessions: Optional[int] = None
+    timeout_seconds: float = 600.0
+    max_retries: int = 2
+    retry_backoff_base_seconds: float = 0.05
+    retry_backoff_max_seconds: float = 2.0
+    max_frame_bytes: int = 256 << 20
+    breaker_failure_threshold: int = 3
+    breaker_cooldown_seconds: float = 30.0
+    #: delta-sync sessions: None = KUEUE_SOLVER_SESSIONS env (default
+    #: on); False turns them off
+    sessions_enabled: Optional[bool] = None
+    mesh: Optional[str] = None
+    coordinator_address: Optional[str] = None
+    coordinator_processes: int = 1
+    coordinator_process_id: int = 0
+    #: the relaxed arm (solver/relax.py): the cost-EMA router still
+    #: decides per drain; disabling removes the arm
+    relax_enabled: bool = True
+    #: lean backlogs below this many live workloads never route to it
+    relax_min_workloads: int = 4096
+    #: every Nth relax-served drain also runs the exact solve and
+    #: demotes the arm on plan divergence (0 disables auditing)
+    relax_audit_every: int = 8
+    #: fixed projected-gradient iteration count
+    relax_iters: int = 32
+    #: rounding threshold on the fractional admit vector, in (0, 1)
+    relax_support_threshold: float = 0.5
+    #: demoted-arm cooldown before one re-probe drain
+    relax_retry_cooldown_seconds: float = 300.0
+
+    #: the fields of the remote sidecar (ROADMAP Queue A item 8) and of
+    #: the multi-device arms (item 9)
+    _SIDECAR = ("socket_path", "tenant", "max_sessions", "timeout_seconds",
+                "max_retries", "retry_backoff_base_seconds",
+                "retry_backoff_max_seconds", "max_frame_bytes",
+                "breaker_failure_threshold", "breaker_cooldown_seconds")
+    _MESH = ("mesh", "coordinator_address", "coordinator_processes",
+             "coordinator_process_id")
+
+    def __post_init__(self) -> None:
+        defaults = {f.name: f.default for f in fields(self)}
+        for names, item, what in ((self._SIDECAR, 8, "the solver sidecar"),
+                                  (self._MESH, 9, "the multi-device arms")):
+            for name in names:
+                value = getattr(self, name)
+                if value != defaults[name] and not (
+                        name == "mesh" and value == "off"):
+                    raise NotImplementedError(
+                        f"SolverBackendConfig.{name}: {what}, ROADMAP "
+                        f"Queue A item {item}")
 
 
 @dataclass

@@ -34,10 +34,12 @@ full cycles under ``_cycle_mu``, and with ``watch_driven`` (the
 default) starts the ``stream-watch-drain`` worker that the store watch
 wakes on every arrival.
 
+``solver_config`` (a ``config.SolverBackendConfig``) sets the "auto"
+engine's delta sessions and its relaxed-arm knobs; its sidecar and mesh
+fields raise there.
+
 Cut from the copy, each with its ROADMAP Queue A item:
 
-- ``solver_config``, i.e. the sidecar socket, the breaker and the
-  relaxed-arm knobs (items 6 and 8): it must be None;
 - (no ROADMAP item: nothing in the port would set them) the
   ``clock`` (also ``serve``'s), ``eviction_backoff_max_s`` and
   ``enable_partial_admission`` arguments and ``serve``'s ``backoff``:
@@ -159,10 +161,6 @@ class Scheduler:
         streaming=None,
         device="cuda",
     ) -> None:
-        if solver_config is not None:
-            raise NotImplementedError(
-                "solver_config (sidecar socket, breaker, relaxed arm): "
-                "ROADMAP Queue A items 6 and 8")
         self.store = store
         self.queues = queues
         self.enable_fair_sharing = enable_fair_sharing
@@ -173,6 +171,9 @@ class Scheduler:
         #: SolverEngine instance
         self.solver = solver
         self._solver_instance = None
+        #: config.SolverBackendConfig whose sessions and relaxed-arm knobs
+        #: the "auto" engine takes (None = the engine's defaults)
+        self.solver_config = solver_config
         self.device = device
         if solver == "auto":
             from kueue_oss_tpu_torch.device import resolve_device
@@ -276,10 +277,23 @@ class Scheduler:
             if self._solver_instance is None:
                 from kueue_oss_tpu_torch.solver.engine import SolverEngine
 
-                self._solver_instance = SolverEngine(
+                eng = self._solver_instance = SolverEngine(
                     self.store, self.queues, device=self.device,
                     scheduler=self,
                     enable_fair_sharing=self.enable_fair_sharing)
+                cfg = self.solver_config
+                if cfg is not None:
+                    if cfg.sessions_enabled is not None:
+                        eng.use_sessions = bool(cfg.sessions_enabled)
+                    # the relaxed fast-path arm's knobs (solver/relax.py)
+                    eng.relax_enabled = cfg.relax_enabled
+                    eng.relax_min_workloads = cfg.relax_min_workloads
+                    eng.relax_audit_every = cfg.relax_audit_every
+                    eng.relax_iters = cfg.relax_iters
+                    eng.relax_support_threshold = (
+                        cfg.relax_support_threshold)
+                    eng.relax_retry_cooldown_s = (
+                        cfg.relax_retry_cooldown_seconds)
             self._ensure_streaming(self._solver_instance)
             return self._solver_instance
         self._ensure_streaming(self.solver)

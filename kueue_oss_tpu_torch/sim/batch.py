@@ -12,9 +12,13 @@ below is kept as the per-scenario oracle and the parity check is part
 of the report.
 
 Scenario-axis padding mirrors the JAX package's (a power of two, inert
-repeats of scenario 0). The FULL-kernel sweeps (lane budget, tiers,
-relax tier) wait for ROADMAP Queue A item 7b; the scenario-axis mesh for
-item 9.
+repeats of scenario 0). ``solve_scenarios_relax`` is the approximate
+relax tier of the FULL sweeps: the S scenarios' relaxed LPs in one
+launch of the relax kernel (one block per scenario, the JAX
+``jit(vmap(lp_loop))``), then each scenario's rounding and exact repair.
+The rest of the FULL-kernel sweeps (the lane budget, the FULL tier and
+the tiered dispatch) wait for ROADMAP Queue A item 7b; the
+scenario-axis mesh for item 9.
 """
 
 from __future__ import annotations
@@ -277,3 +281,108 @@ def check_parity(batch: BatchSolveResult, seq: BatchSolveResult,
                 res.mismatches.append({"scenario": int(i),
                                        "field": name})
     return res
+
+
+# ---------------------------------------------------------------------------
+# The relax tier of the FULL-kernel sweeps
+# ---------------------------------------------------------------------------
+
+#: per-row tier markers in tiered sweep results
+FULL_TIER = "full"
+RELAX_TIER = "relax"
+
+
+@dataclass
+class FullSweepResult:
+    """Stacked plans of S scenarios from the relax tier (numpy,
+    leading scenario axis). The FULL tier's per-workload usage, victim
+    reasons and re-tier trail come with ROADMAP Queue A item 7b."""
+
+    admitted: np.ndarray       # [S, W+1] bool
+    opt: np.ndarray            # [S, W+1, g] int32
+    admit_round: np.ndarray    # [S, W+1] int32
+    parked: np.ndarray         # [S, W+1] bool
+    rounds: np.ndarray         # [S] int32
+    usage: np.ndarray          # [S, N+1, F] int32
+    #: per-scenario solve tier ("full" exact / "relax" approximate)
+    tier: list = field(default_factory=list)
+    batch_width: int = 0
+    solve_seconds: float = 0.0
+
+    def plan(self, i: int) -> tuple:
+        """The lean six-tuple plan contract for scenario ``i`` (opt
+        collapsed to the first group's choice for KPI consumers)."""
+        opt = self.opt[i]
+        return (self.admitted[i], opt[..., 0] if opt.ndim == 2 else opt,
+                self.admit_round[i], self.parked[i], self.rounds[i],
+                self.usage[i])
+
+
+def stack_relax_lps(problem: SolverProblem, overlays: list[dict]):
+    """Each overlay's world of ``problem`` and its relaxed LP, and the
+    LPs stacked on a leading scenario axis (numpy): (problems, lps,
+    stacked)."""
+    import dataclasses
+
+    from kueue_oss_tpu_torch.solver.relax import RelaxLP, build_lp
+
+    probs, lps = [], []
+    for ov in overlays:
+        p = (dataclasses.replace(
+            problem, **{k: np.asarray(v) for k, v in ov.items()})
+            if ov else problem)
+        probs.append(p)
+        lps.append(build_lp(p))
+    stacked = RelaxLP(*[np.stack([getattr(lp, f) for lp in lps])
+                        for f in RelaxLP._fields])
+    return probs, lps, stacked
+
+
+def solve_scenarios_relax(problem: SolverProblem, overlays: list[dict],
+                          iters: int = 32,
+                          device="cuda") -> FullSweepResult:
+    """The approximate tier: the relaxed LP of every scenario in one
+    ``cuda_relax.relax_lp`` call (one kernel launch on the card, the
+    plain loop per scenario on the CPU), then per scenario the rounding
+    and the exact repair on the small support, on ``device``. Fit-only
+    by construction: no victims are modeled."""
+    from kueue_oss_tpu_torch.solver import cuda_relax
+    from kueue_oss_tpu_torch.solver.relax import (
+        lp_to_device,
+        repair,
+        rounded_support,
+    )
+
+    if not overlays:
+        raise ValueError("need at least one scenario overlay")
+    device = resolve_device(device)
+    t0 = time.monotonic()
+    probs, lps, stacked = stack_relax_lps(problem, overlays)
+    index = None if device.type == "cpu" else cuda_relax.lp_index(
+        stacked.wl_cqid, stacked.parent, stacked.cq_node, problem.n_cqs)
+    xs = cuda_relax.relax_lp(lp_to_device(stacked, device), iters,
+                             index).cpu().numpy()
+    S = len(overlays)
+    W1 = problem.wl_cqid.shape[0]
+    N1 = problem.parent.shape[0]
+    F = problem.wl_req.shape[-1]
+    out = FullSweepResult(
+        admitted=np.zeros((S, W1), dtype=bool),
+        opt=np.zeros((S, W1), dtype=np.int32),
+        admit_round=np.zeros((S, W1), dtype=np.int32),
+        parked=np.zeros((S, W1), dtype=bool),
+        rounds=np.zeros(S, dtype=np.int32),
+        usage=np.zeros((S, N1, F), dtype=np.int32),
+        tier=[RELAX_TIER] * S, batch_width=S)
+    for i, (p, lp) in enumerate(zip(probs, lps)):
+        sel = rounded_support(xs[i], p, np.asarray(lp.live))
+        (admitted, opt, admit_round, parked, rounds, usage), _ = repair(
+            p, sel, np.asarray(lp.live), device=device)
+        out.admitted[i] = admitted
+        out.opt[i] = opt
+        out.admit_round[i] = admit_round
+        out.parked[i] = parked
+        out.rounds[i] = rounds
+        out.usage[i] = usage
+    out.solve_seconds = time.monotonic() - t0
+    return out

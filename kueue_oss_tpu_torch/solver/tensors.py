@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import os
 from collections import deque
 from dataclasses import dataclass, field
 from typing import Optional
@@ -441,12 +442,16 @@ class ExportCache:
         #: incremental columnar assembly view (solver/columnar.py); only
         #: subscribed caches get one, since an unsubscribed cache never
         #: sees the events that invalidate its columns
+        #: (KUEUE_COLUMNAR_EXPORT=0 turns it off)
         self.columnar = None
         if subscribe:
             store.watch(self._on_event)
-            from kueue_oss_tpu_torch.solver.columnar import ColumnarStore
+            if os.environ.get("KUEUE_COLUMNAR_EXPORT", "1") != "0":
+                from kueue_oss_tpu_torch.solver.columnar import (
+                    ColumnarStore,
+                )
 
-            self.columnar = ColumnarStore(self)
+                self.columnar = ColumnarStore(self)
 
     def _on_event(self, event) -> None:
         verb, kind, obj = event

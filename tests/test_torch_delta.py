@@ -81,6 +81,8 @@ class _Side:
             self.sched = JaxScheduler(self.store, self.queues)
             self.engine = JaxEngine(self.store, self.queues,
                                     scheduler=self.sched, mesh_mode="off")
+        # the relaxed arm routes by wall clock: pinned off on both sides
+        self.engine.relax_enabled = False
 
     def submit(self, i, prio):
         self.store.add_workload(self.types.Workload(

@@ -92,6 +92,8 @@ class _Side:
                                     enable_fair_sharing=fs,
                                     mesh_mode="off")
         self.engine.use_sessions = sessions
+        # the relaxed arm routes by wall clock: pinned off on both sides
+        self.engine.relax_enabled = False
         self.encoded = []
         real = self.engine._session_encode
 

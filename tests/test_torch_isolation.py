@@ -1,8 +1,10 @@
 """The port stands alone: no module of kueue_oss_tpu_torch/ and not
-chip_smoke.py imports jax, jaxlib or the JAX package, and the port
-imports and drains (lean, FULL, fair sharing and admission fair
-sharing), schedules, streams, runs the perf simulator and a what-if
-sweep with those modules blocked."""
+chip_smoke.py imports jax, jaxlib or the JAX package (the relaxed arm's
+solver/relax.py and solver/cuda_relax.py included; its kernel source
+names neither), and the port imports and drains (lean, FULL, fair
+sharing and admission fair sharing, and lean through the relaxed arm),
+schedules, streams, runs the perf simulator, a what-if sweep and the
+relax tier with those modules blocked."""
 
 import ast
 import subprocess
@@ -56,11 +58,23 @@ def test_scan_sees_the_whole_port():
     assert "kueue_oss_tpu_torch/util/primitives.py" in names
     for name in ("perf/__init__.py", "perf/generator.py", "perf/runner.py",
                  "perf/checker.py", "sim/__init__.py", "sim/scenario.py",
-                 "sim/batch.py", "sim/report.py", "sim/engine.py"):
+                 "sim/batch.py", "sim/report.py", "sim/engine.py",
+                 "solver/relax.py", "solver/cuda_relax.py"):
         assert f"kueue_oss_tpu_torch/{name}" in names, name
     assert "chip_smoke.py" in names
     # the exact-name comparison lets the port's own name through
     assert "kueue_oss_tpu_torch" not in FORBIDDEN
+
+
+def test_kernel_sources_name_no_jax():
+    """The CUDA sources (the relaxed LP's among them) include CUDA headers
+    and their own, nothing of JAX or XLA."""
+    sources = sorted((ROOT / "kueue_oss_tpu_torch" / "csrc").glob("*.cu*"))
+    assert "relax_lp.cu" in {p.name for p in sources}
+    for path in sources:
+        for line in path.read_text().splitlines():
+            if line.startswith("#include"):
+                assert "jax" not in line.lower() and "xla" not in line.lower()
 
 
 def test_port_drains_with_jax_blocked():
@@ -174,6 +188,25 @@ def test_port_drains_with_jax_blocked():
             quota_sweep((0.5, 2.0)), arrival_sweep((0.5, 1.5))))
         assert report.parity["identical"], report.parity
         assert len(report.scenarios) == 9
+        # the relaxed arm: an engine drain through it, and the relax tier
+        from kueue_oss_tpu_torch.sim import solve_scenarios_relax
+        from kueue_oss_tpu_torch.solver import tensors
+        cfg = GeneratorConfig.large_scale(preemption=False)
+        cfg.n_cohorts, cfg.cqs_per_cohort = 1, 2
+        for wc in cfg.classes:
+            wc.count = 5
+        store, schedule = generate(cfg)
+        for g in schedule:
+            store.add_workload(g.workload)
+        engine = SolverEngine(store, QueueManager(store), device="cpu")
+        engine.relax_force = True
+        engine.relax_audit_every = 0
+        assert engine.drain().admitted > 0
+        assert engine.last_drain_arm == "relax"
+        problem, _ = engine.export()
+        problem = tensors.pad_workloads(problem, 64)
+        tier = solve_scenarios_relax(problem, [{}, {}], device="cpu")
+        assert tier.tier == ["relax", "relax"]
         leaked = [m for m in sys.modules
                   if m.split(".")[0] in ("jax", "jaxlib", "kueue_oss_tpu")
                   and sys.modules[m] is not None]

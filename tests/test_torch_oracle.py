@@ -225,6 +225,8 @@ def test_drain_verify_matches_jax(build, reject, monkeypatch):
     jq, pq = JaxQueues(j_steps[0][0]), PortQueues(p_steps[0][0])
     je = JaxEngine(j_steps[0][0], jq, mesh_mode="off")
     pe = PortEngine(p_steps[0][0], pq, device="cpu")
+    # the relaxed arm routes by wall clock: pinned off on both sides
+    je.relax_enabled = pe.relax_enabled = False
     for t, ((js, jwave), (ps, pwave)) in enumerate(zip(j_steps, p_steps)):
         for wl in jwave:
             js.add_workload(wl)

@@ -166,8 +166,16 @@ def test_auto_needs_cuda_unless_cpu_is_asked():
                       streaming=True)
     host = Scheduler(store, QueueManager(store))  # no device touched
     assert host._solver_engine() is None
-    with pytest.raises(NotImplementedError, match="items 6 and 8"):
-        Scheduler(store, QueueManager(store), solver_config=object())
+    # solver_config takes the sessions and relaxed-arm knobs; the
+    # sidecar's fields are refused (ROADMAP Queue A item 8)
+    from kueue_oss_tpu_torch.config import SolverBackendConfig
+
+    with pytest.raises(NotImplementedError, match="item 8"):
+        Scheduler(store, QueueManager(store), solver_config=(
+            SolverBackendConfig(socket_path="/tmp/solver.sock")))
+    cfg = SolverBackendConfig(relax_enabled=False)
+    assert Scheduler(store, QueueManager(store),
+                     solver_config=cfg).solver_config is cfg
     # streaming rides a solver backend: without one it stays off
     host = Scheduler(store, QueueManager(store), streaming=True)
     assert host._streaming_admitter() is None

@@ -675,8 +675,16 @@ def test_streaming_arguments():
     sched = Scheduler(store, QueueManager(store), solver="auto",
                       streaming=StreamingConfig(enabled=False), device="cpu")
     assert sched._streaming_admitter() is None and sched.micro_drain() is None
-    with pytest.raises(NotImplementedError):
-        Scheduler(store, QueueManager(store), solver_config=object())
+    from kueue_oss_tpu_torch.config import SolverBackendConfig
+
+    with pytest.raises(NotImplementedError, match="item 9"):
+        Scheduler(store, QueueManager(store), solver="auto", device="cpu",
+                  solver_config=SolverBackendConfig(mesh="8"))
+    sched = Scheduler(store, QueueManager(store), solver="auto",
+                      streaming=True, device="cpu",
+                      solver_config=SolverBackendConfig(relax_audit_every=2))
+    assert sched._solver_engine().relax_audit_every == 2
+    assert sched._streaming_admitter() is not None
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device works")
     with pytest.raises(RuntimeError, match="CUDA"):

@@ -129,6 +129,8 @@ def jax_package():
                                   enable_fair_sharing=kw.get(
                                       "enable_fair_sharing", False),
                                   mesh_mode="off")
+            # the relaxed arm routes by wall clock: pinned off
+            engine.relax_enabled = False
             sched.solver = engine
             drains = CountedDrains(engine, UnsupportedProblem)
         return sched, drains
@@ -149,8 +151,11 @@ def port_package(device: str = "cpu"):
         sched = Scheduler(store, QueueManager(store, afs=afs),
                           solver="auto" if solver else None,
                           device=device, **kw)
-        drains = (CountedDrains(sched._solver_engine(), UnsupportedProblem)
-                  if solver else None)
+        drains = None
+        if solver:
+            engine = sched._solver_engine()
+            engine.relax_enabled = False
+            drains = CountedDrains(engine, UnsupportedProblem)
         return sched, drains
 
     from kueue_oss_tpu_torch.core.afs import AfsManager

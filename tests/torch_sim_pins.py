@@ -110,6 +110,8 @@ def make_simulator(root: str, store, schedule, solver: bool,
                                device=device)
     if solver:
         pin_cost_gates(sim.scheduler)
+        # the relaxed arm routes by wall clock too: pinned off
+        sim.scheduler._solver_engine().relax_enabled = False
     return sim
 
 

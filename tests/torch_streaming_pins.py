@@ -124,6 +124,8 @@ def jax_package():
                           streaming=streaming)
         sched.solver = SolverEngine(store, queues, scheduler=sched,
                                     mesh_mode="off")
+        # the relaxed arm routes by wall clock: pinned off
+        sched.solver.relax_enabled = False
         return queues, sched, sched._solver_engine()
 
     return SimpleNamespace(name="jax", types=types, Store=Store,
@@ -143,6 +145,7 @@ def port_package(device: str = "cpu"):
         sched = Scheduler(store, queues, solver="auto",
                           solver_min_backlog=0, streaming=streaming,
                           device=device)
+        sched._solver_engine().relax_enabled = False
         return queues, sched, sched._solver_engine()
 
     return SimpleNamespace(name="port", types=types, Store=Store,
