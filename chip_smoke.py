@@ -10,9 +10,10 @@ Phases, in order; any failure propagates (nonzero exit, no result line):
 1. device: the card's name, and its name and power limit as nvidia-smi
    reports them;
 2. build: compile every CUDA kernel from the sources in the checkout
-   (``leaf_states.cu``, ``tas_place.cu``, ``relax_lp.cu``; one nvcc
-   call, at first use) and report the build seconds and what
-   ptxas said about each kernel (registers, shared memory, spills); then
+   (``leaf_states.cu``, ``tas_place.cu``, ``fill_counts.cu``,
+   ``relax_lp.cu``; one nvcc call, at first use) and report the build
+   seconds and what ptxas said about each kernel (registers, shared
+   memory, spills); then
    build the verify oracle (host C++, g++) that phases 11-13 run;
 3. kernel vs plain: every kernel against its plain PyTorch version on
    the card, exact integer equality, with CUDA-event times of kernel and
@@ -24,6 +25,11 @@ Phases, in order; any failure propagates (nonzero exit, no result line):
      preferred / unconstrained requests, pre-rejected rows, M = 0, a
      tree above 48 KB of shared memory and one above 227 KB (global
      scratch); timed plain, kernel, kernel, plain;
+   - ``fill_counts`` at phase 14's fill shape (the 1 x 10 x 64 tree,
+     R = 2), on that tree with slices at every level with and without a
+     leader, on random 1-4 level trees with zero-capacity leaves and
+     childless domains, and on a tree whose states exceed shared
+     memory (they live in the output buffer);
 4. stepwise placement: the TAS drain cut to its first 1,500 workloads
    (which hold all 102 admissions of the full store: the same plan in
    66 rounds) placed by the plain sequential placer with the CUDA leaf
@@ -131,16 +137,19 @@ Phases, in order; any failure propagates (nonzero exit, no result line):
    parked and leader-group counts, host cycles, device drains, the
    host placement's ``_fill_in_counts`` calls); the pins of (a) and
    (b), and of (c) and (d), are equal (the tests hold them so), so the
-   two fill modes give the same digest; ``leaf_states`` launches once
-   per fill in (b) and (c) and never in (a) and (d);
-   ``tas_place_sequential`` launches once per drain in (a) and (b) and
-   never in (c) and (d).
+   two fill modes give the same digest; ``fill_counts`` launches once
+   per fill in (b) and (c) and never in (a) and (d), ``leaf_states``
+   never; ``tas_place_sequential`` launches once per drain in (a) and
+   (b) and never in (c) and (d).
    With the gate on, every fill's five states on every domain are held
    against the host roll-up of the same leaves. Every admitted workload
    passes independent topology checks: no node over its allocatable,
    a required-rack podset (and a leader group) in one rack, every slice
-   whole in its slice domain. One fill's leaf tile is timed through
-   the kernel and its plain version.
+   whole in its slice domain. One fill's inputs are held and timed
+   through ``fill_counts`` and its plain version, and its leaf tile
+   through ``leaf_states`` and its plain version; the device fill's
+   cost a fill over the host roll-up is timed fill by fill in (c): the
+   device fill less the host division and roll-up of the same leaves.
 15. streaming admission: bench.py's streaming arm
    (``scenarios.streaming_store`` / ``streaming_ticks``, bench.py:
    2153-2276) through ``Scheduler(solver="auto", solver_min_backlog=0,
@@ -206,8 +215,14 @@ Phases, in order; any failure propagates (nonzero exit, no result line):
    the CPU (float ``index_add_`` on the card adds in any order), x bit
    for bit, at the LPs of phase 16 (c)'s large-scale backlog (W+1 =
    65,537, C = 1,000), of the what-if engine's baseline backlog (W+1 =
-   16,385, C = 30) and of (d)'s 32 scenarios in one launch, with CUDA
-   event times of the kernel and of the plain loop on the card; (b)
+   16,385, C = 30) and of (d)'s 32 scenarios in one launch, at dense
+   LPs of four and eight flavor-resource columns made from the first
+   two (``scenarios.dense_relax_lp``) and at the first's backlog
+   repeated four times (262,145 rows: every row array in global
+   memory), with the cluster size and layout the host chose for each
+   and CUDA event times of the kernel and (but for the last) of the
+   plain loop on the card; the first two also at the other cluster
+   sizes (1, 2 and 4 blocks), each bit for bit and timed; (b)
    ``relax.solve_relaxed`` on the card over phase 16 (c)'s backlog
    padded to a power of two (bench.py's ``relax_arm`` shape): the JAX
    record (support size and digest, repair rounds, admissions, plan
@@ -234,7 +249,7 @@ run the port's engine with ``use_sessions = False``; phases 10-15 pin
 them with sessions on. The relaxed arm's router decides by wall clock,
 so phases 5 and 10-16 pin it off (``relax_off``) on both sides, and
 relax_lp must not have launched before phase 18. Phases 8-11, 13 and
-15-18 run no TAS flavor: both TAS kernels' launch counts are set to 0
+15-18 run no TAS flavor: the TAS kernels' launch counts are set to 0
 before each drain (or each ``run_until_quiet``, each fleet of phase 15,
 or each run of phases 16-18) and must still be 0 after it.
 
@@ -701,6 +716,117 @@ def check_leaf_states(device) -> dict:
             **_bound(nbytes, nops), "library_ms": None}
 
 
+def _fill_vec(rng, R, leader, slice_size, slice_level):
+    """A fill's int32 request vector [per_pod R][leader R][has_leader]
+    [slice_size][slice_level]."""
+    import numpy as np
+
+    return np.concatenate([
+        rng.integers(0, 4, size=R).astype(np.int32),
+        (rng.integers(0, 3, size=R) * leader).astype(np.int32),
+        np.asarray([leader, slice_size, slice_level], np.int32)])
+
+
+def _fill_work(tree, R: int) -> tuple[int, int]:
+    """Bytes and integer operations of fill_counts: the capacity, the
+    parents and the request vector read once, the [5, N] states written
+    once; per leaf the leaf pass (compare, divide, min per element,
+    twice), per domain its share of the roll-up."""
+    D, N = tree.n_leaves, tree.n_domains
+    nbytes = 4 * (D * R + N + 2 * R + 3 + 5 * N)
+    return nbytes, 8 * D * R + 12 * N
+
+
+def _check_fill(name, tree, cap, vec) -> int:
+    """fill_counts against its plain version on one tree, exactly;
+    returns the max abs error (0)."""
+    import torch
+
+    from kueue_oss_tpu_torch.solver import cuda_tas
+
+    leaf_before = cuda_tas.leaf_states.launches
+    got = cuda_tas.fill_counts(tree, cap, vec)
+    want = cuda_tas.fill_counts_reference(tree, cap, vec)
+    torch.cuda.synchronize()
+    if cuda_tas.leaf_states.launches != leaf_before:
+        raise AssertionError("the plain fill launched leaf_states")
+    err = (int((got.long() - want.long()).abs().max())
+           if got.shape == want.shape else -1)
+    if got.shape != want.shape or not torch.equal(got, want):
+        raise AssertionError(f"fill_counts differs from the plain version "
+                             f"on case {name!r} (max abs err {err})")
+    return err
+
+
+def check_fill_counts(device) -> dict:
+    """Phase 3 for ``fill_counts``: exact agreement at phase 14's fill
+    shape (the 1 x 10 x 64 tree, R = 2), on a seeded tree with slices
+    and a leader at every slice level, on random 1-4 level trees and on
+    a tree whose states exceed shared memory; then CUDA-event times of
+    kernel and plain version at phase 14's shape."""
+    import numpy as np
+    import torch
+
+    from kueue_oss_tpu_torch import scenarios as sc
+    from kueue_oss_tpu_torch.solver import cuda_tas
+
+    rng = np.random.default_rng(14)
+    cases = []
+    parents, cap, _ = sc.drain_placer_batch(1)
+    fill_tree = cuda_tas.PlacerTree(parents)
+    cap = rng.integers(0, 96_001, size=(cap.shape[0], 2)).astype(np.int32)
+    main = (fill_tree, cap, np.concatenate([
+        np.asarray([1000, 1, 0, 0], np.int32),
+        np.asarray([0, 1, 2], np.int32)]))
+    cases.append(("phase 14 fill 1x10x64 R=2",) + main)
+    for level in range(3):
+        for leader in (0, 1):
+            cases.append((f"1x10x64 slices at level {level} "
+                          f"leader={leader}", fill_tree, cap,
+                          _fill_vec(rng, 2, leader, 2, level)))
+    for n_levels in (1, 2, 3, 4):
+        for seed in range(2):
+            parents, rcap = sc.random_placer_tree(
+                n_levels, seed, min_children=seed % 2,
+                max_children=(4, 40)[seed])
+            rcap[rng.random(rcap.shape[0]) < 0.2] = 0
+            cases.append((f"random L={n_levels} seed={seed}",
+                          cuda_tas.PlacerTree(parents), rcap,
+                          _fill_vec(rng, rcap.shape[1], seed,
+                                    int(rng.integers(1, 4)),
+                                    int(rng.integers(0, n_levels)))))
+    parents, big, _ = sc.drain_placer_batch(1, n_racks=200, n_hosts=64)
+    big_tree = cuda_tas.PlacerTree(parents)
+    if big_tree.fill_uses_shared():
+        raise AssertionError("1x200x64: the fill's state fits in shared "
+                             "memory")
+    cases.append(("1x200x64 state in global memory", big_tree,
+                  rng.integers(0, 200, size=big.shape).astype(np.int32),
+                  _fill_vec(rng, 2, 1, 2, 1)))
+    max_err = 0
+    for name, tree, c, v in cases:
+        max_err = max(max_err, _check_fill(
+            name, tree, torch.as_tensor(c, device=device),
+            torch.as_tensor(v, device=device)))
+    print(f"[kernel] fill_counts == fill_counts_reference exactly on "
+          f"{len(cases)} cases: " + "; ".join(c[0] for c in cases))
+    tree, c, v = main
+    c = torch.as_tensor(c, device=device)
+    v = torch.as_tensor(v, device=device)
+    ms = _time_ms(lambda: cuda_tas.fill_counts(tree, c, v))
+    plain_ms = _time_ms(lambda: cuda_tas.fill_counts_reference(tree, c, v),
+                        iters=50, warmup=5)
+    nbytes, nops = _fill_work(tree, 2)
+    return {"name": "fill_counts", "route": "cuda",
+            "source": "kueue_oss_tpu_torch/csrc/fill_counts.cu",
+            "replaces": "kueue_oss_tpu/solver/pallas_tas.py:99 (with the "
+                        "roll-up of kueue_oss_tpu/solver/tas_kernels.py:"
+                        "289-344 fill_counts_ext)",
+            "max_abs_err": max_err, "shape": [tree.n_domains, 2],
+            "ms": ms, "plain_ms": plain_ms, **_bound(nbytes, nops),
+            "library_ms": None}
+
+
 def _place_inputs(cap, req, device):
     import torch
 
@@ -1034,7 +1160,6 @@ def storm_drain() -> dict:
     from kueue_oss_tpu_torch.core.queue_manager import QueueManager
     from kueue_oss_tpu_torch.core.store import Store
     from kueue_oss_tpu_torch.scenarios import baseline_preempt_store
-    from kueue_oss_tpu_torch.solver import cuda_tas
     from kueue_oss_tpu_torch.solver.engine import SolverEngine
 
     store, wave1, wave2 = baseline_preempt_store(types, Store)
@@ -1047,15 +1172,13 @@ def storm_drain() -> dict:
         for wl in wave:
             store.add_workload(wl)
         before = _reserved_state(store)
-        cuda_tas.leaf_states.launches = 0
-        cuda_tas.tas_place_sequential.launches = 0
+        _reset_launches()
         _settle()
         t0 = time.monotonic()
         result = engine.drain(now=now)
         torch.cuda.synchronize()
         wall = time.monotonic() - t0
-        if (cuda_tas.leaf_states.launches
-                or cuda_tas.tas_place_sequential.launches):
+        if _launches():
             raise AssertionError("the storm has no TAS flavor, yet a TAS "
                                  "kernel launched")
         got = _check_storm_wave(store, result, before, reference)
@@ -1083,8 +1206,7 @@ def tas_full_drain() -> tuple:
     queues = QueueManager(store)
     engine = SolverEngine(store, queues)
     engine.use_sessions = False
-    cuda_tas.leaf_states.launches = 0
-    cuda_tas.tas_place_sequential.launches = 0
+    _reset_launches()
     cuda_tas.tas_place_sequential.steps = 0
     _settle()
     t0 = time.monotonic()
@@ -1095,10 +1217,11 @@ def tas_full_drain() -> tuple:
     steps = cuda_tas.tas_place_sequential.steps
     placed = _placed(store, result)
     if (launches != 1 or steps != placed or placed != result.admitted
-            or cuda_tas.leaf_states.launches != 0):
+            or _launches() != 1):
         raise AssertionError(
             f"TAS FULL path: {launches} tas_place_sequential launches "
             f"({steps} steps), {cuda_tas.leaf_states.launches} leaf_states "
+            f"and {cuda_tas.launch_counts['fill_counts']} fill_counts "
             f"launches for {placed} placements of {result.admitted}")
     got = {"admitted": result.admitted, "evicted": result.evicted,
            "rounds": result.rounds,
@@ -1110,7 +1233,7 @@ def tas_full_drain() -> tuple:
     _quota_checks(store)
     print(f"[tas full] plan matches the reference {got}; 1 "
           f"tas_place_sequential launch, {steps} steps, 0 leaf_states "
-          f"launches; FULL drain counters " + json.dumps(_stats(result)))
+          f"and 0 fill_counts launches; FULL drain counters " + json.dumps(_stats(result)))
     return ({"drain_s": wall,
              **{f"{k}_s": v for k, v in result.phases.items()},
              **_stats(result)}, launches)
@@ -1121,13 +1244,15 @@ def _reset_launches() -> None:
 
     cuda_tas.leaf_states.launches = 0
     cuda_tas.tas_place_sequential.launches = 0
+    cuda_tas.reset_counts()
 
 
 def _launches() -> int:
     from kueue_oss_tpu_torch.solver import cuda_tas
 
     return (cuda_tas.leaf_states.launches
-            + cuda_tas.tas_place_sequential.launches)
+            + cuda_tas.tas_place_sequential.launches
+            + cuda_tas.launch_counts["fill_counts"])
 
 
 def _settle() -> None:
@@ -1563,6 +1688,7 @@ def scheduler_tas() -> tuple:
     rec, wall, _, oracle, _ = _run_quiet(store, sched, [], 0.0)
     launches = cuda_tas.tas_place_sequential.launches
     leaf_launches = cuda_tas.leaf_states.launches
+    fill_launches = cuda_tas.launch_counts["fill_counts"]
     steps = cuda_tas.tas_place_sequential.steps
     rec["parked"] = sum(len(q.inadmissible)
                         for q in sched.queues.queues.values())
@@ -1571,6 +1697,7 @@ def scheduler_tas() -> tuple:
         raise AssertionError(f"scheduler TAS: {rec} != reference {want}")
     drain = sched.last_drain
     if (launches != 1 or steps != REFERENCE["admitted"] or leaf_launches
+            or fill_launches
             or plan_digest(store, drain.admitted_keys) != REFERENCE["digest"]
             or drain.rounds != REFERENCE["rounds"]
             or rec["parked"] != REFERENCE["parked"]
@@ -1578,8 +1705,9 @@ def scheduler_tas() -> tuple:
             or oracle["entries"] != drain.admitted):
         raise AssertionError(
             f"scheduler TAS: {launches} tas_place_sequential launches "
-            f"({steps} steps), {leaf_launches} leaf_states launches, "
-            f"oracle {oracle}, drain rounds {drain.rounds}")
+            f"({steps} steps), {leaf_launches} leaf_states and "
+            f"{fill_launches} fill_counts launches, oracle {oracle}, "
+            f"drain rounds {drain.rounds}")
     _quota_checks(store)
     out = {"wall_s": wall, "cycles": rec["cycles"],
            "drain": {f"{k}_s": v for k, v in drain.phases.items()},
@@ -1587,7 +1715,7 @@ def scheduler_tas() -> tuple:
     print(f"[scheduler tas] matches the reference ({rec['held']} held, "
           f"{rec['parked']} parked, phase 5's plan digest); 1 "
           f"tas_place_sequential launch, {steps} steps, 0 leaf_states "
-          f"launches; no host TAS head; " + json.dumps(out))
+          f"and 0 fill_counts launches; no host TAS head; " + json.dumps(out))
     return out, launches, leaf_launches
 
 
@@ -1629,19 +1757,23 @@ def scheduler_refused() -> tuple:
     return out, launches
 
 
-def _checked_device_fill(fill, check_s: list):
+def _checked_device_fill(fill, acc: dict):
     """``TASFlavorSnapshot._device_fill`` that, after the device fill,
     recomputes every domain's five states with the host path (the leaf
     division of ``_fill_in_counts`` and ``_roll_up``) from the same
-    leaves and raises on any difference; ``check_s[0]`` sums the
-    check's seconds."""
+    leaves and raises on any difference. ``acc`` sums seconds: "fill_s"
+    the device fill (its host work, upload, launch and read-back),
+    "rollup_s" the host path's division and roll-up of the same leaves,
+    "check_s" the whole check."""
     from kueue_oss_tpu_torch.tas.snapshot import count_in
 
     def checked(self, req, leader_req, slice_size, slice_level_idx,
                 stats):
         _, per_level = self._device_tree_arrays()
         remaining = [leaf._remaining for leaf in per_level[-1]]
+        t0 = time.perf_counter()
         fill(self, req, leader_req, slice_size, slice_level_idx, stats)
+        acc["fill_s"] += time.perf_counter() - t0
         t0 = time.perf_counter()
         fields = ("state", "state_with_leader", "leader_state",
                   "slice_state", "slice_state_with_leader")
@@ -1650,6 +1782,7 @@ def _checked_device_fill(fill, check_s: list):
         for dom in self.domains.values():
             for f in fields:
                 setattr(dom, f, 0)
+        t1 = time.perf_counter()
         for leaf, rem in zip(per_level[-1], remaining):
             if rem is None:
                 continue  # filtered out
@@ -1663,6 +1796,7 @@ def _checked_device_fill(fill, check_s: list):
         for root in self.roots.values():
             self._roll_up(root, slice_size, slice_level_idx, 0,
                           leader_req is not None)
+        acc["rollup_s"] += time.perf_counter() - t1
         want = [[getattr(d, f) for f in fields]
                 for doms in per_level for d in doms]
         if got != want:
@@ -1671,7 +1805,7 @@ def _checked_device_fill(fill, check_s: list):
             raise AssertionError(
                 f"device fill differs from the host roll-up at domain "
                 f"{bad}: {got[bad]} != {want[bad]}")
-        check_s[0] += time.perf_counter() - t0
+        acc["check_s"] += time.perf_counter() - t0
 
     return checked
 
@@ -1739,8 +1873,8 @@ def _topology_checks(store) -> int:
 
 def scheduler_tas_host() -> tuple:
     """Phase 14: the mixed TAS store through the scheduler in four runs.
-    Returns (report, leaf_states launches, tas_place_sequential
-    launches, leaf_states kernel entry at one fill's shape)."""
+    Returns (report, fill_counts launches, leaf_states launches,
+    tas_place_sequential launches)."""
     import torch
 
     from kueue_oss_tpu_torch import features
@@ -1749,31 +1883,31 @@ def scheduler_tas_host() -> tuple:
     from kueue_oss_tpu_torch.core.store import Store
     from kueue_oss_tpu_torch.scenarios import tas_mixed_store
     from kueue_oss_tpu_torch.scheduler.scheduler import Scheduler
-    from kueue_oss_tpu_torch.solver import cuda_tas, tas_kernels
+    from kueue_oss_tpu_torch.solver import cuda_tas
     from kueue_oss_tpu_torch.tas.snapshot import TASFlavorSnapshot
 
     fill_in_counts = TASFlavorSnapshot._fill_in_counts
     device_fill = TASFlavorSnapshot._device_fill
-    fill_counts_ext = tas_kernels.fill_counts_ext
+    fill_counts = cuda_tas.fill_counts
     calls = [0]
-    check_s = [0.0]
+    acc = {}
     tiles = []
 
     def counted(self, *args, **kw):
         calls[0] += 1
         return fill_in_counts(self, *args, **kw)
 
-    def kept(parents, leaf_capacity, *args, **kw):
+    def kept(tree, leaf_capacity, vec):
         if not tiles:
-            tiles.append((leaf_capacity,) + args[:3])
-        return fill_counts_ext(parents, leaf_capacity, *args, **kw)
+            tiles.append((tree, leaf_capacity, vec))
+        return fill_counts(tree, leaf_capacity, vec)
 
     out = {}
-    leaf_total = place_total = 0
+    fill_total = leaf_total = place_total = 0
     TASFlavorSnapshot._fill_in_counts = counted
     TASFlavorSnapshot._device_fill = _checked_device_fill(device_fill,
-                                                          check_s)
-    tas_kernels.fill_counts_ext = kept
+                                                          acc)
+    cuda_tas.fill_counts = kept
     try:
         for name, solver, fill in TAS_MIXED_RUNS:
             store = tas_mixed_store(types, Store)
@@ -1784,7 +1918,7 @@ def scheduler_tas_host() -> tuple:
                 relax_off(sched._solver_engine())
             features.set_gates({"TASDeviceFillCounts": fill})
             calls[0] = 0
-            check_s[0] = 0.0
+            acc.update(check_s=0.0, fill_s=0.0, rollup_s=0.0)
             counts0 = dict(sched.solver_counts) if solver else None
             _reset_launches()
             _settle()
@@ -1793,6 +1927,7 @@ def scheduler_tas_host() -> tuple:
             torch.cuda.synchronize()
             wall = time.monotonic() - t0
             features.reset()
+            fills = cuda_tas.launch_counts["fill_counts"]
             leaf = cuda_tas.leaf_states.launches
             place = cuda_tas.tas_place_sequential.launches
             rec = _scheduler_record(store, sched, cycles, counts0)
@@ -1806,21 +1941,29 @@ def scheduler_tas_host() -> tuple:
             if rec != want:
                 raise AssertionError(f"scheduler TAS host {name}: {rec} != "
                                      f"reference {want}")
-            if (leaf != (rec["fills"] if fill else 0)
+            if (fills != (rec["fills"] if fill else 0) or leaf != 0
                     or place != (rec["drains"] if solver else 0)):
                 raise AssertionError(
-                    f"scheduler TAS host {name}: {leaf} leaf_states "
-                    f"launches for {rec['fills']} fills, {place} "
-                    f"tas_place_sequential launches")
+                    f"scheduler TAS host {name}: {fills} fill_counts and "
+                    f"{leaf} leaf_states launches for {rec['fills']} "
+                    f"fills, {place} tas_place_sequential launches")
             checked = _topology_checks(store)
             _quota_checks(store)
+            fill_total += fills
             leaf_total += leaf
             place_total += place
             out[name] = {"wall_s": wall, "cycles": cycles,
-                         "fills": rec["fills"], "leaf_states": leaf,
+                         "fills": rec["fills"], "fill_counts": fills,
+                         "leaf_states": leaf,
                          "tas_place_sequential": place,
-                         "fill_check_s": check_s[0],
+                         "fill_check_s": acc["check_s"],
                          "podsets_checked": checked}
+            if fill:
+                # per fill, on the same leaves in the same run: the device
+                # fill, and the host division and roll-up it replaces
+                out[name]["fill_ms"] = acc["fill_s"] / calls[0] * 1e3
+                out[name]["host_rollup_ms"] = (acc["rollup_s"] / calls[0]
+                                               * 1e3)
             if solver:
                 out[name]["drain"] = {
                     f"{k}_s": v for k, v in sched.last_drain.phases.items()}
@@ -1831,11 +1974,32 @@ def scheduler_tas_host() -> tuple:
     finally:
         TASFlavorSnapshot._fill_in_counts = fill_in_counts
         TASFlavorSnapshot._device_fill = device_fill
-        tas_kernels.fill_counts_ext = fill_counts_ext
+        cuda_tas.fill_counts = fill_counts
         features.reset()
-    # one fill's leaf tile, kernel against plain (launches made here to
-    # compare and time are not counted above)
-    cap, per_pod, leader, flag = tiles[0]
+    # the device fill's cost over the host roll-up, per fill: timed
+    # around each fill of (c) against the host division and roll-up of
+    # the same leaves
+    c = out["host_fill"]
+    out["fill_over_rollup_ms"] = c["fill_ms"] - c["host_rollup_ms"]
+    # one fill's tile, kernel against plain (launches made here to
+    # compare and time are not counted above), and the leaf pass alone
+    # at the same tile
+    tree, cap, vec = tiles[0]
+    got = cuda_tas.fill_counts(tree, cap, vec)
+    want = cuda_tas.fill_counts_reference(tree, cap, vec)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError("fill_counts at the fill's tile differs from "
+                             "the plain version")
+    D, R = cap.shape
+    nbytes, nops = _fill_work(tree, R)
+    tile = {"shape": [tree.n_domains, R], "max_abs_err": 0,
+            "ms": _time_ms(lambda: cuda_tas.fill_counts(tree, cap, vec)),
+            "plain_ms": _time_ms(lambda: cuda_tas.fill_counts_reference(
+                tree, cap, vec), iters=50, warmup=5),
+            **_bound(nbytes, nops)}
+    out["fill_tile"] = tile
+    per_pod, leader, flag = vec[:R], vec[R:2 * R], vec[2 * R] > 0
     got = cuda_tas.leaf_states(cap, per_pod, leader, flag)
     want = cuda_tas.leaf_states_reference(cap, per_pod, leader, flag)
     torch.cuda.synchronize()
@@ -1844,17 +2008,21 @@ def scheduler_tas_host() -> tuple:
     if err:
         raise AssertionError(f"leaf_states at the fill's tile: max abs "
                              f"err {err}")
-    D, R = cap.shape
-    tile = {"shape": [D, R], "max_abs_err": err,
-            "ms": _time_ms(lambda: cuda_tas.leaf_states(
-                cap, per_pod, leader, flag)),
-            "plain_ms": _time_ms(lambda: cuda_tas.leaf_states_reference(
-                cap, per_pod, leader, flag)),
-            **_bound(4 * (D * R + 2 * R + 1 + 3 * D), 8 * D * R)}
-    out["fill_tile"] = tile
-    print(f"[scheduler tas host] leaf_states at the fill's {D}x{R} "
-          f"tile: " + json.dumps(tile))
-    return out, leaf_total, place_total
+    leaf_tile = {"shape": [D, R], "max_abs_err": err,
+                 "ms": _time_ms(lambda: cuda_tas.leaf_states(
+                     cap, per_pod, leader, flag)),
+                 "plain_ms": _time_ms(lambda: cuda_tas.leaf_states_reference(
+                     cap, per_pod, leader, flag)),
+                 **_bound(4 * (D * R + 2 * R + 1 + 3 * D), 8 * D * R)}
+    out["leaf_tile"] = leaf_tile
+    print(f"[scheduler tas host] the device fill costs "
+          f"{out['fill_over_rollup_ms']:.4f} ms a fill over the host "
+          f"roll-up, timed fill by fill ({c['fill_ms']:.4f} against "
+          f"{c['host_rollup_ms']:.4f}); "
+          f"fill_counts at the fill's {tree.n_domains}-domain tree: "
+          + json.dumps(tile) + f"; leaf_states at its {D}x{R} tile: "
+          + json.dumps(leaf_tile))
+    return out, fill_total, leaf_total, place_total
 
 
 def timed_store_digest(store) -> str:
@@ -2610,17 +2778,14 @@ def whatif_sweeps(smi: str) -> tuple:
     return out, launches
 
 
-def _relax_index_on(lp, device):
-    """The kernel's row and child lists of a numpy RelaxLP, on the card
+def _relax_index_on(lp, device, cluster=None):
+    """The kernel's lists and cluster cut of a numpy RelaxLP, on the card
     (made once, outside the timed launches)."""
-    import torch
-
     from kueue_oss_tpu_torch.solver import cuda_relax
 
-    n_cqs = lp.cq_node.shape[-1]
-    return cuda_relax.LPIndex(*(torch.as_tensor(a, device=device) for a in
-                                cuda_relax.lp_index(lp.wl_cqid, lp.parent,
-                                                    lp.cq_node, n_cqs)))
+    return cuda_relax.index_on(cuda_relax.lp_index(
+        lp.wl_cqid, lp.parent, lp.cq_node, lp.cq_node.shape[-1],
+        live=lp.live, cluster=cluster), device)
 
 
 def _relax_work(lp, iters: int) -> tuple[int, int]:
@@ -2647,54 +2812,80 @@ def _relax_work(lp, iters: int) -> tuple[int, int]:
     return nbytes, iters * per_iter
 
 
+def _repeated_lp(lp, times: int):
+    """A numpy RelaxLP whose rows (all but the padding row) repeat
+    ``times`` times over the same ClusterQueues and tree: a backlog
+    ``times`` as deep."""
+    import numpy as np
+
+    rows = {f: np.concatenate([getattr(lp, f)[:-1]] * times
+                              + [getattr(lp, f)[-1:]])
+            for f in ("r", "s", "live", "wl_cqid")}
+    return lp._replace(**rows)
+
+
 def check_relax_lp(device, cases) -> dict:
     """Phase 18 (a): ``relax_lp`` against the plain ``relax.lp_loop`` run
     on the CPU (float ``index_add_`` on the card adds in any order), x
-    bit for bit, on each case (name, numpy RelaxLP, iterations); CUDA
+    bit for bit, on each case (name, numpy RelaxLP, iterations, whether
+    to time the plain loop, other cluster sizes to check and time); CUDA
     event times of the kernel and of the plain loop on the card. Returns
-    the report of the first case (the main path's shape)."""
+    the report of the first case (the main path's shape) with every
+    case's time, cluster size and layout."""
     import numpy as np
 
     from kueue_oss_tpu_torch.solver import cuda_relax, relax
 
     report = None
-    for name, lp, iters in cases:
+    for name, lp, iters, time_plain, sweep in cases:
         dl = relax.lp_to_device(lp, device)
-        index = _relax_index_on(lp, device)
-        got = cuda_relax.relax_lp(dl, iters, index).cpu().numpy()
         want = relax.lp_loop(relax.lp_to_device(lp, "cpu"), iters).numpy()
-        err = float(np.abs(got - want).max())
-        if got.shape != want.shape or not np.array_equal(
-                got.view(np.int32), want.view(np.int32)):
-            raise AssertionError(
-                f"relax_lp differs from the plain loop on {name!r} "
-                f"(max abs err {err})")
-        ms = _time_ms(lambda: cuda_relax.relax_lp(dl, iters, index),
-                      iters=20, warmup=3)
-        plain_ms = _time_ms(lambda: relax.lp_loop(dl, iters), iters=3,
-                            warmup=1)
+        F, N1 = lp.r.shape[-1], lp.parent.shape[-1]
+        runs = {}
+        for cluster in (None, *sweep):
+            index = _relax_index_on(lp, device, cluster)
+            where = cuda_relax.LAYOUTS[cuda_relax.layout(index, F, N1)]
+            got = cuda_relax.relax_lp(dl, iters, index).cpu().numpy()
+            err = float(np.abs(got - want).max())
+            if got.shape != want.shape or not np.array_equal(
+                    got.view(np.int32), want.view(np.int32)):
+                raise AssertionError(
+                    f"relax_lp differs from the plain loop on {name!r} "
+                    f"(cluster {index.cluster}, layout {where}, max abs "
+                    f"err {err})")
+            runs[cluster] = (index, where, err, _time_ms(
+                lambda: cuda_relax.relax_lp(dl, iters, index), iters=20,
+                warmup=3))
+        index, where, err, ms = runs[None]
+        plain_ms = (_time_ms(lambda: relax.lp_loop(dl, iters), iters=3,
+                             warmup=1) if time_plain else None)
         nbytes, nops = _relax_work(lp, iters)
         inside = float(((want > 0) & (want < 1)).mean())
+        sizes = {str(r[0].cluster): r[3] for r in runs.values()}
         print(f"[kernel] relax_lp == lp_loop (CPU) bit for bit on {name} "
               f"{list(lp.r.shape)} C={lp.cq_node.shape[-1]} "
-              f"iters={iters}: {ms:.4f} ms, plain on the card "
-              f"{plain_ms:.3f} ms, bound "
+              f"iters={iters}, a cluster of {index.cluster} "
+              f"({index.max_rows} rows a block at most), rows in {where}: "
+              f"{ms:.4f} ms (ms by cluster size {json.dumps(sizes)}), "
+              f"plain on the card {plain_ms} ms, bound "
               f"{_bound(nbytes, nops)['bound_ms']:.2e} ms; "
               f"{inside:.3f} of x strictly inside (0, 1)")
+        case = {"case": name, "shape": list(lp.r.shape),
+                "cluster": index.cluster, "layout": where,
+                "threads": cuda_relax.block_threads(index, F, N1),
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                **_bound(nbytes, nops)}
+        if sweep:
+            case["ms_by_cluster"] = sizes
         if report is None:
-            report = {"name": "relax_lp", "route": "cuda",
+            report = {**case, "name": "relax_lp", "route": "cuda",
                       "source": "kueue_oss_tpu_torch/csrc/relax_lp.cu",
                       "replaces": "kueue_oss_tpu/solver/relax.py:144",
                       "replaces_kind": "lp_loop, an XLA program (no "
                                        "Pallas kernel)",
-                      "max_abs_err": err, "exact": err == 0.0,
-                      "shape": list(lp.r.shape), "iters": iters,
-                      "ms": ms, "plain_ms": plain_ms,
-                      **_bound(nbytes, nops), "library_ms": None,
-                      "cases": []}
-        report["cases"].append({"name": name, "shape": list(lp.r.shape),
-                                "ms": ms, "plain_ms": plain_ms,
-                                **_bound(nbytes, nops)})
+                      "exact": err == 0.0, "iters": iters,
+                      "library_ms": None, "cases": []}
+        report["cases"].append(case)
     return report
 
 
@@ -2780,7 +2971,7 @@ def relax_phase(smi: str, large_store, large_exact) -> tuple:
     import numpy as np
     import torch
 
-    from kueue_oss_tpu_torch import sim
+    from kueue_oss_tpu_torch import scenarios, sim
     from kueue_oss_tpu_torch.core.queue_manager import QueueManager
     from kueue_oss_tpu_torch.perf import GeneratorConfig, generate
     from kueue_oss_tpu_torch.sim import batch as sim_batch
@@ -2807,15 +2998,26 @@ def relax_phase(smi: str, large_store, large_exact) -> tuple:
     overlays = overlays[:32]
     _, _, stacked = sim_batch.stack_relax_lps(bench, overlays)
 
-    # (a) the kernel against its plain version
+    # (a) the kernel against its plain version: the main path's LPs (the
+    # two largest also at the other cluster sizes), dense LPs of
+    # four and eight columns made from them (the sum over the columns in
+    # XLA's order; at eight, r in global memory), and the largest
+    # backlog four times over (every row array in global memory)
+    large_lp, base_lp = relax.build_lp(padded), relax.build_lp(base)
     kernel = check_relax_lp(device, [
-        ("drain_large_scale", relax.build_lp(padded), 32),
-        ("whatif_baseline", relax.build_lp(base), 32),
-        ("relax tier S=32", stacked, 32)])
+        ("drain_large_scale", large_lp, 32, True, (1, 2, 4)),
+        ("whatif_baseline", base_lp, 32, True, (1, 2, 4)),
+        ("relax tier S=32", stacked, 32, True, ()),
+        ("whatif_baseline dense F=4",
+         scenarios.dense_relax_lp(base_lp, 4, 4), 32, True, ()),
+        ("drain_large_scale dense F=8",
+         scenarios.dense_relax_lp(large_lp, 8, 8), 32, True, ()),
+        ("drain_large_scale x4", _repeated_lp(large_lp, 4), 32, False,
+         ())])
 
     # (b) the arm at full width
     launches = 0
-    cuda_relax.relax_lp.launches = 0
+    cuda_relax.reset_counts()
     _reset_launches()
     _settle()
     t0 = time.monotonic()
@@ -2913,6 +3115,10 @@ def relax_phase(smi: str, large_store, large_exact) -> tuple:
                                   "relax_churn": churn_launches,
                                   "relax_tier": tier_launches}
     kernel["scenarios_by_tier_launch"] = len(overlays)
+    # the main path's launches (b)-(d) by cluster size and layout
+    kernel["launches_by_cluster"] = {
+        str(k): v for k, v in sorted(cuda_relax.relax_lp.clusters.items())}
+    kernel["launches_by_layout"] = dict(cuda_relax.relax_lp.layouts)
     return out, kernel, launches
 
 
@@ -2955,7 +3161,8 @@ def main() -> int:
 
     # 3. kernel vs plain
     device = torch.device("cuda")
-    reports = [check_leaf_states(device), check_tas_place(device)]
+    reports = [check_leaf_states(device), check_tas_place(device),
+               check_fill_counts(device)]
 
     # 4. stepwise placement, for the placement phase before the kernel
     step_phases, (step_tree, step_batch) = drain_with_stepwise_placer(
@@ -2968,8 +3175,7 @@ def main() -> int:
     store, queues = _drain_store()
     engine = relax_off(SolverEngine(store, queues))
     setup_s = time.monotonic() - t0
-    cuda_tas.leaf_states.launches = 0
-    cuda_tas.tas_place_sequential.launches = 0
+    _reset_launches()
     cuda_tas.tas_place_sequential.steps = 0
     _settle()
     t0 = time.monotonic()
@@ -2978,13 +3184,16 @@ def main() -> int:
     drain_s = time.monotonic() - t0
     leaf_launches = cuda_tas.leaf_states.launches
     place_launches = cuda_tas.tas_place_sequential.launches
+    fill_lean = cuda_tas.launch_counts["fill_counts"]
     steps = cuda_tas.tas_place_sequential.steps
     placed = _placed(store, result)
-    if leaf_launches != 0 or place_launches != 1 or steps != placed:
+    if (leaf_launches != 0 or fill_lean != 0 or place_launches != 1
+            or steps != placed):
         raise AssertionError(
             f"main path: {place_launches} tas_place_sequential launches "
-            f"({steps} steps) and {leaf_launches} leaf_states launches for "
-            f"{placed} placements; expected 1 ({placed}) and 0")
+            f"({steps} steps), {leaf_launches} leaf_states and "
+            f"{fill_lean} fill_counts launches for {placed} placements; "
+            f"expected 1 ({placed}), 0 and 0")
     check_plan(store, queues, result)
     if (result.frame is None or result.frame.full_reason != "first_sync"
             or result.device.get("full_uploads") != 1):
@@ -2994,7 +3203,7 @@ def main() -> int:
     replay_err = _check_place("the drain's placement batch", step_tree,
                               list(step_batch))
     print(f"[main] 1 tas_place_sequential launch, {steps} steps, "
-          f"0 leaf_states launches; the drain's batch agrees exactly "
+          f"0 leaf_states and 0 fill_counts launches; the drain's batch agrees exactly "
           f"(max abs err {replay_err}); sessions on: first_sync, "
           f"{result.device['full_upload_bytes']} bytes uploaded")
     reports[1]["launches"] = place_launches
@@ -3021,7 +3230,7 @@ def main() -> int:
     sched_refused, sched_refused_launches = scheduler_refused()
 
     # 14. the scheduler's host TAS placement and its device fill
-    sched_host, host_leaf, host_place = scheduler_tas_host()
+    sched_host, host_fill, host_leaf, host_place = scheduler_tas_host()
 
     # 15. streaming admission: micro-drains through the lean drain on
     # the card, and serve with its watch-driven worker
@@ -3047,6 +3256,27 @@ def main() -> int:
     relaxed, relax_report, relax_launches = relax_phase(
         smi, large_store, large_plan)
     reports.append(relax_report)
+    # the fill's own path: phase 14's host placement with the fill gate
+    # on; every other path launched no TAS kernel but its placer
+    reports[2]["launches"] = host_fill
+    reports[2]["launches_path"] = "scheduler_tas_host"
+    reports[2]["scheduler_tas_host_tile"] = sched_host["fill_tile"]
+    reports[2]["fill_over_rollup_ms"] = sched_host["fill_over_rollup_ms"]
+    reports[2]["launches_by_path"] = {"tas_lean": fill_lean,
+                                      "tas_full": 0, "storm_full": 0,
+                                      "fair_storm": fair_launches,
+                                      "afs": afs_launches,
+                                      "storm_churn": churn_launches,
+                                      "scheduler_storm":
+                                          sched_storm_launches,
+                                      "scheduler_tas": 0,
+                                      "scheduler_refused":
+                                          sched_refused_launches,
+                                      "scheduler_tas_host": host_fill,
+                                      "streaming": stream_launches,
+                                      "perf_runner": perf_launches,
+                                      "whatif": whatif_launches,
+                                      "relax": relax_launches}
     reports[0]["launches_by_path"] = {"tas_lean": leaf_launches,
                                       "tas_full": 0, "storm_full": 0,
                                       "fair_storm": fair_launches,
@@ -3062,12 +3292,12 @@ def main() -> int:
                                       "perf_runner": perf_launches,
                                       "whatif": whatif_launches,
                                       "relax": relax_launches}
-    # leaf_states' own path since the drain fused it away: phase 14's
-    # host placement with the fill gate on
-    reports[0]["launches"] = host_leaf
-    reports[0]["launches_path"] = "scheduler_tas_host"
+    # leaf_states is on no main path since fill_counts took the fill
+    # (its launches on every path are 0, checked above)
+    reports[0]["launches"] = sum(reports[0]["launches_by_path"].values())
+    reports[0]["launches_path"] = None
     reports[1]["launches_path"] = "tas_lean"
-    reports[0]["scheduler_tas_host_tile"] = sched_host["fill_tile"]
+    reports[0]["scheduler_tas_host_tile"] = sched_host["leaf_tile"]
     reports[1]["launches_by_path"] = {"tas_lean": place_launches,
                                       "tas_full": tas_full_launches,
                                       "storm_full": 0,

@@ -15,7 +15,8 @@
 // carry between steps,
 //   phase 1 (fill_counts_ext): the leaf pass (kueue_tas::leaf_row, shared
 //     with leaf_states.cu) and every level's up-pass of pods, slices and
-//     leader states;
+//     leader states (kueue_tas::fill_counts_block in tas_fill.cuh, shared
+//     with fill_counts.cu);
 //   phase 2: the level choice (findLevelWithFitDomains), the seed (one
 //     domain, or the greedy over the whole start level), the descent
 //     (_greedy_segment_lead + _consume_in_order per sibling group), the
@@ -59,25 +60,27 @@
 
 #include <cuda_runtime.h>
 
-#include "tas_leaf.cuh"
+#include "tas_fill.cuh"
 
 namespace {
 
 using kueue_tas::floor_div;
+using kueue_tas::imax;
+using kueue_tas::imin;
 using kueue_tas::kBig;
+using kueue_tas::kFull;
+using kueue_tas::kIntMax;
+using kueue_tas::kIntMin;
+using kueue_tas::warp_max;
+using kueue_tas::warp_min;
+using kueue_tas::warp_sum;
 using kueue_tas::wrap_add;
 using kueue_tas::wrap_mul;
 using kueue_tas::wrap_neg;
 using kueue_tas::wrap_sub;
 
-constexpr int kIntMax = 0x7fffffff;
-constexpr int kIntMin = -0x7fffffff - 1;
 constexpr long long kLongMax = 0x7fffffffffffffffLL;
-constexpr unsigned kFull = 0xffffffffu;
 constexpr int kMaxThreads = 1024;
-
-__device__ __forceinline__ int imin(int a, int b) { return a < b ? a : b; }
-__device__ __forceinline__ int imax(int a, int b) { return a > b ? a : b; }
 
 struct Params {
   const int* tree;  // [sizes L][parents N][cbeg N][cend N]
@@ -146,19 +149,6 @@ struct Req {
 
 // ---- warp and block reductions (every lane / thread gets the result) --
 
-__device__ __forceinline__ int warp_min(int v) {
-  for (int o = 16; o > 0; o >>= 1) v = imin(v, __shfl_xor_sync(kFull, v, o));
-  return v;
-}
-__device__ __forceinline__ int warp_max(int v) {
-  for (int o = 16; o > 0; o >>= 1) v = imax(v, __shfl_xor_sync(kFull, v, o));
-  return v;
-}
-__device__ __forceinline__ int warp_sum(int v) {
-  for (int o = 16; o > 0; o >>= 1)
-    v = wrap_add(v, __shfl_xor_sync(kFull, v, o));
-  return v;
-}
 // inclusive prefix sum over the lanes, wrapping
 __device__ __forceinline__ int warp_scan(int v, int lane) {
   for (int o = 1; o < 32; o <<= 1) {
@@ -446,7 +436,6 @@ __device__ void greedy(const State& s, const Req& q, int lev, bool seed,
 __device__ void place_step(const State& s, const Params& p, int m,
                            long long* red) {
   const int tid = threadIdx.x, nt = blockDim.x;
-  const int lane = tid & 31, warp = tid >> 5, nw = nt >> 5;
   const int L = p.L, R = p.R, leaf = L - 1;
   Req q;
   q.pp = p.per_pod + static_cast<long long>(m) * R;
@@ -462,57 +451,10 @@ __device__ void place_step(const State& s, const Params& p, int m,
   q.slice_count = floor_div(q.count, q.ss_div);
 
   // ---- phase 1: leaf pass, then the up-pass level by level -------------
-  {
-    const int b = s.base[leaf];
-    const bool at_sl = q.slice_level == leaf;
-    for (int i = tid; i < p.D; i += nt) {
-      const kueue_tas::LeafState v =
-          kueue_tas::leaf_row(s.cap + i * R, q.pp, q.lpp, q.hl, R);
-      s.st[b + i] = v.st;
-      s.swl[b + i] = v.swl;
-      s.ls[b + i] = v.ls;
-      s.ss[b + i] = at_sl ? floor_div(v.st, q.ss_div) : 0;
-      s.sswl[b + i] = at_sl ? floor_div(v.swl, q.ss_div) : 0;
-    }
-    __syncthreads();
-  }
-  for (int l = leaf; l >= 1; --l) {
-    const int b = s.base[l], pb = s.base[l - 1];
-    const bool at_sl = q.slice_level == l - 1;
-    for (int d = warp; d < s.sizes[l - 1]; d += nw) {
-      const int a = s.cbeg[pb + d], e = s.cend[pb + d];
-      int total = 0, s_total = 0, any_contrib = 0;
-      int min_sd = kIntMax, min_ssd = kIntMax, ls_up = kIntMin;
-      for (int i = b + a + lane; i < b + e; i += 32) {
-        const int st = s.st[i], ls = s.ls[i], ss = s.ss[i];
-        total = wrap_add(total, st);
-        s_total = wrap_add(s_total, ss);
-        // leader contributors: children able to host the leader (or no
-        // leader requested at all)
-        const bool contrib = !q.hl || ls > 0;
-        any_contrib |= contrib ? 1 : 0;
-        min_sd = imin(min_sd, contrib ? wrap_sub(st, s.swl[i]) : kBig);
-        min_ssd = imin(min_ssd, contrib ? wrap_sub(ss, s.sswl[i]) : kBig);
-        ls_up = imax(ls_up, ls);
-      }
-      total = warp_sum(total);
-      s_total = warp_sum(s_total);
-      any_contrib = warp_max(any_contrib);
-      min_sd = warp_min(min_sd);
-      min_ssd = warp_min(min_ssd);
-      ls_up = warp_max(ls_up);
-      if (lane == 0) {
-        const int swl_up = any_contrib ? wrap_sub(total, min_sd) : 0;
-        const int sswl_up = any_contrib ? wrap_sub(s_total, min_ssd) : 0;
-        s.st[pb + d] = total;
-        s.swl[pb + d] = swl_up;
-        s.ls[pb + d] = ls_up;
-        s.ss[pb + d] = at_sl ? floor_div(total, q.ss_div) : s_total;
-        s.sswl[pb + d] = at_sl ? floor_div(swl_up, q.ss_div) : sswl_up;
-      }
-    }
-    __syncthreads();
-  }
+  kueue_tas::fill_counts_block({s.st, s.swl, s.ls, s.ss, s.sswl},
+                               {s.sizes, s.base, s.cbeg, s.cend, L}, s.cap,
+                               p.D, R, {q.pp, q.lpp, q.hl, q.ss_div,
+                                        q.slice_level});
 
   // ---- findLevelWithFitDomains: the lowest allowed level with a fit,
   //      walking up for preferred requests ---------------------------------

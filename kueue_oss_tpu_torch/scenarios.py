@@ -57,6 +57,10 @@ percentiles.
 (``cuda_tas.tas_place_sequential``) from a seed with numpy: the drain's
 tree and request mix, and random trees with slices, leaders, the
 least-free profile and pre-rejected rows.
+
+``dense_relax_lp`` widens a relaxed LP to more flavor-resource columns,
+every column non-zero where its source column is: the LPs whose sum over
+the columns shows its float order.
 """
 
 from __future__ import annotations
@@ -716,3 +720,19 @@ def drain_placer_batch(M: int = 102, seed: int = 640, *, n_racks: int = 10,
             leader_per_pod=np.zeros(2, np.int32),
             has_leader=np.bool_(False)))
     return parents, cap, _stack(rows, 2)
+
+
+def dense_relax_lp(lp, n_cols: int, seed: int):
+    """``lp`` (a numpy RelaxLP of either package) with its request,
+    slack and scale columns tiled out to ``n_cols`` and each new column
+    scaled by a seeded factor in [0.5, 2): every column of a live row is
+    non-zero where the source column is, so the order of the sum over
+    the columns decides the last bit of x."""
+    rng = np.random.default_rng(seed)
+    cols = [k % lp.r.shape[-1] for k in range(n_cols)]
+    fac = rng.uniform(0.5, 2.0, size=n_cols).astype(np.float32)
+    r = (lp.r[..., cols] * fac).astype(np.float32)
+    r = np.where(lp.r[..., cols] > 0, np.maximum(r, np.float32(1e-3)), r)
+    slack = (lp.slack[..., cols] * fac).astype(np.float32)
+    scale = np.maximum(slack, np.float32(1.0)).astype(np.float32)
+    return lp._replace(r=r, slack=slack, scale=scale)

@@ -14,7 +14,7 @@ of the report.
 Scenario-axis padding mirrors the JAX package's (a power of two, inert
 repeats of scenario 0). ``solve_scenarios_relax`` is the approximate
 relax tier of the FULL sweeps: the S scenarios' relaxed LPs in one
-launch of the relax kernel (one block per scenario, the JAX
+launch of the relax kernel (one cluster per scenario, the JAX
 ``jit(vmap(lp_loop))``), then each scenario's rounding and exact repair.
 The rest of the FULL-kernel sweeps (the lane budget, the FULL tier and
 the tiered dispatch) wait for ROADMAP Queue A item 7b; the
@@ -359,7 +359,8 @@ def solve_scenarios_relax(problem: SolverProblem, overlays: list[dict],
     t0 = time.monotonic()
     probs, lps, stacked = stack_relax_lps(problem, overlays)
     index = None if device.type == "cpu" else cuda_relax.lp_index(
-        stacked.wl_cqid, stacked.parent, stacked.cq_node, problem.n_cqs)
+        stacked.wl_cqid, stacked.parent, stacked.cq_node, problem.n_cqs,
+        live=stacked.live)
     xs = cuda_relax.relax_lp(lp_to_device(stacked, device), iters,
                              index).cpu().numpy()
     S = len(overlays)

@@ -1,4 +1,5 @@
-"""The TAS CUDA kernels: the leaf-state pass and the sequential placer.
+"""The TAS CUDA kernels: the leaf-state pass, the sequential placer and
+the fill-in counts.
 
 Counterpart of ``kueue_oss_tpu/solver/pallas_tas.py`` and of the jitted
 ``lax.scan`` around it (``kueue_oss_tpu/solver/tas_kernels.py:250-283``).
@@ -18,11 +19,20 @@ Counterpart of ``kueue_oss_tpu/solver/pallas_tas.py`` and of the jitted
   ``tas_kernels`` with the all-PyTorch leaf pass, so on the card the
   oracle runs no hand kernel.
 
+- ``fill_counts`` is the fill-in counts of the host placement's device
+  fill (``TASFlavorSnapshot._device_fill``): the leaf pass and every
+  level's roll-up (``tas_kernels.fill_counts_ext``) in one launch of
+  ``csrc/fill_counts.cu``, on a ``PlacerTree``, into one [5, N] int32
+  block. Its plain version, ``fill_counts_reference``, is
+  ``fill_counts_ext`` with the all-PyTorch leaf pass, packed the same
+  way. The placer and this kernel share phase 1 (``csrc/tas_fill.cuh``).
+
 Each wrapper launches its kernel for CUDA tensors or raises (never falls
 back), takes the plain version only for CPU tensors, and counts its
 launches (``leaf_states.launches``; ``tas_place_sequential.launches`` and
-``.steps``, the podsets placed). The source notes in ``csrc/`` give each
-kernel's bound and design.
+``.steps``, the podsets placed; ``launch_counts["fill_counts"]``, on the
+module, zeroed by ``reset_counts``). The source notes in ``csrc/`` give
+each kernel's bound and design.
 
 ``build`` compiles every ``csrc/*.cu`` with one ``nvcc`` call at first
 use into one library under ``_build/`` beside the package, keyed on a
@@ -33,6 +43,7 @@ shared-memory and spill report is kept beside the library.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import hashlib
 import os
@@ -57,6 +68,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 SHARED_LIMIT_BYTES = 232_448
 #: tas_place.cu's static shared memory (its block-reduction scratch)
 PLACE_STATIC_SHARED_BYTES = 512
+#: the five states of the fill-in counts, in the order of fill_counts'
+#: rows (snapshot.Domain's state, state_with_leader, leader_state,
+#: slice_state, slice_state_with_leader)
+FILL_KEYS = ("st", "swl", "ls", "ss", "sswl")
 
 _lib = None
 
@@ -148,6 +163,11 @@ def _library():
         fn.argtypes = ([ctypes.c_void_p] + [ctypes.c_int] * 7
                        + [ctypes.c_void_p] * 16 + [ctypes.c_longlong,
                                                    ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        fn = lib.kueue_fill_counts
+        fn.argtypes = ([ctypes.c_void_p] + [ctypes.c_int] * 5
+                       + [ctypes.c_void_p] * 3 + [ctypes.c_int,
+                                                  ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _lib = lib
     return _lib
@@ -283,12 +303,29 @@ class PlacerTree:
         227 KB the kernel runs on a global scratch buffer instead."""
         return self.footprint_bytes(R) <= SHARED_LIMIT_BYTES
 
+    def fill_uses_shared(self) -> bool:
+        """True when fill_counts.cu's state (sizes, level bases and five
+        states per domain) fits in one block's shared memory; above
+        227 KB it runs on its output buffer instead."""
+        return 4 * (2 * self.n_levels + 1
+                    + 5 * self.n_domains) <= SHARED_LIMIT_BYTES
+
     def on(self, device) -> torch.Tensor:
         key = str(device)
         t = self._device.get(key)
         if t is None:
             t = torch.as_tensor(self.flat, device=device)
             self._device[key] = t
+        return t
+
+    def parents_on(self, device) -> list[torch.Tensor]:
+        """The per-level parent arrays as int32 tensors on ``device``
+        (the plain versions' input), made once per device."""
+        key = f"parents:{device}"
+        t = self._plain.get(key)
+        if t is None:
+            t = [torch.as_tensor(p, device=device) for p in self.parents]
+            self._plain[key] = t
         return t
 
 
@@ -380,3 +417,72 @@ def tas_place_sequential(tree: PlacerTree, leaf_capacity, per_pod, count,
 #: podsets those launches placed
 tas_place_sequential.launches = 0
 tas_place_sequential.steps = 0
+
+
+def fill_counts_reference(tree: PlacerTree, leaf_capacity, vec):
+    """Plain PyTorch version of ``fill_counts``:
+    ``tas_kernels.fill_counts_ext`` on the tree with the all-PyTorch leaf
+    pass (``leaf_states_reference``), its five states of every level
+    packed into one [5, N] int32 tensor (rows ``FILL_KEYS``, columns
+    level 0 first)."""
+    from kueue_oss_tpu_torch.solver import tas_kernels  # imports this module
+
+    R = leaf_capacity.shape[1]
+    out = tas_kernels.fill_counts_ext(
+        tree.parents_on(leaf_capacity.device), leaf_capacity, vec[:R],
+        vec[R:2 * R], vec[2 * R] > 0, vec[2 * R + 1], vec[2 * R + 2],
+        leaf_fn=leaf_states_reference)
+    return torch.cat([torch.stack([out[l][k] for k in FILL_KEYS])
+                      for l in range(tree.n_levels)], dim=1)
+
+
+def fill_counts(tree: PlacerTree, leaf_capacity, vec):
+    """Phase 1 of a TAS placement on every level of ``tree`` in one
+    kernel launch: [5, N] int32, rows ``FILL_KEYS`` (st, swl, ls, ss,
+    sswl), columns level 0 first, each level's domains in order.
+
+    ``leaf_capacity`` is [D, R] int32; ``vec`` the int32 vector
+    [per_pod R][leader_per_pod R][has_leader][slice_size][slice_level]
+    (the kernel reads the flags on the device). CPU tensors take
+    ``fill_counts_reference``; CUDA tensors launch ``csrc/fill_counts.cu``
+    or raise. Anything else raises.
+    """
+    device = leaf_capacity.device
+    if device.type == "cpu":
+        return fill_counts_reference(tree, leaf_capacity, vec)
+    if device.type != "cuda":
+        raise ValueError(f"fill_counts: unsupported device {device}")
+    _check_tensor("leaf_capacity", leaf_capacity, 2, device)
+    _check_tensor("vec", vec, 1, device)
+    D, R = leaf_capacity.shape
+    if R < 1 or D != tree.n_leaves or vec.shape[0] != 2 * R + 3:
+        raise ValueError(
+            f"fill_counts: leaf_capacity {tuple(leaf_capacity.shape)} and "
+            f"vec {tuple(vec.shape)} do not fit a tree of {tree.n_leaves} "
+            f"leaves (R >= 1, vec of 2R + 3)")
+    out = torch.empty((len(FILL_KEYS), tree.n_domains), dtype=torch.int32,
+                      device=device)
+    fn = _library().kueue_fill_counts
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = fn(tree.on(device).data_ptr(), tree.n_levels, tree.n_domains,
+                D, tree.max_width, R, leaf_capacity.data_ptr(),
+                vec.data_ptr(), out.data_ptr(), int(tree.fill_uses_shared()),
+                stream)
+    if rc != 0:
+        raise RuntimeError(f"fill_counts kernel launch failed: CUDA error "
+                           f"{rc}")
+    launch_counts["fill_counts"] += 1
+    return out
+
+
+def reset_counts() -> None:
+    """Zero ``launch_counts``."""
+    launch_counts.clear()
+
+
+#: CUDA kernel launches made through ``fill_counts`` in this process,
+#: under "fill_counts". The count lives on the module, not on the
+#: function, so that a wrapper bound over ``cuda_tas.fill_counts``
+#: neither moves nor hides it.
+launch_counts = collections.Counter()

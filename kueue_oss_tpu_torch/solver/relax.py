@@ -22,8 +22,9 @@ The projected-gradient step keeps the JAX program's float32 op order so
 that x is bit for bit the JAX package's on the CPU: segment sums in
 ascending row order (``index_add_`` on the CPU; the kernel's per-CQ row
 lists), the ancestor accumulation adding each level into the old ``u``,
-``rho`` as float32 ops in JAX's order, the sums over the path and
-resource axes as adds in index order, and a ``price`` gather that clamps
+``rho`` as float32 ops in JAX's order, the sum over the path as adds in
+index order, the sum over the flavor-resources in XLA:CPU's vectorised
+order (``sum_order``), and a ``price`` gather that clamps
 the padding id C to row C-1 as JAX's gather does. Cut from the copy: the
 mesh-sharded LP (``meshutil.relax_mesh_lp``, ROADMAP Queue A item 9).
 """
@@ -107,14 +108,52 @@ def _rho(i: int, iters: int) -> np.float32:
     return np.float32(np.float32(i) * rho_step(iters)) + np.float32(1.0)
 
 
-def lane_width(n: int) -> int:
-    """Lanes of XLA:CPU's reduction over a short minor axis of n: the
-    largest power of two <= min(n, 8). Lane j sums elements j, j + V,
-    j + 2V, ... in order; the lanes are then added in lane order."""
-    v = 1
-    while v * 2 <= min(n, 8):
-        v *= 2
-    return v
+def sum_order(n: int) -> tuple[int, int]:
+    """XLA:CPU's order of the pull's sum over F = n, as tier-1 compiles
+    it (AVX, the conftest flags): (V, E). LLVM vectorises the reduce's
+    reassociable loop over F into V lanes: lane j adds elements j,
+    j + V, ... below E in order (lane 0 from +0.0, the others from
+    -0.0, so a lane with no element is the identity); the lanes then
+    fold by halves (lane i += lane i + V/2, down to lane 0: x86's
+    lowering of ``llvm.vector.reduce.fadd``); elements E .. n-1 are
+    added after, in order (the scalar remainder loop). Read from the
+    optimised LLVM IR at n = 1-32: V = the next power of two for
+    n <= 8 (one masked vector), 4 for 9-12 and 8 for 13-15 (masked
+    loops), and above E = 4 * (n // 4) with V = 8 when 8 divides E,
+    else 4. Both ``lp_step_body`` and ``csrc/relax_lp.cu`` follow it.
+    Above n = 32 XLA splits the reduce (a reduce-window, then a reduce)
+    and this is not its order (ROADMAP Queue C item 8)."""
+    if n <= 8:
+        v = 1
+        while v < n:
+            v *= 2
+        return v, n
+    if n < 16:
+        return (4 if n <= 12 else 8), n
+    e = 4 * (n // 4)
+    return (8 if e % 8 == 0 else 4), e
+
+
+def sum_in_order(prod: torch.Tensor) -> torch.Tensor:
+    """The sum over the last axis in ``sum_order``'s order, every add
+    rounded to float32."""
+    n = prod.shape[-1]
+    v, e = sum_order(n)
+    lanes = []
+    for j in range(min(v, e)):
+        acc = prod[..., j] + 0.0 if j == 0 else prod[..., j]
+        for f in range(j + v, e, v):
+            acc = acc + prod[..., f]
+        lanes.append(acc)
+    while v > 1:
+        v //= 2
+        for i in range(len(lanes) - v):
+            lanes[i] = lanes[i] + lanes[i + v]
+        lanes = lanes[:v]
+    out = lanes[0]
+    for f in range(e, n):
+        out = out + prod[..., f]
+    return out
 
 
 def lp_step_body(lp: RelaxLP, x: torch.Tensor, i: int,
@@ -147,15 +186,8 @@ def lp_step_body(lp: RelaxLP, x: torch.Tensor, i: int,
     # JAX clamps the padding id C to row C-1 (never a live row)
     gather = torch.clamp(cqid, 0, C - 1)
     rnorm = lp.r / torch.clamp(lp.r.amax(dim=1, keepdim=True), min=1.0)
-    prod = rnorm * price[gather]
-    # the sum over F in XLA:CPU's lane order (lane_width)
-    lanes = lane_width(F)
-    pull = None
-    for j in range(lanes):
-        acc = prod[:, j]
-        for f in range(j + lanes, F, lanes):
-            acc = acc + prod[:, f]
-        pull = acc if pull is None else pull + acc
+    # the sum over F in XLA:CPU's order (sum_order)
+    pull = sum_in_order(rnorm * price[gather])
     rho = torch.tensor(_rho(i, iters), device=dev)
     g = (lp.s * torch.tensor(ALPHA, dtype=torch.float32, device=dev)
          - rho * pull)
@@ -399,7 +431,7 @@ def solve_relaxed(problem: SolverProblem, *, iters: int = 32,
     lp = build_lp(problem)
     t0 = time.monotonic()
     index = None if device.type == "cpu" else cuda_relax.lp_index(
-        lp.wl_cqid, lp.parent, lp.cq_node, problem.n_cqs)
+        lp.wl_cqid, lp.parent, lp.cq_node, problem.n_cqs, live=lp.live)
     x = cuda_relax.relax_lp(lp_to_device(lp, device), iters,
                             index).cpu().numpy()
     lp_seconds = time.monotonic() - t0

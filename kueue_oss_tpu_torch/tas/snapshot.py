@@ -23,10 +23,11 @@ podset groups, BestFit and LeastFreeCapacity profiles, unhealthy-node
 replacement (findReplacementAssignment, :614-656).
 
 With the TASDeviceFillCounts gate on, phase 1's division and roll-up
-run on the snapshot's ``device`` through ``solver/tas_kernels.
-fill_counts_ext`` (on a CUDA device the leaf pass is the
-``cuda_tas.leaf_states`` kernel, one launch per ``_fill_in_counts``
-call); the leaf filtering and every phase-2 tie-break stay on the host.
+run on the snapshot's ``device`` through ``solver/cuda_tas.fill_counts``
+(on a CUDA device one launch of ``csrc/fill_counts.cu`` per
+``_fill_in_counts`` call; on the CPU its plain version, ``tas_kernels.
+fill_counts_ext``); the leaf filtering and every phase-2 tie-break stay
+on the host.
 With the gate off (the default) no code here touches a device.
 ``solver/tas_kernels.build_levels`` flattens the same tree for the
 drain's device placer. Cut from the copy: ``add_non_tas_usage``,
@@ -159,7 +160,7 @@ class TASFlavorSnapshot:
             bool(levels) and levels[-1] == HOSTNAME_LABEL)
         #: run phase 1 (fill-in counts: the per-leaf capacity division
         #: and the per-level roll-up) on ``device`` via
-        #: solver/tas_kernels.fill_counts_ext, keeping host-side leaf
+        #: solver/cuda_tas.fill_counts, keeping host-side leaf
         #: filtering and EVERY phase-2 tie-break (balanced DP included);
         #: see the TASDeviceFillCounts gate
         self.use_device_fill = False
@@ -167,7 +168,7 @@ class TASFlavorSnapshot:
         #: on ("cuda" raises there without a CUDA device)
         self.device = device
         self._device_tree = None  # (parents, lex-ordered domain lists)
-        self._device_parents = None  # parents as device int32 tensors
+        self._fill_tree = None  # cuda_tas.PlacerTree of those parents
 
     # ------------------------------------------------------------------
     # Construction
@@ -189,7 +190,7 @@ class TASFlavorSnapshot:
 
     def initialize(self) -> None:
         """Connect leaves to parent domains up to the roots."""
-        self._device_tree = self._device_parents = None
+        self._device_tree = self._fill_tree = None
         for leaf in self.leaves.values():
             self.domains[leaf.id] = leaf
             self.domains_per_level[len(leaf.level_values) - 1][leaf.id] = leaf
@@ -606,7 +607,7 @@ class TASFlavorSnapshot:
     def _device_fill(self, req: Requests, leader_req: Optional[Requests],
                      slice_size: int, slice_level_idx: int,
                      stats: dict) -> None:
-        """Phase 1 on the device: one fill_counts_ext invocation
+        """Phase 1 on the device: one ``cuda_tas.fill_counts`` call
         computes every domain's (state, state_with_leader, leader_state,
         slice_state, slice_state_with_leader): the division and
         per-level segment-sum roll-up the host otherwise does
@@ -614,39 +615,41 @@ class TASFlavorSnapshot:
         intact: a filtered leaf never set ``_remaining`` and exports
         zero capacity. The inputs are built in numpy as the JAX package
         builds them (an out-of-range request raises in the int32
-        assignment), uploaded in two copies, and the five states of
-        every level come back in one copy. A build or launch failure
-        raises; there is no host fallback."""
+        assignment); the leaf capacity and the request vector go up in
+        one pinned copy, the kernel's [5, N] states come back in one. A
+        build or launch failure raises; there is no host fallback."""
         import numpy as np
         import torch
 
         from kueue_oss_tpu_torch.device import resolve_device
-        from kueue_oss_tpu_torch.solver.tas_kernels import fill_counts_ext
+        from kueue_oss_tpu_torch.solver import cuda_tas
 
         dev = resolve_device(self.device)
         parents, per_level = self._device_tree_arrays()
-        if self._device_parents is None:
-            self._device_parents = [torch.from_numpy(p).to(dev)
-                                    for p in parents]
-        leaves = per_level[-1]
-        vocab = sorted({r for r in req}
-                       | ({r for r in leader_req} if leader_req else set())
-                       | {r for leaf in leaves
-                          for r in (leaf._remaining or {})})
+        leaves = per_level[-1] if per_level else []
+        if not leaves:
+            return  # no domain to fill
+        if self._fill_tree is None:
+            # the tree and its child ranges, once per snapshot
+            self._fill_tree = cuda_tas.PlacerTree(parents)
+        remaining = [leaf._remaining for leaf in leaves]
+        vocab = set(req) | set(leader_req or ())
+        for rem in remaining:
+            if rem:
+                vocab.update(rem)
+        vocab = sorted(vocab)
         R = max(1, len(vocab))
         ridx = {r: j for j, r in enumerate(vocab)}
+        # a filtered leaf (no _remaining) exports zero capacity
+        unfiltered = np.asarray([rem is not None for rem in remaining])
         cap = np.zeros((len(leaves), R), dtype=np.int64)
-        unfiltered = np.zeros((len(leaves),), dtype=bool)
-        for i, leaf in enumerate(leaves):
-            remaining = leaf._remaining
-            if remaining is None:
-                continue  # filtered out: zero capacity
-            unfiltered[i] = True
-            for r, q in remaining.items():
-                cap[i, ridx[r]] = max(0, q)
+        for r, j in ridx.items():
+            cap[:, j] = [rem.get(r, 0) if rem else 0 for rem in remaining]
+        np.maximum(cap, 0, out=cap)
+        for leaf in leaves:
             leaf._remaining = None
         # per_pod [R], leader_per_pod [R], has_leader, slice_size,
-        # slice_level in one int32 vector
+        # slice_level after the [D, R] capacity, in one int32 buffer
         per_pod = np.zeros((R,), dtype=np.int32)
         for r, q in req.items():
             per_pod[ridx[r]] = q
@@ -656,40 +659,34 @@ class TASFlavorSnapshot:
                 leader_pp[ridx[r]] = q
         scalars = np.asarray([leader_req is not None, slice_size,
                               slice_level_idx], dtype=np.int32)
-        vec = torch.from_numpy(
-            np.concatenate([per_pod, leader_pp, scalars])).to(dev)
-        out = fill_counts_ext(
-            self._device_parents,
-            torch.from_numpy(
-                np.minimum(cap, 1 << 30).astype(np.int32)).to(dev),
-            vec[:R], vec[R:2 * R], vec[2 * R] > 0, vec[2 * R + 1],
-            vec[2 * R + 2])
-        states = torch.cat([
-            torch.stack([out[l][k] for k in ("st", "swl", "ls", "ss",
-                                             "sswl")])
-            for l in range(len(per_level))], dim=1).cpu().numpy()
-        base = 0
-        for doms in per_level:
-            for i, dom in enumerate(doms):
-                col = states[:, base + i]
-                dom.state = int(col[0])
-                dom.state_with_leader = int(col[1])
-                dom.leader_state = int(col[2])
-                dom.slice_state = int(col[3])
-                dom.slice_state_with_leader = int(col[4])
-            base += len(doms)
+        staged = torch.from_numpy(np.concatenate([
+            np.minimum(cap, 1 << 30).astype(np.int32).ravel(), per_pod,
+            leader_pp, scalars]))
+        if dev.type == "cuda":
+            staged = staged.pin_memory().to(dev, non_blocking=True)
+        n_cap = cap.size
+        states = cuda_tas.fill_counts(
+            self._fill_tree, staged[:n_cap].view(len(leaves), R),
+            staged[n_cap:]).cpu().numpy()
+        domains = [dom for doms in per_level for dom in doms]
+        for dom, (st, swl, ls, ss, sswl) in zip(domains,
+                                                states.T.tolist()):
+            dom.state = st
+            dom.state_with_leader = swl
+            dom.leader_state = ls
+            dom.slice_state = ss
+            dom.slice_state_with_leader = sswl
         # limiting-resource stats for zero-capacity leaves (host parity:
         # taint/selector/domain-filtered leaves were already counted
         # under their own stats keys by the host filter loop and must
         # not double-count as resource-limited)
-        for i, leaf in enumerate(leaves):
-            if unfiltered[i] and leaf.state == 0:
-                remaining = {r: int(cap[i, j])
-                             for r, j in ridx.items()}
-                limiting = _limiting_resource(req, remaining)
-                if limiting:
-                    stats["resources"][limiting] = (
-                        stats["resources"].get(limiting, 0) + 1)
+        leaf_st = states[0, len(domains) - len(leaves):]
+        for i in np.nonzero(unfiltered & (leaf_st == 0))[0]:
+            limiting = _limiting_resource(
+                req, {r: int(cap[i, j]) for r, j in ridx.items()})
+            if limiting:
+                stats["resources"][limiting] = (
+                    stats["resources"].get(limiting, 0) + 1)
 
     def _device_tree_arrays(self):
         """Lex-ordered per-level domain lists + parent index arrays

@@ -4,14 +4,16 @@
 package on the CPU, on the same seeded stores.
 
 Tolerance 0 throughout: the LP tensors field by field, x bit for bit
-(two- and three-level cohort trees, one and three flavor-resources,
-32 and 30 iterations, and four scenarios against the JAX ``vmap``), the
+(two- and three-level cohort trees, one and three flavor-resources and
+dense LPs of four, five and eight, 32 and 30 iterations, and four
+scenarios against the JAX ``vmap``), the kernel's index and its cut into
+cluster blocks, the
 rounded support, the repair's and the whole arm's plans, and the
 engine's plans and relax counts (served, audited, demoted by a seeded
 divergence and re-probed after the cooldown, faulted through to the
 exact arm, and the router's probe rules). x is compared with the JAX
 program as tier-1 compiles it (tests/conftest.py caps XLA:CPU at AVX,
-so it fuses no multiply-add); ``relax.lane_width`` is its order of the
+so it fuses no multiply-add); ``relax.sum_order`` is its order of the
 sum over the flavor-resources.
 """
 
@@ -20,6 +22,7 @@ import functools
 import jax
 import numpy as np
 import pytest
+import torch
 
 from kueue_oss_tpu import metrics as jax_metrics
 from kueue_oss_tpu.api import types as jax_types
@@ -32,6 +35,7 @@ from kueue_oss_tpu.scheduler.scheduler import Scheduler as JaxScheduler
 from kueue_oss_tpu.solver import relax as jax_relax
 from kueue_oss_tpu.solver.engine import SolverEngine as JaxEngine
 from kueue_oss_tpu.solver.tensors import pad_workloads as jax_pad
+from kueue_oss_tpu_torch import scenarios
 from kueue_oss_tpu_torch.api import types as port_types
 from kueue_oss_tpu_torch.config import SolverBackendConfig
 from kueue_oss_tpu_torch.core.eviction import finish_workload
@@ -126,6 +130,29 @@ SHAPES = [dict(levels=lv, n_res=f, n_cqs=nc, n_wl=nw, seed=sd)
           for lv, f, nc, nw, sd in ((2, 1, 4, 64, 0), (3, 1, 6, 150, 1),
                                     (2, 3, 5, 100, 2), (3, 3, 6, 200, 3))]
 SHAPE_IDS = [f"L{s['levels']}-F{s['n_res']}" for s in SHAPES]
+#: the LPs of the bit-for-bit tests: SHAPES, and dense LPs (every column
+#: non-zero) widened from the three-resource shapes, where the order of
+#: the sum over the columns shows: a case for each branch of
+#: ``relax.sum_order`` (F <= 3 in order, 4-8 in halves, V = 4 at 9-12,
+#: V = 8 at 13-15, E = 4 * (F // 4) above 16 with its in-order tail)
+LP_CASES = SHAPES + [dict(SHAPES[k], dense=f)
+                     for k, f in ((2, 4), (3, 5), (3, 8), (2, 9), (3, 12),
+                                  (2, 13), (3, 16), (2, 17), (3, 20),
+                                  (2, 23), (3, 32))]
+LP_IDS = SHAPE_IDS + [f"L{c['levels']}-dense-F{c['dense']}"
+                      for c in LP_CASES[len(SHAPES):]]
+
+
+def _lps(case):
+    """(JAX LP, port LP) of a case, widened alike when it is dense."""
+    case = dict(case)
+    dense = case.pop("dense", None)
+    jp, pp = _problems(**case)
+    jlp, plp = jax_relax.build_lp(jp), relax.build_lp(pp)
+    if dense:
+        jlp = scenarios.dense_relax_lp(jlp, dense, case["seed"])
+        plp = scenarios.dense_relax_lp(plp, dense, case["seed"])
+    return jlp, plp
 
 
 # ---------------------------------------------------------------------------
@@ -145,25 +172,29 @@ def test_build_lp_matches_jax(shape):
 
 
 @pytest.mark.parametrize("iters", [32, 30])
-@pytest.mark.parametrize("shape", SHAPES, ids=SHAPE_IDS)
+@pytest.mark.parametrize("shape", LP_CASES, ids=LP_IDS)
 def test_lp_loop_bit_identical_to_jax(shape, iters):
-    jp, pp = _problems(**shape)
-    want = np.asarray(jax_relax._single_lp(iters)(jax_relax.build_lp(jp)))
-    got = _lp_x(relax.build_lp(pp), iters)
+    jlp, plp = _lps(shape)
+    want = np.asarray(jax_relax._single_lp(iters)(jlp))
+    got = _lp_x(plp, iters)
     assert _same_bits(got, want)
     # the LP is not trivial: every live row moved off its start of 0.5,
     # and a share of them ends strictly inside (0, 1)
-    live = relax.build_lp(pp).live
+    live = plp.live
     assert (got[live] != 0.5).all()
     assert ((got[live] > 0) & (got[live] < 1)).mean() > 0.1
 
 
-@pytest.mark.parametrize("n_res", [1, 3])
+@pytest.mark.parametrize("n_res", [1, 3, 4, 8, 12, 17])
 def test_lp_loop_batched_bit_identical_to_jax_vmap(n_res):
     """Four scenarios (seeds) stacked on a leading axis against the JAX
-    package's ``jit(vmap(lp_loop))``."""
-    lps = [relax.build_lp(_problems(levels=3, n_res=n_res, n_cqs=6,
+    package's ``jit(vmap(lp_loop))``; four columns and more are dense
+    LPs widened from three resources."""
+    lps = [relax.build_lp(_problems(levels=3, n_res=min(n_res, 3), n_cqs=6,
                                     n_wl=100, seed=s)[1]) for s in range(4)]
+    if n_res > 3:
+        lps = [scenarios.dense_relax_lp(lp, n_res, s)
+               for s, lp in enumerate(lps)]
     stacked = relax.RelaxLP(*[np.stack([getattr(lp, f) for lp in lps])
                               for f in relax.RelaxLP._fields])
     want = np.asarray(jax.jit(jax.vmap(functools.partial(
@@ -192,23 +223,131 @@ def test_lp_index_lists_rows_by_cq_and_children_by_parent():
     _, pp = _problems(**SHAPES[1])
     lp = relax.build_lp(pp)
     C = pp.n_cqs
-    rows, row_off, kids, kid_off = (a[0] for a in cuda_relax.lp_index(
-        lp.wl_cqid, lp.parent, lp.cq_node, C))
+    index = cuda_relax.lp_index(lp.wl_cqid, lp.parent, lp.cq_node, C,
+                                live=lp.live)
+    rows, row_off, kids, kid_off, node_cq = (a[0] for a in index[:5])
     for c in range(C):
         got = rows[row_off[c]:row_off[c + 1]]
         assert np.array_equal(got, np.nonzero(lp.wl_cqid == c)[0])
     assert row_off[-1] == int((lp.wl_cqid < C).sum())
+    # every row once, the padding id last
+    assert np.array_equal(np.sort(rows), np.arange(lp.wl_cqid.shape[0]))
+    assert (lp.wl_cqid[rows[row_off[-1]:]] == C).all()
     for n in range(lp.parent.shape[0]):
         assert np.array_equal(kids[kid_off[n]:kid_off[n + 1]],
                               np.nonzero(lp.parent == n)[0])
+    assert np.array_equal(node_cq[lp.cq_node], np.arange(C))
+    assert (np.delete(node_cq, lp.cq_node) == -1).all()
     with pytest.raises(ValueError):
         cuda_relax.lp_index(lp.wl_cqid, lp.parent,
-                            np.zeros_like(lp.cq_node), C)
+                            np.zeros_like(lp.cq_node), C, live=lp.live)
+    live = lp.live.copy()
+    live[-1] = True  # the padding row, which the kernel never prices
+    with pytest.raises(ValueError, match="live row"):
+        cuda_relax.lp_index(lp.wl_cqid, lp.parent, lp.cq_node, C, live=live)
+
+
+def _large_index_inputs(n_rows=65537, n_cqs=1000, seed=7):
+    """The main path's LP shape without a store: ``n_rows`` rows over
+    ``n_cqs`` ClusterQueues of uneven size (the last fifth padding), the
+    ClusterQueues under ten cohorts; ``lp_index``'s arguments."""
+    rng = np.random.default_rng(seed)
+    cqid = rng.integers(0, n_cqs, size=n_rows).astype(np.int32)
+    cqid[-(n_rows // 5):] = n_cqs
+    parent = np.concatenate([np.arange(n_cqs) // (n_cqs // 10) + n_cqs,
+                             np.full(11, -1)]).astype(np.int32)
+    return (cqid, parent, np.arange(n_cqs, dtype=np.int32), n_cqs,
+            cqid < n_cqs)
+
+
+def test_cluster_partition_keeps_whole_cqs_in_row_order_and_balances_rows():
+    """The kernel's cut of a scenario's ClusterQueues into the blocks of
+    its cluster: contiguous ranges that hold every ClusterQueue exactly
+    once, each ClusterQueue's rows in ascending row order inside its
+    block's range, and blocks within one ClusterQueue of an even share
+    of the rows. Other cluster sizes than ``cluster_size`` could pick
+    raise."""
+    cases = []
+    for shape in SHAPES:
+        lp = relax.build_lp(_problems(**shape)[1])
+        cases.append((lp.wl_cqid, lp.parent, lp.cq_node,
+                      lp.cq_node.shape[0], lp.live))
+    cases.append(_large_index_inputs())
+    for cqid, parent, cq_node, C, live in cases:
+        for k in (0, 3, 16, C + 1):
+            with pytest.raises(ValueError, match="cluster"):
+                cuda_relax.lp_index(cqid, parent, cq_node, C, live,
+                                    cluster=k)
+        for k in (1, 2, 4, 8):
+            if k > C:
+                continue
+            index = cuda_relax.lp_index(cqid, parent, cq_node, C, live,
+                                        cluster=k)
+            assert index.cluster == k
+            part, row_off = index.part[0], index.row_off[0]
+            rows = index.rows[0]
+            assert part[0] == 0 and part[-1] == C
+            assert (np.diff(part) >= 1).all()  # every block owns a CQ
+            block_rows = np.diff(row_off[part])
+            assert block_rows.sum() == row_off[-1]
+            assert (block_rows.max()
+                    <= row_off[-1] / k + np.diff(row_off).max())
+            assert index.max_rows == max(1, int(block_rows.max()))
+            assert index.max_cqs == int(np.diff(part).max())
+            for j in range(k):
+                for c in range(part[j], part[j + 1]):
+                    a, z = row_off[c], row_off[c + 1]
+                    assert row_off[part[j]] <= a <= z <= row_off[part[j + 1]]
+                    assert np.array_equal(rows[a:z], np.nonzero(cqid == c)[0])
+
+
+def test_cluster_size_and_layout_follow_the_shape():
+    """Eight blocks for the main path's LPs, one for the relax tier's 32
+    small worlds; the rows in shared memory at one column, r in global
+    memory at eight, everything but the tree past that."""
+    assert cuda_relax.cluster_size(1, 65537, 1000) == 8
+    assert cuda_relax.cluster_size(1, 16385, 30) == 8
+    assert cuda_relax.cluster_size(32, 257, 8) == 1
+    assert cuda_relax.cluster_size(1, 2048, 30) == 1
+    assert cuda_relax.cluster_size(1, 65537, 3) == 2
+    cqid, parent, cq_node, C, live = _large_index_inputs()
+    index = cuda_relax.lp_index(cqid, parent, cq_node, C, live)
+    N1 = parent.shape[0]
+    assert index.cluster == 8
+    assert cuda_relax.layout(index, 1, N1) == (0, 0)
+    assert cuda_relax.layout(index, 8, N1) == (1, 0)
+    assert cuda_relax.block_threads(index, 1, N1) == 1024
+    small = cuda_relax.lp_index(*_large_index_inputs(n_rows=1025, n_cqs=20))
+    # one block of 820 rows: 26 warps
+    assert small.cluster == 1 and small.max_rows == 820
+    assert cuda_relax.block_threads(small, 1, 31) == 832
+    wide = cuda_relax.lp_index(*_large_index_inputs(n_rows=400_000))
+    assert cuda_relax.layout(wide, 1, N1) == (1, 1)
+    with pytest.raises(ValueError, match="tree"):
+        cuda_relax.layout(index, 64, N1)
 
 
 def test_lane_width_and_rho_follow_xla():
-    assert [relax.lane_width(n) for n in (1, 2, 3, 4, 5, 7, 8, 9, 16)] == [
-        1, 2, 2, 4, 4, 4, 8, 8, 8]
+    """``sum_order`` is the (lanes, vectorised prefix) read from XLA:CPU's
+    LLVM IR; ``sum_in_order`` adds in that order: F = 4 is
+    (m0 + m2) + (m1 + m3), F = 17 the eight-lane fold of the first 16,
+    then m16."""
+    assert [relax.sum_order(n) for n in (1, 2, 3, 4, 5, 8, 9, 12, 13, 16,
+                                         17, 20, 23, 24, 28, 32)] == [
+        (1, 1), (2, 2), (4, 3), (4, 4), (8, 5), (8, 8), (4, 9), (4, 12),
+        (8, 13), (8, 16), (8, 16), (4, 20), (4, 20), (8, 24), (4, 28),
+        (8, 32)]
+    rng = np.random.default_rng(0)
+    m = torch.as_tensor(rng.random((64, 17), dtype=np.float32))
+    f32 = np.float32
+    v = m.numpy()
+    want4 = (f32(v[:, 0] + v[:, 2]) + f32(v[:, 1] + v[:, 3]))
+    assert _same_bits(relax.sum_in_order(m[:, :4]).numpy(), want4)
+    lanes = [v[:, j] + v[:, j + 8] for j in range(8)]
+    fold = [lanes[j] + lanes[j + 4] for j in range(4)]
+    fold = [fold[0] + fold[2], fold[1] + fold[3]]
+    want17 = (fold[0] + fold[1]) + v[:, 16]
+    assert _same_bits(relax.sum_in_order(m).numpy(), want17)
     assert relax.rho_step(32) == np.float32(0.09375)
     # 3 * (1 / 30) in float32 is not float32(3 / 30)
     assert relax.rho_step(30) != np.float32(0.1)
