@@ -190,9 +190,11 @@ Phases, in order; any failure propagates (nonzero exit, no result line):
    time-to-admission per class) and the committed-store digest with
    the QuotaReserved times must equal the JAX package's, and
    ``check(stats, BASELINE_SPEC)`` must report no violation; (b) the
-   same with ``solver="auto"`` on the card, both routing cost EMAs reset
-   before every routing decision (the wall-clock gate would route
-   differently on every machine): the JAX ``solver="auto"`` record and
+   same at half its depth (7,500 workloads: cut for the script's
+   time) with ``solver="auto"`` on the card, both routing cost
+   EMAs reset before every routing decision (the wall-clock gate would
+   route differently on every machine): the JAX ``solver="auto"`` record
+   and
    device drain count, every drain re-checked by the native oracle with
    no plan fallback and no UnsupportedProblem or SolverUnavailable
    fallback; (c) ``drain_benchmark`` on Kueue's large-scale config
@@ -242,16 +244,41 @@ Phases, in order; any failure propagates (nonzero exit, no result line):
    scenarios (cut from 128 for the phase's time): every scenario's plan
    equals the JAX package's, one relax_lp launch for all 32. The relax
    pins are the JAX package's under tests/conftest.py's XLA flags
-   (tests/torch_relax_pins.py).
+   (tests/torch_relax_pins.py). (a) also holds a dense LP of 40
+   columns (above 32, where XLA sums the columns as a reduce-window
+   of 32 and a reduce).
+19. the FULL what-if sweep (the port's ``sim`` FULL path): (a)
+   bench.py's fullsweep shape (bench.py:1552-1603: ``philly_trace(256,
+   seed=11)``, capacity 0.25 of the demand, the earliest 40% admitted,
+   the 6 x 7 quota x arrival grid cycled to 64 worlds, ``sweep_order``,
+   ``full_caps``) through ``solve_scenarios_full`` in one dispatch and
+   at a chunk width of 8: both equal the sequential FULL oracle on the
+   card on all eight output fields for the first world of every width-8
+   chunk, and the JAX package's record of all 64 (plan digest, rounds,
+   admissions, preemptions); (b) ``solve_scenarios_tiered`` on (a)'s
+   problem with ``LaneBudget(max_full_scenarios=32)``: rows 32-63
+   re-tiered to the relax tier (``sweep_above_full_cap``), the FULL rows
+   (a)'s, one relax_lp launch; and with a budget below one world: every
+   row relax, one more launch; both the JAX records; (c)
+   ``WhatIfEngine(store, config=SimulatorConfig(full_kernel=True),
+   resident=True)`` on Kueue's baseline backlog at its full depth (15,000
+   pending workloads, 5 x 6 ClusterQueues) over the first 4 worlds of
+   phase 17 (b)'s grid (the base quota at arrival 1, 0.25, 0.5 and 0.75;
+   at this depth a world with another quota ping-pongs towards the
+   2 W1 + C + 5 round bound) with parity on 2, then 75 pending workloads
+   (0.5%) removed and the 4 worlds again (a scatter sync), then again
+   (a reuse): every report's canonical JSON, rounds, admissions,
+   preemptions and tiers the JAX engine's, parity identical. Walls, rounds, host reads, chunk widths and the resident
+   session's counters are printed. Pins: tests/torch_fullsweep_pins.py.
 
 Phases 6-9 pin the JAX engine's plans without delta sessions, so they
 run the port's engine with ``use_sessions = False``; phases 10-15 pin
 them with sessions on. The relaxed arm's router decides by wall clock,
 so phases 5 and 10-16 pin it off (``relax_off``) on both sides, and
 relax_lp must not have launched before phase 18. Phases 8-11, 13 and
-15-18 run no TAS flavor: the TAS kernels' launch counts are set to 0
+15-19 run no TAS flavor: the TAS kernels' launch counts are set to 0
 before each drain (or each ``run_until_quiet``, each fleet of phase 15,
-or each run of phases 16-18) and must still be 0 after it.
+or each run of phases 16-19) and must still be 0 after it.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 is the JSON kernel report.
@@ -546,20 +573,25 @@ STREAMING_RUNS = {"single": (128, 200, ("micro", "host", "batch")),
 #: the JAX package's records of phases 16-17 (``JAX_PLATFORMS=cpu python
 #: tests/torch_sim_pins.py``): its Simulator host-only and with
 #: solver="auto" over a mesh_mode="off" engine, both cost EMAs reset
-#: before every routing decision; drain_benchmark's plan; the vmapped
-#: batch of bench.py's whatif shape; the WhatIfEngine report
-_SIM_TTA = {"large": 0.0, "medium": 26148.474576271186,
-            "small": 55434.28571428572}
-_SIM_DIGEST = ("d936867412ec4e7d89395d8625abfa13"
-               "90e453a84bfca3fc4fd197de47c0de90")
+#: before every routing decision (auto at PERF_AUTO_SCALE of the depth);
+#: drain_benchmark's plan; the vmapped batch of bench.py's whatif shape;
+#: the WhatIfEngine report
 SIM_REFERENCE = {
     "host": {"admitted": 15000, "finished": 15000, "preemptions": 5850,
              "cycles": 1490, "sim_wall_ms": 75900,
-             "tta_ms_by_class": _SIM_TTA, "digest": _SIM_DIGEST},
-    "auto": {"admitted": 15000, "finished": 15000, "preemptions": 5850,
-             "cycles": 855, "sim_wall_ms": 75900,
-             "tta_ms_by_class": _SIM_TTA, "digest": _SIM_DIGEST,
-             "drains": 71, "unsupported": 0, "drain_admitted": 16230},
+             "tta_ms_by_class": {"large": 0.0,
+                                 "medium": 26148.474576271186,
+                                 "small": 55434.28571428572},
+             "digest": ("d936867412ec4e7d89395d8625abfa13"
+                        "90e453a84bfca3fc4fd197de47c0de90")},
+    "auto": {"admitted": 7500, "finished": 7500, "preemptions": 2850,
+             "cycles": 421, "sim_wall_ms": 37800,
+             "tta_ms_by_class": {"large": 0.0,
+                                 "medium": 13188.275862068966,
+                                 "small": 27060.0},
+             "digest": ("d3953aef3a5aac1711ff552cadff2040"
+                        "4f3535fdab6c01d90755e3d687adedee"),
+             "drains": 45, "unsupported": 0, "drain_admitted": 8370},
 }
 DRAIN_LARGE_REFERENCE = {
     "workloads": 50000, "cluster_queues": 1000, "admitted": 1000,
@@ -615,6 +647,9 @@ BENCH_QUOTA = (0.25, 0.5, 0.75, 1.25, 1.5, 2.0, 3.0)
 BENCH_ARRIVAL = (0.5, 0.75, 1.25, 1.5, 2.0, 2.5, 3.0)
 WHATIF_QUOTA = (0.25, 0.5, 0.75, 1.25, 1.5, 2.0, 3.0)
 WHATIF_ARRIVAL = (0.25, 0.5, 0.75)
+#: phase 16 (b)'s depth: the baseline's per-class counts times this
+#: (7,500 workloads; cut from 15,000 for the script's time)
+PERF_AUTO_SCALE = 0.5
 #: H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, non-tensor fp32 ops/s
 HBM_BYTES_PER_S = 3.35e12
 SCALAR_OPS_PER_S = 67e12
@@ -2546,8 +2581,12 @@ def perf_runner(smi: str) -> tuple:
           f"); BASELINE_SPEC holds; wall {stats.real_seconds:.3f} s "
           f"({smi})")
 
-    # (b) solver="auto" on the card, the cost gates pinned
-    store, schedule = generate(GeneratorConfig.baseline())
+    # (b) solver="auto" on the card, the cost gates pinned, at
+    # PERF_AUTO_SCALE of the baseline's depth (cut for the script's time)
+    cfg = GeneratorConfig.baseline()
+    for wc in cfg.classes:
+        wc.count = max(1, round(wc.count * PERF_AUTO_SCALE))
+    store, schedule = generate(cfg)
     sim = Simulator(store, schedule, solver="auto")
     sched = sim.scheduler
     pin_cost_gates(sched)
@@ -3000,9 +3039,10 @@ def relax_phase(smi: str, large_store, large_exact) -> tuple:
 
     # (a) the kernel against its plain version: the main path's LPs (the
     # two largest also at the other cluster sizes), dense LPs of
-    # four and eight columns made from them (the sum over the columns in
-    # XLA's order; at eight, r in global memory), and the largest
-    # backlog four times over (every row array in global memory)
+    # four, eight and forty columns made from them (the sum over the
+    # columns in XLA's order: above 32 its reduce-window of 32; at eight
+    # and forty, r in global memory), and the largest backlog four times
+    # over (every row array in global memory)
     large_lp, base_lp = relax.build_lp(padded), relax.build_lp(base)
     kernel = check_relax_lp(device, [
         ("drain_large_scale", large_lp, 32, True, (1, 2, 4)),
@@ -3012,6 +3052,8 @@ def relax_phase(smi: str, large_store, large_exact) -> tuple:
          scenarios.dense_relax_lp(base_lp, 4, 4), 32, True, ()),
         ("drain_large_scale dense F=8",
          scenarios.dense_relax_lp(large_lp, 8, 8), 32, True, ()),
+        ("whatif_baseline dense F=40",
+         scenarios.dense_relax_lp(base_lp, 40, 40), 32, True, ()),
         ("drain_large_scale x4", _repeated_lp(large_lp, 4), 32, False,
          ())])
 
@@ -3120,6 +3162,398 @@ def relax_phase(smi: str, large_store, large_exact) -> tuple:
         str(k): v for k, v in sorted(cuda_relax.relax_lp.clusters.items())}
     kernel["launches_by_layout"] = dict(cuda_relax.relax_lp.layouts)
     return out, kernel, launches
+
+
+#: the JAX package's records of phase 19 (``JAX_PLATFORMS=cpu python
+#: tests/torch_fullsweep_pins.py``)
+FULLSWEEP_REFERENCE = {
+    "fullsweep": {
+        "plan_digest": ("0da5fcc552275f5582c39cdc96b81a63"
+            "0d8bdf38e41be98c9e96cb660b6a916c"),
+        "tier": ["full"] * 64,
+        "rounds": [
+            15, 7, 12, 15, 15, 15, 15, 15, 15, 7, 12, 15, 15, 15, 15, 15,
+            15, 7, 12, 15, 15, 15, 15, 15, 15, 7, 12, 15, 15, 15, 15, 15,
+            15, 7, 12, 15, 15, 15, 15, 15, 65, 62, 72, 65, 65, 65, 65, 65,
+            54, 15, 50, 54, 54, 54, 54, 54, 15, 7, 12, 15, 15, 15, 15, 15
+        ],
+        "admitted": [
+            102, 102, 102, 102, 102, 102, 102, 102, 102, 102, 102, 102, 102,
+            102, 102, 102, 102, 102, 102, 102, 102, 102, 102, 102, 102, 102,
+            102, 102, 102, 102, 102, 102, 102, 102, 102, 102, 102, 102, 102,
+            102, 109, 86, 105, 109, 109, 109, 109, 109, 125, 108, 118, 125,
+            125, 125, 125, 125, 102, 102, 102, 102, 102, 102, 102, 102
+        ],
+        "preemptions": [
+            0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+            0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 60, 61,
+            65, 60, 60, 60, 60, 60, 52, 14, 39, 52, 52, 52, 52, 52, 0, 0, 0,
+            0, 0, 0, 0, 0
+        ],
+    },
+    "tiered": {
+        "retier_idx": [
+            32, 33, 34, 35, 36, 37, 38, 39, 40, 41, 42, 43, 44, 45, 46, 47,
+            48, 49, 50, 51, 52, 53, 54, 55, 56, 57, 58, 59, 60, 61, 62, 63
+        ],
+        "retier_reason": "sweep_above_full_cap",
+        "plan_digest": ("0b3ba02339639c46e89d28a966738934"
+            "9156f41426a082ecfd76ff056a168539"),
+        "tier": ["full"] * 32 + ["relax"] * 32,
+        "rounds": [
+            15, 7, 12, 15, 15, 15, 15, 15, 15, 7, 12, 15, 15, 15, 15, 15,
+            15, 7, 12, 15, 15, 15, 15, 15, 15, 7, 12, 15, 15, 15, 15, 15, 5,
+            5, 5, 5, 5, 5, 5, 5, 5, 5, 5, 5, 5, 5, 5, 5, 5, 6, 5, 5, 5, 5,
+            5, 5, 5, 5, 5, 5, 5, 5, 5, 5
+        ],
+        "admitted": [
+            102, 102, 102, 102, 102, 102, 102, 102, 102, 102, 102, 102, 102,
+            102, 102, 102, 102, 102, 102, 102, 102, 102, 102, 102, 102, 102,
+            102, 102, 102, 102, 102, 102, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+            0, 0, 0, 0, 0, 10, 9, 8, 10, 10, 10, 10, 10, 0, 0, 0, 0, 0, 0,
+            0, 0
+        ],
+        "preemptions": [0] * 64,
+    },
+    "all_relax": {
+        "plan_digest": ("f06acbde9f5ee77da12c377dbd83a1ee"
+            "72984a06625eeef83a046c31e666b059"),
+        "tier": ["relax"] * 64,
+        "rounds": [5] * 49 + [6] * 1 + [5] * 14,
+        "admitted": [
+            0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+            0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+            0, 0, 0, 0, 0, 0, 10, 9, 8, 10, 10, 10, 10, 10, 0, 0, 0, 0, 0,
+            0, 0, 0
+        ],
+        "preemptions": [0] * 64,
+    },
+    "engine": {
+        "syncs": ["full", "scatter", "reuse"],
+        "runs": [
+            {
+                "canonical_sha256": ("da06eab2879d0c5b8b979bde6791720b"
+                    "6b2c42a565eb4d120e31c791f331c5d4"),
+                "rounds": [5] * 4, "admitted": [30] * 4,
+                "preemptions": [0] * 4, "tier": ["full"] * 4,
+                "parity": {"checked": 2, "identical": True,
+                           "mismatches": []},
+            },
+            {
+                "canonical_sha256": ("38367171f0f3715f6579fb1038487222"
+                    "b5d66a3e393dd25aadd2512f98779cf5"),
+                "rounds": [5] * 4, "admitted": [30] * 4,
+                "preemptions": [0] * 4, "tier": ["full"] * 4,
+                "parity": {"checked": 0, "identical": True,
+                           "mismatches": []},
+            },
+            {
+                "canonical_sha256": ("38367171f0f3715f6579fb1038487222"
+                    "b5d66a3e393dd25aadd2512f98779cf5"),
+                "rounds": [5] * 4, "admitted": [30] * 4,
+                "preemptions": [0] * 4, "tier": ["full"] * 4,
+                "parity": {"checked": 0, "identical": True,
+                           "mismatches": []},
+            },
+        ],
+    },
+}
+#: phase 19's worlds (tests/torch_fullsweep_pins.py): bench.py's
+#: fullsweep grid cycled to 64, its trace length and forced chunk width,
+#: the engine's share of removed workloads and its worlds (the first of
+#: 17 (b)'s grid)
+FULLSWEEP_QUOTA = (0.25, 0.4, 0.5, 0.75, 1.5, 2.0)
+FULLSWEEP_ARRIVAL = (0.5, 0.75, 1.25, 1.5, 2.0, 2.5, 3.0)
+FULLSWEEP_S = 64
+FULLSWEEP_JOBS = 256
+FULLSWEEP_CHUNK = 8
+ENGINE_REMOVED = 0.005
+ENGINE_WORLDS = 4
+FULL_FIELDS = ("admitted", "opt", "admit_round", "parked", "rounds",
+               "usage", "wl_usage", "victim_reason")
+
+
+def _admit(store, wl, cq: str, flavors: dict, now: float) -> None:
+    """Admit ``wl`` into ``cq``, each podset under ``flavors``."""
+    from kueue_oss_tpu_torch.api import types
+
+    wl.status.admission = types.Admission(
+        cluster_queue=cq,
+        podset_assignments=[types.PodSetAssignment(
+            name=ps.name,
+            flavors={r: f for r, f in flavors.items() if r in ps.requests},
+            resource_usage={r: q * ps.count
+                            for r, q in ps.requests.items()},
+            count=1) for ps in wl.podsets])
+    wl.set_condition(types.WorkloadConditionType.QUOTA_RESERVED, True,
+                     reason="QuotaReserved", now=now)
+    store.update_workload(wl)
+
+
+def fullsweep_problem(n_jobs: int = FULLSWEEP_JOBS):
+    """bench.py's fullsweep shape: ``philly_trace(n_jobs, seed=11)`` as a
+    contended store (capacity 0.25 of the demand), its earliest 40%
+    admitted, exported with the admitted rows and padded; its 64 worlds
+    and their skew-aware order. Returns (problem, real workloads, specs,
+    overlays, order)."""
+    from kueue_oss_tpu_torch import sim
+    from kueue_oss_tpu_torch.solver import tensors
+
+    jobs = sim.philly_trace(n_jobs, seed=11)
+    store = sim.store_from_trace(jobs, capacity_frac=0.25)
+    for j in sorted(jobs, key=lambda j: j.submit_s)[:int(n_jobs * 0.4)]:
+        _admit(store, store.workloads[f"default/{j.job_id}"], j.vc,
+               {"gpu": "gpu"}, j.submit_s)
+    problem = tensors.export_problem(
+        store, sim.pending_backlog(store),
+        cache=tensors.ExportCache(store, subscribe=False),
+        include_admitted=True)
+    W = problem.n_workloads
+    problem = tensors.pad_workloads(problem, tensors.pow2(W))
+    grid = sim.cross(sim.quota_sweep(FULLSWEEP_QUOTA),
+                     sim.arrival_sweep(FULLSWEEP_ARRIVAL))
+    specs = (grid * (FULLSWEEP_S // len(grid) + 1))[:FULLSWEEP_S]
+    return (problem, W, specs, [s.overlay(problem) for s in specs],
+            sim.sweep_order(specs))
+
+
+def _sweep_record(res, n_real: int) -> dict:
+    return {"plan_digest": plan_digest([getattr(res, f)
+                                        for f in FULL_FIELDS]),
+            "tier": list(res.tier),
+            "rounds": [int(r) for r in res.rounds],
+            "admitted": [int(a[:n_real].sum()) for a in res.admitted],
+            "preemptions": [res.preemptions(i, n_real)
+                            for i in range(len(res.tier))]}
+
+
+def _engine_removed(store, share: float = ENGINE_REMOVED) -> list:
+    """The keys of the pending workloads removed between runs 1 and 2:
+    ``share`` of them (at least one), every (total // n)-th by key, each
+    leaving another pending workload of its queue, priority and requests
+    behind (its scheduling-equivalence class stays, so the export keeps
+    its shapes and the resident session syncs by scatter)."""
+    pending = sorted(k for k, w in store.workloads.items()
+                     if w.status.admission is None)
+    n = max(1, round(len(pending) * share))
+
+    def kind(w):
+        return (w.queue_name, w.priority,
+                tuple((ps.count, tuple(sorted(ps.requests.items())))
+                      for ps in w.podsets))
+
+    left = collections.Counter(kind(store.workloads[k]) for k in pending)
+    out = []
+    for k in pending[::max(1, len(pending) // n)] + pending:
+        c = kind(store.workloads[k])
+        if len(out) < n and k not in out and left[c] > 1:
+            left[c] -= 1
+            out.append(k)
+    return out
+
+
+def _engine_record(report) -> dict:
+    import hashlib
+
+    return {"canonical_sha256": hashlib.sha256(
+                report.canonical_json().encode()).hexdigest(),
+            "rounds": [s["rounds"] for s in report.scenarios],
+            "admitted": [s["admitted"] for s in report.scenarios],
+            "preemptions": [s["preemptions"] for s in report.scenarios],
+            "tier": [s["tier"] for s in report.scenarios],
+            "parity": report.parity}
+
+
+def _check(name: str, got, want) -> None:
+    if got != want:
+        raise AssertionError(f"{name}: {got}; expected {want}")
+
+
+def fullsweep_phase(smi: str, device: str = "cuda") -> tuple:
+    """Phase 19: the FULL what-if sweep. (a) bench.py's fullsweep shape
+    in one dispatch and at a chunk width of 8, each against the
+    sequential FULL oracle on the first scenario of every width-8 chunk
+    and the JAX pins; (b) the tiered sweep on (a)'s problem (rows 32-63
+    re-tiered by the FULL cap, and every row by a budget below one
+    scenario); (c) ``WhatIfEngine(resident=True).run(full=True)`` on the
+    baseline backlog through its full, scatter and reuse syncs. Returns
+    (report, TAS kernel launches, relax_lp launches). ``device`` other
+    than the card is for rehearsals."""
+    import torch
+
+    from kueue_oss_tpu_torch import sim
+    from kueue_oss_tpu_torch.config import SimulatorConfig
+    from kueue_oss_tpu_torch.perf import generate, generator
+    from kueue_oss_tpu_torch.solver import cuda_relax
+    from kueue_oss_tpu_torch.solver.full_kernels import to_device_full
+
+    ref = FULLSWEEP_REFERENCE
+    device = torch.device(device)
+    on_card = device.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    out = {}
+    launches = relax_launches = 0
+
+    # (a) 64 worlds of bench.py's fullsweep shape
+    problem, W, specs, overlays, order = fullsweep_problem()
+    caps = sim.full_caps(problem)
+    t_full = to_device_full(problem, device)
+    _reset_launches()
+    cuda_relax.relax_lp.launches = 0
+    _settle()
+    runs = {}
+    for chunk in (0, FULLSWEEP_CHUNK):
+        res = sim.solve_scenarios_full(problem, overlays, *caps,
+                                       tensors=t_full, chunk=chunk,
+                                       order=order)
+        _check(f"fullsweep chunk={chunk}", _sweep_record(res, W),
+               ref["fullsweep"])
+        runs[chunk] = res
+    first = [order[k] for k in range(0, FULLSWEEP_S, FULLSWEEP_CHUNK)]
+    seq = sim.solve_scenarios_sequential_full(
+        problem, [overlays[i] for i in first], *caps, tensors=t_full)
+    sync()
+    launches += _launches()
+    relax_launches += cuda_relax.relax_lp.launches
+    for chunk, res in runs.items():
+        pr = sim.check_parity_full(res, seq, first)
+        if not pr.identical:
+            raise AssertionError(f"fullsweep chunk={chunk}: differs from "
+                                 f"the sequential oracle "
+                                 f"{pr.mismatches[:4]}")
+    rec = _sweep_record(runs[0], W)
+    out["fullsweep"] = {
+        "workloads": W, "padded": problem.n_workloads, "caps": list(caps),
+        "scenarios": len(overlays),
+        "max_rounds": max(rec["rounds"]), "rounds_sum": sum(rec["rounds"]),
+        "preemptions": sum(rec["preemptions"]),
+        **{f"chunk{c}": {"wall_s": r.solve_seconds,
+                         "host_reads": r.host_reads,
+                         "chunks": r.chunk_stats}
+           for c, r in runs.items()},
+        "sequential": {"scenarios": len(first),
+                       "wall_s": seq.solve_seconds,
+                       "s_per_scenario": seq.solve_seconds / len(first),
+                       "host_reads": seq.host_reads}}
+    print(f"[fullsweep] (a) {len(overlays)} worlds x {W} workloads "
+          f"(padded {problem.n_workloads}) caps {caps}: one dispatch "
+          f"{runs[0].solve_seconds:.3f} s ({runs[0].host_reads} host "
+          f"reads), chunks of {FULLSWEEP_CHUNK} "
+          f"{runs[FULLSWEEP_CHUNK].solve_seconds:.3f} s "
+          f"({runs[FULLSWEEP_CHUNK].host_reads} host reads); rounds max "
+          f"{max(rec['rounds'])} sum {sum(rec['rounds'])}, "
+          f"{sum(rec['preemptions'])} preemptions; both equal the "
+          f"sequential oracle on {len(first)} worlds "
+          f"({seq.solve_seconds / len(first):.3f} s a world) and the JAX "
+          f"plan digest {rec['plan_digest'][:16]} ({smi})")
+
+    # (b) the tiers on (a)'s problem
+    _reset_launches()
+    cuda_relax.relax_lp.launches = 0
+    _settle()
+    tiered = sim.solve_scenarios_tiered(
+        problem, overlays, budget=sim.LaneBudget(max_full_scenarios=32),
+        caps=caps, tensors=t_full, order=order)
+    tier_launches = cuda_relax.relax_lp.launches
+    if (tiered.retier_idx != list(range(32, FULLSWEEP_S))
+            or tiered.retier_reason != "sweep_above_full_cap"
+            or tiered.tier != ["full"] * 32 + ["relax"] * 32
+            or tier_launches != on_card):
+        raise AssertionError(f"tiers: retier {tiered.retier_reason} "
+                             f"{tiered.retier_idx}, tiers {tiered.tier}, "
+                             f"{tier_launches} relax_lp launches")
+    for name in FULL_FIELDS:
+        a = getattr(tiered, name)[:32]
+        if not (a == getattr(runs[0], name)[:32]).all():
+            raise AssertionError(f"tiers: FULL row {name} differs from (a)")
+    _check("tiered", {"retier_idx": list(tiered.retier_idx),
+                      "retier_reason": tiered.retier_reason,
+                      **_sweep_record(tiered, W)}, ref["tiered"])
+    small = sim.solve_scenarios_tiered(
+        problem, overlays, budget=sim.LaneBudget(budget_bytes=1),
+        caps=caps, tensors=t_full, order=order)
+    sync()
+    tier_launches = cuda_relax.relax_lp.launches
+    launches += _launches()
+    relax_launches += tier_launches
+    if (small.tier != ["relax"] * FULLSWEEP_S
+            or tier_launches != 2 * on_card
+            or small.retier_reason != "scenario_exceeds_lane_budget"):
+        raise AssertionError(f"tiers: a budget below one world gave "
+                             f"{small.retier_reason}, {small.tier}, "
+                             f"{tier_launches} relax_lp launches")
+    _check("all relax", _sweep_record(small, W), ref["all_relax"])
+    out["tiers"] = {"cap32_s": tiered.solve_seconds,
+                    "all_relax_s": small.solve_seconds,
+                    "relax_lp_launches": tier_launches}
+    print(f"[fullsweep] (b) LaneBudget(max_full_scenarios=32): rows "
+          f"32-63 re-tiered (sweep_above_full_cap), the FULL rows (a)'s; "
+          f"{tiered.solve_seconds:.3f} s; a budget below one world: all "
+          f"64 rows relax, {small.solve_seconds:.3f} s; the JAX plans; "
+          f"{tier_launches} relax_lp launches ({smi})")
+
+    # (c) the resident engine on the baseline backlog, 15,000 pending
+    store, schedule = generate(generator.GeneratorConfig.baseline())
+    for i, g in enumerate(schedule):
+        # uids 1, 2, ... as the pins' fresh process draws them (the
+        # generator's counter is the process's; the uid breaks ties)
+        g.workload.uid = i + 1
+        store.add_workload(g.workload)
+    specs = sim.cross(sim.quota_sweep(WHATIF_QUOTA),
+                      sim.arrival_sweep(WHATIF_ARRIVAL))[:ENGINE_WORLDS]
+    engine = sim.WhatIfEngine(store, config=SimulatorConfig(
+        full_kernel=True), resident=True, device=device)
+    _reset_launches()
+    cuda_relax.relax_lp.launches = 0
+    _settle()
+    reports, syncs, walls, stats = [], [], [], []
+    removed = []
+    for k, par in enumerate((2, 0, 0)):
+        if k == 1:
+            removed = _engine_removed(store)
+            for key in removed:
+                store.delete_workload(key)
+        t0 = time.monotonic()
+        reports.append(engine.run(specs, parity=par))
+        sync()
+        walls.append(time.monotonic() - t0)
+        syncs.append(engine.resident.last_sync)
+        stats.append(engine.resident.stats())
+    launches += _launches()
+    relax_launches += cuda_relax.relax_lp.launches
+    recs = [_engine_record(r) for r in reports]
+    if (syncs != ["full", "scatter", "reuse"]
+            or len(removed) != round(len(schedule) * ENGINE_REMOVED)
+            or not all(r["parity"]["identical"] for r in recs)):
+        raise AssertionError(f"engine: syncs {syncs}, {len(removed)} "
+                             f"removed, parity "
+                             f"{[r['parity'] for r in recs]}")
+    _check("engine", {"syncs": syncs, "runs": recs}, ref["engine"])
+    rep = reports[0]
+    out["engine"] = {
+        "workloads": rep.base["workloads"],
+        "padded": rep.base["padded_workloads"],
+        "full_caps": rep.base["full_caps"], "walls_s": walls,
+        "removed": len(removed), "syncs": syncs, "resident": stats,
+        "runs": [{k: r.timing[k] for k in (
+            "solve_seconds", "parity_seconds", "full_chunks",
+            "batch_dispatches", "host_reads")} for r in reports],
+        "max_rounds": max(recs[0]["rounds"]),
+        "preemptions": sum(recs[0]["preemptions"])}
+    print(f"[fullsweep] (c) WhatIfEngine(resident=True) on the baseline "
+          f"backlog ({rep.base['workloads']} workloads, padded "
+          f"{rep.base['padded_workloads']}, caps "
+          f"{json.dumps(rep.base['full_caps'])}): {len(specs)} worlds in "
+          f"chunks {rep.timing['full_chunks']}, rounds max "
+          f"{max(recs[0]['rounds'])}, {sum(recs[0]['preemptions'])} "
+          f"preemptions, parity identical on 2; {len(removed)} removed; "
+          f"syncs {syncs}; walls "
+          f"{json.dumps([round(w, 3) for w in walls])} s; the JAX reports "
+          f"({recs[0]['canonical_sha256'][:16]}) ({smi})")
+    if launches:
+        raise AssertionError(f"fullsweep: {launches} TAS kernel launches; "
+                             f"expected 0")
+    return out, launches, relax_launches
 
 
 def main() -> int:
@@ -3256,6 +3690,13 @@ def main() -> int:
     relaxed, relax_report, relax_launches = relax_phase(
         smi, large_store, large_plan)
     reports.append(relax_report)
+
+    # 19. the FULL what-if sweep: the scenario-batched preemption drain,
+    # lane-budgeted chunks with the relax tier, resident sweep state
+    fullsweep, fullsweep_launches, fullsweep_relax = fullsweep_phase(
+        smi)
+    relax_report["launches"] += fullsweep_relax
+    relax_report["launches_by_path"]["fullsweep"] = fullsweep_relax
     # the fill's own path: phase 14's host placement with the fill gate
     # on; every other path launched no TAS kernel but its placer
     reports[2]["launches"] = host_fill
@@ -3276,7 +3717,8 @@ def main() -> int:
                                       "streaming": stream_launches,
                                       "perf_runner": perf_launches,
                                       "whatif": whatif_launches,
-                                      "relax": relax_launches}
+                                      "relax": relax_launches,
+                                      "fullsweep": fullsweep_launches}
     reports[0]["launches_by_path"] = {"tas_lean": leaf_launches,
                                       "tas_full": 0, "storm_full": 0,
                                       "fair_storm": fair_launches,
@@ -3291,7 +3733,8 @@ def main() -> int:
                                       "streaming": stream_launches,
                                       "perf_runner": perf_launches,
                                       "whatif": whatif_launches,
-                                      "relax": relax_launches}
+                                      "relax": relax_launches,
+                                      "fullsweep": fullsweep_launches}
     # leaf_states is on no main path since fill_counts took the fill
     # (its launches on every path are 0, checked above)
     reports[0]["launches"] = sum(reports[0]["launches_by_path"].values())
@@ -3313,7 +3756,8 @@ def main() -> int:
                                       "streaming": stream_launches,
                                       "perf_runner": perf_launches,
                                       "whatif": whatif_launches,
-                                      "relax": relax_launches}
+                                      "relax": relax_launches,
+                                      "fullsweep": fullsweep_launches}
 
     timings = {"setup_s": setup_s, "drain_s": drain_s,
                **{f"{k}_s": v for k, v in result.phases.items()},
@@ -3325,7 +3769,8 @@ def main() -> int:
                "scheduler_refused": sched_refused,
                "scheduler_tas_host": sched_host,
                "streaming": stream_fleets, "streaming_serve": stream_serve,
-               "perf_runner": perf, "whatif": whatif, "relax": relaxed}
+               "perf_runner": perf, "whatif": whatif, "relax": relaxed,
+               "fullsweep": fullsweep}
     print("[timings] " + json.dumps(timings))
     print(smi)
     print(json.dumps({"kernels": reports}))

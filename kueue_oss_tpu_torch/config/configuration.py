@@ -113,9 +113,7 @@ class SimulatorConfig:
     """What-if engine knobs (kueue_oss_tpu_torch/sim/).
 
     No reference analog — the reference Kueue has no counterfactual
-    simulator; these bound the batched scenario sweeps. Only the lean
-    sweep's fields are copied: the FULL sweep's lane budget, sweep cap
-    and relax iterations wait for ROADMAP Queue A item 7b.
+    simulator; these bound the batched scenario sweeps.
     """
 
     #: hard cap on scenarios per batch (one batched dispatch solves
@@ -136,16 +134,21 @@ class SimulatorConfig:
     round_bucketing: bool = True
     #: sweeps below this width dispatch as one batch regardless
     min_batch_for_bucketing: int = 8
-    #: route sweeps through the FULL preemption kernel (ROADMAP Queue A
-    #: item 7b); only False runs here
+    #: route sweeps through the FULL preemption drain by default
+    #: (lane-budgeted chunks; per-run override via run(full=...)) —
+    #: preemption-aware planning at a higher device cost
     full_kernel: bool = False
+    #: device-byte budget the LaneBudget planner sizes FULL-sweep
+    #: scenario chunks from (S x h_max x K x W lane accounting)
+    lane_budget_mb: int = 256
+    #: scenarios per sweep solved exactly on the FULL drain; overflow
+    #: rows re-tier to the relax LP (reported per row, never silent)
+    full_sweep_max: int = 256
+    #: fixed LP iterations for the relax approximate tier
+    relax_iters: int = 32
 
     def __post_init__(self) -> None:
         if str(self.mesh or "off") != "off":
             raise NotImplementedError(
                 "SimulatorConfig.mesh: the scenario-axis mesh is ROADMAP "
                 "Queue A item 9")
-        if self.full_kernel:
-            raise NotImplementedError(
-                "SimulatorConfig.full_kernel: the FULL what-if sweep is "
-                "ROADMAP Queue A item 7b")

@@ -19,9 +19,11 @@
 //   over[n,f]  = clamp((u - slack) / scale, 0, 1)
 //   price[c,f] = sum over the CQ's ancestor path k = 0 .. D-1 of over
 //   pull[w]    = sum over f of (r[w,f] / max(max_f r[w,:], 1)) * price[c(w),f]
-//                in XLA:CPU's order (relax.sum_order: V lanes, lane j adds
-//                f = j, j + V, ... below E, lanes folded by halves, then
-//                f = E .. F-1 in order)
+//                in XLA:CPU's order (relax.sum_order: for F <= 32, V lanes,
+//                lane j adds f = j, j + V, ... below E, lanes folded by
+//                halves, then f = E .. F-1 in order; above 32, windows of
+//                32 over F padded with P in front, each summed in order,
+//                then the windows in order)
 //   rho        = i * rho_c + 1, rho_c = 3 * (1 / iters) in float32 (XLA's
 //                folding of RHO0 * (1 + RHO_GROWTH * i / iters))
 //   x[w]       = live ? clamp(x + 0.5 * (0.05 * s - rho * pull), 0, 1) : 0
@@ -80,11 +82,13 @@ namespace {
 constexpr int kMaxThreads = 1024;
 constexpr int kMaxLanes = 8;
 constexpr int kMaxCluster = 8;
+constexpr int kWindow = 32;  // relax.WINDOW
+constexpr int kMaxColumns = 128;  // relax.MAX_SUM_COLUMNS
 
 struct Params {
   int K, W1, F, C, N1, D, iters;
   float rho_c;
-  int lanes, lane_end;     // relax.sum_order(F)
+  int lanes, lane_end;     // relax.sum_order(F): (V, E), or (0, P)
   int max_rows, max_cqs;   // the largest block's rows and CQs
   int r_global, x_global;  // where the row arrays live
   long long scratch_words;  // per block, in `scratch`
@@ -127,6 +131,19 @@ __device__ __forceinline__ void copy_word(float* dst, const float* src,
 // sum over f of rn[f] * pr[f] in relax.sum_order's order
 __device__ __forceinline__ float pull_sum(const float* rn, const float* pr,
                                           int F, int lanes, int lane_end) {
+  if (lanes == 0) {
+    // F > 32: XLA's reduce-window of 32 (lane_end = the front padding P),
+    // each window in order from +0, then the windows in order from +0
+    float acc = 0.0f;
+    for (int lo = -lane_end; lo < F; lo += kWindow) {
+      float w = 0.0f;
+      const int z = min(lo + kWindow, F);
+      for (int f = max(lo, 0); f < z; ++f)
+        w = __fadd_rn(w, __fmul_rn(rn[f], pr[f]));
+      acc = __fadd_rn(acc, w);
+    }
+    return acc;
+  }
   float lane[kMaxLanes];
 #pragma unroll
   for (int j = 0; j < kMaxLanes; ++j) {
@@ -341,7 +358,9 @@ extern "C" int kueue_relax_lp(
     void* stream) {
   if (S <= 0 || W1 <= 0) return 0;
   if (K < 1 || K > kMaxCluster || (K & (K - 1)) != 0 || C < K || F < 1 ||
-      D < 1 || lanes < 1 || lanes > kMaxLanes || lane_end > F ||
+      D < 1 || lanes < 0 || lanes > kMaxLanes || lane_end > F ||
+      (lanes == 0 && (F <= kWindow || F > kMaxColumns ||
+                      lane_end >= kWindow)) ||
       threads < 32 || threads > kMaxThreads || threads % 32 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaFuncSetAttribute(

@@ -20,12 +20,16 @@ Two execution modes:
 - :func:`simulate_trace` — a full virtual-time trace simulation (the
   perf Simulator driving the real scheduler) for ONE scenario.
 
+``run(full=True)`` (or ``SimulatorConfig.full_kernel``) routes the
+sweep through the FULL preemption drain in lane-budgeted chunks
+(sim/batch.py ``solve_scenarios_tiered``), with the resident device
+state of sim/resident.py when the engine is built ``resident=True``.
+
 Everything is deterministic: same store, same specs, same seeds =>
 byte-identical ``WhatIfReport.canonical_json()``. Cut from the copy:
-the FULL sweep and the resident sweep state (ROADMAP Queue A item 7b),
-the scenario-axis mesh (item 9), node flaps in trace mode (item 11),
-and the ``metrics.whatif_*`` observations (the port has no metrics
-layer).
+the scenario-axis mesh (ROADMAP Queue A item 9), node flaps in trace
+mode (item 11), and the ``metrics.whatif_*`` observations (the port has
+no metrics layer).
 """
 
 from __future__ import annotations
@@ -40,10 +44,17 @@ from kueue_oss_tpu_torch.core.store import Store
 from kueue_oss_tpu_torch.core.workload_info import WorkloadInfo
 from kueue_oss_tpu_torch.device import resolve_device
 from kueue_oss_tpu_torch.sim.batch import (
+    FULL_TIER,
+    LaneBudget,
     check_parity,
+    check_parity_full,
+    full_caps,
     solve_scenarios,
     solve_scenarios_bucketed,
     solve_scenarios_sequential,
+    solve_scenarios_sequential_full,
+    solve_scenarios_tiered,
+    sweep_order,
 )
 from kueue_oss_tpu_torch.sim.report import WhatIfReport, scenario_kpis
 from kueue_oss_tpu_torch.sim.scenario import (
@@ -51,6 +62,7 @@ from kueue_oss_tpu_torch.sim.scenario import (
     arrival_order,
     max_arrival_scale,
 )
+from kueue_oss_tpu_torch.solver.full_kernels import to_device_full
 from kueue_oss_tpu_torch.solver.kernels import to_device
 from kueue_oss_tpu_torch.solver.tensors import (
     ExportCache,
@@ -157,19 +169,23 @@ def _materialize_replicas(pending: dict[str, list[WorkloadInfo]],
 class WhatIfEngine:
     """Batched counterfactual simulation over a live (or generated)
     store, on ``device`` (``"cuda"`` by default; raises without CUDA).
-    Construction is cheap; every :meth:`run` exports fresh."""
+    Construction is cheap; every :meth:`run` exports fresh, except that
+    ``resident=True`` keeps the FULL sweeps' padded base tensors on the
+    device across runs (sim/resident.py)."""
 
     def __init__(self, store: Store, queues=None, config=None,
                  now: Optional[float] = None,
                  resident: bool = False, device="cuda") -> None:
-        if resident:
-            raise NotImplementedError(
-                "WhatIfEngine(resident=True): the resident FULL sweep "
-                "state is ROADMAP Queue A item 7b")
         self.store = store
         self.queues = queues
         self.config = config if config is not None else SimulatorConfig()
         self.device = resolve_device(device)
+        #: optional scenario-resident device state for FULL sweeps
+        self.resident = None
+        if resident:
+            from kueue_oss_tpu_torch.sim.resident import ResidentSweep
+
+            self.resident = ResidentSweep(store, device=self.device)
         #: planning instant for age KPIs. None (default) derives it
         #: from the export itself — the newest pending creation
         #: timestamp — so starvation ages are meaningful RELATIVE queue
@@ -183,11 +199,15 @@ class WhatIfEngine:
             full: Optional[bool] = None) -> WhatIfReport:
         """Solve every scenario in one batched drain (one per round
         bucket); return the report. Raises UnsupportedProblem for
-        stores the lean drain cannot model."""
-        if full:
-            raise NotImplementedError(
-                "WhatIfEngine.run(full=True): the FULL what-if sweep is "
-                "ROADMAP Queue A item 7b")
+        stores the drains cannot model.
+
+        ``full`` routes the sweep through the FULL preemption drain
+        (lane-budgeted chunks, sim/batch.py) instead of the lean
+        fit-only batch; ``None`` defers to ``config.full_kernel``. FULL
+        sweeps export admitted rows too (preemption candidates), report
+        real preemption counts, and may re-tier overflow scenarios to
+        the relax LP — always reported per row (``tier``), never
+        silently."""
         if not specs:
             raise ValueError("need at least one ScenarioSpec")
         if len(specs) > self.config.max_scenarios:
@@ -208,12 +228,22 @@ class WhatIfEngine:
             now = max((i.obj.creation_time
                        for infos in pending.values() for i in infos),
                       default=0.0)
+        use_full = (self.config.full_kernel if full is None
+                    else bool(full))
         replicas = int(np.ceil(max_arrival_scale(specs)))
         pending = _materialize_replicas(pending, replicas)
-        problem = export_problem(self.store, pending,
-                                 cache=ExportCache(self.store,
-                                                   subscribe=False))
-        n_real = problem.n_workloads
+        full_tensors = None
+        if use_full and self.resident is not None:
+            # the resident session exports, pads, and syncs the device
+            # tensors in one step (reuse / row scatter / full upload)
+            problem, full_tensors = self.resident.refresh(pending=pending)
+            n_real = self.resident.last_real_workloads
+        else:
+            problem = export_problem(self.store, pending,
+                                     include_admitted=use_full,
+                                     cache=ExportCache(self.store,
+                                                       subscribe=False))
+            n_real = problem.n_workloads
         report = WhatIfReport()
         report.base = {
             "workloads": n_real,
@@ -222,13 +252,14 @@ class WhatIfEngine:
             "flavors": len(problem.fr_list),
             "arrival_replicas": replicas,
             "scenarios": len(specs),
-            "tier": "lean",
+            "tier": "full" if use_full else "lean",
         }
         if n_real == 0:
             report.parity = {"checked": 0, "identical": True,
                              "mismatches": []}
             return report
-        problem = pad_workloads(problem, pow2(problem.n_workloads))
+        if full_tensors is None:
+            problem = pad_workloads(problem, pow2(problem.n_workloads))
         report.base["padded_workloads"] = problem.n_workloads
         # the O(W) arrival ordering depends only on the base problem;
         # compute it once for the whole sweep
@@ -240,30 +271,74 @@ class WhatIfEngine:
                     for spec in specs]
         build_s = time.monotonic() - t0
 
-        # one upload of the shared base problem serves every batched
-        # drain and the parity oracle
-        tensors = to_device(problem, self.device)
-        if self.config.round_bucketing:
-            # round-skew bucketing: short scenarios stop riding the
-            # batch to the slowest lane's round count
-            batch, bucket_stats, n_dispatches = solve_scenarios_bucketed(
-                problem, overlays, tensors=tensors,
+        if use_full:
+            caps = full_caps(problem)
+            if full_tensors is None:
+                full_tensors = to_device_full(problem, self.device)
+            budget = LaneBudget(
+                budget_bytes=self.config.lane_budget_mb << 20,
+                max_full_scenarios=self.config.full_sweep_max)
+            batch = solve_scenarios_tiered(
+                problem, overlays, budget=budget, caps=caps,
+                tensors=full_tensors,
+                relax_iters=self.config.relax_iters,
                 pad_pow2=self.config.pad_pow2,
-                min_batch=self.config.min_batch_for_bucketing)
+                order=sweep_order(specs))
+            bucket_stats = {}
+            n_dispatches = max(1, len(batch.chunks)
+                               + (1 if batch.retier_idx else 0))
+            report.base["full_caps"] = {"g_max": caps[0],
+                                        "h_max": caps[1],
+                                        "p_max": caps[2]}
+            if batch.retier_idx:
+                # WHICH rows were approximated, and why (the planner's
+                # log line fires in LaneBudget.plan)
+                report.base["retier"] = {
+                    "reason": batch.retier_reason,
+                    "scenarios": [specs[i].name
+                                  for i in batch.retier_idx],
+                    "indices": list(batch.retier_idx),
+                }
         else:
-            batch = solve_scenarios(problem, overlays, tensors=tensors,
-                                    pad_pow2=self.config.pad_pow2)
-            bucket_stats, n_dispatches = {}, 1
+            # one upload of the shared base problem serves every batched
+            # drain and the parity oracle
+            lean_tensors = to_device(problem, self.device)
+            if self.config.round_bucketing:
+                # round-skew bucketing: short scenarios stop riding the
+                # batch to the slowest lane's round count
+                batch, bucket_stats, n_dispatches = (
+                    solve_scenarios_bucketed(
+                        problem, overlays, tensors=lean_tensors,
+                        pad_pow2=self.config.pad_pow2,
+                        min_batch=self.config.min_batch_for_bucketing))
+            else:
+                batch = solve_scenarios(problem, overlays,
+                                        tensors=lean_tensors,
+                                        pad_pow2=self.config.pad_pow2)
+                bucket_stats, n_dispatches = {}, 1
 
         n_parity = (self.config.parity_scenarios
                     if parity is None else parity)
         parity_s = 0.0
         if n_parity > 0:
             t1 = time.monotonic()
-            idx = list(range(min(n_parity, len(specs))))
-            seq = solve_scenarios_sequential(
-                problem, [overlays[i] for i in idx], tensors=tensors)
-            pr = check_parity(batch, seq, idx)
+            if use_full:
+                # parity is defined against the sequential FULL oracle,
+                # so only exactly-solved rows participate — relax-tier
+                # rows are approximate BY DECLARATION (tier="relax")
+                idx = [i for i, t in enumerate(batch.tier)
+                       if t == FULL_TIER][:n_parity]
+                seq = solve_scenarios_sequential_full(
+                    problem, [overlays[i] for i in idx], *caps,
+                    tensors=full_tensors) if idx else None
+                pr = (check_parity_full(batch, seq, idx) if idx
+                      else check_parity(batch, batch, []))
+            else:
+                idx = list(range(min(n_parity, len(specs))))
+                seq = solve_scenarios_sequential(
+                    problem, [overlays[i] for i in idx],
+                    tensors=lean_tensors)
+                pr = check_parity(batch, seq, idx)
             parity_s = time.monotonic() - t1
             report.parity = {"checked": pr.checked,
                              "identical": pr.identical,
@@ -274,11 +349,16 @@ class WhatIfEngine:
 
         t2 = time.monotonic()
         for spec, overlay, i in zip(specs, overlays, range(len(specs))):
+            kw = {}
+            if use_full:
+                kw = {"tier": batch.tier[i],
+                      "victim_reason": batch.victim_reason[i]
+                      if batch.tier[i] == FULL_TIER else None}
             report.scenarios.append(scenario_kpis(
                 problem, spec, overlay,
                 batch.admitted[i], batch.opt[i], batch.admit_round[i],
                 batch.parked[i], batch.rounds[i], batch.usage[i],
-                now=now))
+                now=now, **kw))
         report_s = time.monotonic() - t2
         report.timing = {
             "build_seconds": round(build_s, 6),
@@ -289,6 +369,7 @@ class WhatIfEngine:
             "batch_dispatches": n_dispatches,
             "round_buckets": {str(b): n
                               for b, n in sorted(bucket_stats.items())},
+            "full_chunks": list(getattr(batch, "chunks", [])),
             "scenarios_per_sec": round(
                 len(specs) / batch.solve_seconds, 2)
             if batch.solve_seconds > 0 else 0.0,

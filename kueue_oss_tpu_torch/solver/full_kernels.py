@@ -39,8 +39,15 @@ sliced away, and boolean / int8 scatter-max/min with repeated indices
 go through ``scatter_reduce`` on an integer dtype. Every device-to-host
 read is counted in ``FullDrainStats.syncs``.
 
-Cut from the copy: the ``shard_map`` lane sharding, ``debug_drain`` and
-the scenario-batched ``solve_backlog_full_batched``.
+``solve_backlog_full_batched`` is the JAX package's ``jit(vmap(...))``
+of the drain over a scenario axis (the FULL what-if sweep), written with
+an explicit leading axis S as ``kernels.solve_backlog_batched`` is:
+every scenario keeps its own round count and stamps and freezes once
+its own condition fails; the victim searches, the flavor walk and the
+entry scan's path walks run the single-problem functions above on
+``_lane_view``s, whose reads address each lane's own scenario.
+
+Cut from the copy: the ``shard_map`` lane sharding and ``debug_drain``.
 """
 
 from __future__ import annotations
@@ -56,6 +63,14 @@ from kueue_oss_tpu_torch.solver.kernels import (
     M_FIT,
     M_NOFIT,
     M_PREEMPT,
+    _add_usage_along_path_flat,
+    _avail_along_path_flat,
+    _available_all_b,
+    _batched_tensors,
+    _borrow_levels_b,
+    _potential_available_all_b,
+    _refresh_cohort_usage_b,
+    _rows,
     available_all,
     borrow_levels,
     potential_available_all,
@@ -66,8 +81,11 @@ from kueue_oss_tpu_torch.solver.ops import (
     arange,
     lexsort,
     segment_max,
+    segment_max_rows,
     segment_min,
+    segment_min_rows,
     segment_sum,
+    segment_sum_rows,
 )
 from kueue_oss_tpu_torch.solver.tensors import (
     NO_THRESHOLD,
@@ -281,6 +299,60 @@ def _scatter_bool(x: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor,
     out = x.to(INT32).scatter_reduce(0, idx.long(), vals.to(INT32),
                                      reduce=reduce, include_self=True)
     return out.to(x.dtype)
+
+
+class _PerLane:
+    """A scenario-batched tensor [S, N, ...] read lane by lane: ``v[idx]``
+    with ``idx`` [L, ...] gathers row ``idx`` of each lane's own scenario
+    (``ls`` [L]), so the single-problem lane code runs unchanged on the
+    batched drain's lanes; ``shape`` is one scenario's."""
+
+    __slots__ = ("x", "ls")
+
+    def __init__(self, x: torch.Tensor, ls: torch.Tensor) -> None:
+        self.x = x
+        self.ls = ls
+
+    @property
+    def shape(self):
+        return self.x.shape[1:]
+
+    def __getitem__(self, idx: torch.Tensor) -> torch.Tensor:
+        idx = idx.long()
+        return self.x[self.ls.reshape((-1,) + (1,) * (idx.dim() - 1)), idx]
+
+
+#: FullTensors fields that are 0-d in one problem ([S] when batched)
+_SCALAR_FIELDS = frozenset({"ts_evict_base", "admit_rank_base"})
+
+
+def _lane_view(t: FullTensors, ls: torch.Tensor) -> FullTensors:
+    """The batched tensors ``t`` as each lane ``ls`` [L] sees them: the
+    0-d fields as [L] values, every other field a ``_PerLane``."""
+    return FullTensors(*(x[ls] if name in _SCALAR_FIELDS
+                         else _PerLane(x, ls)
+                         for name, x in zip(FullTensors._fields, t)))
+
+
+def _per_lane(x, L: int) -> torch.Tensor:
+    """Each of L lanes' own copy of a round-state or tree tensor: a
+    ``_PerLane``'s scenario rows, or L copies of a shared tensor."""
+    if isinstance(x, _PerLane):
+        return x.x[x.ls]
+    return x.unsqueeze(0).repeat((L,) + (1,) * x.dim())
+
+
+def _refresh_per_lane(t, rows: torch.Tensor) -> torch.Tensor:
+    """``refresh_cohort_usage`` of lane-batched CQ rows [L, N+1, F],
+    over each lane's own tree in the batched drain."""
+    if not isinstance(t.is_cq, _PerLane):
+        return refresh_cohort_usage(t, rows)
+    L = rows.shape[0]
+    tree = FullTensors(*(
+        _per_lane(getattr(t, f), L) if f in ("is_cq", "depth", "parent",
+                                              "local_quota")
+        else getattr(t, f) for f in FullTensors._fields))
+    return _refresh_cohort_usage_b(tree, rows)
 
 
 # ---------------------------------------------------------------------------
@@ -653,7 +725,9 @@ def classical_search(t: FullTensors, usage0_round, wl_usage, admitted,
 
     ``head_w`` [L], ``req`` [L, F], ``avail_cq`` [L, F] and ``cands``
     [L, P] (the preemptor root's row of build_candidate_table) carry the
-    lane axis; the round state is shared. Returns (success [L], cand_w
+    lane axis; the round state is shared, or, in the scenario-batched
+    drain, ``t`` and the state are ``_lane_view`` / ``_PerLane`` reads
+    of each lane's own scenario. Returns (success [L], cand_w
     [L, P] int32 W_null padded, victims [L, P] bool, victim_reason
     [L, P] int8, any_same_cq [L], borrow_after [L] int32). Mirrors
     Preemptor._classical_preemptions: candidate legality and order, two
@@ -802,8 +876,8 @@ def classical_search(t: FullTensors, usage0_round, wl_usage, admitted,
     first_borrow = ~f_then_t
     has_second = ~single
 
-    usage_init = usage0_round.unsqueeze(0).repeat(L, 1, 1)
-    rows0 = torch.where(t.is_cq[:, None], usage0_round, 0)
+    usage_init = _per_lane(usage0_round, L)
+    rows0 = torch.where(_per_lane(t.is_cq, L)[..., None], usage_init, 0)
 
     def attempt(allow_borrow, run):
         # infeasibility precheck: remove every candidate this attempt
@@ -812,10 +886,10 @@ def classical_search(t: FullTensors, usage0_round, wl_usage, admitted,
         removable = cand_valid & ~(
             allow_borrow[:, None]
             & (cand_variant == V_RECLAIM_WITHOUT_BORROWING))
-        rows_min = rows0.unsqueeze(0).repeat(L, 1, 1).index_put(
+        rows_min = rows0.index_put(
             (lanes_p, v_node),
             -torch.where(removable[..., None], v_usage, 0), accumulate=True)
-        usage_min = refresh_cohort_usage(t, rows_min)
+        usage_min = _refresh_per_lane(t, rows_min)
         run = run & _workload_fits(t, usage_min, cq_node, req, allow_borrow)
 
         usage_l = usage_init
@@ -1419,3 +1493,706 @@ def solve_backlog_full(t: FullTensors, g_max: int, h_max: int = 32,
             torch.tensor(state["rounds"], dtype=INT32,
                          device=t.wl_cqid.device),
             state["usage"], state["wl_usage"], state["victim_reason"])
+
+
+# ---------------------------------------------------------------------------
+# Scenario-batched drain (the FULL what-if sweep, sim/batch.py)
+# ---------------------------------------------------------------------------
+
+#: FullTensors fields on the [W+1] workload axis: the rows a resident
+#: sweep patches when workloads churn (sim/resident.py)
+FULL_WL_FIELDS = ("wl_cqid", "wl_prio", "wl_ts0", "wl_uid", "wl_req",
+                  "wl_valid", "wl_parked0", "wl_admitted0",
+                  "wl_evicted0", "wl_admit_rank0", "ad_usage",
+                  "wl_class", "wl_lq", "wl_ts_buf", "wl_afs_penalty")
+
+#: FullTensors fields the scenario overlay layer varies: the FULL twins
+#: of kernels.BATCHABLE_FIELDS (the lean ``wl_ts`` is ``wl_ts0`` here;
+#: the lean ``wl_rank`` has no FULL twin: heads go by (priority, ts,
+#: uid) and masked rows leave the per-CQ segments through ``wl_cqid =
+#: C``)
+FULL_BATCHABLE_FIELDS = frozenset({
+    "nominal", "subtree", "local_quota", "has_borrow", "borrow_limit",
+    "usage0", "wl_cqid", "wl_prio", "wl_ts0", "wl_valid", "wl_req",
+})
+
+#: Every FullTensors field: no host step depends on an array's content,
+#: so any field may carry the scenario axis; FULL_BATCHABLE_FIELDS is the
+#: documented overlay subset
+ALL_FULL_FIELDS = frozenset(FullTensors._fields)
+
+# The batched helpers below are the round's functions with a leading
+# scenario axis S on every tensor. Per-lane work (the victim searches,
+# the flavor walk, the entry scan's path walks) runs the single-problem
+# functions on ``_lane_view``s; scatters address flat ``s * rows + row``
+# indices (or a scenario index beside the row index), so no scenario's
+# write reaches another's rows.
+
+
+def _scatter_rows(x: torch.Tensor, idx: torch.Tensor,
+                  vals: torch.Tensor) -> torch.Tensor:
+    """``x.at[s, idx[s]].set(vals[s], mode="drop")`` for every scenario
+    s, where each dropped write addresses ``x.shape[1]``: a sink column
+    that is sliced away. Kept indices must be distinct per scenario."""
+    s = torch.arange(x.shape[0], device=x.device)[:, None].expand_as(idx)
+    return torch.cat([x, x[:, :1]], dim=1).index_put(
+        (s, idx.long()), vals)[:, :-1]
+
+
+def _scatter_bool_rows(x: torch.Tensor, idx: torch.Tensor,
+                       vals: torch.Tensor, reduce: str) -> torch.Tensor:
+    """``_scatter_bool`` per scenario: x [S, R], idx and vals [S, ...]
+    (repeated indices within a scenario reduce exactly)."""
+    S, R = x.shape
+    base = torch.arange(S, device=x.device).reshape(
+        (S,) + (1,) * (idx.dim() - 1)) * R
+    flat = (base + idx.long()).reshape(-1)
+    return _scatter_bool(x.reshape(-1), flat, vals.reshape(-1),
+                         reduce).view(S, R)
+
+
+def _with_last_rows(x: torch.Tensor, value) -> torch.Tensor:
+    """``x[:, -1] = value`` out of place (the per-scenario null row)."""
+    return torch.cat([x[:, :-1], torch.full_like(x[:, -1:], value)], dim=1)
+
+
+def _select_heads_full_b(t: FullTensors, admitted, parked, ts,
+                         lq_penalty=None):
+    """``select_heads_full`` per scenario; [S, C] int32."""
+    C = t.cq_node.shape[1]
+    W1 = t.wl_cqid.shape[1]
+    W_null = W1 - 1
+    pending = (~admitted & ~parked)[:, :-1]
+    seg = t.wl_cqid[:, :-1]
+    segl = seg.long()
+    if lq_penalty is not None:
+        is_afs = _rows(t.cq_afs, torch.clamp(seg, max=C - 1))
+        pen = _rows(lq_penalty, t.wl_lq[:, :-1])
+        min_pen = segment_min_rows(torch.where(pending & is_afs, pen,
+                                               float("inf")), seg, C + 1)
+        pending = pending & (~is_afs | (pen == min_pen.gather(1, segl)))
+    prio = t.wl_prio[:, :-1]
+    max_prio = segment_max_rows(torch.where(pending, prio, -BIG), seg,
+                                C + 1)
+    c1 = pending & (prio == max_prio.gather(1, segl))
+    min_ts = segment_min_rows(torch.where(c1, ts[:, :-1], BIG), seg, C + 1)
+    c2 = c1 & (ts[:, :-1] == min_ts.gather(1, segl))
+    uid = t.wl_uid[:, :-1]
+    min_uid = segment_min_rows(torch.where(c2, uid, BIG), seg, C + 1)
+    c3 = c2 & (uid == min_uid.gather(1, segl))
+    w_idx = arange(W1 - 1, ts.device)[None, :]
+    head_w = segment_min_rows(torch.where(c3, w_idx, W_null), seg,
+                              C + 1)[:, :C]
+    has_head = max_prio[:, :C] > -BIG
+    return _i32(torch.where(has_head, head_w, W_null))
+
+
+def _take(x: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """``x[s, c, k[s, c]]`` for x [S, C, K, ...] and k [S, C]."""
+    idx = k.long().reshape(k.shape + (1,) * (x.dim() - 2))
+    idx = idx.expand(k.shape + (1,) + tuple(x.shape[3:]))
+    return torch.gather(x, 2, idx).squeeze(2)
+
+
+def _nominate_full_b(t: FullTensors, usage, avail, pot, cand_w, cursor,
+                     g_max: int):
+    """``nominate_full`` per scenario (fair sharing off): every [C, ...]
+    result gains the leading scenario axis."""
+    S, C = cand_w.shape
+    K = t.cq_opt_group.shape[2]
+    dev = usage.device
+    req = _rows(t.wl_req, cand_w)                        # [S,C,K,F]
+    grp = t.cq_opt_group
+    pos = t.cq_opt_pos
+    cursor_k = torch.gather(_rows(cursor, cand_w), 2,
+                            grp.clamp(min=0).long())
+    valid = _rows(t.wl_valid, cand_w) & (grp >= 0) & (pos >= cursor_k)
+
+    avail_cq = _rows(avail, t.cq_node)[:, :, None, :]
+    pot_cq = _rows(pot, t.cq_node)[:, :, None, :]
+    nominal_cq = _rows(t.nominal, t.cq_node)[:, :, None, :]
+    level, may_reclaim = _borrow_levels_b(t, usage, cand_w, req)
+
+    nonzero = req > 0
+    fit_fr = (~nonzero) | (req <= avail_cq)
+    within_cap = (~nonzero) | (req <= pot_cq)
+    can_pwb = (~t.cq_bwc_forbidden)[:, :, None, None]
+    preemptish_fr = (~nonzero) | (
+        within_cap & ((req <= nominal_cq) | may_reclaim | can_pwb))
+    opt_fit = valid & fit_fr.all(dim=-1)                 # [S,C,K]
+    opt_preempt = valid & (fit_fr | preemptish_fr).all(dim=-1)
+    opt_level = torch.where(nonzero, level, 0).amax(dim=-1)
+
+    k_idx = arange(K, dev)[None, None, :]
+
+    def first_true(mask):
+        return torch.where(mask, k_idx, K).amin(dim=-1)
+
+    mode = torch.full((S, C), M_FIT, dtype=INT32, device=dev)
+    req_total = torch.zeros((S, C, req.shape[3]), dtype=INT32, device=dev)
+    borrow = torch.zeros((S, C), dtype=INT32, device=dev)
+    active_cols, k_cols, cursor_cols = [], [], []
+    any_nonzero = nonzero.any(dim=-1)
+    for g in range(g_max):
+        in_g = grp == g
+        has_g = in_g.any(dim=-1)
+        active = (in_g & any_nonzero).any(dim=-1)
+        fit_g = opt_fit & in_g
+        pre_g = opt_preempt & in_g & ~opt_fit
+        k_default = first_true(fit_g)
+        k_nonborrow = first_true(fit_g & (opt_level == 0))
+        lvl_key = torch.where(fit_g, opt_level * K + k_idx, BIG)
+        k_bestlvl = _i32(torch.argmin(lvl_key, dim=-1))
+        k_try_next = torch.where(
+            k_nonborrow < K, k_nonborrow,
+            torch.where(fit_g.any(dim=-1), k_bestlvl, K))
+        k_fit = torch.where(t.cq_try_next, k_try_next, k_default)
+        any_fit = k_fit < K
+        k_preempt = first_true(pre_g)
+        any_preempt = k_preempt < K
+        k_g = torch.where(any_fit, k_fit,
+                          torch.where(any_preempt, k_preempt,
+                                      first_true(in_g)))
+        k_g = torch.clamp(k_g, max=K - 1)
+        mode_g = _i32(torch.where(any_fit, M_FIT, torch.where(
+            any_preempt, M_PREEMPT, M_NOFIT)))
+        mode_g = torch.where(active & has_g, mode_g, M_FIT)
+        mode = torch.minimum(mode, mode_g)
+        k_cols.append(torch.where(active, k_g, 0))
+        req_total = req_total + torch.where(active[..., None],
+                                            _take(req, k_g), 0)
+        borrow = torch.maximum(
+            borrow, torch.where(active, _take(opt_level, k_g), 0))
+        early_break = torch.where(t.cq_try_next, k_nonborrow < K, any_fit)
+        pos_g = _take(pos, k_g)
+        n_in_g = in_g.sum(dim=-1, dtype=INT32)
+        nc = torch.where(early_break & (pos_g < n_in_g - 1), pos_g + 1, 0)
+        cursor_cols.append(torch.where(active, nc, 0))
+        active_cols.append(active)
+    k_chosen = _i32(torch.stack(k_cols, dim=-1))
+    next_cursor = _i32(torch.stack(cursor_cols, dim=-1))
+    group_active = torch.stack(active_cols, dim=-1)
+    return (mode, k_chosen, req_total, borrow, next_cursor,
+            opt_fit, opt_preempt, opt_level, group_active, valid)
+
+
+def _build_candidate_table_b(t: FullTensors, admitted, admit_rank,
+                             wl_usage, a_max: int):
+    """``build_candidate_table`` per scenario: [S, N+1, A] int32."""
+    S, W1 = admitted.shape
+    W = W1 - 1
+    W_null = W
+    N1 = t.parent.shape[1]
+    C = t.cq_node.shape[1]
+    dev = admitted.device
+    root_of = _rows(t.cq_root, torch.clamp(t.wl_cqid[:, :-1], max=C - 1))
+    elig = admitted[:, :-1] & (wl_usage[:, :-1] > 0).any(dim=-1)
+    order = lexsort((t.wl_uid[:, :-1], -admit_rank[:, :-1],
+                     t.wl_prio[:, :-1])).long()
+    rank = torch.zeros((S, W), dtype=INT32, device=dev).scatter(
+        1, order, arange(W, dev)[None, :].expand(S, W))
+    root_eff = torch.where(elig, root_of, N1)
+    sorted_w = lexsort((rank, root_eff)).long()
+    elig_s = elig.gather(1, sorted_w)
+    root_s = root_of.gather(1, sorted_w)
+    counts = segment_sum_rows(_i32(elig), root_of, N1)
+    offsets = torch.cumsum(counts, dim=1, dtype=INT32) - counts
+    pos = arange(W, dev)[None, :] - offsets.gather(1, root_s.long())
+    keep = elig_s & (pos < a_max)
+    row = torch.where(keep, root_s, N1).long()
+    col = torch.where(keep, pos, a_max).long()
+    cell = row * (a_max + 1) + col
+    table = torch.full((S, (N1 + 1) * (a_max + 1)), W_null, dtype=INT32,
+                       device=dev).scatter(1, cell, _i32(sorted_w))
+    return table.view(S, N1 + 1, a_max + 1)[:, :N1, :a_max]
+
+
+def _remove_path_flat(usage, path, valid, lq, val):
+    """removeUsage with bubbling along each scenario's path: ``usage``
+    [S*(N+1), F] flat, ``path`` [S, D] flat rows, ``lq`` the path's local
+    quotas [S, D, F], ``val`` [S, F] (``_remove_path`` on flat rows)."""
+    for d in range(path.shape[1]):
+        node = path[:, d]
+        stored = usage[node] - lq[:, d]
+        usage = usage.index_add(0, node,
+                                torch.where(valid[:, d:d + 1], -val, 0))
+        val = torch.where(stored > 0, torch.minimum(val, stored), 0)
+    return usage
+
+
+def _full_round_scan_b(t: FullTensors, state, cand_w, mode, k_chosen,
+                       req_c, borrow, lane_of_entry, lane_success,
+                       lane_cand_w, lane_victims, lane_reason,
+                       stats: FullDrainStats, afs: bool):
+    """``full_round_scan`` (classical order) for every scenario at once:
+    step i processes the i-th entry of each scenario's own entry order.
+
+    As in ``kernels._round_scan_b``, what the scan does not change (each
+    slot's request and CQ, the quotas along its path, every lane's
+    victims' paths and quotas) is gathered once before the loop, and the
+    usage is addressed through flat ``s * (N+1) + node`` rows. One read
+    per call brings each slot's lane, the lanes' success flags and their
+    last victim slots to the host; a step runs its reserve block when
+    some scenario's entry was searched and found no targets, its
+    preemption block when some scenario's entry has targets, and its
+    sequential victim removals to the largest last slot among the
+    scenarios, each removal masked to the scenarios it belongs to (a
+    masked removal is a no-op, as under the JAX ``vmap``)."""
+    S, C = cand_w.shape
+    W1 = t.wl_cqid.shape[1]
+    W_null = W1 - 1
+    N1, F = state["usage_full"].shape[1:]
+    H, P = lane_victims.shape[1:]
+    null = N1 - 1
+    dev = cand_w.device
+    sidx = torch.arange(S, device=dev)
+    s2 = sidx[:, None]
+    s3 = s2[:, :, None]
+    active = (cand_w != W_null) & (mode != M_NOFIT)
+    cw = cand_w.long()
+    sort_borrow = torch.where(active, borrow, BIG)
+    order = lexsort((_rows(t.wl_uid, cw), _rows(state["ts"], cw),
+                     -_rows(t.wl_prio, cw), sort_borrow)).long()   # [S,C]
+    slot_lane = lane_of_entry.gather(1, order).long()
+    n_slots = torch.where(lane_victims, arange(P, dev) + 1, 0).amax(dim=-1)
+    host = stats.read(torch.cat([slot_lane.reshape(-1),
+                                 _i32(lane_success).reshape(-1),
+                                 _i32(n_slots).reshape(-1)]))
+    lane_at = [host[s * C:(s + 1) * C] for s in range(S)]
+    lane_ok = [host[S * C + s * H:S * C + (s + 1) * H] for s in range(S)]
+    lane_slots = [host[S * (C + H) + s * H:S * (C + H) + (s + 1) * H]
+                  for s in range(S)]
+
+    # per slot: the entry, its CQ and the quotas along its path
+    slot_w = cw.gather(1, order)
+    slot_m = mode.gather(1, order)
+    slot_node = t.cq_node.gather(1, order).long()
+    slot_path = _rows(t.path, slot_node).long()                # [S,C,D]
+    lq = t.local_quota[s3, slot_path]                          # [S,C,D,F]
+    sub = t.subtree[s3, slot_path]
+    is_active = (slot_w != W_null) & (slot_m != M_NOFIT)
+    has_targets = (slot_lane >= 0) & lane_success.gather(
+        1, slot_lane.clamp(min=0))
+
+    def front(x):  # [S,C,...] -> [C,S,...]: step i reads one block
+        return x.transpose(0, 1).contiguous()
+
+    steps = [front(x) for x in (
+        slot_w, slot_m, req_c.gather(1, order[..., None].expand(S, C, F)),
+        borrow.gather(1, order) > 0, slot_lane.clamp(min=0),
+        is_active & (slot_m == M_PREEMPT) & (slot_lane >= 0) & ~has_targets,
+        is_active & (slot_m == M_PREEMPT) & has_targets,
+        is_active & (slot_m == M_FIT), t.cq_strict.gather(1, order),
+        t.nominal[s2, slot_node], t.has_borrow[s2, slot_node],
+        t.borrow_limit[s2, slot_node], s3 * N1 + slot_path,
+        slot_path != null, lq, sub, sub - lq,
+        t.has_borrow[s3, slot_path], t.borrow_limit[s3, slot_path],
+        s2 * N1 + slot_node, t.cq_afs.gather(1, order),
+        _rows(t.wl_lq, slot_w).long(), _rows(t.wl_afs_penalty, slot_w))]
+    # per lane: its victims' CQ rows and the quotas along their paths
+    v_node = _rows(t.cq_node, torch.clamp(_rows(t.wl_cqid, lane_cand_w),
+                                          max=C - 1)).long()  # [S,H,P]
+    v_path = _rows(t.path, v_node).long()                     # [S,H,P,D]
+    v_lq = t.local_quota[sidx[:, None, None, None], v_path]
+    v_fpath = sidx[:, None, None, None] * N1 + v_path
+    v_valid = v_path != null
+    v_row = s3 * N1 + v_node
+
+    u_full = state["usage_full"].reshape(S * N1, F)
+    u_net = state["usage_net"].reshape(S * N1, F)
+    cq_rows = state["cq_rows"].reshape(S * N1, F)
+    admitted, parked = state["admitted"], state["parked"]
+    wl_usage, victim_reason = state["wl_usage"], state["victim_reason"]
+    victims_all = torch.zeros((S, W1), dtype=torch.bool, device=dev)
+    lq_pen = state["lq_penalty"]
+    any_adm = torch.zeros(S, dtype=torch.bool, device=dev)
+    any_evict = torch.zeros(S, dtype=torch.bool, device=dev)
+    adm_flags, pre_flags = [], []
+    for i in range(C):
+        (w, m, req, borrows, lc, reserves, preempts, fits, strict, nom,
+         hb_cq, bl_cq, path, valid, lq_i, sub_i, stored_i, hb, bl, row,
+         afs_cq, lq_row, afs_pen) = (x[i] for x in steps)
+        lanes_i = [lane_at[s][i] for s in range(S)]
+        oks = [ln >= 0 and bool(lane_ok[s][ln])
+               for s, ln in enumerate(lanes_i)]
+
+        if any(ln >= 0 and not ok for ln, ok in zip(lanes_i, oks)):
+            # Preempt / NoCandidates: reserve entitled capacity and park
+            # (scheduler.go quotaResourcesToReserve)
+            usage_cq = u_full[row]
+            reserve = torch.clamp(torch.where(
+                borrows[:, None],
+                torch.where(hb_cq, torch.minimum(req, nom + bl_cq - usage_cq),
+                            req),
+                torch.minimum(req, nom - usage_cq)), min=0)
+            reserve = torch.where(reserves[:, None], reserve, 0)
+            u_full = _add_usage_along_path_flat(u_full, path, valid, lq_i,
+                                                reserve)
+            u_net = _add_usage_along_path_flat(u_net, path, valid, lq_i,
+                                               reserve)
+            parked = parked.index_put(
+                (sidx, w), parked[sidx, w] | (reserves & ~strict))
+
+        do_preempt = torch.zeros(S, dtype=torch.bool, device=dev)
+        if any(oks):
+            # overlap check (one conflicting preemption per cycle)
+            vm = lane_victims[sidx, lc]                         # [S,P]
+            vw = lane_cand_w[sidx, lc].long()                   # [S,P]
+            overlap = (vm & victims_all[s2, vw]).any(dim=-1)
+            is_preempt = preempts & ~overlap
+            v_usage = wl_usage[s2, vw]                          # [S,P,F]
+            vp, vv, vq = v_fpath[sidx, lc], v_valid[sidx, lc], v_lq[sidx, lc]
+            usage_probe = u_net
+            for k in range(max(lane_slots[s][ln] for s, ln in
+                               enumerate(lanes_i) if oks[s])):
+                stats.removal_steps += 1
+                usage_probe = _remove_path_flat(
+                    usage_probe, vp[:, k], vv[:, k], vq[:, k],
+                    torch.where((vm[:, k] & is_preempt)[:, None],
+                                v_usage[:, k], 0))
+            avail_now = _avail_along_path_flat(usage_probe, path, valid,
+                                               lq_i, sub_i, stored_i, hb, bl)
+            still_fits = ((req == 0) | (req <= avail_now)).all(dim=-1)
+            do_preempt = is_preempt & still_fits
+            u_net = torch.where(do_preempt.repeat_interleave(N1)[:, None],
+                                usage_probe, u_net)
+            evict_now = do_preempt[:, None] & vm                # [S,P]
+            victims_all = _with_last_rows(_scatter_bool_rows(
+                victims_all, vw, evict_now, "amax"), False)
+            victim_reason = _with_last_rows(_scatter_bool_rows(
+                victim_reason, vw,
+                torch.where(evict_now, lane_reason[sidx, lc], 0), "amax"), 0)
+            admitted = _scatter_bool_rows(admitted, vw, ~evict_now, "amin")
+            cq_rows = cq_rows.index_add(
+                0, v_row[sidx, lc].reshape(-1), -torch.where(
+                    evict_now[..., None], v_usage, 0).reshape(S * P, F))
+            entry_usage = torch.where(do_preempt[:, None], req, 0)
+            u_full = _add_usage_along_path_flat(u_full, path, valid, lq_i,
+                                                entry_usage)
+            u_net = _add_usage_along_path_flat(u_net, path, valid, lq_i,
+                                               entry_usage)
+            any_evict = any_evict | do_preempt
+
+        # Fit: re-check under the current usage, then admit
+        avail_fit = _avail_along_path_flat(u_net, path, valid, lq_i, sub_i,
+                                           stored_i, hb, bl)
+        do_admit = fits & ((req == 0) | (req <= avail_fit)).all(dim=-1)
+        admit_vec = torch.where(do_admit[:, None], req, 0)
+        u_full = _add_usage_along_path_flat(u_full, path, valid, lq_i,
+                                            admit_vec)
+        u_net = _add_usage_along_path_flat(u_net, path, valid, lq_i,
+                                           admit_vec)
+        cq_rows = cq_rows.index_add(0, row, admit_vec)
+        admitted = admitted.index_put((sidx, w), admitted[sidx, w] | do_admit)
+        wl_usage = wl_usage.index_put(
+            (sidx, w), torch.where(do_admit[:, None], req, wl_usage[sidx, w]))
+        if afs:
+            # AFS entry penalty: one LocalQueue row per scenario a step
+            lq_pen = lq_pen.index_put(
+                (sidx, lq_row), torch.where(do_admit & afs_cq, afs_pen, 0.0),
+                accumulate=True)
+        any_adm = any_adm | do_admit
+        adm_flags.append(do_admit)
+        pre_flags.append(do_preempt)
+
+    zeros = torch.zeros((S, C), dtype=torch.bool, device=dev)
+    adm_entry = zeros.scatter(1, order, torch.stack(adm_flags, dim=1))
+    pre_entry = zeros.scatter(1, order, torch.stack(pre_flags, dim=1))
+    return {
+        "usage_full": u_full.view(S, N1, F), "usage_net": u_net.view(S, N1, F),
+        "cq_rows": cq_rows.view(S, N1, F), "admitted": admitted,
+        "parked": parked, "wl_usage": wl_usage, "victims_all": victims_all,
+        "victim_reason": victim_reason, "lq_penalty": lq_pen,
+    }, adm_entry, pre_entry, any_adm, any_evict
+
+
+def _round_body_b(t: FullTensors, state, pot, g_max: int, h_max: int,
+                  p_max: int, stats: FullDrainStats, afs: bool):
+    """``round_body`` for every scenario at once; returns the new state
+    (frozen lanes are the caller's business)."""
+    S, W1 = t.wl_cqid.shape
+    C = t.cq_node.shape[1]
+    N1 = t.parent.shape[1]
+    W_null = W1 - 1
+    K = t.cq_opt_group.shape[2]
+    F = t.subtree.shape[2]
+    dev = t.wl_cqid.device
+    sidx = torch.arange(S, device=dev)
+    s2 = sidx[:, None]
+
+    rounds = state["rounds"]
+    admitted = state["admitted"]
+    ts = state["ts"]
+    usage = state["usage"]
+    wl_usage = state["wl_usage"]
+    class_nofit = state["class_nofit"]
+    parked = _with_last_rows(
+        state["parked"] | (~admitted & _rows(class_nofit, t.wl_class)),
+        False)
+    parked_before = parked
+    cursor_before = state["cursor"]
+
+    cand_w = _select_heads_full_b(
+        t, admitted, parked, ts,
+        lq_penalty=state["lq_penalty"] if afs else None)
+    cw = cand_w.long()
+    avail = _available_all_b(t, usage)
+    (mode, k_chosen, req_c, borrow, next_cursor, opt_fit, opt_preempt,
+     opt_level, group_active, opt_valid) = _nominate_full_b(
+        t, usage, avail, pot, cand_w, state["cursor"], g_max)
+    is_head = cand_w != W_null
+
+    any_preemptish = (opt_preempt & ~opt_fit).any(dim=-1)
+    fit_wins = (mode == M_FIT) & t.cq_preempt_try_next & ~t.cq_pref_pob
+    needs_search = (is_head & any_preemptish & ~fit_wins
+                    & (mode != M_NOFIT))
+
+    # ---- each scenario's searching heads in h_max lanes (entry order) --
+    ekey = lexsort((_rows(t.wl_uid, cw), _rows(ts, cw), -_rows(t.wl_prio, cw),
+                    torch.where(needs_search, borrow, BIG),
+                    _i32(~needs_search))).long()
+    pe_sorted = needs_search.gather(1, ekey)
+    pos = torch.cumsum(_i32(pe_sorted), dim=1, dtype=INT32) - 1
+    lane_cq = _scatter_rows(
+        torch.full((S, h_max), C, dtype=INT32, device=dev),
+        torch.where(pe_sorted & (pos < h_max), pos, h_max), _i32(ekey))
+    lane_valid = lane_cq < C
+    lane_cqc = torch.clamp(lane_cq, max=C - 1).long()
+    lane_w = torch.where(lane_valid, cand_w.gather(1, lane_cqc), W_null)
+    lane_avail = _rows(avail, t.cq_node.gather(1, lane_cqc))   # [S,H,F]
+    lane_of_entry = _scatter_rows(
+        torch.full((S, C), -1, dtype=INT32, device=dev),
+        torch.where(lane_valid, lane_cq, C),
+        arange(h_max, dev)[None, :].expand(S, h_max))
+
+    # ---- per-option victim searches over [S * H * K] lanes ------------
+    cand_table = _build_candidate_table_b(t, admitted, state["admit_rank"],
+                                          wl_usage, p_max)
+    lane_cands = cand_table[s2, _rows(t.cq_root, lane_cqc).long()]
+    L = S * h_max * K
+    ls_k = sidx.repeat_interleave(h_max * K)
+    view = (_lane_view(t, ls_k), _PerLane(usage, ls_k),
+            _PerLane(wl_usage, ls_k), _PerLane(admitted, ls_k),
+            _PerLane(state["evicted"], ls_k), _PerLane(ts, ls_k))
+    (s_succ, s_cand_w, s_victims, s_reason, s_same, s_borrow) = (
+        _run_searches(*view, lane_w.repeat_interleave(K, dim=1).reshape(L),
+                      _rows(t.wl_req, lane_w).reshape(L, F),
+                      lane_avail.repeat_interleave(K, dim=1).reshape(L, F),
+                      lane_cands.repeat_interleave(K, dim=1).reshape(
+                          L, p_max), p_max, stats))
+
+    sim_pmode = _i32(torch.where(
+        s_succ, torch.where(s_same, P_PREEMPT, P_RECLAIM),
+        P_NO_CANDIDATES)).reshape(S, h_max, K)
+    sim_borrow = s_borrow.reshape(S, h_max, K)
+    fit_l = _rows(opt_fit, lane_cqc)
+    pre_l = _rows(opt_preempt & ~opt_fit, lane_cqc)
+    pmode_k = torch.where(fit_l, P_FIT,
+                          torch.where(pre_l, sim_pmode, P_NOFIT))
+    borrow_k = torch.where(fit_l, _rows(opt_level, lane_cqc),
+                           torch.where(pre_l, sim_borrow, 0))
+
+    # ---- the assigner's walk over [S * H] lanes -----------------------
+    ls_h = sidx.repeat_interleave(h_max)
+    SH = S * h_max
+    (l_mode, l_k, l_req, l_borrow, l_next_cursor, _l_pmode_sel) = (
+        walk_assign(_lane_view(t, ls_h), lane_w.reshape(SH),
+                    pmode_k.reshape(SH, K), borrow_k.reshape(SH, K),
+                    _rows(opt_valid, lane_cqc).reshape(SH, K),
+                    _rows(group_active, lane_cqc).reshape(SH, g_max),
+                    g_max))
+    l_mode = l_mode.view(S, h_max)
+    l_k = l_k.view(S, h_max, g_max)
+    l_req = torch.where(lane_valid[..., None], l_req.view(S, h_max, F), 0)
+    lane_target = torch.where(lane_valid, lane_cq, C)
+    mode = _scatter_rows(mode, lane_target, l_mode)
+    k_chosen = _scatter_rows(k_chosen, lane_target, l_k)
+    req_c = _scatter_rows(req_c, lane_target, l_req)
+    borrow = _scatter_rows(borrow, lane_target, l_borrow.view(S, h_max))
+    next_cursor = _scatter_rows(next_cursor, lane_target,
+                                l_next_cursor.view(S, h_max, g_max))
+
+    # ---- final victim set of each preempting lane ---------------------
+    if g_max == 1:
+        idx = (sidx[:, None] * (h_max * K) + arange(h_max, dev)[None, :] * K
+               + l_k[..., 0]).reshape(SH).long()
+        lane_success = s_succ[idx]
+        lane_cand_w = s_cand_w[idx]
+        lane_victims = s_victims[idx]
+        lane_reason = s_reason[idx]
+    else:
+        view_h = (_lane_view(t, ls_h), _PerLane(usage, ls_h),
+                  _PerLane(wl_usage, ls_h), _PerLane(admitted, ls_h),
+                  _PerLane(state["evicted"], ls_h), _PerLane(ts, ls_h))
+        (lane_success, lane_cand_w, lane_victims, lane_reason, _s,
+         _b) = _run_searches(*view_h, lane_w.reshape(SH),
+                             l_req.reshape(SH, F),
+                             lane_avail.reshape(SH, F),
+                             lane_cands.reshape(SH, p_max), p_max, stats)
+    lane_success = (lane_success.view(S, h_max) & lane_valid
+                    & (l_mode == M_PREEMPT))
+    key = torch.where(lane_victims, arange(p_max, dev), p_max)
+    perm = torch.argsort(key, dim=-1, stable=True)
+    lane_cand_w = torch.gather(lane_cand_w, 1, perm).view(S, h_max, p_max)
+    lane_victims = torch.gather(lane_victims, 1, perm).view(S, h_max, p_max)
+    lane_reason = torch.gather(lane_reason, 1, perm).view(S, h_max, p_max)
+
+    park_now = is_head & (mode == M_NOFIT) & ~t.cq_strict
+    parked = parked.index_put((s2, cw), parked[s2, cw] | park_now)
+
+    # ---- entry scan ---------------------------------------------------
+    scan_state = {
+        "usage_full": usage, "usage_net": usage,
+        "cq_rows": state["cq_rows"], "admitted": admitted,
+        "parked": parked, "wl_usage": wl_usage,
+        "victim_reason": state["victim_reason"], "ts": ts,
+        "lq_penalty": state["lq_penalty"],
+    }
+    out, adm_entry, pre_entry, any_adm, any_evict = _full_round_scan_b(
+        t, scan_state, cand_w, mode, k_chosen, req_c, borrow,
+        lane_of_entry, lane_success, lane_cand_w, lane_victims,
+        lane_reason, stats, afs)
+    admitted = out["admitted"]
+    parked = out["parked"]
+    wl_usage = out["wl_usage"]
+    victims = out["victims_all"]
+
+    # ---- bookkeeping, each scenario stamping its own round ------------
+    r_col = rounds[:, None]
+    ts = torch.where(victims, t.ts_evict_base[:, None] + r_col, ts)
+    evicted_f = state["evicted"] | victims
+    admit_rank = torch.where(victims, 0, state["admit_rank"])
+    newly = adm_entry & is_head
+    adm_w = torch.where(newly, cand_w, W_null).long()
+    ts = ts.index_put((s2, adm_w), torch.where(
+        newly, t.wl_ts0[s2, adm_w], ts[s2, adm_w]))
+    evicted_f = evicted_f.index_put(
+        (s2, adm_w), torch.where(newly, False, evicted_f[s2, adm_w]))
+    admit_rank = admit_rank.index_put(
+        (s2, adm_w), torch.where(newly, t.admit_rank_base[:, None] + r_col,
+                                 admit_rank[s2, adm_w]))
+    evicted_f = _with_last_rows(evicted_f, False)
+    opt = state["opt"].index_put((s2, adm_w), torch.where(
+        newly[..., None], k_chosen, state["opt"][s2, adm_w]))
+    admit_round = state["admit_round"].index_put(
+        (s2, adm_w), torch.where(newly, r_col,
+                                 state["admit_round"][s2, adm_w]))
+    keep = is_head & ~admitted[s2, cw]
+    new_cur = torch.where(pre_entry[..., None], 0, next_cursor)
+    cursor = state["cursor"].index_put((s2, cw), torch.where(
+        keep[..., None], new_cur, state["cursor"][s2, cw]))
+    cursor = torch.where(victims[..., None], 0, cursor)
+
+    # ---- NoFit equivalence classes ------------------------------------
+    newly_parked = parked & ~parked_before
+    n_cls = class_nofit.shape[1]
+    class_nofit = _with_last_rows(_scatter_bool_rows(
+        class_nofit, torch.where(newly_parked, t.wl_class, n_cls - 1),
+        newly_parked, "amax"), False)
+    parked = _with_last_rows(
+        parked | (~admitted & _rows(class_nofit, t.wl_class)), False)
+
+    # ---- capacity-freed flush: unpark cohort roots with evictions -----
+    victim_roots = _rows(t.cq_root, torch.clamp(t.wl_cqid[:, :-1],
+                                                max=C - 1))
+    freed_root = _scatter_bool_rows(
+        torch.zeros((S, N1), dtype=torch.bool, device=dev), victim_roots,
+        victims[:, :-1], "amax")
+    wl_root = _rows(t.cq_root, torch.clamp(t.wl_cqid, max=C - 1))
+    parked = parked & ~_rows(freed_root, wl_root)
+    class_nofit = class_nofit & ~_rows(freed_root, t.class_root)
+
+    usage_next = _refresh_cohort_usage_b(t, out["cq_rows"])
+    progress = (any_adm | any_evict | (parked & ~parked_before).any(dim=1)
+                | (cursor != cursor_before).flatten(1).any(dim=1))
+    return {
+        "usage": usage_next, "cq_rows": out["cq_rows"],
+        "admitted": admitted, "parked": parked, "ts": ts,
+        "evicted": evicted_f, "admit_rank": admit_rank,
+        "wl_usage": wl_usage, "cursor": cursor, "opt": opt,
+        "admit_round": admit_round, "class_nofit": class_nofit,
+        "victim_reason": out["victim_reason"],
+        "lq_penalty": out["lq_penalty"], "progress": progress,
+        "rounds": rounds + 1,
+    }
+
+
+def solve_backlog_full_batched(t: FullTensors, overrides: dict,
+                               g_max: int, h_max: int = 32,
+                               p_max: int = 128, round_cap: int = 0,
+                               stats: Optional[FullDrainStats] = None,
+                               afs: bool = False):
+    """Solve S counterfactual variants of one FULL problem in one batched
+    drain: the JAX package's ``jit(vmap(_solve_full_impl))`` with an
+    explicit leading scenario axis.
+
+    ``overrides`` maps FullTensors field names to stacked [S, ...]
+    variants; unnamed fields are shared (broadcast views, no copy).
+    Returns the ``solve_backlog_full`` 8-tuple with a leading scenario
+    axis on every output (``rounds`` [S]). Each lane runs exactly its
+    own drain: its state, round count and per-round stamps advance only
+    while its own ``progress & rounds < bound`` holds, as under the JAX
+    ``vmap(while_loop)``; the loop reads one bool per round (whether any
+    lane is live). Fair sharing is off (the what-if sweeps never turn it
+    on); ``afs`` says whether the base problem has an admission-fair-
+    sharing ClusterQueue. The victim-search lanes number S x h_max x K,
+    each with its [N+1, F] usage walks and [p_max] candidate columns:
+    callers size S from ``sim.batch.LaneBudget``. ``stats`` (when given)
+    accumulates lanes, loop iterations and host reads."""
+    if not overrides:
+        raise ValueError("batched full solve needs at least one "
+                         "scenario-varying field (use "
+                         "solve_backlog_full otherwise)")
+    bad = set(overrides) - ALL_FULL_FIELDS
+    if bad:
+        raise ValueError(
+            f"fields {sorted(bad)} are not FullTensors fields; "
+            f"batchable: {sorted(ALL_FULL_FIELDS)}")
+    if stats is None:
+        stats = FullDrainStats()
+    t = _batched_tensors(t, overrides)
+    S, W1 = t.wl_cqid.shape
+    # the 0-d fields upload as [1]: one value per scenario, [S]
+    t = t._replace(**{f: getattr(t, f).reshape(S) for f in _SCALAR_FIELDS})
+    C = t.cq_node.shape[1]
+    dev = t.wl_cqid.device
+    pot = _potential_available_all_b(t)
+    bound = 2 * W1 + C + 5
+    if round_cap:
+        bound = min(bound, round_cap)
+    state = {
+        "usage": t.usage0.contiguous(),
+        "cq_rows": torch.where(t.is_cq[..., None], t.usage0, 0),
+        "admitted": t.wl_admitted0.contiguous(),
+        "parked": t.wl_parked0.contiguous(),
+        "ts": t.wl_ts0.contiguous(),
+        "evicted": t.wl_evicted0.contiguous(),
+        "admit_rank": t.wl_admit_rank0.contiguous(),
+        "wl_usage": t.ad_usage.contiguous(),
+        "cursor": torch.zeros((S, W1, g_max), dtype=INT32, device=dev),
+        "opt": torch.zeros((S, W1, g_max), dtype=INT32, device=dev),
+        "admit_round": torch.full((S, W1), -1, dtype=INT32, device=dev),
+        "victim_reason": torch.zeros((S, W1), dtype=torch.int8,
+                                     device=dev),
+        "lq_penalty": t.lq_penalty0.contiguous(),
+        "class_nofit": torch.zeros(t.class_root.shape, dtype=torch.bool,
+                                   device=dev),
+        "rounds": torch.zeros(S, dtype=INT32, device=dev),
+    }
+    live = torch.ones(S, dtype=torch.bool, device=dev)
+    host_rounds = 0
+    while host_rounds < bound:
+        new = _round_body_b(t, state, pot, g_max, h_max, p_max, stats, afs)
+        host_rounds += 1
+        # lanes whose condition failed keep their state (vmap's select)
+        for k, v in state.items():
+            state[k] = torch.where(
+                live.reshape((S,) + (1,) * (v.dim() - 1)), new[k], v)
+        live = live & new["progress"] & (state["rounds"] < bound)
+        if not stats.read(live.any()):
+            break
+    stats.rounds += host_rounds
+    return (_with_last_rows(state["admitted"], False), state["opt"],
+            state["admit_round"], _with_last_rows(state["parked"], False),
+            state["rounds"], state["usage"], state["wl_usage"],
+            state["victim_reason"])

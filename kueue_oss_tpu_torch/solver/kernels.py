@@ -737,8 +737,9 @@ def _select_heads_b(t: ProblemTensors, cqid, admitted, parked):
     return torch.where(has_head, head_w, W_null).to(INT32)
 
 
-def _batched_tensors(t: ProblemTensors, overrides: dict) -> ProblemTensors:
-    """Every field with a leading scenario axis: the overrides as given
+def _batched_tensors(t, overrides: dict):
+    """Every field of ``t`` (ProblemTensors, or the FULL drain's
+    FullTensors) with a leading scenario axis: the overrides as given
     (in the base field's dtype, on its device), the shared fields as
     broadcast views (no copy)."""
     S = None
@@ -754,11 +755,11 @@ def _batched_tensors(t: ProblemTensors, overrides: dict) -> ProblemTensors:
             raise ValueError("overlays disagree on the scenario count")
         S = arr.shape[0]
         out[name] = arr
-    for name in ProblemTensors._fields:
+    for name in type(t)._fields:
         if name not in out:
             x = getattr(t, name)
             out[name] = x.unsqueeze(0).expand((S,) + tuple(x.shape))
-    return ProblemTensors(**out)
+    return type(t)(**out)
 
 
 def solve_backlog_batched(t: ProblemTensors, overrides: dict,

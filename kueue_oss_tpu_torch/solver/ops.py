@@ -78,16 +78,40 @@ def resource_sum(x: torch.Tensor, fr_resource: torch.Tensor,
     return out.index_add_(x.dim() - 1, fr_resource.long(), x)
 
 
+def _segment_reduce_rows(data, segment_ids, num_segments, reduce,
+                         identity):
+    out = torch.full((data.shape[0], num_segments), identity,
+                     dtype=data.dtype, device=data.device)
+    return out.scatter_reduce_(1, segment_ids.long(), data, reduce=reduce,
+                               include_self=True)
+
+
 def segment_min_rows(data: torch.Tensor, segment_ids: torch.Tensor,
                      num_segments: int) -> torch.Tensor:
-    """Per-row segment minima of [L, P] integer data, [L, num_segments]
+    """Per-row segment minima of [L, P] data, [L, num_segments]
     (``jax.ops.segment_min`` under ``vmap``); empty segments hold the
-    dtype's max."""
-    out = torch.full((data.shape[0], num_segments),
-                     torch.iinfo(data.dtype).max, dtype=data.dtype,
-                     device=data.device)
-    return out.scatter_reduce_(1, segment_ids.long(), data, reduce="amin",
-                               include_self=True)
+    dtype's max (+inf for floats)."""
+    identity = (float("inf") if data.dtype.is_floating_point
+                else torch.iinfo(data.dtype).max)
+    return _segment_reduce_rows(data, segment_ids, num_segments, "amin",
+                                identity)
+
+
+def segment_max_rows(data: torch.Tensor, segment_ids: torch.Tensor,
+                     num_segments: int) -> torch.Tensor:
+    """Per-row segment maxima of [L, P] integer data, [L, num_segments];
+    empty segments hold the dtype's min."""
+    return _segment_reduce_rows(data, segment_ids, num_segments, "amax",
+                                torch.iinfo(data.dtype).min)
+
+
+def segment_sum_rows(data: torch.Tensor, segment_ids: torch.Tensor,
+                     num_segments: int) -> torch.Tensor:
+    """Per-row segment sums of [L, P] integer data, [L, num_segments]
+    (integer adds are exact in any order)."""
+    out = torch.zeros((data.shape[0], num_segments), dtype=data.dtype,
+                      device=data.device)
+    return out.scatter_add_(1, segment_ids.long(), data)
 
 
 def lexsort(keys: Sequence[torch.Tensor]) -> torch.Tensor:

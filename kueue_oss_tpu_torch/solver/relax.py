@@ -108,21 +108,50 @@ def _rho(i: int, iters: int) -> np.float32:
     return np.float32(np.float32(i) * rho_step(iters)) + np.float32(1.0)
 
 
+#: XLA:CPU's tree-reduction window: a reduce over more than WINDOW
+#: elements is split into a reduce-window of WINDOW, then a reduce
+WINDOW = 32
+#: the widest F whose order the tests hold bit for bit against the JAX
+#: program (ROADMAP Queue C item 8); ``sum_order`` refuses a wider one
+MAX_SUM_COLUMNS = 128
+
+
 def sum_order(n: int) -> tuple[int, int]:
     """XLA:CPU's order of the pull's sum over F = n, as tier-1 compiles
-    it (AVX, the conftest flags): (V, E). LLVM vectorises the reduce's
-    reassociable loop over F into V lanes: lane j adds elements j,
-    j + V, ... below E in order (lane 0 from +0.0, the others from
-    -0.0, so a lane with no element is the identity); the lanes then
-    fold by halves (lane i += lane i + V/2, down to lane 0: x86's
-    lowering of ``llvm.vector.reduce.fadd``); elements E .. n-1 are
-    added after, in order (the scalar remainder loop). Read from the
-    optimised LLVM IR at n = 1-32: V = the next power of two for
-    n <= 8 (one masked vector), 4 for 9-12 and 8 for 13-15 (masked
-    loops), and above E = 4 * (n // 4) with V = 8 when 8 divides E,
-    else 4. Both ``lp_step_body`` and ``csrc/relax_lp.cu`` follow it.
-    Above n = 32 XLA splits the reduce (a reduce-window, then a reduce)
-    and this is not its order (ROADMAP Queue C item 8)."""
+    it (AVX, the conftest flags).
+
+    For n <= 32, (V, E): LLVM vectorises the reduce's reassociable loop
+    over F into V lanes: lane j adds elements j, j + V, ... below E in
+    order (lane 0 from +0.0, the others from -0.0, so a lane with no
+    element is the identity); the lanes then fold by halves (lane i +=
+    lane i + V/2, down to lane 0: x86's lowering of
+    ``llvm.vector.reduce.fadd``); elements E .. n-1 are added after, in
+    order (the scalar remainder loop). Read from the optimised LLVM IR
+    at n = 1-32: V = the next power of two for n <= 8 (one masked
+    vector), 4 for 9-12 and 8 for 13-15 (masked loops), and above E =
+    4 * (n // 4) with V = 8 when 8 divides E, else 4.
+
+    For n > 32, (0, P): XLA splits the reduce into a reduce-window of
+    ``WINDOW`` elements, stride ``WINDOW``, over F padded to the next
+    multiple of ``WINDOW`` with P = (pad // 2) elements in front (the
+    rest behind), then a reduce over the ceil(n / 32) windows. Each
+    window adds its elements in order from +0.0, skipping the padding;
+    the windows then add in order from +0.0. Read from the reduce-window
+    and the fusion that consumes it (``--xla_dump_to``) at n = 33, 40,
+    48, 64, 96, 128 and 200, for one LP and under ``vmap``, at 129 and
+    257 rows: the same split at every row count. Above
+    ``MAX_SUM_COLUMNS`` it raises: no test holds that order (above 32
+    windows XLA may split the reduce again).
+
+    Both ``lp_step_body`` and ``csrc/relax_lp.cu`` follow it."""
+    if n > MAX_SUM_COLUMNS:
+        raise ValueError(
+            f"the relaxed LP's sum over {n} flavor-resource columns: "
+            f"XLA:CPU's order is held only up to {MAX_SUM_COLUMNS} "
+            f"(ROADMAP Queue C item 8)")
+    if n > WINDOW:
+        n_w = -(-n // WINDOW)
+        return 0, (n_w * WINDOW - n) // 2
     if n <= 8:
         v = 1
         while v < n:
@@ -139,6 +168,15 @@ def sum_in_order(prod: torch.Tensor) -> torch.Tensor:
     rounded to float32."""
     n = prod.shape[-1]
     v, e = sum_order(n)
+    if v == 0:
+        out = torch.zeros(prod.shape[:-1], dtype=prod.dtype,
+                          device=prod.device)
+        for lo in range(-e, n, WINDOW):
+            acc = torch.zeros_like(out)
+            for f in range(max(lo, 0), min(lo + WINDOW, n)):
+                acc = acc + prod[..., f]
+            out = out + acc
+        return out
     lanes = []
     for j in range(min(v, e)):
         acc = prod[..., j] + 0.0 if j == 0 else prod[..., j]

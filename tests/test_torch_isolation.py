@@ -3,8 +3,8 @@ chip_smoke.py imports jax, jaxlib or the JAX package (the relaxed arm's
 solver/relax.py and solver/cuda_relax.py included; its kernel source
 names neither), and the port imports and drains (lean, FULL, fair
 sharing and admission fair sharing, and lean through the relaxed arm),
-schedules, streams, runs the perf simulator, a what-if sweep and the
-relax tier with those modules blocked."""
+schedules, streams, runs the perf simulator, a what-if sweep, the relax
+tier and a resident FULL sweep with those modules blocked."""
 
 import ast
 import subprocess
@@ -59,6 +59,7 @@ def test_scan_sees_the_whole_port():
     for name in ("perf/__init__.py", "perf/generator.py", "perf/runner.py",
                  "perf/checker.py", "sim/__init__.py", "sim/scenario.py",
                  "sim/batch.py", "sim/report.py", "sim/engine.py",
+                 "sim/resident.py", "sim/traces.py",
                  "solver/relax.py", "solver/cuda_relax.py"):
         assert f"kueue_oss_tpu_torch/{name}" in names, name
     assert "chip_smoke.py" in names
@@ -207,6 +208,20 @@ def test_port_drains_with_jax_blocked():
         problem = tensors.pad_workloads(problem, 64)
         tier = solve_scenarios_relax(problem, [{}, {}], device="cpu")
         assert tier.tier == ["relax", "relax"]
+        # the FULL what-if sweep: a resident engine over a trace store
+        from kueue_oss_tpu_torch.config import SimulatorConfig
+        from kueue_oss_tpu_torch.sim import (
+            load_ladder, philly_trace, store_from_trace)
+        store = store_from_trace(philly_trace(24, seed=3))
+        full = WhatIfEngine(store, config=SimulatorConfig(
+            full_kernel=True, full_sweep_max=2), resident=True,
+            device="cpu").run(cross(quota_sweep((0.5, 2.0)),
+                                    arrival_sweep((1.5,))), parity=1)
+        assert full.parity["identical"], full.parity
+        assert [r["tier"] for r in full.scenarios] == (
+            ["full"] * 2 + ["relax"] * 4)
+        assert load_ladder(store, factors=(1, 2), full=True,
+                           device="cpu")["ladder"]
         leaked = [m for m in sys.modules
                   if m.split(".")[0] in ("jax", "jaxlib", "kueue_oss_tpu")
                   and sys.modules[m] is not None]

@@ -207,6 +207,46 @@ def test_lp_loop_batched_bit_identical_to_jax_vmap(n_res):
         assert _same_bits(_lp_x(lp, 32), got[i])
 
 
+#: dense LPs above 32 columns, where XLA:CPU splits the sum over F into
+#: a reduce-window of 32 and a reduce (``relax.sum_order``'s (0, P)
+#: branch): each F at two row counts (W+1 = 129 and 257) for one LP
+WIDE = [(f, nw) for f in (33, 40, 48, 64, 96, 128) for nw in (100, 200)]
+WIDE_IDS = [f"F{f}-W{nw}" for f, nw in WIDE]
+
+
+@pytest.mark.parametrize("n_cols,n_wl", WIDE, ids=WIDE_IDS)
+def test_lp_loop_bit_identical_to_jax_above_32_columns(n_cols, n_wl):
+    jp, pp = _problems(levels=3, n_res=3, n_cqs=6, n_wl=n_wl, seed=3)
+    jlp = scenarios.dense_relax_lp(jax_relax.build_lp(jp), n_cols, 3)
+    plp = scenarios.dense_relax_lp(relax.build_lp(pp), n_cols, 3)
+    want = np.asarray(jax_relax._single_lp(32)(jlp))
+    got = _lp_x(plp, 32)
+    assert _same_bits(got, want)
+    live = plp.live
+    assert ((got[live] > 0) & (got[live] < 1)).mean() > 0.1
+
+
+#: the vmap cases: every F above 32, the two row counts alternating
+WIDE_VMAP = [(f, (100, 200)[k % 2])
+             for k, f in enumerate((33, 40, 48, 64, 96, 128))]
+
+
+@pytest.mark.parametrize("n_cols,n_wl", WIDE_VMAP,
+                         ids=[f"F{f}-W{nw}" for f, nw in WIDE_VMAP])
+def test_lp_loop_batched_bit_identical_to_jax_vmap_above_32_columns(
+        n_cols, n_wl):
+    """Two dense scenarios above 32 columns against ``jit(vmap(
+    lp_loop))``: the window split is the same under the vmap."""
+    lps = [scenarios.dense_relax_lp(relax.build_lp(_problems(
+        levels=3, n_res=3, n_cqs=6, n_wl=n_wl, seed=s)[1]), n_cols, s)
+        for s in range(2)]
+    stacked = relax.RelaxLP(*[np.stack([getattr(lp, f) for lp in lps])
+                              for f in relax.RelaxLP._fields])
+    want = np.asarray(jax.jit(jax.vmap(functools.partial(
+        jax_relax.lp_loop, iters=32)))(jax_relax.RelaxLP(*stacked)))
+    assert _same_bits(_lp_x(stacked, 32), want)
+
+
 def test_relax_lp_takes_the_plain_loop_on_cpu_and_counts_no_launch():
     _, pp = _problems(**SHAPES[3])
     lp = relax.lp_to_device(relax.build_lp(pp), "cpu")
@@ -329,9 +369,10 @@ def test_cluster_size_and_layout_follow_the_shape():
 
 def test_lane_width_and_rho_follow_xla():
     """``sum_order`` is the (lanes, vectorised prefix) read from XLA:CPU's
-    LLVM IR; ``sum_in_order`` adds in that order: F = 4 is
-    (m0 + m2) + (m1 + m3), F = 17 the eight-lane fold of the first 16,
-    then m16."""
+    LLVM IR, and above 32 columns the reduce-window's front padding;
+    ``sum_in_order`` adds in that order: F = 4 is (m0 + m2) + (m1 + m3),
+    F = 17 the eight-lane fold of the first 16, then m16, F = 33 two
+    windows of 32 over the padded row, each in order."""
     assert [relax.sum_order(n) for n in (1, 2, 3, 4, 5, 8, 9, 12, 13, 16,
                                          17, 20, 23, 24, 28, 32)] == [
         (1, 1), (2, 2), (4, 3), (4, 4), (8, 5), (8, 8), (4, 9), (4, 12),
@@ -348,6 +389,26 @@ def test_lane_width_and_rho_follow_xla():
     fold = [fold[0] + fold[2], fold[1] + fold[3]]
     want17 = (fold[0] + fold[1]) + v[:, 16]
     assert _same_bits(relax.sum_in_order(m).numpy(), want17)
+    # above 32 columns: XLA's reduce-window of 32 with P = (pad // 2)
+    # in front (read from the dumps: pad=0_0x15_16 at F = 33, 12_12 at
+    # 40, 8_8 at 48, none at 64, 96 and 128); wider than the tests hold
+    # (MAX_SUM_COLUMNS), it refuses
+    assert [relax.sum_order(n) for n in (33, 40, 48, 64, 96, 128)] == [
+        (0, 15), (0, 12), (0, 8), (0, 0), (0, 0), (0, 0)]
+    assert relax.MAX_SUM_COLUMNS == max(f for f, _ in WIDE)
+    for n in (relax.MAX_SUM_COLUMNS + 1, 200):
+        with pytest.raises(ValueError, match="Queue C item 8"):
+            relax.sum_order(n)
+    w = torch.as_tensor(rng.random((64, 33), dtype=np.float32)).numpy()
+    win0 = f32(0.0)
+    for f in range(17):                   # padded 15 + elements 0..16
+        win0 = f32(win0 + w[:, f])
+    win1 = f32(0.0)
+    for f in range(17, 33):               # elements 17..32 + padded 16
+        win1 = f32(win1 + w[:, f])
+    want33 = f32(f32(f32(0.0) + win0) + win1)
+    assert _same_bits(relax.sum_in_order(torch.as_tensor(w)).numpy(),
+                      want33)
     assert relax.rho_step(32) == np.float32(0.09375)
     # 3 * (1 / 30) in float32 is not float32(3 / 30)
     assert relax.rho_step(30) != np.float32(0.1)

@@ -309,13 +309,14 @@ def test_cut_paths_raise():
     store, _ = _contended_store(port_gen, 1, 1, (1, 0, 0))
     with pytest.raises(NotImplementedError, match="item 9"):
         SimulatorConfig(mesh="auto")
-    with pytest.raises(NotImplementedError, match="7b"):
-        SimulatorConfig(full_kernel=True)
-    with pytest.raises(NotImplementedError, match="7b"):
-        port_sim.WhatIfEngine(store, resident=True, device="cpu")
-    engine = port_sim.WhatIfEngine(store, device="cpu")
-    with pytest.raises(NotImplementedError, match="7b"):
-        engine.run([port_sim.ScenarioSpec()], full=True)
+    # the FULL sweep and the resident state run (ROADMAP Queue A item
+    # 7b); tests/test_torch_fullsweep.py holds them against the JAX
+    # package
+    assert SimulatorConfig(full_kernel=True).full_kernel
+    assert port_sim.WhatIfEngine(store, resident=True,
+                                 device="cpu").resident is not None
+    with pytest.raises(RuntimeError, match="CUDA"):
+        port_sim.WhatIfEngine(store, resident=True)
     with pytest.raises(RuntimeError, match="CUDA"):
         port_sim.WhatIfEngine(store)
     with pytest.raises(NotImplementedError, match="item 9"):
@@ -329,6 +330,7 @@ def test_chip_smoke_copies_match_the_pins_helpers():
     import chip_smoke
     import torch_sim_pins as pins
 
+    assert chip_smoke.PERF_AUTO_SCALE == pins.PERF_AUTO_SCALE
     problem, overlays = chip_smoke.bench_whatif_problem()
     want_problem, want_overlays = pins.bench_whatif_problem(pins.PORT)
     assert problem.wl_keys == want_problem.wl_keys

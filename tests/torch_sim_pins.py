@@ -44,6 +44,8 @@ PORT = "kueue_oss_tpu_torch"
 #: the what-if grid of phase 17 (b): 8 quota worlds x 4 arrival worlds
 WHATIF_QUOTA = (0.25, 0.5, 0.75, 1.25, 1.5, 2.0, 3.0)
 WHATIF_ARRIVAL = (0.25, 0.5, 0.75)
+#: the depth of phase 16 (b)'s auto run (chip_smoke.py PERF_AUTO_SCALE)
+PERF_AUTO_SCALE = 0.5
 #: bench.py's whatif sweep (bench.py:1465-1497)
 BENCH_QUOTA = (0.25, 0.5, 0.75, 1.25, 1.5, 2.0, 3.0)
 BENCH_ARRIVAL = (0.5, 0.75, 1.25, 1.5, 2.0, 2.5, 3.0)
@@ -263,8 +265,8 @@ def reference_pins() -> dict:
     out["sim_host"] = host
     print(f"# sim host {time.monotonic() - t0:.1f} s", file=sys.stderr)
     t0 = time.monotonic()
-    out["sim_auto"], _, _ = sim_record(JAX, baseline_config(gen),
-                                       solver=True)
+    out["sim_auto"], _, _ = sim_record(
+        JAX, baseline_config(gen, PERF_AUTO_SCALE), solver=True)
     print(f"# sim auto {time.monotonic() - t0:.1f} s", file=sys.stderr)
     t0 = time.monotonic()
     out["drain_large"], _ = drain_bench_record(JAX, large_scale_config(gen))
