@@ -5,6 +5,10 @@ Run from the repository root on a machine with one NVIDIA GPU:
 
     python3 chip_smoke.py
 
+(``python3 chip_smoke.py --phase 20`` runs phases 1, 2 and 20 alone,
+with phase 14's host-only store built afresh for 20 (c); it prints no
+kernel report.)
+
 Phases, in order; any failure propagates (nonzero exit, no result line):
 
 1. device: the card's name, and its name and power limit as nvidia-smi
@@ -100,7 +104,13 @@ Phases, in order; any failure propagates (nonzero exit, no result line):
    the same decisions per drain (admitted set and flavors, evicted set
    and reasons) and reports the bytes it uploads per drain. Each drain
    prints its frame, dirty rows, update bytes and phase seconds for
-   both engines.
+   both engines. Then a light churn: three cycles that lower the
+   priority of the newest 0.5% of the pending workloads in place
+   (bench.py's churn rate, without finishes or arrivals, which change
+   the backlog's membership and so force an ``assemble`` export): from
+   the second cycle the export must ``scatter``, the session emit a
+   ``delta`` through its hint advance, and the twin decide alike; both
+   engines' encode and device_put seconds are printed.
 11. scheduler storm (the system's entry point): the phase 6 store at
    full size through ``Scheduler(store, queues, solver="auto")`` (its
    engine on the card, sessions on, default ``solver_min_backlog``):
@@ -113,11 +123,13 @@ Phases, in order; any failure propagates (nonzero exit, no result line):
    phase 6. A host-only twin (``solver=None``) on a second store must
    reach the same store in the JAX host-only cycle counts (22 and 6).
    Both walls are printed, with the drain's phases;
-12. scheduler TAS: the phase 5 store at full size through
-   ``Scheduler(solver="auto")``: the JAX scheduler's record (102 held,
-   14,898 parked, one drain, one empty host cycle: no host TAS head),
-   phase 5's plan digest and rounds, one tas_place_sequential launch
-   placing 102 podsets, no leaf_states launch;
+12. scheduler TAS: the phase 5 store at phase 4's depth (its first
+   1,500 workloads, which hold all 102 admissions; cut for the script's
+   time) through ``Scheduler(solver="auto")``: the JAX scheduler's
+   record (102 held, 1,398 parked, one drain, one empty host cycle: no
+   host TAS head), phase 4's plan digest and rounds, one
+   tas_place_sequential launch placing 102 podsets, no leaf_states
+   launch;
 13. refused backlog: the storm with memory quotas and requests in bytes
    (``scenarios.refused_quantity_store``), which every drain refuses at
    export ("quantities too large for int32 solver tensors"), through
@@ -190,8 +202,8 @@ Phases, in order; any failure propagates (nonzero exit, no result line):
    time-to-admission per class) and the committed-store digest with
    the QuotaReserved times must equal the JAX package's, and
    ``check(stats, BASELINE_SPEC)`` must report no violation; (b) the
-   same at half its depth (7,500 workloads: cut for the script's
-   time) with ``solver="auto"`` on the card, both routing cost
+   same at a quarter of its depth (3,750 workloads: cut for the
+   script's time) with ``solver="auto"`` on the card, both routing cost
    EMAs reset before every routing decision (the wall-clock gate would
    route differently on every machine): the JAX ``solver="auto"`` record
    and
@@ -270,13 +282,46 @@ Phases, in order; any failure propagates (nonzero exit, no result line):
    (a reuse): every report's canonical JSON, rounds, admissions,
    preemptions and tiers the JAX engine's, parity identical. Walls, rounds, host reads, chunk widths and the resident
    session's counters are printed. Pins: tests/torch_fullsweep_pins.py.
+20. the what-if-scored MultiKueue dispatch and the TAS controllers
+   (``multikueue/``, ``sim/dispatch.py``, ``controllers/``, ``chaos``):
+   (a) bench.py's phase-2 fleet (bench.py:1851-1990): a hub with the
+   MultiKueue admission check over four workers (``tight-a/b/c``,
+   ``roomy``), six candidate sizes dispatched by
+   ``WhatIfDispatcher(check_oracle=True)`` on the card and by
+   ``IncrementalDispatcher``: the times to admit (simulated s), the
+   winners and every pricing's report equal the JAX pins, the oracle
+   agrees 6/6, no pricer fault; score ms per pricing printed; (b) one
+   nomination priced over 8 worker clusters of Kueue's large-scale mix
+   without preemption (four at 1 cohort x 10 ClusterQueues, four at
+   2 x 5, quotas 0.5-2x; five saturated with 500 pending each, three
+   with headroom, their backlogs the arrival-ordered prefixes within
+   0.6-0.9 of their quotas; cut from 1,000 ClusterQueues for the
+   phase's time) in one batched lean drain, its report the JAX pin
+   (a real choice: the headroom workers admit the candidate in
+   different rounds, the others park it) and bit for bit the
+   sequential oracle's; rounds and host reads
+   printed; (c) phase 14's host-only store: 96 seeded nodes flapped
+   down (``NodeFlapInjector``), ``NodeFailureController`` past the grace
+   period and the recovery timeout with TASDeviceFillCounts on: 29
+   workloads re-placed in place through the device fill
+   (``fill_counts`` launches > 0), the one on two failed nodes evicted,
+   the new assignments and the committed store the JAX pins; (d) the
+   TAS drain store at phase 4's 1,500 workloads with an admission check
+   on every ClusterQueue: host cycles reserve quota with the topology
+   Pending, the checks turn Ready, ``WorkloadReconciler`` queues the
+   second pass, which places through the device fill, and admits: the
+   committed store the JAX pin; (e) ``simulate_trace`` with two down
+   flaps and one up flap on a generated lean trace whose store carries
+   the 640 TAS nodes: the flap log, admissions and TTA by class the JAX
+   pins. Pins: tests/torch_dispatch_pins.py.
 
-Phases 6-9 pin the JAX engine's plans without delta sessions, so they
-run the port's engine with ``use_sessions = False``; phases 10-15 pin
-them with sessions on. The relaxed arm's router decides by wall clock,
-so phases 5 and 10-16 pin it off (``relax_off``) on both sides, and
-relax_lp must not have launched before phase 18. Phases 8-11, 13 and
-15-19 run no TAS flavor: the TAS kernels' launch counts are set to 0
+Phases 5-15 pin the JAX engine's plans with delta sessions on (its
+default, and the port's; ``use_sessions = False`` stays the off
+switch, which phase 10's twin runs). The relaxed arm's router decides
+by wall clock, so phases 5 and 10-16 pin it off (``relax_off``) on
+both sides, and relax_lp must not have launched before phase 18.
+Phases 8-11, 13, 15-19 and 20 (a), (b) and (e) run no TAS flavor: the
+TAS kernels' launch counts are set to 0
 before each drain (or each ``run_until_quiet``, each fleet of phase 15,
 or each run of phases 16-19) and must still be 0 after it.
 
@@ -304,21 +349,21 @@ REFERENCE = {"admitted": 102, "rounds": 549, "evicted": 0,
 STEPWISE_WORKLOADS = 1500
 STEPWISE_REFERENCE = {**REFERENCE, "rounds": 66, "parked": 1398}
 #: the JAX package's plans of phase 6 (per wave) and phase 7: its
-#: engine with ``mesh_mode="off"`` and without delta sessions
-#: (KUEUE_SOLVER_SESSIONS=0), and so the port's engine with
-#: ``use_sessions = False``; with sessions both engines re-lay a later
-#: drain's rows into stable slots, which reorders wave 2's evicted keys
-#: (the same set) and changes that digest only (phase 10)
+#: engine with ``mesh_mode="off"`` and delta sessions on (its default,
+#: and the port's); the sessions re-lay wave 2's rows into stable slots,
+#: which orders its evicted keys (and so its digest) as phase 10's wave
+#: 2 (``STORM_CHURN_REFERENCE``); phase 7's single drain is the
+#: session's first sync (tests/torch_engine_pins.py prints them)
 STORM_REFERENCE = [
     {"admitted": 600, "evicted": 0, "rounds": 22, "held": 600,
      "digest": "e127c72662d418820e4abaa29e4e4b0d03ed02f9d7e97c6b59a3aa27"
                "f87fedc9"},
     {"admitted": 30, "evicted": 600, "rounds": 6, "held": 30,
-     "digest": "58b39babac12c4d6630e0d5d724f07a8501a4cde09c100302e2cb817"
-               "f4c39761"},
+     "digest": "b0fb9ed57388273d10976583bea4859801e80748fa8208f2de95c9a7"
+               "821571ef"},
 ]
-#: the JAX package's plans of phases 8 and 9 (its engine without mesh
-#: and delta sessions, as above)
+#: the JAX package's plans of phases 8 and 9 (its engine without mesh,
+#: delta sessions on, as above; they equal its sessions-off plans)
 FAIR_REFERENCE = [
     {"admitted": 600, "evicted": 0, "rounds": 62, "held": 600,
      "digest": "557f26ef39c557381aed73eb4a46b1e81ff5549c79976443e68206830a"
@@ -436,10 +481,10 @@ SCHEDULER_REFERENCE = {
                   "7119681d877d61e0b708e4fdc6df140e"},
     ],
     "tas": {"cycles": 1, "held": 102, "evicted": 0, "reasons": {},
-     "digest": "3c5c70649de0ccd9dc5e384b7fc66a88"
-              "82f1868f16091678e5111eac2290bbe2",
+     "digest": "d0678ae573b3b68880b6654495dae904"
+              "47774ed516d4f3774c371c7a4cf2277d",
      "drains": 1, "unsupported": 0, "drain_admitted": 102,
-     "parked": 14898},
+     "parked": 1398},
     "refused": [
         {"cycles": 22, "held": 600, "evicted": 0, "reasons": {},
          "digest": "aa72c45003b1ff0f3ec2a6c82310c5e1"
@@ -584,14 +629,14 @@ SIM_REFERENCE = {
                                  "small": 55434.28571428572},
              "digest": ("d936867412ec4e7d89395d8625abfa13"
                         "90e453a84bfca3fc4fd197de47c0de90")},
-    "auto": {"admitted": 7500, "finished": 7500, "preemptions": 2850,
-             "cycles": 421, "sim_wall_ms": 37800,
+    "auto": {"admitted": 3750, "finished": 3750, "preemptions": 1290,
+             "cycles": 211, "sim_wall_ms": 18200,
              "tta_ms_by_class": {"large": 0.0,
-                                 "medium": 13188.275862068966,
-                                 "small": 27060.0},
-             "digest": ("d3953aef3a5aac1711ff552cadff2040"
-                        "4f3535fdab6c01d90755e3d687adedee"),
-             "drains": 45, "unsupported": 0, "drain_admitted": 8370},
+                                 "medium": 6338.235294117647,
+                                 "small": 12320.454545454546},
+             "digest": ("567fac13a0912a6c03c510b792d3b161"
+                        "aba8addf25ec168868a0f64152a78cfb"),
+             "drains": 19, "unsupported": 0, "drain_admitted": 3930},
 }
 DRAIN_LARGE_REFERENCE = {
     "workloads": 50000, "cluster_queues": 1000, "admitted": 1000,
@@ -648,8 +693,8 @@ BENCH_ARRIVAL = (0.5, 0.75, 1.25, 1.5, 2.0, 2.5, 3.0)
 WHATIF_QUOTA = (0.25, 0.5, 0.75, 1.25, 1.5, 2.0, 3.0)
 WHATIF_ARRIVAL = (0.25, 0.5, 0.75)
 #: phase 16 (b)'s depth: the baseline's per-class counts times this
-#: (7,500 workloads; cut from 15,000 for the script's time)
-PERF_AUTO_SCALE = 0.5
+#: (3,750 workloads; cut from 15,000 for the script's time)
+PERF_AUTO_SCALE = 0.25
 #: H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, non-tensor fp32 ops/s
 HBM_BYTES_PER_S = 3.35e12
 SCALAR_OPS_PER_S = 67e12
@@ -1199,7 +1244,6 @@ def storm_drain() -> dict:
 
     store, wave1, wave2 = baseline_preempt_store(types, Store)
     engine = SolverEngine(store, QueueManager(store))
-    engine.use_sessions = False  # STORM_REFERENCE pins sessions off
     out = {}
     for name, now, wave, reference in (
             ("wave1", 100.0, wave1, STORM_REFERENCE[0]),
@@ -1240,7 +1284,6 @@ def tas_full_drain() -> tuple:
     store = tas_drain_store(types, Store, n_workloads=1500, preempt=True)
     queues = QueueManager(store)
     engine = SolverEngine(store, queues)
-    engine.use_sessions = False
     _reset_launches()
     cuda_tas.tas_place_sequential.steps = 0
     _settle()
@@ -1323,7 +1366,6 @@ def fair_storm_drain() -> tuple:
     store, wave1, wave2 = fair_reclaim_store(types, Store)
     engine = SolverEngine(store, QueueManager(store),
                           enable_fair_sharing=True)
-    engine.use_sessions = False  # FAIR_REFERENCE pins sessions off
     out, launches = {}, 0
     for name, now, wave, reference in (
             ("wave1", 100.0, wave1, FAIR_REFERENCE[0]),
@@ -1379,7 +1421,6 @@ def afs_drain() -> tuple:
 
     store, afs, backlog = afs_baseline_store(types, Store, AfsManager)
     engine = SolverEngine(store, QueueManager(store, afs=afs))
-    engine.use_sessions = False  # AFS_REFERENCE pins sessions off
     for wl in backlog:
         store.add_workload(wl)
     _reset_launches()
@@ -1408,6 +1449,87 @@ def afs_drain() -> tuple:
     print(f"[afs] plan matches the reference {got}; FULL drain counters "
           + json.dumps(_stats(result)) + f"; {json.dumps(out)}")
     return out, launches
+
+
+#: phase 10's light churn: cycles that edit LIGHT_SHARE (bench.py's 0.5%
+#: churn rate, bench.py:769-800) of the pending workloads in place
+LIGHT_CYCLES = 3
+LIGHT_SHARE = 0.005
+
+
+def light_churn_edit(store) -> int:
+    """One light-churn cycle's edit: the newest LIGHT_SHARE of the pending
+    workloads (by creation time, then name) lose one priority step, in
+    place. The backlog's membership stays (no finish, no arrival), so
+    the columnar export can scatter the dirty rows and the session take
+    its hint advance; a lower priority can start no preemption. Returns
+    the workloads edited."""
+    pending = sorted((w for w in store.workloads.values()
+                      if not w.is_quota_reserved and not w.is_finished),
+                     key=lambda w: (w.creation_time, w.name))
+    n = max(1, int(len(pending) * LIGHT_SHARE))
+    for wl in pending[-n:]:
+        wl.priority -= 1
+        store.update_workload(wl)
+    return n
+
+
+def _light_churn(sides, t0: float) -> tuple:
+    """Phase 10's light churn after the heavy one: LIGHT_CYCLES cycles of
+    ``light_churn_edit`` and a drain, on the sessions engine and its
+    sessions-off twin, which must decide alike. From the second cycle on
+    the sessions engine must export by ``scatter`` (membership unchanged
+    since the last export), emit a ``delta`` frame and take the hint
+    advance (``fast_advances`` + 1 a cycle). Returns (per-cycle rows with
+    both engines' encode and device_put seconds, TAS kernel launches)."""
+    import torch
+
+    (_, store, engine), _ = sides
+    session = engine._delta_sessions["full"]
+    rows, launches = [], 0
+    for c in range(1, LIGHT_CYCLES + 1):
+        now = t0 + c
+        row = {"label": f"light{c}"}
+        decisions = None
+        for name, st, eng in sides:
+            edited = light_churn_edit(st)
+            fast0 = session.fast_advances
+            _reset_launches()
+            _settle()
+            t1 = time.monotonic()
+            result = eng.drain(now=now)
+            torch.cuda.synchronize()
+            wall = time.monotonic() - t1
+            launches += _launches()
+            if _launches():
+                raise AssertionError("the storm has no TAS flavor, yet a "
+                                     "TAS kernel launched")
+            _quota_checks(st)
+            if decisions is None:
+                decisions = _decisions(st, result)
+                frame = _frame_summary(result)
+                row.update(frame)
+                row["export_mode"] = result.export_stats.get("export_mode")
+                row["fast_advances"] = session.fast_advances - fast0
+                if c > 1 and (row["export_mode"] != "scatter"
+                              or frame["frame"] != "delta"
+                              or row["fast_advances"] != 1):
+                    raise AssertionError(
+                        f"light churn cycle {c}: export "
+                        f"{row['export_mode']}, frame {frame['frame']}, "
+                        f"{row['fast_advances']} hint advances; expected "
+                        f"scatter, delta and 1")
+            elif _decisions(st, result) != decisions:
+                raise AssertionError(f"light churn cycle {c}: the "
+                                     f"sessions-off twin decided otherwise")
+            row[name] = {"edited": edited, "drain_s": wall,
+                         "admitted": result.admitted,
+                         "evicted": result.evicted,
+                         **{f"{k}_s": v for k, v in result.phases.items()},
+                         **result.device, **result.export_stats}
+        rows.append(row)
+        print(f"[storm churn light{c}] " + json.dumps(row))
+    return rows, launches
 
 
 def _decisions(store, result) -> tuple:
@@ -1542,7 +1664,12 @@ def storm_churn_drain() -> tuple:
           f"({dev.donated_full_syncs} in place), {dev.delta_updates} delta "
           f"updates, {dev.full_upload_bytes} full-upload bytes, "
           f"{dev.donated_update_bytes} bytes written in place")
-    return {"drains": out, "full_uploads": dev.full_uploads,
+    light, light_launches = _light_churn(
+        (("sessions", store, engine), ("twin", twin_store, twin)),
+        STORM_CHURN_REFERENCE[-1]["now"])
+    launches += light_launches
+    return {"drains": out, "light": light,
+            "full_uploads": dev.full_uploads,
             "delta_updates": dev.delta_updates,
             "donated_full_syncs": dev.donated_full_syncs,
             "resident_bytes": dev.resident_bytes()}, launches
@@ -1706,7 +1833,7 @@ def scheduler_storm() -> tuple:
 
 
 def scheduler_tas() -> tuple:
-    """Phase 12: the full-size TAS store through
+    """Phase 12: the TAS store at phase 4's depth through
     Scheduler(solver="auto"). Returns (report, tas_place_sequential
     launches, leaf_states launches)."""
     from kueue_oss_tpu_torch.api import types
@@ -1716,7 +1843,7 @@ def scheduler_tas() -> tuple:
     from kueue_oss_tpu_torch.scheduler.scheduler import Scheduler
     from kueue_oss_tpu_torch.solver import cuda_tas
 
-    store = tas_drain_store(types, Store)
+    store = tas_drain_store(types, Store, n_workloads=STEPWISE_WORKLOADS)
     sched = Scheduler(store, QueueManager(store), solver="auto")
     relax_off(sched._solver_engine())
     cuda_tas.tas_place_sequential.steps = 0
@@ -1731,11 +1858,12 @@ def scheduler_tas() -> tuple:
     if rec != want:
         raise AssertionError(f"scheduler TAS: {rec} != reference {want}")
     drain = sched.last_drain
-    if (launches != 1 or steps != REFERENCE["admitted"] or leaf_launches
+    ref = STEPWISE_REFERENCE
+    if (launches != 1 or steps != ref["admitted"] or leaf_launches
             or fill_launches
-            or plan_digest(store, drain.admitted_keys) != REFERENCE["digest"]
-            or drain.rounds != REFERENCE["rounds"]
-            or rec["parked"] != REFERENCE["parked"]
+            or plan_digest(store, drain.admitted_keys) != ref["digest"]
+            or drain.rounds != ref["rounds"]
+            or rec["parked"] != ref["parked"]
             or oracle["python_calls"] or oracle["rejections"]
             or oracle["entries"] != drain.admitted):
         raise AssertionError(
@@ -1748,7 +1876,7 @@ def scheduler_tas() -> tuple:
            "drain": {f"{k}_s": v for k, v in drain.phases.items()},
            "oracle_s": oracle["seconds"]}
     print(f"[scheduler tas] matches the reference ({rec['held']} held, "
-          f"{rec['parked']} parked, phase 5's plan digest); 1 "
+          f"{rec['parked']} parked, phase 4's plan digest); 1 "
           f"tas_place_sequential launch, {steps} steps, 0 leaf_states "
           f"and 0 fill_counts launches; no host TAS head; " + json.dumps(out))
     return out, launches, leaf_launches
@@ -1909,7 +2037,9 @@ def _topology_checks(store) -> int:
 def scheduler_tas_host() -> tuple:
     """Phase 14: the mixed TAS store through the scheduler in four runs.
     Returns (report, fill_counts launches, leaf_states launches,
-    tas_place_sequential launches)."""
+    tas_place_sequential launches, (store, scheduler) of the last run,
+    the host-only one with the fill gate off, which phase 20 (c)
+    reuses)."""
     import torch
 
     from kueue_oss_tpu_torch import features
@@ -1984,6 +2114,7 @@ def scheduler_tas_host() -> tuple:
                     f"fills, {place} tas_place_sequential launches")
             checked = _topology_checks(store)
             _quota_checks(store)
+            last = (store, sched)
             fill_total += fills
             leaf_total += leaf
             place_total += place
@@ -2057,7 +2188,9 @@ def scheduler_tas_host() -> tuple:
           f"fill_counts at the fill's {tree.n_domains}-domain tree: "
           + json.dumps(tile) + f"; leaf_states at its {D}x{R} tile: "
           + json.dumps(leaf_tile))
-    return out, fill_total, leaf_total, place_total
+    if TAS_MIXED_RUNS[-1] != ("host", False, False):
+        raise AssertionError("phase 20 (c) reuses the host-only run")
+    return out, fill_total, leaf_total, place_total, last
 
 
 def timed_store_digest(store) -> str:
@@ -3556,6 +3689,562 @@ def fullsweep_phase(smi: str, device: str = "cuda") -> tuple:
     return out, launches, relax_launches
 
 
+
+# ---------------------------------------------------------------------------
+# 20. the what-if-scored MultiKueue dispatch and the TAS controllers
+# ---------------------------------------------------------------------------
+
+#: the JAX package's records of phase 20 (``JAX_PLATFORMS=cpu python
+#: tests/torch_dispatch_pins.py`` prints them): (a) bench.py's fleet, (b)
+#: the fleet-scale pricing's report, (c) the node-failure leg, (d) the
+#: delayed TAS leg, (e) the flap trace
+DISPATCH_REFERENCE = json.loads("""
+{"bench_fleet": {"whatif": [1.0, 1.0, 1.0, 1.0, 1.0, 1.0], "incremental":
+[1.0, 16.0, 16.0, 1.0, 16.0, 16.0], "winners": {"whatif": ["roomy", "roomy",
+"roomy", "roomy", "roomy", "roomy"], "incremental": ["tight-a", "roomy",
+"roomy", "tight-a", "roomy", "roomy"]}, "reports": [{"best": "roomy",
+"scores": [["roomy", true, 0, 0.1625], ["tight-a", true, 0, 0.9],
+["tight-b", true, 0, 0.92], ["tight-c", true, 0, 0.95]], "unpriceable": {},
+"batch_width": 4, "oracle_best": "roomy", "oracle_identical": true},
+{"best": "roomy", "scores": [["roomy", true, 0, 0.5], ["tight-a", false,
+1073741824, 0.75], ["tight-b", false, 1073741824, 0.8], ["tight-c", false,
+1073741824, 0.8]], "unpriceable": {}, "batch_width": 4, "oracle_best":
+"roomy", "oracle_identical": true}, {"best": "roomy", "scores": [["roomy",
+true, 0, 0.25], ["tight-a", false, 1073741824, 0.75], ["tight-b", false,
+1073741824, 0.8], ["tight-c", false, 1073741824, 0.8]], "unpriceable": {},
+"batch_width": 4, "oracle_best": "roomy", "oracle_identical": true},
+{"best": "roomy", "scores": [["roomy", true, 0, 0.1625], ["tight-a", true,
+0, 0.9], ["tight-b", true, 0, 0.92], ["tight-c", true, 0, 0.95]],
+"unpriceable": {}, "batch_width": 4, "oracle_best": "roomy",
+"oracle_identical": true}, {"best": "roomy", "scores": [["roomy", true, 0,
+0.4375], ["tight-a", false, 1073741824, 0.75], ["tight-b", false,
+1073741824, 0.8], ["tight-c", false, 1073741824, 0.8]], "unpriceable": {},
+"batch_width": 4, "oracle_best": "roomy", "oracle_identical": true},
+{"best": "roomy", "scores": [["roomy", true, 0, 0.3125], ["tight-a", false,
+1073741824, 0.75], ["tight-b", false, 1073741824, 0.8], ["tight-c", false,
+1073741824, 0.8]], "unpriceable": {}, "batch_width": 4, "oracle_best":
+"roomy", "oracle_identical": true}], "agree": 6, "scored": 6}, "fleet":
+{"best": "w5", "scores": [["w5", true, 3, 0.6114285714285714], ["w4", true,
+4, 0.9166666666666666], ["w6", true, 7, 0.7625], ["w0", false, 1073741824,
+1.0], ["w1", false, 1073741824, 1.0], ["w2", false, 1073741824, 1.0], ["w3",
+false, 1073741824, 1.0], ["w7", false, 1073741824, 1.0]], "unpriceable": {},
+"batch_width": 8, "oracle_best": "w5", "oracle_identical": true},
+"node_failure": {"down": ["n-0-0", "n-0-10", "n-0-11", "n-0-23", "n-0-28",
+"n-0-4", "n-0-42", "n-0-62", "n-0-7", "n-1-1", "n-1-22", "n-1-23", "n-1-24",
+"n-1-29", "n-1-3", "n-1-42", "n-1-6", "n-1-8", "n-2-20", "n-2-22", "n-2-3",
+"n-2-48", "n-2-49", "n-2-50", "n-2-56", "n-2-57", "n-2-60", "n-2-63",
+"n-3-23", "n-3-28", "n-3-29", "n-3-36", "n-3-42", "n-3-52", "n-3-53",
+"n-3-57", "n-3-60", "n-3-7", "n-4-11", "n-4-14", "n-4-25", "n-4-26",
+"n-4-33", "n-4-36", "n-4-40", "n-4-5", "n-4-50", "n-4-51", "n-4-54",
+"n-4-55", "n-4-57", "n-5-2", "n-5-23", "n-5-39", "n-5-41", "n-5-48",
+"n-5-57", "n-5-63", "n-5-8", "n-6-0", "n-6-13", "n-6-18", "n-6-22",
+"n-6-24", "n-6-28", "n-6-39", "n-6-48", "n-6-61", "n-6-63", "n-7-22",
+"n-7-24", "n-7-31", "n-7-42", "n-7-56", "n-7-57", "n-7-59", "n-7-61",
+"n-7-7", "n-8-10", "n-8-15", "n-8-21", "n-8-30", "n-8-42", "n-8-46",
+"n-8-48", "n-8-50", "n-8-54", "n-8-59", "n-8-7", "n-9-13", "n-9-20",
+"n-9-22", "n-9-31", "n-9-40", "n-9-41", "n-9-44"], "single": ["default/w0",
+"default/w12", "default/w123", "default/w13", "default/w14", "default/w16",
+"default/w18", "default/w188", "default/w19", "default/w20", "default/w22",
+"default/w23", "default/w25", "default/w26", "default/w27", "default/w30",
+"default/w34", "default/w42", "default/w49", "default/w50", "default/w54",
+"default/w59", "default/w68", "default/w74", "default/w77", "default/w8",
+"default/w81", "default/w9", "default/w90"], "multi": ["default/w2"],
+"replaced": ["default/w0", "default/w12", "default/w123", "default/w13",
+"default/w14", "default/w16", "default/w18", "default/w188", "default/w19",
+"default/w20", "default/w22", "default/w23", "default/w25", "default/w26",
+"default/w27", "default/w30", "default/w34", "default/w42", "default/w49",
+"default/w50", "default/w54", "default/w59", "default/w68", "default/w74",
+"default/w77", "default/w8", "default/w81", "default/w9", "default/w90"],
+"evicted": ["default/w2"], "assignments":
+"8c76ccea3471a8ae69fd947987da3992c6bdb914670b4744390380eb407b8e81",
+"digest":
+"322e7fe01d94dc178846cc163a55b2adf18d366bf70a9620c1879e2d6efe9cd6"},
+"delayed_tas": {"reserved": 102, "pending_topology": 102, "admitted": 102,
+"placed": 102, "digest":
+"31fa46fa2a92a4b48c868606ffedc7969d4395a5c65ae210773bdb7becbd18f3"},
+"flap_trace": {"workloads": 300, "admitted": 300, "finished": 300,
+"preemptions": 0, "cycles": 123, "sim_wall_ms": 4100.0, "tta_ms_by_class":
+{"large": 525.0, "medium": 2368.182, "small": 3268.571}, "node_flaps":
+[{"atMs": 40.0, "down": true, "nodes": ["n-3-55", "n-9-36", "n-8-5"]},
+{"atMs": 90.0, "down": true, "nodes": ["n-2-13", "n-5-62"]}, {"atMs": 400.0,
+"down": false, "nodes": ["n-3-55", "n-9-36", "n-8-5", "n-2-13",
+"n-5-62"]}]}}
+""")
+#: phase 20's shapes (tests/torch_dispatch_pins.py holds the same): (a)
+#: bench.py's round timeout and sizes (bench.py:1946-1947); (b) per
+#: worker (name, cohorts, ClusterQueues per cohort, quota scale, fill:
+#: None for the whole generated backlog, else the share of the worker's
+#: nominal quota its arrival-ordered pending prefix may reach), the
+#: candidate's cpu and the pricing's clock; (c) the flap's seed and size
+#: and the controller's reconcile times; (d) the TAS drain store's
+#: depth; (e) the trace's flaps (ms, down, count) and seed
+ROUND_TIMEOUT = 15.0
+BENCH_SIZES = (300, 3000, 1000, 300, 2500, 1500)
+FLEET = (("w0", 1, 10, 0.5, None), ("w1", 2, 5, 0.75, None),
+         ("w2", 1, 10, 1.0, None), ("w3", 2, 5, 1.25, None),
+         ("w4", 1, 10, 1.5, 0.9), ("w5", 2, 5, 1.75, 0.6),
+         ("w6", 1, 10, 2.0, 0.75), ("w7", 2, 5, 0.5, None))
+FLEET_CPU = 5
+FLEET_NOW = 10.0
+FLAP_SEED = 36
+FLAP_COUNT = 96
+FAILURE_TIMES = (200.0, 231.0, 600.0)
+DELAYED_WORKLOADS = 1500
+TRACE_FLAPS = ((40.0, True, 3), (90.0, True, 2), (400.0, False, 0))
+TRACE_SEED = 3
+
+
+def bench_worker(name: str, quota: int, background_cpu=(),
+                 device="cuda"):
+    """bench.py's ``worker_env`` (bench.py:1852-1868) on the port."""
+    from kueue_oss_tpu_torch.api import types as T
+    from kueue_oss_tpu_torch.multikueue import WorkerEnvironment
+
+    env = WorkerEnvironment(name, device=device)
+    store = env.store
+    store.upsert_resource_flavor(T.ResourceFlavor(name="f0"))
+    store.upsert_cluster_queue(T.ClusterQueue(
+        name="wcq", preemption=T.PreemptionPolicy(),
+        resource_groups=[T.ResourceGroup(
+            covered_resources=["cpu"],
+            flavors=[T.FlavorQuotas(name="f0", resources=[
+                T.ResourceQuota(name="cpu", nominal=quota)])])]))
+    store.upsert_local_queue(T.LocalQueue(name="lq", cluster_queue="wcq"))
+    for i, cpu in enumerate(background_cpu):
+        store.add_workload(T.Workload(
+            name=f"bg{i}", queue_name="lq", creation_time=float(i),
+            uid=i + 1, podsets=[T.PodSet(count=1, requests={"cpu": cpu})]))
+    env.run_cycle(5.0)
+    return env
+
+
+def bench_workers(device="cuda") -> list:
+    return [bench_worker("tight-a", 2000, (1500,), device),
+            bench_worker("tight-b", 2500, (2000,), device),
+            bench_worker("tight-c", 2000, (1600,), device),
+            bench_worker("roomy", 8000, (1000,), device)]
+
+
+class _Hub:
+    """bench.py's hub (bench.py:1878-1933) on the port: the MultiKueue
+    admission check on its one ClusterQueue, a host scheduler, the
+    workload reconciler and the MultiKueue controller."""
+
+    def __init__(self, workers, dispatcher, device="cuda") -> None:
+        from kueue_oss_tpu_torch.api import types as T
+        from kueue_oss_tpu_torch.controllers import WorkloadReconciler
+        from kueue_oss_tpu_torch.core.queue_manager import QueueManager
+        from kueue_oss_tpu_torch.core.store import Store
+        from kueue_oss_tpu_torch.multikueue import (
+            MULTIKUEUE_CONTROLLER_NAME,
+            MultiKueueCluster,
+            MultiKueueController,
+        )
+        from kueue_oss_tpu_torch.scheduler.scheduler import Scheduler
+
+        self.T = T
+        self.store = Store()
+        self.store.upsert_resource_flavor(T.ResourceFlavor(name="f0"))
+        self.store.upsert_cluster_queue(T.ClusterQueue(
+            name="hubcq", admission_checks=["multikueue"],
+            resource_groups=[T.ResourceGroup(
+                covered_resources=["cpu"],
+                flavors=[T.FlavorQuotas(name="f0", resources=[
+                    T.ResourceQuota(name="cpu", nominal=16000)])])]))
+        self.store.upsert_local_queue(T.LocalQueue(
+            name="lq", cluster_queue="hubcq"))
+        self.store.upsert_admission_check(T.AdmissionCheck(
+            name="multikueue",
+            controller_name=MULTIKUEUE_CONTROLLER_NAME))
+        self.scheduler = Scheduler(self.store, QueueManager(self.store),
+                                   device=device)
+        self.wr = WorkloadReconciler(self.store, self.scheduler)
+        self.clusters = [MultiKueueCluster(name=e.name, environment=e)
+                         for e in workers]
+        self.mk = MultiKueueController(self.store, self.scheduler,
+                                       self.clusters, dispatcher=dispatcher)
+        self.t = 10.0
+
+    def submit(self, cpu: int) -> None:
+        self.t += 1.0
+        self.store.add_workload(self.T.Workload(
+            name="wl", queue_name="lq", creation_time=self.t, uid=1000,
+            podsets=[self.T.PodSet(count=1, requests={"cpu": cpu})]))
+
+    def tick(self) -> None:
+        self.t += 1.0
+        self.scheduler.schedule(self.t)
+        self.mk.reconcile_all(self.t)
+        for c in self.clusters:
+            if c.active:
+                c.environment.run_cycle(self.t)
+        self.mk.reconcile_all(self.t)
+        self.wr.reconcile_all(self.t)
+
+
+def _dispatch_once(dispatcher, cpu: int, device="cuda"):
+    """bench.py's ``dispatch_once``: (time to admit in simulated s, the
+    winner)."""
+    hub = _Hub(bench_workers(device), dispatcher, device)
+    hub.submit(cpu)
+    t_submit = hub.t
+    for _ in range(60):
+        hub.tick()
+        wl = hub.store.workloads["default/wl"]
+        st = wl.status.admission_checks.get("multikueue")
+        if st is not None and st.state == "Ready":
+            return hub.t - t_submit, wl.status.cluster_name
+    raise AssertionError(f"dispatch never admitted (cpu={cpu})")
+
+
+def report_record(report) -> dict:
+    """The fields of a DispatchReport that the JAX package pins."""
+    return {"best": report.best,
+            "scores": [[s.cluster, s.admitted, s.admit_round,
+                        s.util_fraction] for s in report.scores],
+            "unpriceable": dict(sorted(report.unpriceable.items())),
+            "batch_width": report.batch_width,
+            "oracle_best": report.oracle_best,
+            "oracle_identical": report.oracle_identical}
+
+
+def fleet_envs(device="cuda", cqs_cut: int = 0) -> dict:
+    """Phase 20 (b)'s workers: Kueue's large-scale generator config
+    without preemption per FLEET row, quotas scaled, the whole backlog
+    (or, with a fill, its arrival-ordered prefix within that share of
+    the nominal quota) added pending with uids 1..n in arrival order;
+    ``cqs_cut`` > 0 keeps that many ClusterQueues per worker (the tests'
+    small size)."""
+    from kueue_oss_tpu_torch.multikueue import WorkerEnvironment
+    from kueue_oss_tpu_torch.perf import generator as gen
+
+    out = {}
+    for name, n_cohorts, cqs, scale, fill in FLEET:
+        if cqs_cut:
+            n_cohorts, cqs = (1, cqs_cut) if n_cohorts == 1 else (
+                2, max(1, cqs_cut // 2))
+        cfg = gen.GeneratorConfig.large_scale(preemption=False)
+        cfg.n_cohorts, cfg.cqs_per_cohort = n_cohorts, cqs
+        cfg.nominal_quota = int(round(cfg.nominal_quota * scale))
+        store, schedule = gen.generate(cfg)
+        env = WorkerEnvironment(name, store=store, device=device)
+        budget = fill * cfg.nominal_quota * n_cohorts * cqs if fill else 0
+        cpu = 0
+        for i, g in enumerate(schedule):
+            if fill is not None:
+                cpu += sum(ps.count * ps.requests["cpu"]
+                           for ps in g.workload.podsets)
+                if cpu > budget:
+                    break
+            g.workload.uid = i + 1
+            store.add_workload(g.workload)
+        out[name] = env
+    return out
+
+
+def fleet_candidate_report(envs: dict, device="cuda"):
+    """One priced nomination over ``envs`` with the sequential oracle."""
+    from kueue_oss_tpu_torch.api import types as T
+    from kueue_oss_tpu_torch.sim.dispatch import price_dispatch
+
+    wl = T.Workload(name="cand", queue_name="lq-cq-0-0", uid=99999,
+                    creation_time=FLEET_NOW, priority=100,
+                    podsets=[T.PodSet(count=1,
+                                      requests={"cpu": FLEET_CPU})])
+    return price_dispatch(wl, envs, now=FLEET_NOW, check_oracle=True,
+                          device=device)
+
+
+def _assignments_digest(store, keys) -> str:
+    import hashlib
+
+    rows = []
+    for key in keys:
+        adm = store.workloads[key].status.admission
+        rows.append([key, None if adm is None else [
+            [psa.name, None if psa.topology_assignment is None else
+             [list(psa.topology_assignment.levels),
+              [[list(d.values), d.count]
+               for d in psa.topology_assignment.domains]]]
+            for psa in adm.podset_assignments]])
+    return hashlib.sha256(json.dumps(
+        rows, separators=(",", ":")).encode()).hexdigest()
+
+
+def node_failure_record(store, sched) -> dict:
+    """Phase 20 (c) (tests/torch_dispatch_pins.py ``node_failure_leg``):
+    FLAP_COUNT seeded nodes down, the failure controller at
+    FAILURE_TIMES with TASDeviceFillCounts on."""
+    from kueue_oss_tpu_torch import features
+    from kueue_oss_tpu_torch.chaos import NodeFlapInjector
+    from kueue_oss_tpu_torch.controllers import NodeFailureController
+
+    nfc = NodeFailureController(store, sched, grace_period_s=30.0,
+                                recovery_timeout_s=300.0)
+    injector = NodeFlapInjector(store, seed=FLAP_SEED)
+    before = {k: _assignments_digest(store, [k])
+              for k, w in store.workloads.items() if w.is_quota_reserved}
+    down = injector.flap_down(count=FLAP_COUNT)
+    hit = {}
+    for key in before:
+        n = len(nfc._assigned_nodes(store.workloads[key]) & set(down))
+        if n:
+            hit[key] = n
+    features.set_gates({"TASDeviceFillCounts": True})
+    try:
+        for t in FAILURE_TIMES:
+            nfc.reconcile(t)
+    finally:
+        features.set_gates({"TASDeviceFillCounts": False})
+    evicted = sorted(k for k in hit if store.workloads[k].is_evicted)
+    replaced = sorted(
+        k for k in hit if not store.workloads[k].is_evicted
+        and _assignments_digest(store, [k]) != before[k])
+    return {"down": sorted(down),
+            "single": sorted(k for k, n in hit.items() if n == 1),
+            "multi": sorted(k for k, n in hit.items() if n > 1),
+            "replaced": replaced, "evicted": evicted,
+            "assignments": _assignments_digest(store, replaced),
+            "digest": committed_store_digest(store)}
+
+
+def delayed_tas_store(n_workloads: int = DELAYED_WORKLOADS):
+    """The TAS drain store cut to its first ``n_workloads``, with the
+    admission check ``prov`` on every ClusterQueue."""
+    from kueue_oss_tpu_torch.api import types as T
+    from kueue_oss_tpu_torch.core.store import Store
+    from kueue_oss_tpu_torch.scenarios import tas_drain_store
+
+    store = tas_drain_store(T, Store, n_workloads=n_workloads)
+    store.upsert_admission_check(T.AdmissionCheck(
+        name="prov", controller_name="example.com/provisioning"))
+    for cq in list(store.cluster_queues.values()):
+        cq.admission_checks = ["prov"]
+        store.upsert_cluster_queue(cq)
+    return store
+
+
+def delayed_tas_record(store, device="cuda", ticks: int = 6) -> dict:
+    """Phase 20 (d) (tests/torch_dispatch_pins.py ``delayed_tas_leg``)."""
+    from kueue_oss_tpu_torch import features
+    from kueue_oss_tpu_torch.controllers import WorkloadReconciler
+    from kueue_oss_tpu_torch.core.queue_manager import QueueManager
+    from kueue_oss_tpu_torch.scheduler.scheduler import Scheduler
+
+    sched = Scheduler(store, QueueManager(store), device=device)
+    wr = WorkloadReconciler(store, sched)
+    features.set_gates({"TASDeviceFillCounts": True})
+    try:
+        sched.run_until_quiet(now=100.0, tick=0.001)
+        reserved = sorted(k for k, w in store.workloads.items()
+                          if w.is_quota_reserved)
+        pending_topology = sum(
+            1 for k in reserved for psa in
+            store.workloads[k].status.admission.podset_assignments
+            if psa.delayed_topology_request == "Pending")
+        now = 200.0
+        for _ in range(ticks):
+            for k in reserved:
+                for st in store.workloads[k].status.admission_checks.values():
+                    st.state = "Ready"
+            wr.reconcile_all(now)
+            now += 1.0
+            sched.schedule(now)
+        wr.reconcile_all(now)
+    finally:
+        features.set_gates({"TASDeviceFillCounts": False})
+    admitted = sorted(k for k, w in store.workloads.items()
+                      if w.is_admitted)
+    return {"reserved": len(reserved), "pending_topology": pending_topology,
+            "admitted": len(admitted),
+            "placed": sum(1 for k in reserved for psa in
+                          store.workloads[k].status.admission
+                          .podset_assignments
+                          if psa.delayed_topology_request == "Ready"),
+            "digest": committed_store_digest(store)}
+
+
+def flap_trace():
+    """Phase 20 (e)'s trace: Kueue's large-scale mix at 2 x 3
+    ClusterQueues without preemption (uids 1..n in arrival order), the
+    TAS drain store's 640 nodes, and the flap spec."""
+    from kueue_oss_tpu_torch.api import types as T
+    from kueue_oss_tpu_torch.perf import generator as gen
+    from kueue_oss_tpu_torch.scenarios import BLOCK, RACK
+    from kueue_oss_tpu_torch.sim import FlapEvent, ScenarioSpec
+
+    cfg = gen.GeneratorConfig.large_scale(preemption=False)
+    cfg.n_cohorts, cfg.cqs_per_cohort = 2, 3
+    store, schedule = gen.generate(cfg)
+    for i, g in enumerate(schedule):
+        g.workload.uid = i + 1
+    for r in range(10):
+        for h in range(64):
+            store.upsert_node(T.Node(
+                name=f"n-{r}-{h}", labels={BLOCK: "b0", RACK: f"r{r}"},
+                allocatable={"cpu": 96}))
+    spec = ScenarioSpec(name="flappy", arrival_scale=2.0, seed=TRACE_SEED,
+                        node_flaps=[FlapEvent(at_ms=at, down=down, count=n)
+                                    for at, down, n in TRACE_FLAPS])
+    return store, schedule, spec
+
+
+def dispatch_phase(smi: str, tas_store, tas_sched,
+                   device: str = "cuda") -> tuple:
+    """Phase 20: (a) bench.py's fleet under WhatIf and Incremental, (b)
+    the 8-worker pricing, (c) node-failure recovery on phase 14's store,
+    (d) the delayed TAS path, (e) the flap trace. Returns (report,
+    fill_counts launches by leg)."""
+    import torch
+
+    from kueue_oss_tpu_torch.multikueue import (
+        IncrementalDispatcher,
+        WhatIfDispatcher,
+    )
+    from kueue_oss_tpu_torch.sim import simulate_trace
+    from kueue_oss_tpu_torch.solver import cuda_relax, cuda_tas
+
+    def check(name, got, want):
+        if got != want:
+            raise AssertionError(f"phase 20 {name}: {json.dumps(got)} != "
+                                 f"the JAX pin {json.dumps(want)}")
+
+    def no_kernel(name):
+        if _launches() or cuda_relax.relax_lp.launches:
+            raise AssertionError(f"phase 20 {name} launched a kernel")
+
+    out, fills = {"card": smi}, {}
+    relax0 = cuda_relax.relax_lp.launches
+
+    # (a) bench.py's fleet; one warm-up dispatch first, as bench.py does
+    _dispatch_once(WhatIfDispatcher(round_timeout_s=ROUND_TIMEOUT,
+                                    check_oracle=True, device=device),
+                   1000, device)
+    _reset_launches()
+    t0 = time.monotonic()
+    rec = {"whatif": [], "incremental": [],
+           "winners": {"whatif": [], "incremental": []}, "reports": [],
+           "agree": 0, "scored": 0}
+    score_ms, faults = [], []
+    for label in ("whatif", "incremental"):
+        for cpu in BENCH_SIZES:
+            disp = (WhatIfDispatcher(round_timeout_s=ROUND_TIMEOUT,
+                                     check_oracle=True, device=device)
+                    if label == "whatif" else
+                    IncrementalDispatcher(round_timeout_s=ROUND_TIMEOUT))
+            tta, winner = _dispatch_once(disp, cpu, device)
+            rec[label].append(tta)
+            rec["winners"][label].append(winner)
+            if label == "whatif":
+                score_ms += disp.score_ms
+                faults += disp.faults
+                rep = disp.last_reports.get("default/wl")
+                if rep is not None:
+                    rec["scored"] += 1
+                    rec["reports"].append(report_record(rep))
+                    if rep.best == rep.oracle_best and rep.oracle_identical:
+                        rec["agree"] += 1
+    torch.cuda.synchronize()
+    wall_a = time.monotonic() - t0
+    no_kernel("(a)")
+    if faults:
+        raise AssertionError(f"phase 20 (a): the pricer faulted {faults}")
+    check("(a)", rec, DISPATCH_REFERENCE["bench_fleet"])
+    out["bench_fleet"] = {
+        "wall_s": wall_a, "score_ms_mean": sum(score_ms) / len(score_ms),
+        "score_ms": score_ms, "pricings": len(score_ms),
+        "whatif_tta_s": rec["whatif"], "incremental_tta_s":
+            rec["incremental"], "oracle_agreement": f"{rec['agree']}/"
+                                                    f"{rec['scored']}"}
+    print("[dispatch (a)] bench.py's fleet matches the JAX pin; "
+          + json.dumps(out["bench_fleet"]))
+
+    # (b) 8 workers of the large-scale mix, one nomination
+    envs = fleet_envs(device)
+    pending = {n: len(e.store.workloads) for n, e in envs.items()}
+    _reset_launches()
+    _settle()
+    t0 = time.monotonic()
+    report = fleet_candidate_report(envs, device)
+    torch.cuda.synchronize()
+    wall_b = time.monotonic() - t0
+    no_kernel("(b)")
+    check("(b)", report_record(report), DISPATCH_REFERENCE["fleet"])
+    if not report.oracle_identical or report.best != report.oracle_best:
+        raise AssertionError("phase 20 (b): the batch differs from the "
+                             "sequential oracle")
+    keys = [s.key()[:3] for s in report.scores]
+    if len(set(keys)) < 4 or not report.scores[0].admitted:
+        raise AssertionError("phase 20 (b): the pricing shows no choice: "
+                             + repr(keys))
+    out["fleet"] = {"wall_s": wall_b, "solve_s": report.solve_seconds,
+                    "oracle_s": wall_b - report.solve_seconds,
+                    "rounds": report.rounds,
+                    "host_reads": report.host_reads,
+                    "batch_width": report.batch_width,
+                    "pending": pending}
+    print("[dispatch (b)] 8-worker pricing matches the JAX pin and the "
+          "sequential oracle; " + json.dumps(out["fleet"]))
+
+    # (c) node-failure recovery on phase 14's host-only store
+    _reset_launches()
+    t0 = time.monotonic()
+    rec = node_failure_record(tas_store, tas_sched)
+    torch.cuda.synchronize()
+    wall_c = time.monotonic() - t0
+    fills["node_failure"] = cuda_tas.launch_counts["fill_counts"]
+    if (fills["node_failure"] == 0 or cuda_tas.leaf_states.launches
+            or cuda_tas.tas_place_sequential.launches):
+        raise AssertionError(f"phase 20 (c): {fills['node_failure']} "
+                             f"fill_counts launches")
+    check("(c)", rec, DISPATCH_REFERENCE["node_failure"])
+    out["node_failure"] = {"wall_s": wall_c, "down": len(rec["down"]),
+                           "replaced": len(rec["replaced"]),
+                           "evicted": len(rec["evicted"]),
+                           "fill_counts": fills["node_failure"]}
+    print("[dispatch (c)] node-failure recovery matches the JAX pin; "
+          + json.dumps(out["node_failure"]))
+
+    # (d) the delayed TAS path through the second pass
+    store = delayed_tas_store()
+    _reset_launches()
+    _settle()
+    t0 = time.monotonic()
+    rec = delayed_tas_record(store, device)
+    torch.cuda.synchronize()
+    wall_d = time.monotonic() - t0
+    fills["delayed_tas"] = cuda_tas.launch_counts["fill_counts"]
+    if (fills["delayed_tas"] == 0 or cuda_tas.leaf_states.launches
+            or cuda_tas.tas_place_sequential.launches):
+        raise AssertionError(f"phase 20 (d): {fills['delayed_tas']} "
+                             f"fill_counts launches")
+    check("(d)", rec, DISPATCH_REFERENCE["delayed_tas"])
+    _quota_checks(store)
+    out["delayed_tas"] = {"wall_s": wall_d, **rec,
+                          "fill_counts": fills["delayed_tas"]}
+    print("[dispatch (d)] the delayed TAS path matches the JAX pin; "
+          + json.dumps(out["delayed_tas"]))
+
+    # (e) simulate_trace with node flaps
+    store, schedule, spec = flap_trace()
+    _reset_launches()
+    t0 = time.monotonic()
+    res = simulate_trace(store, schedule, spec, device=device)
+    wall_e = time.monotonic() - t0
+    no_kernel("(e)")
+    rec = {k: res[k] for k in ("workloads", "admitted", "finished",
+                               "preemptions", "cycles", "sim_wall_ms",
+                               "tta_ms_by_class", "node_flaps")}
+    check("(e)", rec, DISPATCH_REFERENCE["flap_trace"])
+    out["flap_trace"] = {"wall_s": wall_e, "cycles": rec["cycles"],
+                         "flaps": len(rec["node_flaps"])}
+    print("[dispatch (e)] the flap trace matches the JAX pin; "
+          + json.dumps(out["flap_trace"]))
+    if cuda_relax.relax_lp.launches != relax0:
+        raise AssertionError("phase 20 launched relax_lp")
+    return out, fills
+
+
 def main() -> int:
     import torch
 
@@ -3592,6 +4281,23 @@ def main() -> int:
         raise RuntimeError("the verify oracle did not build with g++")
     print(f"[build] {native.library_path().name} in "
           f"{time.monotonic() - t0:.3f} s")
+
+    if sys.argv[1:] == ["--phase", "20"]:
+        # phase 20 alone, on phase 14's host-only store built afresh
+        from kueue_oss_tpu_torch.api import types
+        from kueue_oss_tpu_torch.core.queue_manager import QueueManager
+        from kueue_oss_tpu_torch.core.store import Store
+        from kueue_oss_tpu_torch.scenarios import tas_mixed_store
+        from kueue_oss_tpu_torch.scheduler.scheduler import Scheduler
+
+        store = tas_mixed_store(types, Store)
+        sched = Scheduler(store, QueueManager(store), device="cuda")
+        sched.run_until_quiet(now=100.0, tick=0.001)
+        dispatch, fills = dispatch_phase(smi, store, sched)
+        print("[timings] " + json.dumps({"dispatch": dispatch,
+                                         "fill_counts": fills}))
+        print(smi)
+        return 0
 
     # 3. kernel vs plain
     device = torch.device("cuda")
@@ -3664,7 +4370,8 @@ def main() -> int:
     sched_refused, sched_refused_launches = scheduler_refused()
 
     # 14. the scheduler's host TAS placement and its device fill
-    sched_host, host_fill, host_leaf, host_place = scheduler_tas_host()
+    (sched_host, host_fill, host_leaf, host_place,
+     (tas_store, tas_sched)) = scheduler_tas_host()
 
     # 15. streaming admission: micro-drains through the lean drain on
     # the card, and serve with its watch-driven worker
@@ -3697,6 +4404,13 @@ def main() -> int:
         smi)
     relax_report["launches"] += fullsweep_relax
     relax_report["launches_by_path"]["fullsweep"] = fullsweep_relax
+
+    # 20. the what-if-scored MultiKueue dispatch and the TAS controllers:
+    # bench.py's fleet, the 8-worker pricing, node-failure recovery on
+    # phase 14's store, the delayed TAS path, the flap trace
+    dispatch, dispatch_fills = dispatch_phase(smi, tas_store, tas_sched)
+    del tas_store, tas_sched
+    relax_report["launches_by_path"]["dispatch"] = 0
     # the fill's own path: phase 14's host placement with the fill gate
     # on; every other path launched no TAS kernel but its placer
     reports[2]["launches"] = host_fill
@@ -3718,7 +4432,11 @@ def main() -> int:
                                       "perf_runner": perf_launches,
                                       "whatif": whatif_launches,
                                       "relax": relax_launches,
-                                      "fullsweep": fullsweep_launches}
+                                      "fullsweep": fullsweep_launches,
+                                      "dispatch_node_failure":
+                                          dispatch_fills["node_failure"],
+                                      "dispatch_delayed_tas":
+                                          dispatch_fills["delayed_tas"]}
     reports[0]["launches_by_path"] = {"tas_lean": leaf_launches,
                                       "tas_full": 0, "storm_full": 0,
                                       "fair_storm": fair_launches,
@@ -3734,7 +4452,8 @@ def main() -> int:
                                       "perf_runner": perf_launches,
                                       "whatif": whatif_launches,
                                       "relax": relax_launches,
-                                      "fullsweep": fullsweep_launches}
+                                      "fullsweep": fullsweep_launches,
+                                      "dispatch": 0}
     # leaf_states is on no main path since fill_counts took the fill
     # (its launches on every path are 0, checked above)
     reports[0]["launches"] = sum(reports[0]["launches_by_path"].values())
@@ -3757,7 +4476,8 @@ def main() -> int:
                                       "perf_runner": perf_launches,
                                       "whatif": whatif_launches,
                                       "relax": relax_launches,
-                                      "fullsweep": fullsweep_launches}
+                                      "fullsweep": fullsweep_launches,
+                                      "dispatch": 0}
 
     timings = {"setup_s": setup_s, "drain_s": drain_s,
                **{f"{k}_s": v for k, v in result.phases.items()},
@@ -3770,7 +4490,7 @@ def main() -> int:
                "scheduler_tas_host": sched_host,
                "streaming": stream_fleets, "streaming_serve": stream_serve,
                "perf_runner": perf, "whatif": whatif, "relax": relaxed,
-               "fullsweep": fullsweep}
+               "fullsweep": fullsweep, "dispatch": dispatch}
     print("[timings] " + json.dumps(timings))
     print(smi)
     print(json.dumps({"kernels": reports}))

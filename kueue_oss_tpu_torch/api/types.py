@@ -4,10 +4,14 @@ A copy of ``kueue_oss_tpu/api/types.py`` restricted to the objects the
 drain and the scheduler cycle read or write (reference:
 apis/kueue/v1beta2/*_types.go). Field names and defaults are the JAX
 package's, so the same store builder works against either package.
-Quantities are plain integers in canonical units. Cut from the copy:
-node taints, priority classes, admission-check objects, and the
-workload-slicing, concurrent-admission variant and MultiKueue fields
-(their gates are off, so the scheduler reads none of them).
+Quantities are plain integers in canonical units. The admission-check
+objects and the workload's MultiKueue status (nominated clusters, the
+winning cluster) serve the workload reconciler and the MultiKueue hub
+(``controllers/``, ``multikueue/``). Cut from the copy: node taints,
+priority classes, the admission check's pod-set updates and retry
+count (no provisioning controller in the port), and the
+workload-slicing and concurrent-admission variant fields (their gates
+are off, so the scheduler reads none of them).
 """
 
 from __future__ import annotations
@@ -339,6 +343,9 @@ class Admission:
 
 class CheckState:
     PENDING = "Pending"
+    READY = "Ready"
+    RETRY = "Retry"
+    REJECTED = "Rejected"
 
 
 @dataclass
@@ -371,6 +378,10 @@ class WorkloadStatus:
     eviction_stats: list[WorkloadSchedulingStatsEviction] = field(
         default_factory=list)
     unhealthy_nodes: list[str] = field(default_factory=list)
+    #: MultiKueue dispatch: the worker clusters nominated for this
+    #: workload, and the one that won the admission race
+    nominated_cluster_names: list[str] = field(default_factory=list)
+    cluster_name: Optional[str] = None
     reclaimable_pods: dict[str, int] = field(default_factory=dict)
 
 
@@ -388,6 +399,9 @@ class Workload:
     active: bool = True
     creation_time: float = 0.0
     uid: int = 0
+    #: owning object "Kind/namespace/name" (a MultiKueue mirror names
+    #: its hub workload here)
+    owner: Optional[str] = None
     ca_parent: bool = False
     allowed_flavor: Optional[str] = None
     resource_version: int = 0
@@ -402,6 +416,9 @@ class Workload:
     @property
     def key(self) -> str:
         return f"{self.namespace}/{self.name}"
+
+    def condition(self, ctype: str) -> Optional[Condition]:
+        return self.status.conditions.get(ctype)
 
     def has_condition(self, ctype: str) -> bool:
         c = self.status.conditions.get(ctype)
@@ -432,3 +449,22 @@ class Workload:
     @property
     def is_evicted(self) -> bool:
         return self.has_condition(WorkloadConditionType.EVICTED)
+
+
+# ---------------------------------------------------------------------------
+# AdmissionCheck
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class AdmissionCheckStatus:
+    active: bool = True
+
+
+@dataclass
+class AdmissionCheck:
+    name: str
+    controller_name: str = ""
+    parameters: dict[str, str] = field(default_factory=dict)
+    status: AdmissionCheckStatus = field(
+        default_factory=AdmissionCheckStatus)

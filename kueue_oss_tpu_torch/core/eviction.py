@@ -6,11 +6,13 @@ both of its callers: the host scheduler's preemptions and the FULL
 drain's plan (through ``Scheduler.evict_workload`` when the engine has
 a scheduler, directly when it has none). It writes the Evicted /
 Preempted / QuotaReserved / Admitted conditions, clears the admission
-and its checks, counts the eviction per reason, closes the PodsReady
-window and requeues: at once, ordered by the eviction time, or behind
-an exponential backoff when the caller passes ``backoff_base_s``
-(RequeueState). The store update re-queues the workload; the cohort
-flush wakes its parked neighbours. Cut from the copy: persistence
+and its checks, counts the eviction per reason (and its underlying
+cause), closes the PodsReady window and requeues: at once, ordered by
+the eviction time, or behind an exponential backoff when the caller
+passes ``backoff_base_s`` (RequeueState); ``requeue=False`` (a
+deactivation, whose workload cannot re-enter anyway) never starts one.
+The store update re-queues the workload; the cohort flush wakes its
+parked neighbours. Cut from the copy: persistence
 intents, and the decision recorder, events, logs and metrics (the port
 has no observability layer).
 
@@ -40,7 +42,8 @@ def evict_workload(store: Store, queues: QueueManager, key: str,
                    reason: str, message: str, now: float,
                    preemption_reason: str = "",
                    underlying_cause: str = "",
-                   backoff_base_s: Optional[float] = None):
+                   backoff_base_s: Optional[float] = None,
+                   requeue: bool = True):
     """Release the workload's quota and requeue it. Returns (workload,
     whether it held quota), or None when there was nothing to evict."""
     wl = store.workloads.get(key)
@@ -69,7 +72,7 @@ def evict_workload(store: Store, queues: QueueManager, key: str,
     # admission being released
     wl.status.unhealthy_nodes = []
     wl.status.conditions.pop(WorkloadConditionType.PODS_READY, None)
-    if backoff_base_s is not None:
+    if requeue and backoff_base_s is not None:
         # exponential requeue backoff: schedulable again at requeue_at
         rs = wl.status.requeue_state or RequeueState()
         rs.count += 1

@@ -314,6 +314,9 @@ class QueueManager:
     def clear_second_pass(self, key: str) -> None:
         self._second_pass_iteration.pop(key, None)
 
+    def second_pass_pending(self, key: str) -> bool:
+        return key in self._second_pass_iteration
+
     # -- CQ lifecycle ------------------------------------------------------
 
     def add_cluster_queue(self, name: str) -> None:

@@ -4,8 +4,8 @@ and commits to.
 A copy of ``kueue_oss_tpu/core/store.py`` with the same watch contract:
 writers emit ``(verb, kind, obj)`` events to subscribers (the queue
 manager). Cut from the copy: metrics (retained-finished gauges),
-persistence hooks, ``clone``, the deletes of queues and nodes, and the
-conditional-write client path.
+persistence hooks, ``clone``, the deletes of queues, priority classes
+and the conditional-write client path.
 """
 
 from __future__ import annotations
@@ -15,6 +15,7 @@ from typing import Callable, Optional
 
 from kueue_oss_tpu_torch import features
 from kueue_oss_tpu_torch.api.types import (
+    AdmissionCheck,
     ClusterQueue,
     Cohort,
     LocalQueue,
@@ -36,6 +37,7 @@ class Store:
         self.topologies: dict[str, Topology] = {}
         self.workloads: dict[str, Workload] = {}  # key "ns/name"
         self.nodes: dict[str, Node] = {}
+        self.admission_checks: dict[str, AdmissionCheck] = {}
         self._watchers: list[Callable[[Event], None]] = []
         self.namespaces: dict[str, dict[str, str]] = {"default": {}}
         #: bumped whenever a CQ's spec changes; invalidates flavor cursors
@@ -80,9 +82,18 @@ class Store:
         self.topologies[t.name] = t
         self._emit("update", "Topology", t)
 
+    def upsert_admission_check(self, ac: AdmissionCheck) -> None:
+        self.admission_checks[ac.name] = ac
+        self._emit("update", "AdmissionCheck", ac)
+
     def upsert_node(self, node: Node) -> None:
         self.nodes[node.name] = node
         self._emit("update", "Node", node)
+
+    def delete_node(self, name: str) -> None:
+        node = self.nodes.pop(name, None)
+        if node is not None:
+            self._emit("delete", "Node", node)
 
     def add_workload(self, wl: Workload) -> None:
         wl.resource_version += 1
@@ -117,6 +128,10 @@ class Store:
     def cluster_queue_for(self, wl: Workload) -> Optional[str]:
         lq = self.local_queues.get(f"{wl.namespace}/{wl.queue_name}")
         return lq.cluster_queue if lq is not None else None
+
+    def admitted_workloads(self) -> list[Workload]:
+        """Workloads holding quota (reserved and not finished)."""
+        return list(self._admitted.values())
 
     def admitted_infos(self) -> list:
         """WorkloadInfo for every workload holding quota, charged to the

@@ -5,7 +5,8 @@ cut to the gates the port reads, at their reference defaults.
 ``set_gates`` overrides gates process-wide and ``reset`` restores the
 defaults, with the JAX package's signatures, so tests and chip_smoke.py
 can run the gated modes (the TAS placement's balanced, multi-layer and
-device fill-in-counts modes). The JAX package's process-wide requests
+device fill-in-counts modes, the failure controller's fail-fast, the
+MultiKueue hub's race rules). The JAX package's process-wide requests
 config (``core/workload_info.py``: LimitRange defaults, resource
 transformations, QuotaCheckStrategy=IgnoreUndeclared) is at its
 default, empty, and so is not read at all.
@@ -36,11 +37,17 @@ _DEFAULTS: dict[str, bool] = {
     # topology-aware scheduling (tas/snapshot.py)
     "TASProfileMixed": True,           # LeastFreeCapacity for unconstrained
     "TASFailedNodeReplacement": True,  # replacement path
+    # controllers/failure_recovery.py: evict at once when no replacement
+    "TASFailedNodeReplacementFailFast": False,
     "TASBalancedPlacement": False,     # balanced algorithm; tas_engine gate
     "TASMultiLayerTopology": False,    # nested slice layers
     # phase-1 fill-in counts on the device (_device_fill), phase-2
     # tie-breaks on the host
     "TASDeviceFillCounts": False,
+    # the MultiKueue hub (multikueue/controller.py)
+    "MultiKueue": True,                # controller sync
+    "MultiKueueWaitForWorkloadAdmitted": True,  # race won by Admitted
+    "MultiKueueRedoAdmissionOnEvictionInWorker": True,  # _sync_winner
 }
 
 _lock = threading.Lock()

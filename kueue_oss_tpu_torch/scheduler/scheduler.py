@@ -48,8 +48,7 @@ Cut from the copy, each with its ROADMAP Queue A item:
   (2 ms doubling up to ``poll``), an eviction
   backoff is capped at ``core.eviction.EVICTION_BACKOFF_MAX_S`` (3600
   s) and partial admission follows its PartialAdmission gate (on);
-  ``evict_workload``'s ``requeue``, ``underlying_cause`` and
-  ``backoff_max_s``; and ``SolverEngine.supported()``, since the port's
+  ``evict_workload``'s ``backoff_max_s``; and ``SolverEngine.supported()``, since the port's
   engine has no mesh or sidecar state that makes a drain unsupported and
   refuses a backlog shape only by raising ``UnsupportedProblem`` at
   export;
@@ -1025,23 +1024,29 @@ class Scheduler:
 
     def evict_workload(self, key: str, reason: str, message: str,
                        now: float, preemption_reason: str = "",
-                       backoff_base_s: Optional[float] = None) -> None:
+                       backoff_base_s: Optional[float] = None,
+                       requeue: bool = True,
+                       underlying_cause: str = "") -> None:
         """Evict and finalize through ``core.eviction.evict_workload``
-        (one state machine for the host cycle and the drain's plan),
-        plus the scheduler's own books: the freed-capacity count of the
-        routing gate, the backoff heap and the preemption
-        expectations."""
+        (one state machine for the host cycle, the drain's plan and the
+        controllers), plus the scheduler's own books: the freed-capacity
+        count of the routing gate, the backoff heap and the preemption
+        expectations. ``requeue=False`` skips the backoff requeue (the
+        admission-check rejection and other deactivations);
+        ``underlying_cause`` keys the eviction counter beside the
+        reason."""
         out = eviction.evict_workload(
             self.store, self.queues, key, reason=reason, message=message,
             now=now, preemption_reason=preemption_reason,
-            backoff_base_s=backoff_base_s)
+            underlying_cause=underlying_cause,
+            backoff_base_s=backoff_base_s, requeue=requeue)
         if out is None:
             return
         wl, was_reserved = out
         if was_reserved:
             self._solver_freed_since_drain += 1
         rs = wl.status.requeue_state
-        if (backoff_base_s is not None and rs is not None
+        if (requeue and backoff_base_s is not None and rs is not None
                 and rs.requeue_at is not None):
             heapq.heappush(self._requeue_heap, (rs.requeue_at, key))
         self.preemption_expectations.observe(wl.uid)

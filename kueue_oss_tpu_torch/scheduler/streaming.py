@@ -145,36 +145,6 @@ class MicroDrainResult:
     micro_solve_s: float = 0.0
 
 
-#: human-readable fence explanations; the keys are the
-#: stream_demotions_total reasons a fence counts
-_FENCE_TEXT = {
-    "out_of_order": (
-        "demoted from the streaming fast path: the arrival sorts "
-        "before an admission already committed this window, so only "
-        "the full solve can honor batch priority order"),
-    "unsupported": (
-        "deferred to the full solve: workload shape outside the "
-        "streaming fast path (topology request, concurrent-admission "
-        "variant, or multi-podset flavor choice)"),
-    "flavor_witness_invalid": (
-        "demoted from the streaming fast path: an earlier-preference "
-        "flavor option stays reachable under its capacity ceiling, "
-        "so a capacity event could flip the batch oracle's pick"),
-    "headroom_exhausted": (
-        "demoted from the streaming fast path: the admission would "
-        "need borrowed capacity or overrun the reserved "
-        "nominal-headroom budget (borrowing is a full-solve-only "
-        "decision)"),
-    "borrow_capable": (
-        "deferred to the full solve: borrow-capable cohort subtree "
-        "with a member outside the streaming fast path"),
-    "ineligible": (
-        "deferred to the full solve: the ClusterQueue uses "
-        "preemption, AdmissionFairSharing, TAS flavors, or "
-        "non-default flavor fungibility"),
-}
-
-
 class StreamingAdmitter:
     """Per-CQ sub-cycle admission fast path between full solves.
 
@@ -274,7 +244,6 @@ class StreamingAdmitter:
         #: must still contend its root
         self._committing_thread: Optional[int] = None
         self._preemptor = Preemptor(enable_fair_sharing=False)
-        self.micro_drains = 0
         #: a spec edit (quota/flavor change, node flap) observed
         #: mid-window doesn't just fence the window — it requests the
         #: full solve be pulled FORWARD (the serve loop consumes this
@@ -536,7 +505,6 @@ class StreamingAdmitter:
                 self.full_solve_pending = True
             self.count("stream_demotions_total", "spec_change")
             return result
-        self.micro_drains += 1
         pending = self.queues.cqs_with_pending()
         if not pending:
             self.count("stream_microdrains_total", "idle")
@@ -1103,27 +1071,6 @@ class StreamingAdmitter:
             pending = self.full_solve_pending
             self.full_solve_pending = False
             return pending
-
-    # -- introspection -----------------------------------------------------
-
-    def status(self) -> dict:
-        gen, keys, cqs = self.engine.export_cache.dirty_snapshot()
-        with self._mu:
-            return {"armed": self.armed,
-                    "contendedRoots": sorted(self._contended_roots),
-                    "specGen": gen, "armedGen": self._armed_gen,
-                    "dirtyKeys": len(keys), "dirtyCqs": len(cqs),
-                    "microDrains": self.micro_drains,
-                    "microSolve": self.micro_solve,
-                    "microSolveMin": self.micro_solve_min,
-                    "mergedRoots": sorted(
-                        r for r, ok in self._root_merge_ok.items()
-                        if ok),
-                    "headroom": {
-                        cq: {f"{fr[0]}/{fr[1]}": v
-                             for fr, v in budget.items()}
-                        for cq, budget in self._headroom.items()},
-                    "pendingArrivalSignals": self._signal_pending}
 
 
 def _can_borrow(spec) -> bool:

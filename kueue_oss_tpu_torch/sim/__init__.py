@@ -14,9 +14,12 @@ Public surface:
 - :class:`ResidentSweep` (scenario-resident device state);
 - traces: Philly/Helios-shaped generators, CSV/JSONL import, and the
   :func:`load_ladder` breaking-point sweep;
-- :class:`WhatIfReport` (report layer).
+- :class:`WhatIfReport` (report layer);
+- :func:`price_dispatch` (sim/dispatch.py): one batched lean drain
+  pricing every candidate cluster of a MultiKueue nomination.
 
-Not ported yet: dispatch pricing and journal replay.
+Not ported yet: journal replay (it reads the flight recorder's
+journals; the port has no observability layer).
 """
 
 from kueue_oss_tpu_torch.sim.batch import (  # noqa: F401
@@ -33,6 +36,12 @@ from kueue_oss_tpu_torch.sim.batch import (  # noqa: F401
     solve_scenarios_sequential_full,
     solve_scenarios_tiered,
     sweep_order,
+)
+from kueue_oss_tpu_torch.sim.dispatch import (  # noqa: F401
+    DispatchReport,
+    LaneScore,
+    Unpriceable,
+    price_dispatch,
 )
 from kueue_oss_tpu_torch.sim.engine import (  # noqa: F401
     WhatIfEngine,

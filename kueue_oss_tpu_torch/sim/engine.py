@@ -27,9 +27,8 @@ state of sim/resident.py when the engine is built ``resident=True``.
 
 Everything is deterministic: same store, same specs, same seeds =>
 byte-identical ``WhatIfReport.canonical_json()``. Cut from the copy:
-the scenario-axis mesh (ROADMAP Queue A item 9), node flaps in trace
-mode (item 11), and the ``metrics.whatif_*`` observations (the port has
-no metrics layer).
+the scenario-axis mesh (ROADMAP Queue A item 9) and the
+``metrics.whatif_*`` observations (the port has no metrics layer).
 """
 
 from __future__ import annotations
@@ -383,21 +382,19 @@ def simulate_trace(store: Store, schedule, spec: ScenarioSpec,
                    solver=None, device="cuda") -> dict:
     """Virtual-time trace simulation of ONE scenario through the real
     scheduler (perf Simulator): arrival-rate scaling compresses or
-    stretches the arrival timeline and priority perturbations apply to
-    the generated workloads. ``store``/``schedule`` must be a fresh
+    stretches the arrival timeline, priority perturbations apply to
+    the generated workloads, and node-flap schedules fire as timed hooks
+    (``chaos.NodeFlapInjector`` against the store, at virtual
+    timestamps; no sleeps). ``store``/``schedule`` must be a fresh
     generated pair (perf.generator.generate); the simulation consumes
-    them. Node-flap schedules wait for the TAS controllers (ROADMAP
-    Queue A item 11).
+    them.
     """
     import fnmatch
 
+    from kueue_oss_tpu_torch.chaos import NodeFlapInjector
     from kueue_oss_tpu_torch.perf.runner import Simulator
 
     spec.validate()
-    if spec.node_flaps:
-        raise NotImplementedError(
-            "simulate_trace with node_flaps: the node-flap injector "
-            "belongs with the TAS controllers, ROADMAP Queue A item 11")
     rng = np.random.default_rng(spec.seed)
     scale = spec.arrival_scale
     if scale <= 0:
@@ -421,9 +418,23 @@ def simulate_trace(store: Store, schedule, spec: ScenarioSpec,
                                 replace=False):
                 schedule[i].workload.priority += spec.priority_churn_delta
 
+    injector = NodeFlapInjector(store, seed=spec.seed)
+    flap_log: list[dict] = []
+    hooks = []
+    for fe in spec.node_flaps:
+        def fire(sim, now_ms, fe=fe):
+            names = list(fe.names) or None
+            if fe.down:
+                flipped = injector.flap_down(count=fe.count, names=names)
+            else:
+                flipped = injector.flap_up(names=names)
+            flap_log.append({"atMs": now_ms, "down": fe.down,
+                             "nodes": flipped})
+        hooks.append((fe.at_ms, fire))
+
     sim = Simulator(store, schedule,
                     enable_fair_sharing=enable_fair_sharing,
-                    solver=solver, device=device)
+                    solver=solver, timed_hooks=hooks, device=device)
     stats = sim.run()
     return {
         "name": spec.name,
@@ -437,5 +448,5 @@ def simulate_trace(store: Store, schedule, spec: ScenarioSpec,
         "tta_ms_by_class": {k: round(v, 3)
                             for k, v in sorted(
                                 stats.tta_ms_by_class.items())},
-        "node_flaps": [],
+        "node_flaps": flap_log,
     }

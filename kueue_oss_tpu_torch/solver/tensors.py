@@ -477,11 +477,6 @@ class ExportCache:
         self.dirty_keys, self.dirty_cqs = set(), set()
         return keys, cqs
 
-    def dirty_snapshot(self) -> tuple[int, frozenset, frozenset]:
-        """Non-consuming view (spec_gen, dirty keys, dirty CQs)."""
-        return (self.spec_gen, frozenset(self.dirty_keys),
-                frozenset(self.dirty_cqs))
-
     # -- derived-table lifecycle ------------------------------------------
 
     def refresh(self, fr_list: list, cq_names: list[str], K: int,

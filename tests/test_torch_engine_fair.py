@@ -1,6 +1,7 @@
 """The port's fair-sharing and admission-fair-sharing (AFS) drains end to
 end on the CPU against the JAX engine (``mesh_mode="off"``, delta
-sessions off in both engines), tolerance 0.
+sessions on in both engines, their default; the storm and the AFS
+backlog also with both off), tolerance 0.
 
 Identical stores come from one builder per case, parameterised by the
 types module. The port has no host scheduler, so both phases of a
@@ -170,12 +171,13 @@ def fs_scenario(types, store, seed: int, uniform: bool = False,
     return phase1, phase2
 
 
-def _fair_engines(js, ps, jafs=None, pafs=None, fs=True):
+def _fair_engines(js, ps, jafs=None, pafs=None, fs=True, sessions=True):
     jq, pq = JaxQueues(js, afs=jafs), PortQueues(ps, afs=pafs)
     jengine = JaxEngine(js, jq, mesh_mode="off", enable_fair_sharing=fs)
-    jengine.use_sessions = False
     pengine = PortEngine(ps, pq, device="cpu", enable_fair_sharing=fs)
-    pengine.use_sessions = False
+    # delta sessions on, both engines' default, or both off
+    assert jengine.use_sessions and pengine.use_sessions
+    jengine.use_sessions = pengine.use_sessions = sessions
     return ((js, jq, jengine), (ps, pq, pengine))
 
 
@@ -291,10 +293,10 @@ def test_fair_scenarios_preempt_for_fair_shares(fs_drains):
     assert solo, "no eviction in a parentless ClusterQueue"
 
 
-def test_fair_storm_one_cohort_matches_jax():
+def _fair_storm(sessions):
     js, jw1, jw2 = fair_reclaim_store(jax_types, JaxStore, n_cohorts=1)
     ps, pw1, pw2 = fair_reclaim_store(port_types, PortStore, n_cohorts=1)
-    jax_side, port_side = _fair_engines(js, ps)
+    jax_side, port_side = _fair_engines(js, ps, sessions=sessions)
     _add(js, ps, jw1, pw1)
     want1, got1 = _check_drain(jax_side, port_side, 100.0)
     assert (got1.admitted, got1.evicted, got1.rounds) == (120, 0, 62)
@@ -307,12 +309,22 @@ def test_fair_storm_one_cohort_matches_jax():
     _host_drs_checks(js, ps)
 
 
-def test_afs_backlog_one_cohort_matches_jax():
+def test_fair_storm_one_cohort_matches_jax():
+    _fair_storm(sessions=True)
+
+
+def test_fair_storm_sessions_off_matches_jax():
+    """The off switch: both engines drain without delta sessions."""
+    _fair_storm(sessions=False)
+
+
+def _afs_backlog(sessions):
     js, jafs, jback = afs_baseline_store(jax_types, JaxStore, JaxAfs,
                                          n_cohorts=1)
     ps, pafs, pback = afs_baseline_store(port_types, PortStore, PortAfs,
                                          n_cohorts=1)
-    jax_side, port_side = _fair_engines(js, ps, jafs, pafs, fs=False)
+    jax_side, port_side = _fair_engines(js, ps, jafs, pafs, fs=False,
+                                        sessions=sessions)
     _add(js, ps, jback, pback)
     assert port_side[2].needs_full_kernel(port_side[2].pending_backlog())
     want, got = _check_drain(jax_side, port_side, 60.0)
@@ -326,6 +338,15 @@ def test_afs_backlog_one_cohort_matches_jax():
     for name in ps.local_queues:
         assert pafs.weighted_usage(name, 60.0) == jafs.weighted_usage(
             name, 60.0), name
+
+
+def test_afs_backlog_one_cohort_matches_jax():
+    _afs_backlog(sessions=True)
+
+
+def test_afs_backlog_sessions_off_matches_jax():
+    """The off switch on the AFS drain."""
+    _afs_backlog(sessions=False)
 
 
 class _AfsEnv:
@@ -366,9 +387,8 @@ def _afs_envs(nominal=2000):
 def _afs_drain(envs, now):
     jenv, penv = envs
     jengine = JaxEngine(jenv.store, jenv.queues, mesh_mode="off")
-    jengine.use_sessions = False
     pengine = PortEngine(penv.store, penv.queues, device="cpu")
-    pengine.use_sessions = False
+    assert jengine.use_sessions and pengine.use_sessions
     assert pengine.needs_full_kernel(pengine.pending_backlog())
     # one workload axis for every case here: the cases share one JAX
     # compile

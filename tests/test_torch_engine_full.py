@@ -1,6 +1,7 @@
 """The port's FULL (preemption / multi-resource-group) drain end to end
 on the CPU against the JAX engine (``mesh_mode="off"``, delta sessions
-off in both engines), tolerance 0.
+on in both engines, their default; the storm also with both off),
+tolerance 0.
 
 Identical stores come from one builder per case, parameterised by the
 types module: the Kueue baseline as a two-wave preemption storm
@@ -86,17 +87,17 @@ def _check_drain(jax_side, port_side, now):
     return want, got
 
 
-def _engines(js, ps):
-    """The JAX engine without a mesh, and both engines without delta
-    sessions: a mesh and the sessions re-lay workload rows into slots on
-    later drains, which reorders rows (and so the order of evicted keys)
-    but no decision. The sessions-on parity tests are in
-    tests/test_torch_engine_sessions.py."""
+def _engines(js, ps, sessions=True):
+    """The JAX engine without a mesh (a mesh re-lays workload rows over
+    its shards), and both engines with delta sessions on, their default
+    (the sessions re-lay a later drain's rows into stable slots the same
+    way in both packages), or both with ``use_sessions = False``, the
+    off switch."""
     jq, pq = JaxQueues(js), PortQueues(ps)
     jengine = JaxEngine(js, jq, mesh_mode="off")
-    jengine.use_sessions = False
     pengine = PortEngine(ps, pq, device="cpu")
-    pengine.use_sessions = False
+    assert jengine.use_sessions and pengine.use_sessions
+    jengine.use_sessions = pengine.use_sessions = sessions
     return ((js, jq, jengine), (ps, pq, pengine))
 
 
@@ -117,11 +118,11 @@ def _full_exports(jax_side, port_side):
     return out
 
 
-def test_baseline_two_wave_preemption_storm_matches_jax():
+def _storm(sessions):
     kw = dict(n_cohorts=2, cqs_per_cohort=3, scale=0.1)
     js, jw1, jw2 = baseline_preempt_store(jax_types, JaxStore, **kw)
     ps, pw1, pw2 = baseline_preempt_store(port_types, PortStore, **kw)
-    jax_side, port_side = _engines(js, ps)
+    jax_side, port_side = _engines(js, ps, sessions)
     for wl in jw1:
         js.add_workload(wl)
     for wl in pw1:
@@ -150,6 +151,16 @@ def test_baseline_two_wave_preemption_storm_matches_jax():
     reasons = {ps.workloads[k].status.conditions["Preempted"].reason
                for k in got2.evicted_keys}
     assert reasons == {"InClusterQueue"}
+
+
+def test_baseline_two_wave_preemption_storm_matches_jax():
+    _storm(sessions=True)
+
+
+def test_baseline_storm_sessions_off_matches_jax():
+    """The off switch (``KUEUE_SOLVER_SESSIONS=0``): both engines drain
+    the storm without delta sessions."""
+    _storm(sessions=False)
 
 
 def test_two_resource_groups_match_jax():

@@ -221,6 +221,38 @@ def test_storm_under_churn_matches_jax():
     assert kinds.count("delta") >= 5, kinds
 
 
+def test_storm_light_churn_reaches_scatter_like_jax():
+    """chip_smoke.py phase 10's light churn after the heavy one: cycles
+    that lower the priority of the newest 0.5% of the pending workloads
+    in place. The backlog's membership stays, so from the second cycle
+    the columnar export scatters the dirty rows, the session emits a
+    delta through its hint advance, and every plan and frame equals the
+    JAX engine's."""
+    import chip_smoke
+
+    kw = dict(n_cohorts=2, cqs_per_cohort=3, scale=0.1)
+    built = [baseline_preempt_store(t, s, **kw)
+             for t, s in ((jax_types, JaxStore), (port_types, PortStore))]
+    sides = tuple(_Side(port, b[0]) for port, b in zip((False, True), built))
+    steps = [storm_churn_drains(t, b[0], b[1], b[2], side.finish)
+             for t, b, side in zip(TYPES, built, sides)]
+    for (label, now), _ in zip(*steps):
+        _compare(sides, now, label)
+    session = sides[1].engine._delta_sessions["full"]
+    modes, advances = [], []
+    for c in range(1, chip_smoke.LIGHT_CYCLES + 1):
+        edited = [chip_smoke.light_churn_edit(side.store) for side in sides]
+        assert edited[0] == edited[1] >= 1
+        fast0 = session.fast_advances
+        _, got = _compare(sides, now + c, f"light{c}")
+        modes.append(got.export_stats["export_mode"])
+        advances.append(session.fast_advances - fast0)
+    kinds = _kinds(f for _, f in sides[1].encoded)[-chip_smoke.LIGHT_CYCLES:]
+    assert modes[1:] == ["scatter"] * (chip_smoke.LIGHT_CYCLES - 1), modes
+    assert kinds[1:] == ["delta"] * (chip_smoke.LIGHT_CYCLES - 1), kinds
+    assert advances[1:] == [1] * (chip_smoke.LIGHT_CYCLES - 1), advances
+
+
 def test_fair_storm_under_churn_matches_jax():
     kw = dict(n_cohorts=1, cqs_per_cohort=6, scale=0.3)
     built = [fair_reclaim_store(t, s, **kw)

@@ -4,7 +4,9 @@ solver/relax.py and solver/cuda_relax.py included; its kernel source
 names neither), and the port imports and drains (lean, FULL, fair
 sharing and admission fair sharing, and lean through the relaxed arm),
 schedules, streams, runs the perf simulator, a what-if sweep, the relax
-tier and a resident FULL sweep with those modules blocked."""
+tier, a resident FULL sweep, a MultiKueue hub with the what-if-scored
+dispatcher and the node-failure controller with those modules
+blocked."""
 
 import ast
 import subprocess
@@ -60,7 +62,12 @@ def test_scan_sees_the_whole_port():
                  "perf/checker.py", "sim/__init__.py", "sim/scenario.py",
                  "sim/batch.py", "sim/report.py", "sim/engine.py",
                  "sim/resident.py", "sim/traces.py",
-                 "solver/relax.py", "solver/cuda_relax.py"):
+                 "solver/relax.py", "solver/cuda_relax.py",
+                 "sim/dispatch.py", "multikueue/__init__.py",
+                 "multikueue/cluster.py", "multikueue/dispatcher.py",
+                 "multikueue/controller.py", "controllers/__init__.py",
+                 "controllers/workload_controller.py",
+                 "controllers/failure_recovery.py", "chaos/__init__.py"):
         assert f"kueue_oss_tpu_torch/{name}" in names, name
     assert "chip_smoke.py" in names
     # the exact-name comparison lets the port's own name through
@@ -222,6 +229,66 @@ def test_port_drains_with_jax_blocked():
             ["full"] * 2 + ["relax"] * 4)
         assert load_ladder(store, factors=(1, 2), full=True,
                            device="cpu")["ladder"]
+        # the MultiKueue hub over the what-if-scored dispatcher, and the
+        # node-failure controller's in-place replacement
+        from kueue_oss_tpu_torch.controllers import (
+            NodeFailureController, WorkloadReconciler)
+        from kueue_oss_tpu_torch.multikueue import (
+            MULTIKUEUE_CONTROLLER_NAME, MultiKueueCluster,
+            MultiKueueController, WhatIfDispatcher, WorkerEnvironment)
+
+        def cq(store, quota, checks=()):
+            store.upsert_resource_flavor(types.ResourceFlavor(name="f"))
+            store.upsert_cluster_queue(types.ClusterQueue(
+                name="cq", admission_checks=list(checks),
+                resource_groups=[types.ResourceGroup(
+                    covered_resources=["cpu"],
+                    flavors=[types.FlavorQuotas(name="f", resources=[
+                        types.ResourceQuota(name="cpu",
+                                            nominal=quota)])])]))
+            store.upsert_local_queue(types.LocalQueue(
+                name="lq", cluster_queue="cq"))
+
+        hub = Store()
+        cq(hub, 9000, checks=["mk"])
+        hub.upsert_admission_check(types.AdmissionCheck(
+            name="mk", controller_name=MULTIKUEUE_CONTROLLER_NAME))
+        hub_sched = Scheduler(hub, QueueManager(hub), device="cpu")
+        workers = []
+        for name, quota in (("small", 2000), ("big", 8000)):
+            env = WorkerEnvironment(name, device="cpu")
+            cq(env.store, quota)
+            workers.append(MultiKueueCluster(name=name, environment=env))
+        disp = WhatIfDispatcher(check_oracle=True, device="cpu")
+        mk = MultiKueueController(hub, hub_sched, workers,
+                                  dispatcher=disp, check_name="mk")
+        wr = WorkloadReconciler(hub, hub_sched)
+        hub.add_workload(types.Workload(
+            name="w", queue_name="lq", podsets=[types.PodSet(
+                count=1, requests={"cpu": 3000})]))
+        for t in (1.0, 2.0):
+            hub_sched.schedule(t)
+            mk.reconcile_all(t)
+            for w in workers:
+                w.environment.run_cycle(t)
+            mk.reconcile_all(t)
+            wr.reconcile_all(t)
+        assert hub.workloads["default/w"].status.cluster_name == "big"
+        assert hub.workloads["default/w"].is_admitted
+        assert disp.faults == [] and disp.counts["scored"] == 1
+        features.set_gates({"TASDeviceFillCounts": True})
+        store = tas_mixed_store(types, Store, n_workloads=60)
+        sched = Scheduler(store, QueueManager(store), device="cpu")
+        sched.run_until_quiet(now=100.0)
+        held = [w for w in store.workloads.values()
+                if w.is_quota_reserved]
+        nfc = NodeFailureController(store, sched)
+        node = sorted(nfc._assigned_nodes(held[0]))[0]
+        store.nodes[node].ready = False
+        nfc.reconcile(200.0)
+        nfc.reconcile(240.0)
+        features.reset()
+        assert node not in nfc._assigned_nodes(held[0])
         leaked = [m for m in sys.modules
                   if m.split(".")[0] in ("jax", "jaxlib", "kueue_oss_tpu")
                   and sys.modules[m] is not None]

@@ -330,6 +330,16 @@ def test_pin_computation_at_reduced_size():
         for name, solver, fill in P.TAS_MIXED_RUNS}
 
 
+def test_phase12_runs_at_phase4s_depth():
+    """Phase 12 runs the TAS store at phase 4's cut, and its pin is the
+    JAX scheduler's at that depth (tests/torch_scheduler_pins.py)."""
+    smoke = _chip_smoke()
+    assert smoke.STEPWISE_WORKLOADS == P.TAS_WORKLOADS
+    pin = smoke.SCHEDULER_REFERENCE["tas"]
+    assert pin["held"] == smoke.STEPWISE_REFERENCE["admitted"]
+    assert pin["parked"] == smoke.STEPWISE_REFERENCE["parked"]
+
+
 def test_phase14_pins_agree_across_fill_modes():
     """Each phase-14 run must equal its pin, so the two fill modes give
     the same result on the card when their pins are equal: auto with

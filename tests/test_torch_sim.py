@@ -298,11 +298,34 @@ def test_simulate_trace_matches_jax_and_refuses_flaps():
     got = run(port_gen, port_sim, port_sim.ScenarioSpec)
     assert got == want
     assert got["admitted"] == 32 and got["preemptions"] > 0
-    store, schedule = port_gen.generate(port_gen.GeneratorConfig(
-        n_cohorts=1, cqs_per_cohort=1))
-    with pytest.raises(NotImplementedError, match="item 11"):
-        port_sim.simulate_trace(store, schedule, port_sim.ScenarioSpec(
-            "f", node_flaps=[port_sim.FlapEvent(at_ms=1.0)]))
+
+    # node flaps run now (they were refused before the TAS controllers
+    # were ported): tests/test_sim_whatif.py's trace-mode schedule
+    def flappy(gen, sim, types):
+        cfg = gen.GeneratorConfig.large_scale(preemption=False)
+        cfg.n_cohorts, cfg.cqs_per_cohort = 1, 2
+        for wc, n in zip(cfg.classes, (4, 0, 0)):
+            wc.count = n
+        store, schedule = gen.generate(cfg)
+        for i in range(4):
+            store.upsert_node(types.Node(name=f"node-{i}"))
+        spec = sim.ScenarioSpec(
+            name="flappy", arrival_scale=2.0, seed=3,
+            node_flaps=[sim.FlapEvent(at_ms=50.0, down=True, count=2),
+                        sim.FlapEvent(at_ms=200.0, down=False)])
+        return sim.simulate_trace(store, schedule, spec, **(
+            {"device": "cpu"} if sim is port_sim else {}))
+
+    from kueue_oss_tpu.api import types as jax_types
+    from kueue_oss_tpu_torch.api import types as port_types
+
+    want = flappy(jax_gen, jax_sim, jax_types)
+    got = flappy(port_gen, port_sim, port_types)
+    assert got == want
+    assert len(got["node_flaps"]) == 2 and got["admitted"] > 0
+    assert len(got["node_flaps"][0]["nodes"]) == 2
+    assert got["node_flaps"][1] == {"atMs": 200.0, "down": False,
+                                    "nodes": got["node_flaps"][0]["nodes"]}
 
 
 def test_cut_paths_raise():

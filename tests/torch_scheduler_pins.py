@@ -282,11 +282,16 @@ TAS_MIXED_RUNS = (("auto", True, False), ("auto_fill", True, True),
                   ("host_fill", False, True), ("host", False, False))
 
 
+#: phase 12's depth: the TAS drain store's first 1,500 workloads (phase
+#: 4's cut; they hold all 102 admissions of the full store)
+TAS_WORKLOADS = 1500
+
+
 def reference_pins(*, storm_scale: float = 1.0, storm_cohorts: int = 5,
                    storm_cqs: int = 6, tas_kwargs=None,
                    tas_mixed_kwargs=None) -> dict:
     """The JAX package's records of phases 11-14 (full size by
-    default)."""
+    default, but phase 12 at ``TAS_WORKLOADS``)."""
     jax = jax_package()
     storm = dict(n_cohorts=storm_cohorts, cqs_per_cohort=storm_cqs,
                  scale=storm_scale)
@@ -295,7 +300,8 @@ def reference_pins(*, storm_scale: float = 1.0, storm_cohorts: int = 5,
                            solver=True, **storm),
         "storm_host": run_waves(jax, scenarios.baseline_preempt_store,
                                 solver=False, **storm),
-        "tas": run_tas(jax, **(tas_kwargs or {})),
+        "tas": run_tas(jax, **(tas_kwargs
+                               or {"n_workloads": TAS_WORKLOADS})),
         "refused": run_waves(jax, scenarios.refused_quantity_store,
                              solver=True, **storm),
         "tas_mixed": {name: run_tas_mixed(jax, solver=solver, fill=fill,

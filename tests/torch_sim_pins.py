@@ -45,7 +45,7 @@ PORT = "kueue_oss_tpu_torch"
 WHATIF_QUOTA = (0.25, 0.5, 0.75, 1.25, 1.5, 2.0, 3.0)
 WHATIF_ARRIVAL = (0.25, 0.5, 0.75)
 #: the depth of phase 16 (b)'s auto run (chip_smoke.py PERF_AUTO_SCALE)
-PERF_AUTO_SCALE = 0.5
+PERF_AUTO_SCALE = 0.25
 #: bench.py's whatif sweep (bench.py:1465-1497)
 BENCH_QUOTA = (0.25, 0.5, 0.75, 1.25, 1.5, 2.0, 3.0)
 BENCH_ARRIVAL = (0.5, 0.75, 1.25, 1.5, 2.0, 2.5, 3.0)
