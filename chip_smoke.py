@@ -6,8 +6,9 @@ Run from the repository root on a machine with one NVIDIA GPU:
     python3 chip_smoke.py
 
 (``python3 chip_smoke.py --phase 20`` runs phases 1, 2 and 20 alone,
-with phase 14's host-only store built afresh for 20 (c); it prints no
-kernel report.)
+with phase 14's host-only store built afresh for 20 (c);
+``python3 chip_smoke.py --phase 21`` runs phases 1, 2 and 21 alone;
+neither prints a kernel report.)
 
 Phases, in order; any failure propagates (nonzero exit, no result line):
 
@@ -258,7 +259,10 @@ Phases, in order; any failure propagates (nonzero exit, no result line):
    pins are the JAX package's under tests/conftest.py's XLA flags
    (tests/torch_relax_pins.py). (a) also holds a dense LP of 40
    columns (above 32, where XLA sums the columns as a reduce-window
-   of 32 and a reduce).
+   of 32 and a reduce) and, since the sum's order is held up to 1,024
+   columns, ``scenarios.interior_relax_lp`` of 200 columns (saturated
+   prices, x interior for all 32 iterations: an LP on which the
+   windowed order and a plain in-order sum give different x).
 19. the FULL what-if sweep (the port's ``sim`` FULL path): (a)
    bench.py's fullsweep shape (bench.py:1552-1603: ``philly_trace(256,
    seed=11)``, capacity 0.25 of the demand, the earliest 40% admitted,
@@ -314,13 +318,46 @@ Phases, in order; any failure propagates (nonzero exit, no result line):
    flaps and one up flap on a generated lean trace whose store carries
    the 640 TAS nodes: the flap log, admissions and TTA by class the JAX
    pins. Pins: tests/torch_dispatch_pins.py.
+21. the solver sidecar (``solver/service.py``, ``chaos``): (a) phase
+   10's sequence (the baseline storm at full size, wave 1, wave 2, 2
+   warm-up and 8 measured churn cycles) through ``SolverEngine(store,
+   queues, remote=SolverClient(path))`` with ``SolverServer(path)`` in a
+   sidecar process started by ``subprocess`` (``python -m
+   kueue_oss_tpu_torch.solver.service``) that owns the card: every
+   drain's plan ``STORM_CHURN_REFERENCE`` (counts, rounds, digest,
+   victims' reasons, the session frame) with phase 6's quota and victim
+   checks; on the wire a SYNC for the session's full syncs (the first
+   sync and its two dense deltas) and a DELTA for every delta, no
+   resync, no failure; ``bytes_by_kind``, the SYNC frame against the
+   median DELTA frame and each drain's wall beside phase 10's
+   in-process wall printed; (b) phase 12's TAS store at 1,500
+   workloads through ``Scheduler(solver="auto", solver_config=
+   SolverBackendConfig(socket_path=path))``: phase 12's record, one
+   ``tas_place_sequential`` launch in the control plane, no
+   unavailable or unsupported fallback; the sidecar process then stops
+   and reports no hand-kernel launch of its own; (c) bench.py's chaos
+   scenario, not cut (8 ClusterQueues of 32 cpu, 1,024 workloads, the
+   seeded ``FaultInjector``), on a ``ChaosSolverServer`` on the card,
+   followed by six churn rounds that drive the injector into its
+   corrupt plan and weighted mix: the JAX record (seats, cycles, faults
+   by kind, rejected plans, backend errors, frames, committed digest),
+   every seat held, no ClusterQueue over quota; (d) the breaker drive
+   of .claude/skills/verify/SKILL.md: a second sidecar process,
+   ``Scheduler(solver="auto", solver_config=...)`` with the cost gates
+   reset every round, the sidecar SIGKILLed, host rounds refilling
+   every seat while two failures trip the breaker, a round refused with
+   no socket attempt while it is open, then a restarted sidecar and the
+   cooldown on a fake clock close it with exactly one probe. Pins:
+   tests/torch_sidecar_pins.py (c); (a) and (b) hold phases 10 and 12's
+   pins.
 
 Phases 5-15 pin the JAX engine's plans with delta sessions on (its
 default, and the port's; ``use_sessions = False`` stays the off
 switch, which phase 10's twin runs). The relaxed arm's router decides
 by wall clock, so phases 5 and 10-16 pin it off (``relax_off``) on
 both sides, and relax_lp must not have launched before phase 18.
-Phases 8-11, 13, 15-19 and 20 (a), (b) and (e) run no TAS flavor: the
+Phases 8-11, 13, 15-19, 20 (a), (b) and (e), and 21 (a), (c) and (d)
+run no TAS flavor: the
 TAS kernels' launch counts are set to 0
 before each drain (or each ``run_until_quiet``, each fleet of phase 15,
 or each run of phases 16-19) and must still be 0 after it.
@@ -3174,8 +3211,10 @@ def relax_phase(smi: str, large_store, large_exact) -> tuple:
     # two largest also at the other cluster sizes), dense LPs of
     # four, eight and forty columns made from them (the sum over the
     # columns in XLA's order: above 32 its reduce-window of 32; at eight
-    # and forty, r in global memory), and the largest backlog four times
-    # over (every row array in global memory)
+    # and forty, r in global memory), an LP of 200 columns whose x stays
+    # interior (the windowed and a plain in-order sum give different x
+    # there), and the largest backlog four times over (every row array
+    # in global memory)
     large_lp, base_lp = relax.build_lp(padded), relax.build_lp(base)
     kernel = check_relax_lp(device, [
         ("drain_large_scale", large_lp, 32, True, (1, 2, 4)),
@@ -3187,6 +3226,8 @@ def relax_phase(smi: str, large_store, large_exact) -> tuple:
          scenarios.dense_relax_lp(large_lp, 8, 8), 32, True, ()),
         ("whatif_baseline dense F=40",
          scenarios.dense_relax_lp(base_lp, 40, 40), 32, True, ()),
+        ("whatif_baseline interior F=200",
+         scenarios.interior_relax_lp(base_lp, 200, 200), 32, True, ()),
         ("drain_large_scale x4", _repeated_lp(large_lp, 4), 32, False,
          ())])
 
@@ -4245,6 +4286,492 @@ def dispatch_phase(smi: str, tas_store, tas_sched,
     return out, fills
 
 
+# -- phase 21: the solver sidecar -------------------------------------------
+
+#: phase 21 (c): bench.py's chaos shape (bench.py:637-664), the churn
+#: rounds that follow the storm, and the JAX package's record
+#: (``JAX_PLATFORMS=cpu python tests/torch_sidecar_pins.py``)
+CHAOS_CQS = 8
+CHAOS_QUOTA = 32
+CHAOS_WORKLOADS = 1024
+CHAOS_SEED = 42
+CHAOS_CHURN = 6
+CHAOS_FINISH = 16
+CHAOS_REFERENCE = {
+    "backend_errors": 1, "cycles": [34, 4, 1, 1, 1, 1, 1],
+    "digest": "548474da5cf5a50e646afecabcecabe108ac16b47720b8156c49210d"
+              "4fef24c7",
+    "faults_by_kind": {"corrupt_plan": 1, "crash": 2, "garble": 2,
+                       "ok": 5},
+    "faults_injected": 5, "frames": {"sync": 6},
+    "held": [256, 256, 256, 256, 256, 256, 256], "plans_rejected": 1}
+#: phase 21 (d): the breaker drive's store (4 ClusterQueues of 8 cpu, 64
+#: one-cpu workloads), the holders each churn round finishes, and the
+#: breaker (two failures trip it; its cooldown runs on a fake clock)
+BREAKER_CQS = 4
+BREAKER_QUOTA = 8
+BREAKER_WORKLOADS = 64
+BREAKER_FINISH = 4
+BREAKER_THRESHOLD = 2
+BREAKER_COOLDOWN_S = 30.0
+
+
+def start_sidecar(path: str, device: str = "cuda"):
+    """A sidecar process (``python -m kueue_oss_tpu_torch.solver.service``)
+    serving ``path`` on ``device``; started with ``subprocess``, never a
+    fork of this process, which has long touched CUDA."""
+    import os
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
+    return subprocess.Popen(
+        [sys.executable, "-m", "kueue_oss_tpu_torch.solver.service", path,
+         "--device", device], cwd=root, env=env, stdout=subprocess.PIPE,
+        text=True)
+
+
+def stop_sidecar(proc, timeout: float = 60.0) -> dict:
+    """SIGTERM the sidecar and return the JSON line it prints on exit:
+    frames served by kind, resyncs, evictions and its kernel launches."""
+    proc.terminate()
+    try:
+        out, _ = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise
+    if proc.returncode != 0:
+        raise AssertionError(f"the sidecar exited {proc.returncode}")
+    return json.loads(out.strip().splitlines()[-1])
+
+
+def _await_sidecar(path: str, proc) -> float:
+    from kueue_oss_tpu_torch.solver.service import wait_for_server
+
+    return wait_for_server(path, timeout_s=180.0,
+                           alive=lambda: proc.poll() is None)
+
+
+def chaos_store(n_cqs: int = CHAOS_CQS, quota: int = CHAOS_QUOTA,
+                n_wl: int = CHAOS_WORKLOADS):
+    """bench.py's chaos store (the copy of tests/torch_sidecar_pins.py's,
+    held to it by the tests)."""
+    from kueue_oss_tpu_torch.api import types as T
+    from kueue_oss_tpu_torch.core.store import Store
+
+    store = Store()
+    store.upsert_resource_flavor(T.ResourceFlavor(name="f"))
+    for i in range(n_cqs):
+        store.upsert_cluster_queue(T.ClusterQueue(
+            name=f"cq{i}", resource_groups=[T.ResourceGroup(
+                covered_resources=["cpu"],
+                flavors=[T.FlavorQuotas(name="f", resources=[
+                    T.ResourceQuota(name="cpu", nominal=quota)])])]))
+        store.upsert_local_queue(T.LocalQueue(
+            name=f"lq{i}", cluster_queue=f"cq{i}"))
+    for i in range(n_wl):
+        store.add_workload(T.Workload(
+            name=f"w{i}", queue_name=f"lq{i % n_cqs}", uid=i + 1,
+            creation_time=float(i),
+            podsets=[T.PodSet(name="main", count=1,
+                              requests={"cpu": 1})]))
+    return store
+
+
+def _held(store) -> int:
+    return sum(1 for w in store.workloads.values()
+               if w.is_quota_reserved and not w.is_finished)
+
+
+def _nominal_checks(store) -> None:
+    """No standalone ClusterQueue of phase 21 (c) and (d) above its
+    nominal cpu over the workloads that hold quota now."""
+    used: dict[str, int] = {}
+    for wl in store.workloads.values():
+        if wl.is_quota_reserved and not wl.is_finished:
+            adm = wl.status.admission
+            used[adm.cluster_queue] = used.get(adm.cluster_queue, 0) + sum(
+                psa.resource_usage.get("cpu", 0)
+                for psa in adm.podset_assignments)
+    for name, spec in store.cluster_queues.items():
+        nominal = spec.resource_groups[0].flavors[0].resources[0].nominal
+        if used.get(name, 0) > nominal:
+            raise AssertionError(f"ClusterQueue {name} over its nominal: "
+                                 f"{used[name]}")
+
+
+def chaos_record(device: str = "cuda"):
+    """Phase 21 (c): bench.py's chaos scenario and its churn rounds
+    through a ChaosSolverServer on ``device`` (the copy of
+    tests/torch_sidecar_pins.py's ``chaos_record``, held to it by the
+    tests). Returns (record, store, engine)."""
+    import os
+    import tempfile
+
+    from kueue_oss_tpu_torch.chaos import (
+        CORRUPT_PLAN,
+        CRASH,
+        GARBLE,
+        OK,
+        TRUNCATE,
+        ChaosSolverServer,
+        FaultInjector,
+    )
+    from kueue_oss_tpu_torch.core.queue_manager import QueueManager
+    from kueue_oss_tpu_torch.scheduler.scheduler import Scheduler
+    from kueue_oss_tpu_torch.solver.engine import SolverEngine
+    from kueue_oss_tpu_torch.solver.service import SolverClient
+
+    store = chaos_store()
+    queues = QueueManager(store)
+    path = os.path.join(tempfile.mkdtemp(), "solver.sock")
+    injector = FaultInjector(
+        schedule=[CRASH, GARBLE, CORRUPT_PLAN],
+        weights={CRASH: 2, GARBLE: 1, TRUNCATE: 1, CORRUPT_PLAN: 1, OK: 3},
+        seed=CHAOS_SEED)
+    srv = ChaosSolverServer(path, injector, device=device)
+    srv.serve_in_background()
+    client = SolverClient(path, timeout_s=30.0, max_retries=1,
+                          backoff_base_s=0.01)
+    sched = Scheduler(store, queues, solver_min_backlog=64, device=device)
+    engine = relax_off(SolverEngine(store, queues, device=device,
+                                    scheduler=sched, remote=client))
+    sched.solver = engine
+    try:
+        cycles = [sched.run_until_quiet(now=0.0, tick=1.0)]
+        seats = [_held(store)]
+        for r in range(CHAOS_CHURN):
+            holders = sorted(k for k, w in store.workloads.items()
+                             if w.is_quota_reserved and not w.is_finished)
+            for key in holders[:CHAOS_FINISH]:
+                sched.finish_workload(key, now=100.0 + r)
+            sched._drain_cost_ema = sched._host_s_per_adm = None
+            sched._solver_drained_once = False
+            cycles.append(sched.run_until_quiet(now=100.0 + r, tick=1.0))
+            seats.append(_held(store))
+    finally:
+        srv.shutdown()
+        srv.server_close()
+    rec = {"held": seats, "cycles": cycles,
+           "faults_by_kind": dict(sorted(injector.injected.items())),
+           "faults_injected": injector.faults_injected(),
+           "plans_rejected": engine.remote_counts[
+               "solver_plan_rejected_total"],
+           "backend_errors": engine.remote_counts["solver_fallback_total"][
+               "backend_error"],
+           "frames": dict(sorted(client.frames_by_kind.items())),
+           "digest": committed_store_digest(store)}
+    return rec, store, engine
+
+
+def breaker_drive(path: str, proc, device: str = "cuda",
+                  while_restarting=None) -> dict:
+    """Phase 21 (d): the sidecar drive of .claude/skills/verify/SKILL.md
+    on the port. A flood through ``Scheduler(solver="auto",
+    solver_config=...)`` routed to the sidecar ``proc`` at ``path``, the
+    cost gates pinned; the sidecar SIGKILLed; churn rounds (finish
+    ``BREAKER_FINISH`` holders, run until quiet) refill every seat on
+    the host while the breaker trips open, then refuses drains with no
+    socket attempt; a restarted sidecar and the cooldown (a fake clock)
+    close it with exactly one probe. ``while_restarting`` (when given)
+    runs while the restarted sidecar boots. The control plane's hand
+    kernel launches are set to 0 before the flood and must stay 0 after
+    every round, and the restarted sidecar must report 0 launches on
+    exit. The SIGKILLed sidecar cannot report its launches: its lean and
+    FULL solves run the same code as the restarted one's, which calls no
+    hand kernel. Returns the report."""
+    from kueue_oss_tpu_torch.config import SolverBackendConfig
+    from kueue_oss_tpu_torch.core.queue_manager import QueueManager
+    from kueue_oss_tpu_torch.scheduler.scheduler import Scheduler
+    from kueue_oss_tpu_torch.solver.resilience import CLOSED, OPEN
+
+    store = chaos_store(BREAKER_CQS, BREAKER_QUOTA, BREAKER_WORKLOADS)
+    seats = BREAKER_CQS * BREAKER_QUOTA
+    cfg = SolverBackendConfig(
+        socket_path=path, timeout_seconds=10.0, max_retries=0,
+        retry_backoff_base_seconds=0.01,
+        breaker_failure_threshold=BREAKER_THRESHOLD,
+        breaker_cooldown_seconds=BREAKER_COOLDOWN_S, relax_enabled=False)
+    sched = Scheduler(store, QueueManager(store), solver="auto",
+                      solver_min_backlog=8, solver_config=cfg,
+                      device=device)
+    engine = sched._solver_engine()
+    client, health = engine.remote, engine.health
+    clock = [0.0]
+    health.clock = lambda: clock[0]
+    log = []
+
+    def round_(label: str, finish: bool, now: float) -> dict:
+        if finish:
+            holders = sorted(k for k, w in store.workloads.items()
+                             if w.is_quota_reserved and not w.is_finished)
+            for key in holders[:BREAKER_FINISH]:
+                sched.finish_workload(key, now=now)
+        sched._drain_cost_ema = sched._host_s_per_adm = None
+        sched._solver_drained_once = False
+        attempts0, counts0 = client.attempts, dict(sched.solver_counts)
+        t0 = time.monotonic()
+        sched.run_until_quiet(now=now, tick=0.001)
+        row = {"label": label, "wall_s": time.monotonic() - t0,
+               "held": _held(store), "state": health.state,
+               "attempts": client.attempts - attempts0,
+               **{k: sched.solver_counts[k] - counts0[k]
+                  for k in ("drains", "unavailable")}}
+        if row["held"] != seats:
+            raise AssertionError(f"phase 21 (d) {label}: {row['held']} of "
+                                 f"{seats} seats held")
+        if _launches():
+            raise AssertionError(f"phase 21 (d) {label}: the control plane "
+                                 f"launched {_launches()} TAS kernels")
+        _nominal_checks(store)
+        log.append(row)
+        return row
+
+    _await_sidecar(path, proc)
+    _reset_launches()
+    first = round_("flood", False, 0.0)
+    if first["drains"] != 1 or first["state"] != CLOSED:
+        raise AssertionError(f"phase 21 (d) flood: {first}")
+    proc.kill()  # SIGKILL: no goodbye, the socket file stays behind
+    proc.wait()
+    for i in range(BREAKER_THRESHOLD):
+        row = round_(f"dead{i + 1}", True, 10.0 + i)
+        if row["unavailable"] != 1 or row["attempts"] != 1:
+            raise AssertionError(f"phase 21 (d) dead sidecar: {row}")
+    if health.state != OPEN or health.trips != 1:
+        raise AssertionError(f"phase 21 (d): breaker {health.state}, "
+                             f"{health.trips} trips after "
+                             f"{BREAKER_THRESHOLD} failures")
+    restarted = start_sidecar(path, device)
+    try:
+        row = round_("open", True, 20.0)
+        if (row["attempts"] or row["unavailable"] != 1
+                or health.state != OPEN):
+            raise AssertionError(f"phase 21 (d) open breaker: {row}")
+        if while_restarting is not None:
+            while_restarting()
+        _await_sidecar(path, restarted)
+        clock[0] += BREAKER_COOLDOWN_S
+        row = round_("probe", True, 30.0)
+        if (row["attempts"] != 1 or row["drains"] != 1
+                or health.state != CLOSED or health.trips != 1):
+            raise AssertionError(f"phase 21 (d) probe: {row}")
+        row = round_("healed", True, 40.0)
+        if row["drains"] != 1 or health.state != CLOSED:
+            raise AssertionError(f"phase 21 (d) after the probe: {row}")
+    finally:
+        served = stop_sidecar(restarted)
+    if any(served["launches"].values()):
+        raise AssertionError(f"phase 21 (d): the restarted sidecar launched "
+                             f"a hand kernel: {served}")
+    return {"rounds": log, "frames": dict(client.frames_by_kind),
+            "failures": dict(client.failures), "trips": health.trips,
+            "restarted_sidecar": served}
+
+
+def sidecar_phase(smi: str, churn_walls=None, device: str = "cuda",
+                  sidecar=None) -> tuple:
+    """Phase 21: (a) phase 10's storm and churn through a sidecar
+    process, (b) the scheduler's TAS entry point through it, (c) the
+    chaos storm (while (d)'s restarted sidecar boots), (d) the breaker.
+    ``churn_walls`` maps phase 10's drain labels to their in-process
+    walls (None when phase 10 did not run); ``sidecar`` is (path,
+    process) of an (a) sidecar started earlier, so that it booted while
+    earlier phases ran. Returns (report, tas_place_sequential launches
+    of the control plane)."""
+    import os
+    import statistics
+    import tempfile
+
+    import torch
+
+    from kueue_oss_tpu_torch.api import types
+    from kueue_oss_tpu_torch.config import SolverBackendConfig
+    from kueue_oss_tpu_torch.core.eviction import finish_workload
+    from kueue_oss_tpu_torch.core.queue_manager import QueueManager
+    from kueue_oss_tpu_torch.core.store import Store
+    from kueue_oss_tpu_torch.scenarios import (
+        baseline_preempt_store,
+        storm_churn_drains,
+        tas_drain_store,
+    )
+    from kueue_oss_tpu_torch.scheduler.scheduler import Scheduler
+    from kueue_oss_tpu_torch.solver import cuda_relax, cuda_tas
+    from kueue_oss_tpu_torch.solver.engine import SolverEngine
+    from kueue_oss_tpu_torch.solver.service import SolverClient
+
+    def sync():
+        if device != "cpu":
+            torch.cuda.synchronize()
+
+    relax0 = cuda_relax.relax_lp.launches
+    tmp = tempfile.mkdtemp()
+    path_d = os.path.join(tmp, "d.sock")
+    if sidecar is None:
+        path_a = os.path.join(tmp, "a.sock")
+        sidecar_a = start_sidecar(path_a, device)
+    else:
+        path_a, sidecar_a = sidecar
+    sidecar_d = None
+    out = {}
+    try:
+        # (a) phase 10's sequence through the sidecar, full size
+        store, wave1, wave2 = baseline_preempt_store(types, Store)
+        queues = QueueManager(store)
+        client = SolverClient(path_a)
+        engine = relax_off(SolverEngine(store, queues, device=device,
+                                        remote=client))
+        steps = storm_churn_drains(
+            types, store, wave1, wave2,
+            lambda key, now: finish_workload(store, queues, key, now))
+        out["sidecar_boot_s"] = _await_sidecar(path_a, sidecar_a)
+        drains, wire = [], []
+        for i, (label, now) in enumerate(steps):
+            ref = STORM_CHURN_REFERENCE[i]
+            if (label, now) != (ref["label"], ref["now"]):
+                raise AssertionError(f"phase 21 (a) drain {i}: {label}")
+            before = _reserved_state(store)
+            _reset_launches()
+            _settle()
+            t0 = time.monotonic()
+            result = engine.drain(now=now)
+            sync()
+            wall = time.monotonic() - t0
+            want = {k: ref[k] for k in ("admitted", "evicted", "rounds",
+                                        "held", "digest")}
+            got = _check_storm_wave(store, result, before, want)
+            reasons = dict(collections.Counter(
+                store.workloads[k].status.conditions["Preempted"].reason
+                for k in result.evicted_keys))
+            kind = _frame_summary(result)["frame"]
+            sent = "delta" if kind == "delta" else "sync"
+            if (reasons != ref["reasons"] or kind != ref["frame"]
+                    or client.last_frame[0] != sent
+                    or engine.last_drain_arm != "remote" or _launches()):
+                raise AssertionError(
+                    f"phase 21 (a) {label}: reasons {reasons}, session "
+                    f"frame {kind} sent as {client.last_frame}, arm "
+                    f"{engine.last_drain_arm}, {_launches()} TAS launches; "
+                    f"reference {ref['reasons']}, {ref['frame']}")
+            wire.append(client.last_frame)
+            drains.append({
+                "label": label, "wall_s": wall, "frame": sent,
+                "frame_bytes": client.last_frame[1],
+                "in_process_wall_s": (churn_walls or {}).get(label),
+                **{f"{k}_s": v for k, v in result.phases.items()}})
+            print(f"[sidecar (a) {label}] plan matches the reference "
+                  f"({got['admitted']} admitted, {got['evicted']} evicted, "
+                  f"{got['rounds']} rounds); " + json.dumps(drains[-1]))
+        n_delta = sum(1 for kind, _ in wire if kind == "delta")
+        if (client.frames_by_kind != {"sync": len(wire) - n_delta,
+                                      "delta": n_delta}
+                or client.resyncs or client.failures or n_delta == 0
+                or wire[0][0] != "sync"):
+            raise AssertionError(
+                f"phase 21 (a) wire: frames {client.frames_by_kind}, "
+                f"resyncs {client.resyncs}, failures {client.failures}")
+        delta_bytes = [n for kind, n in wire if kind == "delta"]
+        out["storm"] = {
+            "drains": drains, "bytes_by_kind": dict(client.bytes_by_kind),
+            "frames_by_kind": dict(client.frames_by_kind),
+            "sync_frame_bytes": wire[0][1],
+            "median_delta_frame_bytes": statistics.median(delta_bytes)}
+        print("[sidecar (a)] the storm and its churn through the sidecar "
+              "match phase 10's pins; " + json.dumps(
+                  {k: v for k, v in out["storm"].items() if k != "drains"}))
+        del store, queues, engine, steps
+
+        # (b) the system's entry point, routed by its solver_config
+        sidecar_d = start_sidecar(path_d, device)  # boots meanwhile
+        tstore = tas_drain_store(types, Store,
+                                 n_workloads=STEPWISE_WORKLOADS)
+        cfg = SolverBackendConfig(socket_path=path_a, relax_enabled=False)
+        sched = Scheduler(tstore, QueueManager(tstore), solver="auto",
+                          solver_config=cfg, device=device)
+        cuda_tas.tas_place_sequential.steps = 0
+        rec, wall, _, oracle, _ = _run_quiet(tstore, sched, [], 0.0)
+        tas_launches = cuda_tas.tas_place_sequential.launches
+        rec["parked"] = sum(len(q.inadmissible)
+                            for q in sched.queues.queues.values())
+        want = SCHEDULER_REFERENCE["tas"]
+        eng = sched._solver_engine()
+        c = sched.solver_counts
+        if rec != want:
+            raise AssertionError(f"phase 21 (b): {rec} != reference {want}")
+        # a CPU rehearsal places through the plain placer: no launch
+        if (tas_launches != (0 if device == "cpu" else 1)
+                or cuda_tas.leaf_states.launches
+                or cuda_tas.launch_counts["fill_counts"]
+                or c["unavailable"] or c["unsupported"]
+                or eng.last_drain_arm != "remote"
+                or eng.remote.socket_path != path_a
+                or oracle["rejections"] or oracle["python_calls"]):
+            raise AssertionError(
+                f"phase 21 (b): {tas_launches} tas_place_sequential "
+                f"launches, counts {c}, arm {eng.last_drain_arm}, oracle "
+                f"{oracle}")
+        _quota_checks(tstore)
+        out["scheduler_tas"] = {
+            "wall_s": wall, "cycles": rec["cycles"],
+            "steps": cuda_tas.tas_place_sequential.steps,
+            "frames_by_kind": dict(eng.remote.frames_by_kind),
+            "drain": {f"{k}_s": v for k, v in sched.last_drain.phases.items()}}
+        print("[sidecar (b)] Scheduler(solver=\"auto\") through the sidecar "
+              "matches phase 12's record; 1 tas_place_sequential launch in "
+              "the control plane, 0 fallbacks; "
+              + json.dumps(out["scheduler_tas"]))
+        del tstore, sched, eng
+        out["sidecar_a"] = stop_sidecar(sidecar_a)
+        sidecar_a = None
+        if any(out["sidecar_a"]["launches"].values()):
+            raise AssertionError(f"phase 21: the sidecar launched a hand "
+                                 f"kernel: {out['sidecar_a']}")
+
+        def chaos():
+            # (c) the chaos storm on a ChaosSolverServer on the card
+            _reset_launches()
+            t0 = time.monotonic()
+            rec, cstore, ceng = chaos_record(device)
+            sync()
+            wall = time.monotonic() - t0
+            if rec != CHAOS_REFERENCE:
+                raise AssertionError(
+                    f"phase 21 (c): {json.dumps(rec)} != the JAX pin "
+                    f"{json.dumps(CHAOS_REFERENCE)}")
+            _nominal_checks(cstore)
+            if _launches():
+                raise AssertionError("phase 21 (c) launched a TAS kernel")
+            out["chaos"] = {"wall_s": wall, "faults": rec["faults_by_kind"],
+                            "plans_rejected": rec["plans_rejected"],
+                            "remote_counts": ceng.remote_counts,
+                            "client_failures": dict(ceng.remote.failures),
+                            "breaker": ceng.health.state}
+            print("[sidecar (c)] the chaos storm matches the JAX pin (every "
+                  "seat held, no corrupt plan committed); "
+                  + json.dumps(out["chaos"]))
+
+        # (d) the breaker: SIGKILL, host refill, open, one probe; (c)
+        # runs while the restarted sidecar boots
+        t0 = time.monotonic()
+        out["breaker"] = breaker_drive(path_d, sidecar_d, device,
+                                       while_restarting=chaos)
+        out["breaker"]["wall_s"] = (time.monotonic() - t0
+                                    - out["chaos"]["wall_s"])
+        sidecar_d = None
+        print("[sidecar (d)] the breaker tripped on the killed sidecar, "
+              "refused drains with no socket attempt, and one probe "
+              "closed it; " + json.dumps(out["breaker"]))
+    finally:
+        for proc in (sidecar_a, sidecar_d):
+            if proc is not None and proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    if cuda_relax.relax_lp.launches != relax0:
+        raise AssertionError("phase 21 launched relax_lp")
+    return out, tas_launches
+
+
 def main() -> int:
     import torch
 
@@ -4281,6 +4808,15 @@ def main() -> int:
         raise RuntimeError("the verify oracle did not build with g++")
     print(f"[build] {native.library_path().name} in "
           f"{time.monotonic() - t0:.3f} s")
+
+    if sys.argv[1:] == ["--phase", "21"]:
+        # phase 21 alone: the sidecar (no phase 10 walls to compare)
+        sidecar, sidecar_place = sidecar_phase(smi)
+        print("[timings] " + json.dumps({"sidecar": sidecar,
+                                         "tas_place_sequential":
+                                             sidecar_place}))
+        print(smi)
+        return 0
 
     if sys.argv[1:] == ["--phase", "20"]:
         # phase 20 alone, on phase 14's host-only store built afresh
@@ -4407,10 +4943,32 @@ def main() -> int:
 
     # 20. the what-if-scored MultiKueue dispatch and the TAS controllers:
     # bench.py's fleet, the 8-worker pricing, node-failure recovery on
-    # phase 14's store, the delayed TAS path, the flap trace
-    dispatch, dispatch_fills = dispatch_phase(smi, tas_store, tas_sched)
+    # phase 14's store, the delayed TAS path, the flap trace; phase 21's
+    # first sidecar process boots meanwhile
+    import os
+    import tempfile
+
+    path_a = os.path.join(tempfile.mkdtemp(), "a.sock")
+    sidecar_a = (path_a, start_sidecar(path_a))
+    try:
+        dispatch, dispatch_fills = dispatch_phase(smi, tas_store, tas_sched)
+    except BaseException:
+        sidecar_a[1].kill()
+        sidecar_a[1].wait()
+        raise
     del tas_store, tas_sched
     relax_report["launches_by_path"]["dispatch"] = 0
+
+    # 21. the solver sidecar: phase 10's storm through a sidecar process,
+    # the scheduler's TAS entry point routed to it, the chaos storm and
+    # the breaker
+    sidecar, sidecar_place = sidecar_phase(
+        smi, {d["label"]: d["sessions"]["drain_s"]
+              for d in churn["drains"]}, sidecar=sidecar_a)
+    # the sidecar path's 0 launches of relax_lp, leaf_states and
+    # fill_counts are checked in sidecar_phase: the control plane in
+    # (a)-(d), the sidecars by the launches they report on exit
+    relax_report["launches_by_path"]["sidecar"] = 0
     # the fill's own path: phase 14's host placement with the fill gate
     # on; every other path launched no TAS kernel but its placer
     reports[2]["launches"] = host_fill
@@ -4436,7 +4994,8 @@ def main() -> int:
                                       "dispatch_node_failure":
                                           dispatch_fills["node_failure"],
                                       "dispatch_delayed_tas":
-                                          dispatch_fills["delayed_tas"]}
+                                          dispatch_fills["delayed_tas"],
+                                      "sidecar": 0}
     reports[0]["launches_by_path"] = {"tas_lean": leaf_launches,
                                       "tas_full": 0, "storm_full": 0,
                                       "fair_storm": fair_launches,
@@ -4453,7 +5012,7 @@ def main() -> int:
                                       "whatif": whatif_launches,
                                       "relax": relax_launches,
                                       "fullsweep": fullsweep_launches,
-                                      "dispatch": 0}
+                                      "dispatch": 0, "sidecar": 0}
     # leaf_states is on no main path since fill_counts took the fill
     # (its launches on every path are 0, checked above)
     reports[0]["launches"] = sum(reports[0]["launches_by_path"].values())
@@ -4477,7 +5036,8 @@ def main() -> int:
                                       "whatif": whatif_launches,
                                       "relax": relax_launches,
                                       "fullsweep": fullsweep_launches,
-                                      "dispatch": 0}
+                                      "dispatch": 0,
+                                      "sidecar": sidecar_place}
 
     timings = {"setup_s": setup_s, "drain_s": drain_s,
                **{f"{k}_s": v for k, v in result.phases.items()},
@@ -4490,7 +5050,8 @@ def main() -> int:
                "scheduler_tas_host": sched_host,
                "streaming": stream_fleets, "streaming_serve": stream_serve,
                "perf_runner": perf, "whatif": whatif, "relax": relaxed,
-               "fullsweep": fullsweep, "dispatch": dispatch}
+               "fullsweep": fullsweep, "dispatch": dispatch,
+               "sidecar": sidecar}
     print("[timings] " + json.dumps(timings))
     print(smi)
     print(json.dumps({"kernels": reports}))

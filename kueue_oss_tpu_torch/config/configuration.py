@@ -5,7 +5,8 @@ Copies of ``StreamingConfig``, ``SimulatorConfig`` and
 the knobs of ``Scheduler(streaming=StreamingConfig(...))``, of the
 what-if engine's lean sweep and of ``Scheduler(solver_config=...)``. The
 rest of the configuration (the Configuration tree and its loader, SLO
-and persistence settings) waits for ROADMAP Queue A item 8.
+and persistence settings) waits for ROADMAP Queue A item 10, with the
+rest of the JAX package's entry points.
 """
 
 from __future__ import annotations
@@ -18,11 +19,14 @@ from typing import Optional
 class SolverBackendConfig:
     """Knobs of the solver backend (JAX ``SolverBackendConfig``).
 
-    Ported: delta sessions (``sessions_enabled``: None reads
-    KUEUE_SOLVER_SESSIONS, default on) and the relaxed fast-path arm
-    (``relax_*``), which ``Scheduler(solver_config=...)`` wires onto its
-    engine. The remote sidecar and its breaker (ROADMAP Queue A item 8)
-    and the mesh and pod-scale coordinator (item 9) are not ported: a
+    Ported: the remote sidecar (``socket_path`` routes the "auto"
+    engine's solves through a ``SolverClient`` with the timeout, retry,
+    frame and tenant fields; ``max_sessions`` is the sidecar's session
+    cap), its breaker (``breaker_*``), delta sessions
+    (``sessions_enabled``: None reads KUEUE_SOLVER_SESSIONS, default on)
+    and the relaxed fast-path arm (``relax_*``), which
+    ``Scheduler(solver_config=...)`` wires onto its engine. The mesh and
+    pod-scale coordinator (ROADMAP Queue A item 9) are not ported: a
     field of theirs set away from its default raises.
     """
 
@@ -59,26 +63,19 @@ class SolverBackendConfig:
     #: demoted-arm cooldown before one re-probe drain
     relax_retry_cooldown_seconds: float = 300.0
 
-    #: the fields of the remote sidecar (ROADMAP Queue A item 8) and of
-    #: the multi-device arms (item 9)
-    _SIDECAR = ("socket_path", "tenant", "max_sessions", "timeout_seconds",
-                "max_retries", "retry_backoff_base_seconds",
-                "retry_backoff_max_seconds", "max_frame_bytes",
-                "breaker_failure_threshold", "breaker_cooldown_seconds")
+    #: the fields of the multi-device arms (ROADMAP Queue A item 9)
     _MESH = ("mesh", "coordinator_address", "coordinator_processes",
              "coordinator_process_id")
 
     def __post_init__(self) -> None:
         defaults = {f.name: f.default for f in fields(self)}
-        for names, item, what in ((self._SIDECAR, 8, "the solver sidecar"),
-                                  (self._MESH, 9, "the multi-device arms")):
-            for name in names:
-                value = getattr(self, name)
-                if value != defaults[name] and not (
-                        name == "mesh" and value == "off"):
-                    raise NotImplementedError(
-                        f"SolverBackendConfig.{name}: {what}, ROADMAP "
-                        f"Queue A item {item}")
+        for name in self._MESH:
+            value = getattr(self, name)
+            if value != defaults[name] and not (
+                    name == "mesh" and value == "off"):
+                raise NotImplementedError(
+                    f"SolverBackendConfig.{name}: the multi-device arms, "
+                    f"ROADMAP Queue A item 9")
 
 
 @dataclass

@@ -83,7 +83,7 @@ constexpr int kMaxThreads = 1024;
 constexpr int kMaxLanes = 8;
 constexpr int kMaxCluster = 8;
 constexpr int kWindow = 32;  // relax.WINDOW
-constexpr int kMaxColumns = 128;  // relax.MAX_SUM_COLUMNS
+constexpr int kMaxColumns = 1024;  // relax.MAX_SUM_COLUMNS
 
 struct Params {
   int K, W1, F, C, N1, D, iters;

@@ -736,3 +736,56 @@ def dense_relax_lp(lp, n_cols: int, seed: int):
     slack = (lp.slack[..., cols] * fac).astype(np.float32)
     scale = np.maximum(slack, np.float32(1.0)).astype(np.float32)
     return lp._replace(r=r, slack=slack, scale=scale)
+
+
+#: the pull each row of ``interior_relax_lp`` gets, and the iteration
+#: whose rho its score balances
+INTERIOR_PULL = 0.05
+INTERIOR_BALANCE = 16
+
+
+def interior_relax_lp(lp, n_cols: int, seed: int, iters: int = 32):
+    """A dense LP (``dense_relax_lp``) whose prices stay positive and
+    whose x stays interior for all ``iters`` iterations, so that the
+    last bits of the pull's sum over the ``n_cols`` columns reach x.
+
+    Every slack is 0 and every scale 2^-20, so each node carrying load
+    is over capacity at the clip: its price is exactly 1 for as long as
+    its load stays positive, whatever x is. Each live row's request is
+    scaled below 1 (so its normalised request is the request itself)
+    until its pull, the sum over the columns of request times price, is
+    ``INTERIOR_PULL``; its score is set so that ``ALPHA * s`` balances
+    ``rho * pull`` at iteration ``INTERIOR_BALANCE``. Then x rises from
+    0.5 while rho is below that iteration's and falls after it, staying
+    in (0.5, 0.5 + 6.4 * pull) at 32 iterations: interior, its gradient
+    a difference of two near-equal products, and one ulp of the pull
+    moves x's rounding."""
+    from kueue_oss_tpu_torch.solver import relax
+
+    d = dense_relax_lp(lp, n_cols, seed)
+    r = d.r.astype(np.float64)
+    live = np.asarray(d.live)
+    # the load's full charge: which nodes carry load once x > 0
+    C = d.cq_node.shape[-1]
+    N1 = d.parent.shape[-1]
+    cq_load = np.zeros((C + 1, n_cols))
+    np.add.at(cq_load, np.minimum(d.wl_cqid, C), r * live[:, None])
+    u = np.zeros((N1, n_cols))
+    u[d.cq_node] = cq_load[:C]
+    d_max = d.path_cq.shape[-1]
+    for lvl in range(d_max - 1, 0, -1):
+        rows = np.nonzero(d.depth == lvl)[0]
+        keep = rows[(d.parent[rows] >= 0) & (d.parent[rows] < N1)]
+        np.add.at(u, d.parent[keep], u[keep])
+    price = (u > 0)[d.path_cq].sum(axis=1)           # [C, F]
+    rows_price = price[np.minimum(d.wl_cqid, C - 1)]
+    pull0 = (r * rows_price).sum(axis=1)
+    factor = np.where(live & (pull0 > 0),
+                      INTERIOR_PULL / np.maximum(pull0, 1e-30), 0.0)
+    r = (r * factor[:, None]).astype(np.float32)
+    pull = (r.astype(np.float64) * rows_price).sum(axis=1)
+    rho = float(relax._rho(INTERIOR_BALANCE, iters))
+    s = np.where(live, rho * pull / relax.ALPHA, 0.0).astype(np.float32)
+    return d._replace(
+        r=r, s=s, slack=np.zeros_like(d.slack),
+        scale=np.full_like(d.scale, np.float32(2.0 ** -20)))

@@ -35,8 +35,13 @@ default) starts the ``stream-watch-drain`` worker that the store watch
 wakes on every arrival.
 
 ``solver_config`` (a ``config.SolverBackendConfig``) sets the "auto"
-engine's delta sessions and its relaxed-arm knobs; its sidecar and mesh
-fields raise there.
+engine's delta sessions and its relaxed-arm knobs; its ``socket_path``
+(or, when that is unset, the ``KUEUE_SOLVER_SOCKET`` environment
+variable) routes the engine's solves through a sidecar
+(``solver/service.py`` ``SolverClient.from_config``), with a
+``SolverHealth`` breaker from its ``breaker_*`` fields; the engine's
+``SolverUnavailable`` then lands in ``solver_counts["unavailable"]``.
+Its mesh fields raise there (ROADMAP Queue A item 9).
 
 Cut from the copy, each with its ROADMAP Queue A item:
 
@@ -274,13 +279,42 @@ class Scheduler:
             return None
         if self.solver == "auto":
             if self._solver_instance is None:
+                import os
+
                 from kueue_oss_tpu_torch.solver.engine import SolverEngine
 
+                # solver_config.socket_path (programmatic, wins) or the
+                # KUEUE_SOLVER_SOCKET fallback routes the solves through
+                # the sidecar; the engine's breaker governs its health
+                cfg = self.solver_config
+                remote = health = None
+                sock = (cfg.socket_path
+                        if cfg is not None and cfg.socket_path
+                        else os.environ.get("KUEUE_SOLVER_SOCKET"))
+                if sock:
+                    from kueue_oss_tpu_torch.solver.service import (
+                        SolverClient,
+                    )
+
+                    if cfg is not None:
+                        import dataclasses
+
+                        remote = SolverClient.from_config(
+                            dataclasses.replace(cfg, socket_path=sock))
+                    else:
+                        remote = SolverClient(sock)
+                if cfg is not None:
+                    from kueue_oss_tpu_torch.solver.resilience import (
+                        SolverHealth,
+                    )
+
+                    health = SolverHealth(cfg.breaker_failure_threshold,
+                                          cfg.breaker_cooldown_seconds)
                 eng = self._solver_instance = SolverEngine(
                     self.store, self.queues, device=self.device,
                     scheduler=self,
-                    enable_fair_sharing=self.enable_fair_sharing)
-                cfg = self.solver_config
+                    enable_fair_sharing=self.enable_fair_sharing,
+                    remote=remote, health=health)
                 if cfg is not None:
                     if cfg.sessions_enabled is not None:
                         eng.use_sessions = bool(cfg.sessions_enabled)

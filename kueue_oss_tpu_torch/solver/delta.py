@@ -24,24 +24,28 @@ delta-applied state is bit-identical to a fresh full sync. What a delta
 cannot express cheaply (shape growth, scale flips, renumbers, more than
 half the rows dirty) degrades to a full sync.
 
-Cut from the copy: the remote sidecar and its wire protocol
-(``serialize_delta`` / ``deserialize_delta``: the port has no
-``service.py`` yet), and mesh placement of the resident tensors.
-``set_interleave`` is kept for the multi-device port; the engine calls
-it with 1.
+- ``serialize_delta`` / ``deserialize_delta`` are a delta's wire form
+  (the sidecar's DELTA frame, ``solver/service.py``): the JAX package's
+  npz names and dtypes, so either package reads the other's frames.
+
+Torch is imported only by ``DeviceResidentProblem``, so the wire half of
+this module (and the sidecar client built on it) runs without torch.
+Cut from the copy: mesh placement of the resident tensors (ROADMAP
+Queue A item 9). ``set_interleave`` is kept for the multi-device port;
+the engine calls it with 1 or the sidecar's advertised mesh width.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import io
 import json
 import zlib
 from bisect import bisect_left
 from dataclasses import dataclass, field
-from typing import Optional
+from typing import TYPE_CHECKING, Optional
 
 import numpy as np
-import torch
 
 from kueue_oss_tpu_torch import features
 from kueue_oss_tpu_torch.solver.tensors import (
@@ -50,6 +54,9 @@ from kueue_oss_tpu_torch.solver.tensors import (
     SolverProblem,
     pow2,
 )
+
+if TYPE_CHECKING:
+    import torch
 
 #: SolverProblem fields that ride the wire as arrays. Host-only decode
 #: tables (fr_list, wl_keys, ...) and the raw stable-encoding inputs
@@ -213,6 +220,45 @@ def apply_delta(kwargs: dict, meta: dict, delta: ProblemDelta) -> None:
     for name, arr in delta.repl.items():
         kwargs[name] = arr
     meta.update(delta.meta_delta)
+
+
+def serialize_delta(delta: ProblemDelta) -> tuple[dict, bytes]:
+    """A delta's wire form: (header fields, compressed npz of its row
+    updates ``ri__``/``rv__<field>`` and replacements ``a__<field>``)."""
+    arrays = {}
+    for name, (idx, vals) in delta.row_updates.items():
+        arrays[f"ri__{name}"] = idx
+        arrays[f"rv__{name}"] = vals
+    for name, arr in delta.repl.items():
+        arrays[f"a__{name}"] = arr
+    buf = io.BytesIO()
+    # deltas are small and highly structured (runs of consecutive row
+    # indices, uniform flag toggles), so deflate pays for itself; the
+    # bulk SYNC frame stays uncompressed
+    np.savez_compressed(buf, **arrays)
+    header = {"epoch": delta.epoch, "base_epoch": delta.base_epoch,
+              "checksum": delta.checksum,
+              "meta_delta": {k: int(v)
+                             for k, v in delta.meta_delta.items()},
+              "stats": delta.stats}
+    return header, buf.getvalue()
+
+
+def deserialize_delta(header: dict, blob: bytes) -> ProblemDelta:
+    data = np.load(io.BytesIO(blob))
+    row_updates, repl = {}, {}
+    for name in data.files:
+        if name.startswith("ri__"):
+            row_updates[name[4:]] = (data[name], data["rv__" + name[4:]])
+        elif name.startswith("a__"):
+            repl[name[3:]] = data[name]
+    return ProblemDelta(
+        epoch=int(header["epoch"]), base_epoch=int(header["base_epoch"]),
+        checksum=int(header["checksum"]), row_updates=row_updates,
+        repl=repl,
+        meta_delta={k: int(v)
+                    for k, v in (header.get("meta_delta") or {}).items()},
+        stats=dict(header.get("stats") or {}))
 
 
 # ---------------------------------------------------------------------------
@@ -948,12 +994,16 @@ def _tree_nbytes(t) -> int:
 
 
 def _torch_dtype(dtype) -> torch.dtype:
+    import torch
+
     return torch.from_numpy(np.zeros(0, dtype=dtype)).dtype
 
 
 def _host_tensor(a) -> torch.Tensor:
     """A CPU tensor over ``a``'s bytes (contiguous and writable, copied
     only when ``a`` is neither)."""
+    import torch
+
     return torch.from_numpy(np.require(a, requirements=("C", "W")))
 
 
@@ -983,6 +1033,8 @@ class DeviceResidentProblem:
     """
 
     def __init__(self, device) -> None:
+        import torch
+
         self.device = torch.device(device)
         self.kind: Optional[str] = None
         self.epoch = -1
@@ -1054,6 +1106,8 @@ class DeviceResidentProblem:
                 self.full_uploads += 1
                 self.full_upload_bytes += _tree_nbytes(prev)
                 return prev
+        import torch
+
         t = type(host)(*(torch.tensor(np.asarray(a), device=self.device)
                          for a in host))
         self.full_uploads += 1
@@ -1075,7 +1129,11 @@ class DeviceResidentProblem:
                     vals: np.ndarray) -> None:
         """``buf[idx] = vals`` in place: int64 index, unique rows (a
         repeated index makes ``index_copy_`` nondeterministic on CUDA),
-        values of the buffer's exact dtype."""
+        values of the buffer's exact dtype, rows inside the buffer (an
+        out-of-range index would trip a device-side assert on CUDA, which
+        ends the context)."""
+        import torch
+
         idx = np.asarray(idx)
         vals = np.asarray(vals)
         src = _host_tensor(vals)
@@ -1083,7 +1141,9 @@ class DeviceResidentProblem:
             raise TypeError(f"row update of dtype {src.dtype} for a "
                             f"{buf.dtype} buffer")
         if (idx.ndim != 1 or vals.shape != (idx.size,) + tuple(buf.shape[1:])
-                or np.unique(idx).size != idx.size):
+                or np.unique(idx).size != idx.size
+                or (idx.size and (int(idx.min()) < 0
+                                  or int(idx.max()) >= buf.shape[0]))):
             raise ValueError(f"row update {idx.shape} / {vals.shape} does "
                              f"not address unique rows of {tuple(buf.shape)}")
         index = torch.from_numpy(idx.astype(np.int64)).to(self.device)

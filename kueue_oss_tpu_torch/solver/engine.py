@@ -59,12 +59,33 @@ or an arm fault demotes the arm for ``relax_retry_cooldown_s`` (a timed
 half-open cooldown kept on the engine), counted in ``relax_counts``
 under the JAX metric names. ``KUEUE_SOLVER_SESSIONS=0`` starts the
 engine with sessions off.
+
+With ``remote=`` (a ``solver/service.py`` ``SolverClient``) the solve
+runs in a sidecar process; export, encode, TAS placement (on the
+engine's own ``device``), verify and commit stay here. The circuit
+breaker ``health`` (a ``SolverHealth``) gates every drain before the
+socket is touched: an open breaker raises ``SolverUnavailable`` at
+once. The remote round trip runs on one worker thread while this
+thread builds the apply's prework (the lean path's snapshot for the
+verify and the TAS placement, and the workload refs); every imported
+plan passes the plan guard (``_check_plan`` / ``_plan_fault``) before
+the store changes, and a transport fault, a malformed result or a
+rejected plan counts against the breaker and raises
+``SolverUnavailable``, counted in ``remote_counts`` under the JAX
+metric names. A half-open probe drain that records no outcome (an
+empty backlog, a fault before the socket) frees the probe slot, where
+the JAX engine keeps it and stays on host cycles for good. Under a remote the session layer is off when the client's
+``use_sessions`` is, frames carry the full crc ``state_checksum`` (the
+sidecar re-checks it), and the pad target and session interleave follow
+the sidecar's advertised mesh width (``meshutil.align_pad_target``).
+The sidecar's spans stay on ``remote.last_spans``.
+
 Cut from the copy: metrics, the obs recorder and cycle ledger, tracer
-spans, persistence intents, the degradation ladder and breaker, devtel's
-compile verdicts (the router keeps the legacy warm set), the remote
-sidecar (so no ``SolverUnavailable`` is raised), pipelined dispatch, and
-the mesh arm (so the pad target is the pow2 high-water mark and the
-session interleave is 1).
+spans, the import of the sidecar's spans and devtel's compile verdicts
+(the router keeps the legacy warm set): the observability layer,
+ROADMAP Queue A item 13; persistence intents and the degradation
+ladder; and the mesh arm (Queue A item 9: locally the pad target is the
+pow2 high-water mark and the interleave 1).
 """
 
 from __future__ import annotations
@@ -107,6 +128,12 @@ from kueue_oss_tpu_torch.solver.full_kernels import (
     to_device_full,
 )
 from kueue_oss_tpu_torch.solver.kernels import solve_backlog, to_device
+from kueue_oss_tpu_torch.solver.meshutil import align_pad_target
+from kueue_oss_tpu_torch.solver.resilience import (
+    HALF_OPEN,
+    SolverHealth,
+    SolverUnavailable,
+)
 from kueue_oss_tpu_torch.solver.tas_engine import (
     DeviceTASPlacer,
     device_tas_supported,
@@ -177,10 +204,31 @@ class SolverEngine:
 
     def __init__(self, store: Store, queues: QueueManager,
                  device="cuda", enable_fair_sharing: bool = False,
-                 scheduler=None) -> None:
+                 scheduler=None, remote=None,
+                 health: Optional[SolverHealth] = None) -> None:
         self.store = store
         self.queues = queues
+        #: the control plane's device: the local drains and, with a
+        #: remote, the TAS placement
         self.device = resolve_device(device)
+        #: optional solver/service.SolverClient: the solve runs in a
+        #: sidecar process; export, verify and commit stay here
+        self.remote = remote
+        #: circuit breaker over the remote backend
+        self.health = health if health is not None else SolverHealth()
+        #: the JAX package's remote-path metrics, by label
+        self.remote_counts = {
+            "solver_fallback_total": dict.fromkeys(
+                ("breaker_open", "backend_error", "plan_rejected"), 0),
+            "solver_plan_rejected_total": 0}
+        #: pipelined dispatch: one worker for the remote round trip, and
+        #: the apply prework this thread builds meanwhile
+        self._solve_pool = None
+        self._prework: Optional[dict] = None
+        #: drains started, and the cycle id the current drain serves (the
+        #: scheduler's next cycle), shipped as the request's trace_cycle
+        self.drain_count = 0
+        self._drain_cycle = 0
         #: host scheduler whose evict_workload applies the FULL plan's
         #: evictions (its freed-capacity and expectation books); None
         #: evicts through core/eviction.py directly
@@ -360,7 +408,19 @@ class SolverEngine:
 
     def drain(self, now: float = 0.0, verify: bool = False) -> DrainResult:
         """Solve the whole backlog on the device and commit the plan;
-        with ``verify`` the oracle re-checks every entry first."""
+        with ``verify`` the oracle re-checks every entry first. Under a
+        remote whose breaker is open it raises ``SolverUnavailable``
+        without touching the socket."""
+        self.drain_count += 1
+        self._drain_cycle = (self.scheduler.cycle_count + 1
+                             if self.scheduler is not None
+                             else self.drain_count)
+        if self.remote is not None and not self.health.allow():
+            self.remote_counts["solver_fallback_total"]["breaker_open"] += 1
+            raise SolverUnavailable(
+                "solver backend breaker is open (cooling down)")
+        # this drain holds the half-open probe slot
+        probe = self.remote is not None and self.health.state == HALF_OPEN
         completed = False
         if self.streaming is not None:
             # mark which fences this solve's export can cover: events
@@ -372,6 +432,12 @@ class SolverEngine:
             completed = True
             return result
         finally:
+            # prework of a drain that failed before its apply must never
+            # leak into the next drain (stale workload refs)
+            self._prework = None
+            if probe and self.health.state == HALF_OPEN:
+                # the probe recorded no outcome: free its slot
+                self.health.abandon_probe()
             if self.streaming is not None:
                 # full-solve boundary: the streaming fences reset
                 # against the post-solve store (a failed drain keeps
@@ -400,10 +466,21 @@ class SolverEngine:
         n_live = problem.n_workloads
         self._pad_hwm = max(self._pad_hwm,
                             pow2(max(problem.n_workloads, self.pad_to)))
-        problem = pad_workloads(problem, self._pad_hwm)
+        problem = pad_workloads(problem, self._pad_target())
         problem, frame = self._session_encode("lean", problem, hint, result)
-        admitted, opt, admit_round, parked, rounds, _usage = (
-            self._local_solve(problem, frame, result, n_live))
+        if self.remote is not None:
+            t0 = time.monotonic()
+            admitted, opt, admit_round, parked, rounds, _usage = (
+                np.asarray(a) for a in self._dispatch_remote(
+                    problem, 6, frame, "lean", verify, full=False))
+            # guard imported plans only: the in-process drain is trusted
+            self._check_plan(problem, admitted, opt, admit_round, parked,
+                             rounds=rounds, full=False)
+            result.phases["solve"] = time.monotonic() - t0
+            self.last_drain_arm = "remote"
+        else:
+            admitted, opt, admit_round, parked, rounds, _usage = (
+                self._local_solve(problem, frame, result, n_live))
         result.rounds = int(rounds)
 
         t1 = time.monotonic()
@@ -430,7 +507,7 @@ class SolverEngine:
     def _note_arm_wall(self, kind: str, arm: str, wall_s: float,
                        n_workloads: int) -> None:
         key = (kind, arm)
-        # devtel's compile verdicts (ROADMAP Queue A item 8) are cut: the
+        # devtel's compile verdicts (ROADMAP Queue A item 13) are cut: the
         # legacy warm set decides
         if key not in self._arm_warm:
             # compile-tainted probe sample: discard it (the arm stays
@@ -580,11 +657,22 @@ class SolverEngine:
                 "export_dirty_rows": int(stats.get("dirty_rows", 0)),
                 "export_rows": int(stats.get("rows", 0))}
 
+    def _pad_target(self) -> int:
+        """The sticky pow2 pad high-water mark, aligned to a remote
+        sidecar's advertised mesh width (0 / 1 without one)."""
+        remote_w = (int(getattr(self.remote, "remote_mesh_devices", 0))
+                    if self.remote is not None else 0)
+        return align_pad_target(self._pad_hwm, 0, remote_w)
+
     def _session_encode(self, kind: str, problem: SolverProblem, hint,
                         result: DrainResult):
         """The stable slot / rank re-encoding and its frame; (problem,
-        None) with sessions off."""
+        None) with sessions off, or under a remote client with its
+        sessions off (its deltas would never be sent)."""
         if not self.use_sessions:
+            return problem, None
+        if (self.remote is not None
+                and not getattr(self.remote, "use_sessions", True)):
             return problem, None
         sess = self._delta_sessions.get(kind)
         if sess is None:
@@ -595,10 +683,14 @@ class SolverEngine:
             sess = HostDeltaSession(cache=self.export_cache,
                                     neutral_fields=neutral)
             self._delta_sessions[kind] = sess
-        sess.set_interleave(1)
-        # the session is local: no receiver recomputes state_checksum,
-        # so fast-path frames may chain the cheap delta checksum
-        sess.cheap_checksum = True
+        # the slot interleave follows the sidecar's advertised mesh (1
+        # locally: the mesh arm is ROADMAP Queue A item 9)
+        remote_w = (int(getattr(self.remote, "remote_mesh_devices", 0))
+                    if self.remote is not None else 0)
+        sess.set_interleave(max(1, remote_w))
+        # only a sidecar recomputes state_checksum over the frames; the
+        # local path may chain the cheap delta checksum
+        sess.cheap_checksum = self.remote is None
         t0 = time.monotonic()
         slotted, frame = sess.advance(problem, hint=hint)
         result.phases["encode"] = time.monotonic() - t0
@@ -629,11 +721,189 @@ class SolverEngine:
         result.phases["device_put"] = time.monotonic() - t0
         return tensors
 
-    def _compute_tas_assignments(self, candidates, result: DrainResult):
+    # -- the remote solve: pipelined dispatch, breaker, plan guard ---------
+
+    def _dispatch_remote(self, problem: SolverProblem, expect: int,
+                         frame: Optional[SessionFrame], session_key: str,
+                         verify: bool, **solve_kw) -> tuple:
+        """Pipelined dispatch: the remote round trip runs on a worker
+        thread while this thread builds the apply's prework, so the wire
+        time overlaps host work."""
+        kw = dict(solve_kw)
+        if frame is not None and getattr(self.remote, "supports_sessions",
+                                         False):
+            kw["frame"] = frame
+            kw["session_key"] = session_key
+        fut = self._solve_executor().submit(self._remote_solve, problem,
+                                            expect, **kw)
+        try:
+            self._prework = self._build_prework(
+                problem, verify, full=bool(solve_kw.get("full")))
+        except Exception:
+            self._prework = None  # the prework is an optimisation only
+        return fut.result()
+
+    def _solve_executor(self):
+        if self._solve_pool is None:
+            from concurrent.futures import ThreadPoolExecutor
+
+            self._solve_pool = ThreadPoolExecutor(
+                max_workers=1, thread_name_prefix="solver-dispatch")
+        return self._solve_pool
+
+    def _build_prework(self, problem: SolverProblem, verify: bool,
+                       full: bool) -> dict:
+        """Plan-independent apply preparation, safe before the plan
+        arrives. The FULL path cannot pre-build the oracle's snapshot
+        (its evictions change usage before the verify), so it only
+        prefetches workload refs; the lean path also builds the snapshot
+        its verify and TAS placement would build after the response."""
+        pre: dict = {}
+        if not full and (verify or self._drain_tas_ready):
+            pre["snapshot"] = build_snapshot(self.store)
+        pre["wl_of"] = {k: self.store.workloads.get(k)
+                        for k in problem.wl_keys if k}
+        return pre
+
+    def _take_prework(self) -> dict:
+        pre, self._prework = (self._prework or {}), None
+        return pre
+
+    def _backend_fault(self) -> None:
+        self.health.record_failure()
+        self.remote_counts["solver_fallback_total"]["backend_error"] += 1
+
+    def _remote_solve(self, problem: SolverProblem, expect: int, **kw):
+        """One remote solve with breaker accounting: any transport or
+        backend fault (a malformed result tuple included) counts against
+        the breaker and surfaces as SolverUnavailable. Success is
+        recorded only once the plan also passes the guard."""
+        if hasattr(self.remote, "trace_cycle"):
+            self.remote.trace_cycle = self._drain_cycle
+        try:
+            out = tuple(self.remote.solve(problem, **kw))
+        except SolverUnavailable:
+            self._backend_fault()
+            raise
+        except (OSError, TimeoutError) as e:
+            # custom remote stubs may surface raw socket errors
+            self._backend_fault()
+            raise SolverUnavailable(f"solver backend fault: {e!r}") from e
+        if len(out) != expect:
+            self._backend_fault()
+            raise SolverUnavailable(
+                f"solver backend returned {len(out)} arrays, "
+                f"expected {expect}")
+        return out
+
+    def _check_plan(self, problem: SolverProblem, admitted, opt,
+                    admit_round, parked, victim_reason=None, rounds=None,
+                    full: bool = False) -> None:
+        """Guard an imported plan before any store change: a plan with
+        wrong shapes or dtypes, out-of-range flavor options, or
+        admissions / parkings of null or padding rows is a backend
+        fault, rejected whole (store untouched, counted on the breaker).
+        Committed usage is recomputed from the store's own requests, so
+        imported tensors never drive the quota arithmetic."""
+        fault = self._plan_fault(problem, admitted, opt, admit_round,
+                                 parked, victim_reason, rounds, full)
+        if fault is None:
+            if self.remote is not None:
+                self.health.record_success()
+            return
+        self.remote_counts["solver_plan_rejected_total"] += 1
+        if self.remote is not None:
+            self.health.record_failure()
+            self.remote_counts["solver_fallback_total"]["plan_rejected"] += 1
+        raise SolverUnavailable(f"divergent solver plan rejected: {fault}")
+
+    @staticmethod
+    def _plan_fault(problem: SolverProblem, admitted, opt, admit_round,
+                    parked, victim_reason, rounds,
+                    full: bool) -> Optional[str]:
+        """Why the plan is unusable, or None if it checks out."""
+        W1 = problem.wl_cqid.shape[0]
+        W = W1 - 1
+        C = problem.n_cqs
+        for name, arr in (("admitted", admitted), ("parked", parked),
+                          ("admit_round", admit_round)):
+            if arr.ndim != 1 or arr.shape[0] != W1:
+                return f"{name} shape {arr.shape} != ({W1},)"
+        if victim_reason is not None:
+            if victim_reason.ndim != 1 or victim_reason.shape[0] != W1:
+                return (f"victim_reason shape {victim_reason.shape} "
+                        f"!= ({W1},)")
+            # the eviction loop reads int(victim_reason[w]) before other
+            # guards could fire: a non-integral dtype must fail here
+            if not (victim_reason.dtype == np.bool_
+                    or np.issubdtype(victim_reason.dtype, np.integer)):
+                return (f"victim_reason dtype {victim_reason.dtype} "
+                        "is not integral")
+        want_opt_ndim = 2 if full else 1
+        if opt.ndim != want_opt_ndim or opt.shape[0] != W1:
+            return f"opt shape {opt.shape} incompatible with ({W1}, ...)"
+        for name, arr in (("opt", opt), ("admit_round", admit_round)):
+            if not np.issubdtype(arr.dtype, np.integer):
+                return f"{name} dtype {arr.dtype} is not integral"
+        for name, arr in (("admitted", admitted), ("parked", parked)):
+            if not (arr.dtype == np.bool_
+                    or np.issubdtype(arr.dtype, np.integer)):
+                return f"{name} dtype {arr.dtype} is not a flag"
+        if rounds is not None:
+            r = np.asarray(rounds)
+            if r.size != 1 or not (
+                    r.dtype == np.bool_
+                    or np.issubdtype(r.dtype, np.integer)):
+                return (f"rounds is not an integer scalar ({r.dtype}, "
+                        f"size {r.size})")
+        cq = problem.wl_cqid[:W]
+        adm = admitted[:W].astype(bool)
+        prk = parked[:W].astype(bool)
+        if bool((cq[adm] >= C).any()):
+            return "plan admits a null/padding row"
+        if bool((cq[prk] >= C).any()):
+            return "plan parks a null/padding row"
+        if not full and bool((adm & prk).any()):
+            return "row both admitted and parked"
+        rnd = admit_round[:W]
+        floor = -1 if full else 0
+        if bool((rnd[adm] < floor).any()):
+            return f"admitted row with admit_round below {floor}"
+        # flavor-option bounds, only for the rows the apply decodes
+        # (FULL: the newly admitted rows, admit_round >= 0)
+        n_opt = np.array(
+            [len(problem.cq_option_flavors[name])
+             for name in problem.cq_names], dtype=np.int64)
+        decode = adm & (rnd >= 0) if full else adm
+        if not decode.any():
+            return None
+        cq_d = cq[decode]
+        if full:
+            ng = problem.cq_ngroups
+            if ng is None:
+                ng = np.ones(C, dtype=np.int64)
+            need_g = int(ng[cq_d].max())
+            if opt.shape[1] < need_g:
+                return (f"opt group axis {opt.shape[1]} narrower than "
+                        f"{need_g} resource groups")
+            rows = opt[:W][decode]
+            used = np.arange(opt.shape[1])[None, :] < ng[cq_d][:, None]
+            bad = used & ((rows < 0) | (rows >= n_opt[cq_d][:, None]))
+            if bool(bad.any()):
+                return "flavor option index out of range"
+        else:
+            o = opt[:W][decode]
+            if bool(((o < 0) | (o >= n_opt[cq_d])).any()):
+                return "flavor option index out of range"
+        return None
+
+    def _compute_tas_assignments(self, candidates, result: DrainResult,
+                                 snapshot=None):
         """Device-place admitted TAS candidates in admission order.
 
         Returns (kept_candidates, topology_by_workload_key); candidates
-        whose placement failed are dropped and stay queued."""
+        whose placement failed are dropped and stay queued. ``snapshot``
+        is the pipelined dispatch's prework (lean drains only)."""
         t0 = time.monotonic()
         # the FULL path carries a flavor per resource; a TAS CQ has one
         # resource group, so its first flavor is the TAS flavor
@@ -645,8 +915,9 @@ class SolverEngine:
             return candidates, {}
         if self._tas_placer is None:
             self._tas_placer = DeviceTASPlacer(self.device)
-        placements = self._tas_placer.place_batch(
-            build_snapshot(self.store), tas_items)
+        if snapshot is None:
+            snapshot = build_snapshot(self.store)
+        placements = self._tas_placer.place_batch(snapshot, tas_items)
         submitted = {info.key for info, _ in tas_items}
         kept = []
         topo_of: dict[str, TopologyAssignment] = {}
@@ -662,15 +933,18 @@ class SolverEngine:
         result.phases["placement"] = time.monotonic() - t0
         return kept, topo_of
 
-    def _verify(self, candidates, verify: bool,
-                result: DrainResult) -> np.ndarray:
+    def _verify(self, candidates, verify: bool, result: DrainResult,
+                snapshot=None) -> np.ndarray:
         """The oracle's verdict per candidate, in commit order, over a
         fresh snapshot's quota forest (scheduler.go:427 fits
-        re-check); rejections are counted as plan fallbacks. Without
-        ``verify`` every candidate passes."""
+        re-check), or the prework's when it overlapped the solve;
+        rejections are counted as plan fallbacks. Without ``verify``
+        every candidate passes."""
         if not (verify and candidates):
             return np.ones(len(candidates), dtype=np.uint8)
-        oracle = BatchOracle(build_snapshot(self.store).forest.cqs)
+        if snapshot is None:
+            snapshot = build_snapshot(self.store)
+        oracle = BatchOracle(snapshot.forest.cqs)
         ok = oracle.verify_and_apply(
             [(cq_name, usage) for _, cq_name, _, _, usage in candidates])
         result.verified += len(candidates)
@@ -681,13 +955,16 @@ class SolverEngine:
                     opt: np.ndarray, admit_round: np.ndarray,
                     parked: np.ndarray, now: float,
                     result: DrainResult, verify: bool = False) -> None:
+        pre = self._take_prework()
+        wl_of = pre.get("wl_of")
         adm_ws = np.nonzero(admitted[:-1])[0]
         order = adm_ws[np.argsort(admit_round[adm_ws], kind="stable")]
         candidates = []
         declared_of: dict[str, set] = {}
         for w in order:
             key = problem.wl_keys[w]
-            wl = self.store.workloads.get(key)
+            wl = (wl_of.get(key) if wl_of is not None
+                  else self.store.workloads.get(key))
             if wl is None or wl.is_quota_reserved or not wl.active:
                 continue
             cq_name = problem.cq_names[problem.wl_cqid[w]]
@@ -708,9 +985,10 @@ class SolverEngine:
                             plan_usage.get((flavor, r), 0) + q)
             candidates.append((wl, cq_name, flavor, info, plan_usage))
 
-        candidates, topo_of = self._compute_tas_assignments(candidates,
-                                                            result)
-        ok = self._verify(candidates, verify, result)
+        candidates, topo_of = self._compute_tas_assignments(
+            candidates, result, snapshot=pre.get("snapshot"))
+        ok = self._verify(candidates, verify, result,
+                          snapshot=pre.get("snapshot"))
         for passed, (wl, cq_name, flavor, info, _) in zip(ok, candidates):
             if not passed:
                 continue  # stays queued for the host cycle
@@ -810,22 +1088,34 @@ class SolverEngine:
         afs = bool(problem.cq_afs.any())
         self._pad_hwm = max(self._pad_hwm,
                             pow2(max(problem.n_workloads, self.pad_to)))
-        problem = pad_workloads(problem, self._pad_hwm)
+        problem = pad_workloads(problem, self._pad_target())
         problem, frame = self._session_encode("full", problem, hint, result)
-        tensors = self._local_tensors(problem, frame, True, result)
-
-        t0 = time.monotonic()
-        stats = FullDrainStats()
-        out = solve_backlog_full(tensors, g_max=g_max, h_max=h_max,
-                                 p_max=p_max, stats=stats,
-                                 fs_enabled=self.enable_fair_sharing,
-                                 afs=afs)
-        (admitted, opt, admit_round, parked, rounds, _usage, _wl_usage,
-         victim_reason) = (a.cpu().numpy() for a in out)
-        stats.syncs += 1  # the plan's read-back
+        if self.remote is not None:
+            t0 = time.monotonic()
+            (admitted, opt, admit_round, parked, rounds, _usage, _wl_usage,
+             victim_reason) = (np.asarray(a) for a in self._dispatch_remote(
+                 problem, 8, frame, "full", verify, full=True, g_max=g_max,
+                 h_max=h_max, p_max=p_max,
+                 fs_enabled=self.enable_fair_sharing))
+            self._check_plan(problem, admitted, opt, admit_round, parked,
+                             victim_reason=victim_reason, rounds=rounds,
+                             full=True)
+            result.phases["solve"] = time.monotonic() - t0
+            self.last_drain_arm = "remote"
+        else:
+            tensors = self._local_tensors(problem, frame, True, result)
+            t0 = time.monotonic()
+            stats = FullDrainStats()
+            out = solve_backlog_full(tensors, g_max=g_max, h_max=h_max,
+                                     p_max=p_max, stats=stats,
+                                     fs_enabled=self.enable_fair_sharing,
+                                     afs=afs)
+            (admitted, opt, admit_round, parked, rounds, _usage, _wl_usage,
+             victim_reason) = (a.cpu().numpy() for a in out)
+            stats.syncs += 1  # the plan's read-back
+            result.full_stats = stats
+            result.phases["solve"] = time.monotonic() - t0
         result.rounds = int(rounds)
-        result.full_stats = stats
-        result.phases["solve"] = time.monotonic() - t0
 
         t1 = time.monotonic()
         self._apply_full_plan(problem, admitted, opt, admit_round, parked,
@@ -851,6 +1141,13 @@ class SolverEngine:
                          result: DrainResult, verify: bool = False) -> None:
         """Evictions first, then admissions in (round, entry) order with
         a flavor per resource group, then the parking decisions."""
+        pre = self._take_prework()
+        wl_of = pre.get("wl_of")
+
+        def lookup(key):
+            return (wl_of.get(key) if wl_of is not None
+                    else self.store.workloads.get(key))
+
         W = problem.n_workloads
         # 1) evictions: initially admitted workloads that lost their
         #    admission, or were evicted mid-drain and re-admitted
@@ -859,7 +1156,7 @@ class SolverEngine:
                               & ~(admitted[:W] & (admit_round[:W] < 0)))[0]
         for w in evict_ws:
             key = problem.wl_keys[w]
-            wl = self.store.workloads.get(key)
+            wl = lookup(key)
             if wl is None or not wl.is_quota_reserved:
                 continue
             self._evict(key, _REASON_OF.get(int(victim_reason[w]),
@@ -874,7 +1171,7 @@ class SolverEngine:
         candidates = []
         for w in order:
             key = problem.wl_keys[w]
-            wl = self.store.workloads.get(key)
+            wl = lookup(key)
             if wl is None or wl.is_quota_reserved or not wl.active:
                 continue
             cq_name = problem.cq_names[problem.wl_cqid[w]]

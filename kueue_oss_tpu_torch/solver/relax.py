@@ -112,8 +112,8 @@ def _rho(i: int, iters: int) -> np.float32:
 #: elements is split into a reduce-window of WINDOW, then a reduce
 WINDOW = 32
 #: the widest F whose order the tests hold bit for bit against the JAX
-#: program (ROADMAP Queue C item 8); ``sum_order`` refuses a wider one
-MAX_SUM_COLUMNS = 128
+#: program; ``sum_order`` refuses a wider one
+MAX_SUM_COLUMNS = 1024
 
 
 def sum_order(n: int) -> tuple[int, int]:
@@ -137,18 +137,22 @@ def sum_order(n: int) -> tuple[int, int]:
     rest behind), then a reduce over the ceil(n / 32) windows. Each
     window adds its elements in order from +0.0, skipping the padding;
     the windows then add in order from +0.0. Read from the reduce-window
-    and the fusion that consumes it (``--xla_dump_to``) at n = 33, 40,
-    48, 64, 96, 128 and 200, for one LP and under ``vmap``, at 129 and
-    257 rows: the same split at every row count. Above
-    ``MAX_SUM_COLUMNS`` it raises: no test holds that order (above 32
-    windows XLA may split the reduce again).
+    and the fusion that consumes it (``--xla_dump_to``) at n = 33-128
+    and 200 (for one LP and under ``vmap``, at 129 and 257 rows: the
+    same split at every row count), and at n = 129, 256, 512 and 1,024:
+    still one reduce-window of 32 (``pad=0_0x15_16`` at 129, none at 256
+    and above), each window a chain of 32 in-order adds from +0.0, and
+    the consuming fusion adding its (up to 32) windows in order from
+    +0.0, unrolled and vectorised across rows, not across windows.
+    Above ``MAX_SUM_COLUMNS`` (32 windows) it raises: no reading or test
+    holds that order (past 32 windows XLA may split the reduce again).
 
     Both ``lp_step_body`` and ``csrc/relax_lp.cu`` follow it."""
     if n > MAX_SUM_COLUMNS:
         raise ValueError(
             f"the relaxed LP's sum over {n} flavor-resource columns: "
             f"XLA:CPU's order is held only up to {MAX_SUM_COLUMNS} "
-            f"(ROADMAP Queue C item 8)")
+            f"(32 windows of {WINDOW})")
     if n > WINDOW:
         n_w = -(-n // WINDOW)
         return 0, (n_w * WINDOW - n) // 2

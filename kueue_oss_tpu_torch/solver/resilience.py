@@ -1,15 +1,162 @@
-"""The fault type the scheduler's solver routing sees.
+"""Resilience primitives for the solver backend.
 
-A copy of ``SolverUnavailable`` from ``kueue_oss_tpu/solver/resilience.py``:
-the solver backend cannot produce a usable plan right now, and the
-admission round completes on the host cycle. The port's engine raises
-it nowhere yet: it has no sidecar and no breaker (ROADMAP Queue A item
-8). Cut from the copy: ``SolverHealth``, the circuit breaker.
+A copy of ``kueue_oss_tpu/solver/resilience.py``. The host cycle is the
+reference behaviour, and the control plane must survive the solver
+sidecar crashing, hanging or returning garbage without stalling an
+admission round:
+
+- ``SolverUnavailable`` is the single fault type the scheduler's routing
+  sees. Transport errors, exhausted deadlines, server-reported failures
+  and rejected plans all collapse into it, and the round completes on
+  the host cycle.
+- ``SolverHealth`` is a closed -> open -> half-open circuit breaker. The
+  engine calls ``allow()`` before touching the remote backend and
+  records each outcome; a tripped breaker refuses drains until its
+  cooldown expires, then admits exactly one probe, which closes it or
+  opens it for another cooldown.
+
+The single-probe slot is a copy of the probe gate of the JAX package's
+``resilience.CooldownPolicy`` (``kueue_oss_tpu/resilience/__init__.py:
+91-150``): one process-wide gate keyed like the JAX one, so two breakers
+of one process share the half-open slot as they do there. The clock is
+injectable, so tests drive the cooldown without sleeping.
+
+Cut from the copy: the process-wide degradation ladder
+(``resilience.controller``'s ``report``), and the ``metrics`` gauge and
+counters, which become the breaker's own ``state`` and ``trips``; both
+wait for the observability layer (ROADMAP Queue A item 13).
 """
 
 from __future__ import annotations
 
+import threading
+import time
+
+#: breaker states
+CLOSED = "closed"
+HALF_OPEN = "half-open"
+OPEN = "open"
+
 
 class SolverUnavailable(Exception):
-    """The solver backend cannot produce a usable plan right now; the
-    scheduler treats it like an unsupported problem shape."""
+    """The solver backend cannot produce a usable plan right now.
+
+    Raised by ``SolverClient`` after its retries or deadline run out, and
+    by the engine when the breaker is open or an imported plan fails the
+    plan guard. The scheduler treats it like an unsupported problem
+    shape: the admission round completes on the host cycle.
+    """
+
+
+class _ProbeGate:
+    """Clock-free single-probe gate (the probe half of the JAX
+    ``CooldownPolicy``): claim the slot or stay degraded."""
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self._probing: set = set()
+
+    def probing(self, key) -> bool:
+        return key in self._probing
+
+    def acquire_probe(self, key) -> bool:
+        with self._lock:
+            if key in self._probing:
+                return False
+            self._probing.add(key)
+            return True
+
+    def release_probe(self, key) -> None:
+        with self._lock:
+            self._probing.discard(key)
+
+
+#: the process-wide probe gate (the JAX ``resilience.controller.cooldowns``)
+probe_gate = _ProbeGate()
+
+
+class SolverHealth:
+    """Circuit breaker over the remote solver backend.
+
+    closed     -- calls flow; ``failure_threshold`` consecutive failures
+                  trip the breaker open.
+    open       -- calls are refused without touching the socket until
+                  ``cooldown_s`` has elapsed on ``clock``.
+    half-open  -- after the cooldown exactly one probe call is allowed;
+                  success closes the breaker, failure re-opens it and
+                  restarts the cooldown. Callers arriving during the
+                  probe are refused and keep degrading to the host path.
+
+    ``allow()`` and ``record_*()`` hold a lock, so concurrent drains see
+    one consistent machine. ``trips`` counts closed / half-open -> open
+    transitions (the JAX ``solver_breaker_trips_total``).
+    """
+
+    #: the probe gate's key (the JAX package's (SOLVER, "breaker_open"))
+    _KEY = ("solver", "breaker_open")
+
+    def __init__(self, failure_threshold: int = 3, cooldown_s: float = 30.0,
+                 clock=time.monotonic) -> None:
+        self.failure_threshold = max(1, int(failure_threshold))
+        self.cooldown_s = cooldown_s
+        self.clock = clock
+        self.state = CLOSED
+        self.consecutive_failures = 0
+        self.trips = 0
+        self._opened_at = 0.0
+        self._lock = threading.Lock()
+
+    @property
+    def probing(self) -> bool:
+        """Whether a half-open probe is in flight right now."""
+        return probe_gate.probing(self._KEY)
+
+    def allow(self) -> bool:
+        """Whether a remote call may be attempted right now.
+
+        At most one caller gets True per half-open window; it must
+        follow up with record_success() or record_failure(), or with
+        abandon_probe() when it ends with no outcome, to release the
+        probe slot."""
+        with self._lock:
+            if self.state == OPEN:
+                if self.clock() - self._opened_at < self.cooldown_s:
+                    return False
+                if not probe_gate.acquire_probe(self._KEY):
+                    return False  # someone else is already probing
+                self.state = HALF_OPEN
+                return True
+            if self.state == HALF_OPEN:
+                # a second drain arriving mid-probe stays degraded
+                return probe_gate.acquire_probe(self._KEY)
+            return True
+
+    def record_success(self) -> None:
+        with self._lock:
+            probe_gate.release_probe(self._KEY)
+            self.consecutive_failures = 0
+            self.state = CLOSED
+
+    def record_failure(self) -> None:
+        with self._lock:
+            probe_gate.release_probe(self._KEY)
+            self.consecutive_failures += 1
+            if (self.state == HALF_OPEN
+                    or self.consecutive_failures >= self.failure_threshold):
+                self._trip()
+
+    def abandon_probe(self) -> None:
+        """Release the half-open probe slot of a drain that ended with
+        no outcome (an empty backlog, or a fault before the socket): the
+        breaker stays half-open and the next drain probes. The JAX
+        breaker has no such release, and there such a drain keeps the
+        slot until the process restarts."""
+        with self._lock:
+            if self.state == HALF_OPEN:
+                probe_gate.release_probe(self._KEY)
+
+    def _trip(self) -> None:
+        if self.state != OPEN:
+            self.trips += 1
+        self._opened_at = self.clock()
+        self.state = OPEN

@@ -5,8 +5,8 @@ names neither), and the port imports and drains (lean, FULL, fair
 sharing and admission fair sharing, and lean through the relaxed arm),
 schedules, streams, runs the perf simulator, a what-if sweep, the relax
 tier, a resident FULL sweep, a MultiKueue hub with the what-if-scored
-dispatcher and the node-failure controller with those modules
-blocked."""
+dispatcher, the node-failure controller, and drains through the solver
+sidecar (a clean one and a chaos one) with those modules blocked."""
 
 import ast
 import subprocess
@@ -67,7 +67,9 @@ def test_scan_sees_the_whole_port():
                  "multikueue/cluster.py", "multikueue/dispatcher.py",
                  "multikueue/controller.py", "controllers/__init__.py",
                  "controllers/workload_controller.py",
-                 "controllers/failure_recovery.py", "chaos/__init__.py"):
+                 "controllers/failure_recovery.py", "chaos/__init__.py",
+                 "solver/service.py", "solver/resilience.py",
+                 "solver/meshutil.py"):
         assert f"kueue_oss_tpu_torch/{name}" in names, name
     assert "chip_smoke.py" in names
     # the exact-name comparison lets the port's own name through
@@ -289,6 +291,45 @@ def test_port_drains_with_jax_blocked():
         nfc.reconcile(240.0)
         features.reset()
         assert node not in nfc._assigned_nodes(held[0])
+        # the solver sidecar: a drain through a clean sidecar, and the
+        # breaker and plan guard against a chaos one
+        import os, tempfile
+        from kueue_oss_tpu_torch.chaos import (
+            CORRUPT_PLAN, ChaosSolverServer, FaultInjector)
+        from kueue_oss_tpu_torch.solver.resilience import SolverUnavailable
+        from kueue_oss_tpu_torch.solver.service import (
+            SolverClient, SolverServer)
+        path = os.path.join(tempfile.mkdtemp(), "s.sock")
+        srv = SolverServer(path, device="cpu")
+        srv.serve_in_background()
+        store, wave1, wave2 = baseline_preempt_store(
+            types, Store, n_cohorts=1, cqs_per_cohort=2, scale=0.05)
+        engine = SolverEngine(store, QueueManager(store), device="cpu",
+                              remote=SolverClient(path))
+        for wave in (wave1, wave2):
+            for wl in wave:
+                store.add_workload(wl)
+            remote = engine.drain(now=100.0)
+        assert remote.evicted > 0 and engine.last_drain_arm == "remote"
+        srv.shutdown()
+        srv.server_close()
+        path = os.path.join(tempfile.mkdtemp(), "c.sock")
+        srv = ChaosSolverServer(path, FaultInjector(schedule=[CORRUPT_PLAN]),
+                                device="cpu")
+        srv.serve_in_background()
+        store = tas_drain_store(types, Store, n_racks=2, n_hosts=4,
+                                n_cohorts=1, n_cqs=2, n_workloads=40)
+        engine = SolverEngine(store, QueueManager(store), device="cpu",
+                              remote=SolverClient(path, max_retries=0))
+        try:
+            engine.drain()
+            raise AssertionError("a corrupt plan was accepted")
+        except SolverUnavailable:
+            pass
+        assert engine.health.consecutive_failures == 1
+        assert engine.drain().admitted > 0
+        srv.shutdown()
+        srv.server_close()
         leaked = [m for m in sys.modules
                   if m.split(".")[0] in ("jax", "jaxlib", "kueue_oss_tpu")
                   and sys.modules[m] is not None]

@@ -247,6 +247,73 @@ def test_lp_loop_batched_bit_identical_to_jax_vmap_above_32_columns(
     assert _same_bits(_lp_x(stacked, 32), want)
 
 
+#: above 128 columns: XLA:CPU's reduce-window of 32 up to 32 windows
+#: (read at every width here; ``sum_order`` is checked at each)
+WIDER = (129, 200, 256, 512, 1024)
+#: the JAX parity cases, one compiled program each: LPs whose prices
+#: stay positive and x interior for all 32 iterations
+#: (``scenarios.interior_relax_lp``: there the windowed order and a
+#: plain in-order sum give different x, so the pins can fail) inside
+#: the windows' range, with front padding, and at 32 windows; a dense
+#: LP with padding on both sides
+WIDER_CASES = [("interior", 64), ("interior", 129), ("dense", 200),
+               ("interior", 1024)]
+
+
+def _in_order_x(lp):
+    """x with the pull summed over the columns plainly in order, the
+    order the windowed one must differ from."""
+    windowed = relax.sum_in_order
+
+    def in_order(prod):
+        out = torch.zeros(prod.shape[:-1], dtype=prod.dtype)
+        for f in range(prod.shape[-1]):
+            out = out + prod[..., f]
+        return out
+
+    relax.sum_in_order = in_order
+    try:
+        return _lp_x(lp, 32)
+    finally:
+        relax.sum_in_order = windowed
+
+
+@pytest.mark.parametrize("kind,n_cols", WIDER_CASES,
+                         ids=[f"{k}-F{f}" for k, f in WIDER_CASES])
+def test_lp_loop_bit_identical_to_jax_above_128_columns(kind, n_cols):
+    make = (scenarios.interior_relax_lp if kind == "interior"
+            else scenarios.dense_relax_lp)
+    jp, pp = _problems(levels=3, n_res=3, n_cqs=6, n_wl=100, seed=3)
+    jlp = make(jax_relax.build_lp(jp), n_cols, 3)
+    plp = make(relax.build_lp(pp), n_cols, 3)
+    want = np.asarray(jax_relax._single_lp(32)(jlp))
+    got = _lp_x(plp, 32)
+    assert _same_bits(got, want)
+    live = plp.live
+    assert ((got[live] > 0) & (got[live] < 1)).mean() > 0.1
+    if kind == "interior":
+        # every live x interior, and the order of the sum reaches it
+        assert ((got[live] > 0) & (got[live] < 1)).all()
+        assert not _same_bits(_in_order_x(plp), got)
+
+
+@pytest.mark.parametrize("n_cols", [200], ids=["F200"])
+def test_lp_loop_batched_bit_identical_to_jax_vmap_above_128_columns(
+        n_cols):
+    """Two interior scenarios against ``jit(vmap(lp_loop))``: the split
+    into windows is the same under the vmap above 128 columns."""
+    lps = [scenarios.interior_relax_lp(relax.build_lp(_problems(
+        levels=3, n_res=3, n_cqs=6, n_wl=100, seed=s)[1]), n_cols, s)
+        for s in range(2)]
+    stacked = relax.RelaxLP(*[np.stack([getattr(lp, f) for lp in lps])
+                              for f in relax.RelaxLP._fields])
+    want = np.asarray(jax.jit(jax.vmap(functools.partial(
+        jax_relax.lp_loop, iters=32)))(jax_relax.RelaxLP(*stacked)))
+    got = _lp_x(stacked, 32)
+    assert _same_bits(got, want)
+    assert not _same_bits(_in_order_x(stacked), got)
+
+
 def test_relax_lp_takes_the_plain_loop_on_cpu_and_counts_no_launch():
     _, pp = _problems(**SHAPES[3])
     lp = relax.lp_to_device(relax.build_lp(pp), "cpu")
@@ -395,9 +462,13 @@ def test_lane_width_and_rho_follow_xla():
     # (MAX_SUM_COLUMNS), it refuses
     assert [relax.sum_order(n) for n in (33, 40, 48, 64, 96, 128)] == [
         (0, 15), (0, 12), (0, 8), (0, 0), (0, 0), (0, 0)]
-    assert relax.MAX_SUM_COLUMNS == max(f for f, _ in WIDE)
-    for n in (relax.MAX_SUM_COLUMNS + 1, 200):
-        with pytest.raises(ValueError, match="Queue C item 8"):
+    # the same split up to 32 windows (read at 129, 256, 512 and 1,024:
+    # pad=0_0x15_16 at 129, none at 256 and above)
+    assert [relax.sum_order(n) for n in (129, 200, 256, 512, 1024)] == [
+        (0, 15), (0, 12), (0, 0), (0, 0), (0, 0)]
+    assert relax.MAX_SUM_COLUMNS == max(WIDER) == 32 * relax.WINDOW
+    for n in (relax.MAX_SUM_COLUMNS + 1, 2048):
+        with pytest.raises(ValueError, match="held only up to 1024"):
             relax.sum_order(n)
     w = torch.as_tensor(rng.random((64, 33), dtype=np.float32)).numpy()
     win0 = f32(0.0)
@@ -792,8 +863,14 @@ def test_scheduler_solver_config_drives_the_arm():
     ("max_sessions", 2, 8), ("mesh", "4", 9),
     ("coordinator_address", "h:1", 9), ("coordinator_processes", 2, 9)])
 def test_solver_config_refuses_sidecar_and_mesh_fields(field, value, item):
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        SolverBackendConfig(**{field: value})
+    # the sidecar's fields (item 8) are ported now and accepted; the
+    # mesh's (item 9) are still refused
+    if item == 8:
+        assert getattr(SolverBackendConfig(**{field: value}),
+                       field) == value
+    else:
+        with pytest.raises(NotImplementedError, match=f"item {item}"):
+            SolverBackendConfig(**{field: value})
     assert SolverBackendConfig(mesh="off").mesh == "off"
 
 

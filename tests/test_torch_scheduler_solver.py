@@ -166,13 +166,15 @@ def test_auto_needs_cuda_unless_cpu_is_asked():
                       streaming=True)
     host = Scheduler(store, QueueManager(store))  # no device touched
     assert host._solver_engine() is None
-    # solver_config takes the sessions and relaxed-arm knobs; the
-    # sidecar's fields are refused (ROADMAP Queue A item 8)
+    # solver_config takes the sessions and relaxed-arm knobs and, since
+    # the sidecar is ported, its socket; a host-only scheduler builds no
+    # engine (and so no client) from it
     from kueue_oss_tpu_torch.config import SolverBackendConfig
 
-    with pytest.raises(NotImplementedError, match="item 8"):
-        Scheduler(store, QueueManager(store), solver_config=(
-            SolverBackendConfig(socket_path="/tmp/solver.sock")))
+    routed = Scheduler(store, QueueManager(store), solver_config=(
+        SolverBackendConfig(socket_path="/tmp/solver.sock")))
+    assert routed.solver_config.socket_path == "/tmp/solver.sock"
+    assert routed._solver_engine() is None
     cfg = SolverBackendConfig(relax_enabled=False)
     assert Scheduler(store, QueueManager(store),
                      solver_config=cfg).solver_config is cfg
