@@ -7,8 +7,8 @@ Run from the repository root on a machine with one NVIDIA GPU:
 
 (``python3 chip_smoke.py --phase 20`` runs phases 1, 2 and 20 alone,
 with phase 14's host-only store built afresh for 20 (c);
-``python3 chip_smoke.py --phase 21`` runs phases 1, 2 and 21 alone;
-neither prints a kernel report.)
+``python3 chip_smoke.py --phase 21`` runs phases 1, 2 and 21 alone, and
+``--phase 22`` phases 1, 2 and 22; none prints a kernel report.)
 
 Phases, in order; any failure propagates (nonzero exit, no result line):
 
@@ -142,11 +142,14 @@ Phases, in order; any failure propagates (nonzero exit, no result line):
    (``scenarios.tas_mixed_store``: phase 5's cluster and queues in
    millicores, 15,000 workloads of bench.py's plain and extended TAS
    mixes, leader + workers groups only in ClusterQueues 3-5 of each
-   cohort), nothing cut, in four ``run_until_quiet(now=100.0,
-   tick=0.001)`` runs: (a) ``Scheduler(solver="auto")`` with
-   TASDeviceFillCounts off, (b) the same with it on, (c) host-only
-   (``solver=None, device="cuda"``) with it on, (d) host-only with it
-   off. Each run must equal the JAX scheduler's record (digest, held,
+   cohort) in four ``run_until_quiet(now=100.0, tick=0.001)`` runs: (a)
+   ``Scheduler(solver="auto")`` with TASDeviceFillCounts off, (b) the
+   same with it on, (c) host-only (``solver=None, device="cuda"``) with
+   it on, (d) host-only with it off; (a) and (b) on the store's first
+   1,500 workloads (``TAS_MIXED_WORKLOADS``; cut from 15,000 for the
+   script's time: the card no longer drains the full mixed store, whose
+   slices and leader groups phase 5's 1-pod store lacks), (c) and (d)
+   on all 15,000. Each run must equal the JAX scheduler's record (digest, held,
    parked and leader-group counts, host cycles, device drains, the
    host placement's ``_fill_in_counts`` calls); the pins of (a) and
    (b), and of (c) and (d), are equal (the tests hold them so), so the
@@ -170,9 +173,10 @@ Phases, in order; any failure propagates (nonzero exit, no result line):
    ms virtual tick a ``micro_drain`` and the tick's arrivals, and a full
    ``engine.drain(verify=True)`` every 100 ticks. (a) the ``single``
    fleet (32 standalone one-flavor ClusterQueues, nominal 10,000,000,
-   requests 100 cpu) at 128 arrivals a tick for 200 ticks (25,600
-   workloads; bench.py runs 400 ticks: cut for the phase's time, two
-   boundaries kept), so every micro-drain is a 128-entry burst that runs the
+   requests 100 cpu) at 128 arrivals a tick for 100 ticks (12,800
+   workloads; bench.py runs 400 ticks: cut for the script's time to 200
+   and then to 100, one boundary kept), so every
+   micro-drain is a 128-entry burst that runs the
    lean drain on the card: the micro-solve twin and the host-walk twin
    (``micro_solve = False``) in step, equal after every micro-drain
    (outcome, the admitted keys' admissions, every queue's heap and
@@ -180,8 +184,8 @@ Phases, in order; any failure propagates (nonzero exit, no result line):
    (``streaming=False``); (b) the ``wide`` fleet (multi-flavor and
    borrow-capable cohort ClusterQueues: the flavor-pick witness and the
    reserved-headroom walk on the host, the boundary drains on the card)
-   at bench.py's 16 arrivals a tick for 400 ticks, stream and batch
-   twins. Every twin's record (digests at each boundary with and
+   at bench.py's 16 arrivals a tick for 400 ticks (6,400 workloads,
+   4 boundaries, uncut), stream and batch twins. Every twin's record (digests at each boundary with and
    without the QuotaReserved times, counts, time-to-admit p50 / p95,
    micro-solve entries) must equal the JAX package's pin, every stream
    twin's committed digests those of its batch twin, and every
@@ -217,14 +221,20 @@ Phases, in order; any failure propagates (nonzero exit, no result line):
    ``cycle_ms`` printed.
 17. what-if sweep (the port's ``sim``): (a) bench.py's whatif shape
    (bench.py:1465-1497, uncut: 128 scenarios over W = 160, C = 8)
-   through ``solve_scenarios`` on the card, against
-   ``solve_scenarios_sequential`` on the card with parity on all 128
-   and the stacked plan's digest pinned to the JAX vmapped batch's;
-   (b) ``WhatIfEngine(store).run(specs)`` on the baseline backlog
-   (15,000 pending at t0) with an 8 x 4 quota x arrival grid and the
-   default ``SimulatorConfig``: ``canonical_json()`` byte-identical to
-   the JAX report's (sha256 pinned), 3 bucketed dispatches, parity on
-   2. Per-dispatch walls and host reads are printed.
+   through ``solve_scenarios`` on the card, with the stacked plan's
+   digest pinned to the JAX vmapped batch's, against
+   ``solve_scenarios_sequential`` on the card with parity on every 16th
+   of the 128 (``WHATIF_ORACLE_EVERY``; cut from all 128 for the
+   script's time); (b) ``WhatIfEngine(store).run(specs)`` on the
+   baseline backlog (15,000 pending at t0) with an 8 x 2 quota x arrival
+   grid (cut from 8 x 4: the arrival worlds 0.5 and 0.75, for the
+   script's time) and the default ``SimulatorConfig``:
+   ``canonical_json()`` byte-identical to the JAX report's (sha256
+   pinned: every world's KPIs are the JAX engine's), 2 bucketed
+   dispatches, parity with the sequential oracle on the base world (cut
+   from the engine's default 2, which adds arrival 0.25's world, for
+   the script's time). Per-dispatch walls and host reads are
+   printed.
 18. the relaxed LP arm (``solver/relax.py``, ``csrc/relax_lp.cu``): (a)
    ``cuda_relax.relax_lp`` against the plain ``relax.lp_loop`` run on
    the CPU (float ``index_add_`` on the card adds in any order), x bit
@@ -350,14 +360,42 @@ Phases, in order; any failure propagates (nonzero exit, no result line):
    cooldown on a fake clock close it with exactly one probe. Pins:
    tests/torch_sidecar_pins.py (c); (a) and (b) hold phases 10 and 12's
    pins.
+22. the solver farm (``federation``): (a) bench.py's federation phase 1
+   (bench.py:1674-1848), not cut: an in-process ``SolverServer(path,
+   device="cuda", max_sessions=16)`` with a ``FarmScheduler`` loaded by
+   ``config.load({"federation": ...})``, ``validate`` and
+   ``FarmScheduler.from_config`` (weights 2:2:1:1, a 2 ms quantum) and
+   wired by ``attach_farm``; 4 tenants x 2 control planes
+   (``federation.build_member``, padded to 64) warmed one after
+   another, then 5 s of contended churn in 8 threads: zero cross-tenant
+   state (every resident session's checksum is its own tenant's host
+   session's and no other's), every member's ``plan_fingerprint`` equal
+   to a dedicated twin's replaying the same churn in-process on the
+   card, then ``ClusterLossInjector.evict_farm_tenant("cp-c")`` (each of
+   cp-c's control planes heals with one counted resync, the
+   neighbours' sessions are the same objects with the same checksums)
+   and ``force_throttle("cp-d")`` (the next drain raises
+   ``SolverUnavailable`` on backpressure, the breaker counts it, the
+   solve slot is not spent, a host cycle admits the arrival); solves,
+   wall shares, the spread of share over weight (printed, not gated:
+   DRR fairness is held on the CPU), throttles and grant waits are
+   printed; (b) a fleet at real size on one farm, the tenants in
+   threads: two control planes on phase 10's storm and churn (weights
+   2:1), each drain held to ``STORM_CHURN_REFERENCE``, and one on phase
+   12's TAS store through ``Scheduler(solver=<its engine>)``, held to
+   phase 12's record, one ``tas_place_sequential`` launch of 102 steps
+   in its control plane, read with every other kernel's count (0) after
+   the threads join. No hand kernel runs in (a): every count, relax_lp's
+   included, is read from (a)'s start (before its server and members
+   are built) to its end (after the twins, the heal and the throttle).
 
 Phases 5-15 pin the JAX engine's plans with delta sessions on (its
 default, and the port's; ``use_sessions = False`` stays the off
 switch, which phase 10's twin runs). The relaxed arm's router decides
 by wall clock, so phases 5 and 10-16 pin it off (``relax_off``) on
 both sides, and relax_lp must not have launched before phase 18.
-Phases 8-11, 13, 15-19, 20 (a), (b) and (e), and 21 (a), (c) and (d)
-run no TAS flavor: the
+Phases 8-11, 13, 15-19, 20 (a), (b) and (e), 21 (a), (c) and (d), and
+22 (a) run no TAS flavor: the
 TAS kernels' launch counts are set to 0
 before each drain (or each ``run_until_quiet``, each fleet of phase 15,
 or each run of phases 16-19) and must still be 0 after it.
@@ -540,15 +578,15 @@ SCHEDULER_REFERENCE = {
 #: holding quota and the host placement's ``_fill_in_counts`` calls
 SCHEDULER_REFERENCE["tas_mixed"] = {
     "auto": {"cycles": 13, "held": 49, "evicted": 0, "reasons": {},
-             "digest": "e093ff81bc614e9afde59f6305ee6879"
-                       "52f22414eb22fa67f4384607cc599710",
+             "digest": "86f11215556684d169a9d8382386cb54"
+                       "a8931edb871c8aa14776f1029d35b0bb",
              "drains": 1, "unsupported": 0, "drain_admitted": 49,
-             "parked": 14951, "groups": 0, "fills": 90},
+             "parked": 1451, "groups": 0, "fills": 84},
     "auto_fill": {"cycles": 13, "held": 49, "evicted": 0, "reasons": {},
-                  "digest": "e093ff81bc614e9afde59f6305ee6879"
-                            "52f22414eb22fa67f4384607cc599710",
+                  "digest": "86f11215556684d169a9d8382386cb54"
+                            "a8931edb871c8aa14776f1029d35b0bb",
                   "drains": 1, "unsupported": 0, "drain_admitted": 49,
-                  "parked": 14951, "groups": 0, "fills": 90},
+                  "parked": 1451, "groups": 0, "fills": 84},
     "host_fill": {"cycles": 23, "held": 62, "evicted": 0, "reasons": {},
                   "digest": "f2e3562e733ee8685910b5f15d8cdf37"
                             "bffa8c49bd29b00274a543c28d9638f0",
@@ -558,9 +596,15 @@ SCHEDULER_REFERENCE["tas_mixed"] = {
                        "bffa8c49bd29b00274a543c28d9638f0",
              "parked": 14938, "groups": 2, "fills": 385},
 }
-#: phase 14's runs: (name, solver="auto", TASDeviceFillCounts on)
+#: phase 14's runs: (name, solver="auto", TASDeviceFillCounts on), and
+#: each run's depth (tests/torch_scheduler_pins.py's): the auto runs on
+#: the store's first 1,500 workloads (cut from 15,000, 23 s each, for
+#: the script's time; no phase drains the full 15,000-workload mixed
+#: store on the card since)
 TAS_MIXED_RUNS = (("auto", True, False), ("auto_fill", True, True),
                   ("host_fill", False, True), ("host", False, False))
+TAS_MIXED_WORKLOADS = {"auto": 1500, "auto_fill": 1500,
+                       "host_fill": 15000, "host": 15000}
 #: the JAX package's records of phase 15 (its Scheduler over a JAX
 #: SolverEngine with mesh_mode="off"; ``JAX_PLATFORMS=cpu python
 #: tests/torch_streaming_pins.py`` prints them): per twin the workloads,
@@ -572,20 +616,14 @@ TAS_MIXED_RUNS = (("auto", True, False), ("auto_fill", True, True),
 _SINGLE_STREAM = [
     "b2f632ecd256b58b2c0ca83b02c43007"
     "935a1e65dc9817b2070b27deb37b037f",
-    "ce15f31856a3464457a5c50810e4c114"
-    "58552b25b972a7d0a764124f3ee58051",
 ]
 _SINGLE_BATCH = [
     "4d94d4cae0cea236f434f384fd7e2b98"
     "fb7548c0767107d3150b5ca23884a29d",
-    "4e11743b25b592c38b2ae16e3c05e6f4"
-    "cc0b5427cb9e765f56e8bfaac39928e7",
 ]
 _SINGLE_COMMITTED = [
     "10d1699048ae4f43c35fb133b0cee789"
     "40fceb0900000f2c0e97b1a1704d921c",
-    "ef94cb7ce0c7f387ae368836d931ca3f"
-    "ad822d5879f8cc0d45b8a7abd4e20a23",
 ]
 _WIDE_STREAM = [
     "5be2d5067b1eea8f3699d6dfef646ce3"
@@ -620,17 +658,17 @@ _WIDE_COMMITTED = [
 STREAMING_REFERENCE = {
     "single": {
         "micro": {
-            "workloads": 25600, "admitted": 25600, "tta_ms_p50": 10.0,
-            "tta_ms_p95": 10.0, "stream_admitted": 25344,
-            "micro_entries": 25344, "micro_solves": 198,
+            "workloads": 12800, "admitted": 12800, "tta_ms_p50": 10.0,
+            "tta_ms_p95": 10.0, "stream_admitted": 12672,
+            "micro_entries": 12672, "micro_solves": 99,
             "boundaries": _SINGLE_STREAM, "committed": _SINGLE_COMMITTED},
         "host": {
-            "workloads": 25600, "admitted": 25600, "tta_ms_p50": 10.0,
-            "tta_ms_p95": 10.0, "stream_admitted": 25344, "micro_entries": 0,
+            "workloads": 12800, "admitted": 12800, "tta_ms_p50": 10.0,
+            "tta_ms_p95": 10.0, "stream_admitted": 12672, "micro_entries": 0,
             "micro_solves": 0, "boundaries": _SINGLE_STREAM,
             "committed": _SINGLE_COMMITTED},
         "batch": {
-            "workloads": 25600, "admitted": 25600, "tta_ms_p50": 490.0,
+            "workloads": 12800, "admitted": 12800, "tta_ms_p50": 490.0,
             "tta_ms_p95": 940.0, "stream_admitted": 0, "micro_entries": 0,
             "micro_solves": 0, "boundaries": _SINGLE_BATCH,
             "committed": _SINGLE_COMMITTED},
@@ -649,8 +687,10 @@ STREAMING_REFERENCE = {
     },
 }
 #: phase 15's fleets: (arrivals a tick, ticks, twins), as
-#: tests/torch_streaming_pins.py's STREAMING_RUNS
-STREAMING_RUNS = {"single": (128, 200, ("micro", "host", "batch")),
+#: tests/torch_streaming_pins.py's STREAMING_RUNS; the single fleet
+#: runs 100 of bench.py's ticks (cut from 200 for the script's time;
+#: its record is the first boundary of the longer run's)
+STREAMING_RUNS = {"single": (128, 100, ("micro", "host", "batch")),
                   "wide": (16, 400, ("stream", "batch"))}
 #: the JAX package's records of phases 16-17 (``JAX_PLATFORMS=cpu python
 #: tests/torch_sim_pins.py``): its Simulator host-only and with
@@ -686,12 +726,12 @@ WHATIF_BENCH_REFERENCE = {
     "plan_digest": "864e4c900936b008c372d1b00ed5e7e3"
                    "529fd1d4008545da6cb490ccdc72a6f3"}
 WHATIF_BASELINE_REFERENCE = {
-    "canonical_sha256": "7dac59809a2a1d74577912d681379044"
-                        "bce295427125582748089d5201a8c9ae",
-    "max_rounds": 503, "rounds_sum": 10068, "admitted_sum": 6940,
-    "parity": {"checked": 2, "identical": True, "mismatches": []},
-    "batch_dispatches": 3,
-    "round_buckets": {"128": 8, "256": 8, "512": 16}}
+    "canonical_sha256": "4f760cbc8c98608fa585ac74da459aa5"
+                        "8ddf6716b301f176b6627af7fafb12ec",
+    "max_rounds": 503, "rounds_sum": 5034, "admitted_sum": 3470,
+    "parity": {"checked": 1, "identical": True, "mismatches": []},
+    "batch_dispatches": 2,
+    "round_buckets": {"128": 8, "512": 8}}
 #: the JAX package's records of phase 18 (``JAX_PLATFORMS=cpu python
 #: tests/torch_relax_pins.py``, under tests/conftest.py's XLA flags):
 #: solve_relaxed on the padded large-scale backlog, bench.py's relax churn
@@ -724,11 +764,20 @@ RELAX_REFERENCE = {
         "admitted": [8] * 8 + [2] * 8 + [4] * 8 + [6] * 8,
         "rounds": [7] * 10 + [6] + [7] * 14 + [8, 8] + [7] * 5},
 }
-#: phase 17's grids: bench.py's whatif sweep, and (b)'s 8 x 4 worlds
+#: phase 17's grids: bench.py's whatif sweep, and (b)'s 8 x 2 worlds
+#: (cut from 8 x 4 for the script's time: the arrival worlds 0.5 and
+#: 0.75, 253 and 378 rounds; the base arrival's 503 rounds and 0.25's
+#: 128 stay, two round buckets)
 BENCH_QUOTA = (0.25, 0.5, 0.75, 1.25, 1.5, 2.0, 3.0)
 BENCH_ARRIVAL = (0.5, 0.75, 1.25, 1.5, 2.0, 2.5, 3.0)
 WHATIF_QUOTA = (0.25, 0.5, 0.75, 1.25, 1.5, 2.0, 3.0)
-WHATIF_ARRIVAL = (0.25, 0.5, 0.75)
+WHATIF_ARRIVAL = (0.25,)
+#: phase 17 (a)'s sequential oracle runs every 16th of the 128 scenarios
+#: (cut from all 128; the batch's digest still covers all 128), and 17
+#: (b)'s on its first world, the base (503 rounds; cut from the default
+#: 2, which added arrival 0.25's 128 rounds), for the script's time
+WHATIF_ORACLE_EVERY = 16
+WHATIF_PARITY = 1
 #: phase 16 (b)'s depth: the baseline's per-class counts times this
 #: (3,750 workloads; cut from 15,000 for the script's time)
 PERF_AUTO_SCALE = 0.25
@@ -2112,7 +2161,8 @@ def scheduler_tas_host() -> tuple:
     cuda_tas.fill_counts = kept
     try:
         for name, solver, fill in TAS_MIXED_RUNS:
-            store = tas_mixed_store(types, Store)
+            store = tas_mixed_store(
+                types, Store, n_workloads=TAS_MIXED_WORKLOADS[name])
             sched = Scheduler(store, QueueManager(store),
                               solver="auto" if solver else None,
                               device="cuda")
@@ -2894,9 +2944,11 @@ def whatif_sweeps(smi: str) -> tuple:
     _settle()
     batch = sim.solve_scenarios(problem, overlays)
     again = sim.solve_scenarios(problem, overlays)
-    seq = sim.solve_scenarios_sequential(problem, overlays)
+    held = range(0, len(overlays), WHATIF_ORACLE_EVERY)
+    seq = sim.solve_scenarios_sequential(problem,
+                                         [overlays[i] for i in held])
     launches += _launches()
-    parity = sim.check_parity(batch, seq, range(len(overlays)))
+    parity = sim.check_parity(batch, seq, held)
     rec = {"scenarios": len(overlays),
            "max_rounds": int(batch.rounds.max()),
            "rounds_sum": int(batch.rounds.sum()),
@@ -2912,9 +2964,12 @@ def whatif_sweeps(smi: str) -> tuple:
                     again.parked, again.rounds, again.usage)) != (
             rec["plan_digest"]):
         raise AssertionError("whatif bench: a second batch differs")
-    ratio = seq.solve_seconds / again.solve_seconds
+    # the oracle's seconds per scenario over the batch's
+    ratio = (seq.solve_seconds / len(held)
+             / (again.solve_seconds / len(overlays)))
     out["bench"] = {"batched_s": [batch.solve_seconds, again.solve_seconds],
                     "sequential_s": seq.solve_seconds,
+                    "sequential_scenarios": len(held),
                     "scenarios_per_s": len(overlays) / again.solve_seconds,
                     "sequential_over_batched": ratio,
                     "batch_width": batch.batch_width,
@@ -2922,11 +2977,13 @@ def whatif_sweeps(smi: str) -> tuple:
                     "sequential_host_reads": seq.host_reads}
     print(f"[whatif] (a) bench shape: the JAX plans of 128 scenarios "
           f"(max {rec['max_rounds']} rounds), batched == sequential on "
-          f"all 128; batched {batch.solve_seconds:.3f} s / "
-          f"{again.solve_seconds:.3f} s ({batch.host_reads} host reads), "
+          f"{len(held)} (every {WHATIF_ORACLE_EVERY}th); batched "
+          f"{batch.solve_seconds:.3f} s / {again.solve_seconds:.3f} s "
+          f"({batch.host_reads} host reads), "
           f"{len(overlays) / again.solve_seconds:.1f} scenarios/s; "
-          f"sequential {seq.solve_seconds:.3f} s ({seq.host_reads} host "
-          f"reads), {ratio:.1f}x the batch ({smi})")
+          f"sequential {seq.solve_seconds:.3f} s for {len(held)} "
+          f"({seq.host_reads} host reads), {ratio:.1f}x the batch a "
+          f"scenario ({smi})")
 
     # (b) WhatIfEngine on the baseline backlog, 15,000 pending at t0
     store, schedule = generate(GeneratorConfig.baseline())
@@ -2950,7 +3007,7 @@ def whatif_sweeps(smi: str) -> tuple:
     sim_batch.solve_scenarios = logged
     try:
         t0 = time.monotonic()
-        report = sim.WhatIfEngine(store).run(specs)
+        report = sim.WhatIfEngine(store).run(specs, parity=WHATIF_PARITY)
         wall = time.monotonic() - t0
     finally:
         sim_batch.solve_scenarios = solve
@@ -2978,7 +3035,8 @@ def whatif_sweeps(smi: str) -> tuple:
     print(f"[whatif] (b) baseline backlog: canonical_json equals the JAX "
           f"report (sha256 {rec['canonical_sha256'][:16]}), {len(specs)} "
           f"scenarios in {len(dispatches)} dispatches "
-          f"{json.dumps(dispatches)}, parity identical on 2 "
+          f"{json.dumps(dispatches)}, parity identical on "
+          f"{WHATIF_PARITY} "
           f"({timing['parity_seconds']:.3f} s); wall {wall:.3f} s, solve "
           f"{timing['solve_seconds']:.3f} s ({smi})")
     if launches:
@@ -3443,6 +3501,8 @@ FULLSWEEP_JOBS = 256
 FULLSWEEP_CHUNK = 8
 ENGINE_REMOVED = 0.005
 ENGINE_WORLDS = 4
+#: 19 (c)'s arrival worlds (once 17 (b)'s), with the base quota
+ENGINE_ARRIVAL = (0.25, 0.5, 0.75)
 FULL_FIELDS = ("admitted", "opt", "admit_round", "parked", "rounds",
                "usage", "wl_usage", "victim_reason")
 
@@ -3674,7 +3734,7 @@ def fullsweep_phase(smi: str, device: str = "cuda") -> tuple:
         g.workload.uid = i + 1
         store.add_workload(g.workload)
     specs = sim.cross(sim.quota_sweep(WHATIF_QUOTA),
-                      sim.arrival_sweep(WHATIF_ARRIVAL))[:ENGINE_WORLDS]
+                      sim.arrival_sweep(ENGINE_ARRIVAL))[:ENGINE_WORLDS]
     engine = sim.WhatIfEngine(store, config=SimulatorConfig(
         full_kernel=True), resident=True, device=device)
     _reset_launches()
@@ -4570,6 +4630,34 @@ def breaker_drive(path: str, proc, device: str = "cuda",
             "restarted_sidecar": served}
 
 
+def _check_remote_storm_drain(phase: str, i: int, label: str, now: float,
+                              store, result, before, engine) -> tuple:
+    """Hold drain ``i`` of phase 10's storm and churn, solved through a
+    sidecar, to its pin (``STORM_CHURN_REFERENCE``): the plan, the
+    reasons, the session frame and the kind sent on the wire. Returns
+    (the drain's record, the frame kind sent)."""
+    ref = STORM_CHURN_REFERENCE[i]
+    if (label, now) != (ref["label"], ref["now"]):
+        raise AssertionError(f"{phase} drain {i}: {label}")
+    want = {k: ref[k] for k in ("admitted", "evicted", "rounds", "held",
+                                "digest")}
+    got = _check_storm_wave(store, result, before, want)
+    reasons = dict(collections.Counter(
+        store.workloads[k].status.conditions["Preempted"].reason
+        for k in result.evicted_keys))
+    kind = _frame_summary(result)["frame"]
+    sent = "delta" if kind == "delta" else "sync"
+    client = engine.remote
+    if (reasons != ref["reasons"] or kind != ref["frame"]
+            or client.last_frame[0] != sent
+            or engine.last_drain_arm != "remote"):
+        raise AssertionError(
+            f"{phase} {label}: reasons {reasons}, session frame {kind} "
+            f"sent as {client.last_frame}, arm {engine.last_drain_arm}; "
+            f"reference {ref['reasons']}, {ref['frame']}")
+    return got, sent
+
+
 def sidecar_phase(smi: str, churn_walls=None, device: str = "cuda",
                   sidecar=None) -> tuple:
     """Phase 21: (a) phase 10's storm and churn through a sidecar
@@ -4628,9 +4716,6 @@ def sidecar_phase(smi: str, churn_walls=None, device: str = "cuda",
         out["sidecar_boot_s"] = _await_sidecar(path_a, sidecar_a)
         drains, wire = [], []
         for i, (label, now) in enumerate(steps):
-            ref = STORM_CHURN_REFERENCE[i]
-            if (label, now) != (ref["label"], ref["now"]):
-                raise AssertionError(f"phase 21 (a) drain {i}: {label}")
             before = _reserved_state(store)
             _reset_launches()
             _settle()
@@ -4638,22 +4723,12 @@ def sidecar_phase(smi: str, churn_walls=None, device: str = "cuda",
             result = engine.drain(now=now)
             sync()
             wall = time.monotonic() - t0
-            want = {k: ref[k] for k in ("admitted", "evicted", "rounds",
-                                        "held", "digest")}
-            got = _check_storm_wave(store, result, before, want)
-            reasons = dict(collections.Counter(
-                store.workloads[k].status.conditions["Preempted"].reason
-                for k in result.evicted_keys))
-            kind = _frame_summary(result)["frame"]
-            sent = "delta" if kind == "delta" else "sync"
-            if (reasons != ref["reasons"] or kind != ref["frame"]
-                    or client.last_frame[0] != sent
-                    or engine.last_drain_arm != "remote" or _launches()):
-                raise AssertionError(
-                    f"phase 21 (a) {label}: reasons {reasons}, session "
-                    f"frame {kind} sent as {client.last_frame}, arm "
-                    f"{engine.last_drain_arm}, {_launches()} TAS launches; "
-                    f"reference {ref['reasons']}, {ref['frame']}")
+            got, sent = _check_remote_storm_drain(
+                "phase 21 (a)", i, label, now, store, result, before,
+                engine)
+            if _launches():
+                raise AssertionError(f"phase 21 (a) {label}: "
+                                     f"{_launches()} TAS launches")
             wire.append(client.last_frame)
             drains.append({
                 "label": label, "wall_s": wall, "frame": sent,
@@ -4772,6 +4847,450 @@ def sidecar_phase(smi: str, churn_walls=None, device: str = "cuda",
     return out, tas_launches
 
 
+#: phase 22 (a): bench.py's federation phase 1 (bench.py:1674-1848), not
+#: cut: 4 tenants x 2 control planes at weights 2:2:1:1 on one farm, a
+#: 2 ms quantum, 16 resident sessions, members padded to 64, 24
+#: workloads each, 5 s of contended churn (tests/torch_farm_pins.py
+#: holds the same constants)
+FED_WEIGHTS = {"cp-a": 2.0, "cp-b": 2.0, "cp-c": 1.0, "cp-d": 1.0}
+FED_PLANES = 2
+FED_QUANTUM_S = 0.002
+FED_MAX_SESSIONS = 16
+FED_PAD_TO = 64
+FED_WARM = 24
+FED_SECS = 5.0
+#: phase 22 (b): the real-size fleet's tenants and weights (two storm
+#: control planes at 2:1, the TAS one at 1)
+FLEET_WEIGHTS = {"storm-a": 2.0, "storm-b": 1.0, "tas": 1.0}
+
+
+def fed_seed_cluster(store, n_cqs: int = 4, quota: int = 8) -> None:
+    """bench.py's federation cluster (tests/torch_farm_pins.py's copy):
+    4 ClusterQueues of 8 cpu."""
+    from kueue_oss_tpu_torch.api import types
+
+    store.upsert_resource_flavor(types.ResourceFlavor(name="f"))
+    for i in range(n_cqs):
+        store.upsert_cluster_queue(types.ClusterQueue(
+            name=f"cq{i}", preemption=types.PreemptionPolicy(),
+            resource_groups=[types.ResourceGroup(
+                covered_resources=["cpu"],
+                flavors=[types.FlavorQuotas(name="f", resources=[
+                    types.ResourceQuota(name="cpu", nominal=quota)])])]))
+        store.upsert_local_queue(types.LocalQueue(
+            name=f"lq{i}", cluster_queue=f"cq{i}"))
+
+
+def fed_wl(i: int, cpu: int = 1):
+    from kueue_oss_tpu_torch.api import types
+
+    return types.Workload(
+        name=f"w{i}", queue_name=f"lq{i % 4}", uid=i + 1,
+        creation_time=float(i),
+        podsets=[types.PodSet(name="main", count=1,
+                              requests={"cpu": cpu})])
+
+
+def fed_churn(member, cycles: int, uid0: int, t0: int,
+              waits=None) -> int:
+    """bench.py's churn: per cycle finish two, submit two, drain;
+    ``waits`` collects the farm's grant wait echoed by each drain."""
+    uid = uid0
+    for cyc in range(t0, t0 + cycles):
+        admitted = sorted(
+            k for k, w in member.store.workloads.items()
+            if w.is_quota_reserved and not w.is_finished)
+        for k in admitted[:2]:
+            member.scheduler.finish_workload(k, now=float(cyc))
+        for _ in range(2):
+            member.store.add_workload(fed_wl(uid))
+            uid += 1
+        member.drain(now=float(cyc))
+        if waits is not None and member.engine.remote is not None:
+            waits.append(member.engine.remote.last_grant_wait_ms)
+    return uid
+
+
+def _farm_server(weights: dict, device: str):
+    """A SolverServer on ``device`` with a FarmScheduler loaded from a
+    Configuration document (load, validate, from_config, attach_farm)."""
+    import os
+    import tempfile
+
+    from kueue_oss_tpu_torch import config
+    from kueue_oss_tpu_torch.federation import FarmScheduler, attach_farm
+    from kueue_oss_tpu_torch.solver.service import SolverServer
+
+    cfg = config.load({"federation": {"tenantWeights": dict(weights),
+                                      "quantum": FED_QUANTUM_S}})
+    errs = config.validate(cfg)
+    if errs:
+        raise AssertionError(f"phase 22: the farm's Configuration: {errs}")
+    path = os.path.join(tempfile.mkdtemp(), "farm.sock")
+    srv = SolverServer(path, device=device, max_sessions=FED_MAX_SESSIONS)
+    farm = attach_farm(srv, FarmScheduler.from_config(cfg.federation))
+    srv.serve_in_background()
+    return path, srv, farm
+
+
+def _run_threads(targets: dict) -> dict:
+    """Run each ``name: fn`` in a thread started together; returns the
+    seconds each took and raises the first exception of any."""
+    import threading
+
+    errors, walls = {}, {}
+    barrier = threading.Barrier(len(targets))
+
+    def body(name, fn):
+        try:
+            barrier.wait()
+            t0 = time.monotonic()
+            fn()
+            walls[name] = time.monotonic() - t0
+        except BaseException as e:  # re-raised on the main thread
+            errors[name] = e
+
+    threads = [threading.Thread(target=body, args=(n, fn), daemon=True)
+               for n, fn in targets.items()]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=900)
+    alive = [th.name for th in threads if th.is_alive()]
+    if alive:
+        raise AssertionError(f"phase 22: threads still running: {alive}")
+    for name, e in errors.items():
+        raise AssertionError(f"phase 22: {name} failed: {e!r}") from e
+    return walls
+
+
+def _session_sums(srv) -> dict:
+    from kueue_oss_tpu_torch.solver.delta import state_checksum
+
+    with srv._sessions_lock:
+        return {k: (s, state_checksum(s.kwargs, s.meta))
+                for k, s in srv.sessions.items()}
+
+
+def farm_contention(smi: str, device: str = "cuda",
+                    secs: float = FED_SECS) -> dict:
+    """Phase 22 (a): bench.py's federation phase 1 on the card. Returns
+    the report."""
+    import statistics
+
+    import torch
+
+    from kueue_oss_tpu_torch.chaos import ClusterLossInjector
+    from kueue_oss_tpu_torch.federation import build_member, plan_fingerprint
+    from kueue_oss_tpu_torch.solver import cuda_relax
+    from kueue_oss_tpu_torch.solver.delta import state_checksum
+    from kueue_oss_tpu_torch.solver.resilience import SolverUnavailable
+
+    t_phase = time.monotonic()
+    # every launch from here to the end of (a) is counted: the members,
+    # the farm's server, the dedicated twins, the heal and the throttle
+    _reset_launches()
+    relax0 = cuda_relax.relax_lp.launches
+    path, srv, farm = _farm_server(FED_WEIGHTS, device)
+    out = {}
+    try:
+        names = [f"{t}/{j}" for t in FED_WEIGHTS for j in range(FED_PLANES)]
+        offsets = {n: 10000 * i for i, n in enumerate(names)}
+        members = {n: build_member(n.split("/")[0], socket_path=path,
+                                   seed=fed_seed_cluster, pad_to=FED_PAD_TO,
+                                   device=device) for n in names}
+        for m in members.values():
+            relax_off(m.engine)
+        # warm one after another (the SYNC, the first solves) so that no
+        # set-up lands on one tenant's bill
+        uids = {}
+        t0 = time.monotonic()
+        for name, m in members.items():
+            for i in range(FED_WARM):
+                m.store.add_workload(fed_wl(i + offsets[name]))
+            m.drain(now=0.0)
+            uids[name] = fed_churn(m, 2, offsets[name] + 100, t0=1)
+        out["warm_s"] = time.monotonic() - t0
+        base_wall = dict(farm.wall_by_tenant)
+        base_served = dict(farm.served)
+        base_throttled = dict(farm.throttled)
+        cycles_run = {}
+        waits = {n: [] for n in names}
+
+        def contend(name):
+            m = members[name]
+            deadline = time.monotonic() + secs
+            cyc = 3
+            while time.monotonic() < deadline:
+                uids[name] = fed_churn(m, 1, uids[name], t0=cyc,
+                                       waits=waits[name])
+                cyc += 1
+            cycles_run[name] = cyc - 3
+
+        t0 = time.monotonic()
+        _run_threads({n: (lambda n=n: contend(n)) for n in names})
+        if device != "cpu":
+            torch.cuda.synchronize()
+        out["contended_s"] = time.monotonic() - t0
+        shares = {t: farm.wall_by_tenant.get(t, 0.0) - base_wall.get(t, 0.0)
+                  for t in FED_WEIGHTS}
+        served = {t: farm.served.get(t, 0) - base_served.get(t, 0)
+                  for t in FED_WEIGHTS}
+        norm = {t: shares[t] / FED_WEIGHTS[t] for t in FED_WEIGHTS}
+        tenant_waits = {t: [w for n in names if n.startswith(t + "/")
+                            for w in waits[n]] for t in FED_WEIGHTS}
+        out.update(
+            solves=sum(served.values()), served=served, wall_shares=shares,
+            # printed, not gated: DRR fairness is held on the CPU
+            spread=(max(norm.values()) / min(norm.values())
+                    if min(norm.values()) > 0 else None),
+            throttled={t: farm.throttled.get(t, 0)
+                       - base_throttled.get(t, 0) for t in FED_WEIGHTS},
+            cycles=cycles_run,
+            grant_wait_ms={t: {"mean": statistics.fmean(w), "max": max(w)}
+                           for t, w in tenant_waits.items() if w})
+        # zero cross-tenant state: each resident session's checksum is
+        # one of its own tenant's host sessions and no other tenant's
+        host = {}
+        for name, m in members.items():
+            kwargs, meta = next(iter(m.engine._delta_sessions.values()))._last
+            host[name] = state_checksum(kwargs, meta)
+        side = _session_sums(srv)
+        bad = [k for k, (_, chk) in side.items()
+               if chk not in {v for n, v in host.items()
+                              if n.split("/")[0] == k[0]}
+               or chk in {v for n, v in host.items()
+                          if n.split("/")[0] != k[0]}]
+        if bad or len(side) != len(members):
+            raise AssertionError(f"phase 22 (a): cross-tenant state in "
+                                 f"{bad}, {len(side)} sessions")
+        # every member's plan equals its dedicated twin's on the card
+        t0 = time.monotonic()
+        for name, m in members.items():
+            twin = build_member(f"{name}-twin", seed=fed_seed_cluster,
+                                pad_to=FED_PAD_TO, device=device)
+            relax_off(twin.engine)
+            twin.engine.use_sessions = False
+            for i in range(FED_WARM):
+                twin.store.add_workload(fed_wl(i + offsets[name]))
+            twin.drain(now=0.0)
+            uid = fed_churn(twin, 2, offsets[name] + 100, t0=1)
+            fed_churn(twin, cycles_run[name], uid, t0=3)
+            if (plan_fingerprint(twin.store, twin.queues)
+                    != plan_fingerprint(m.store, m.queues)):
+                raise AssertionError(f"phase 22 (a): {name}'s plan differs "
+                                     f"from its dedicated twin's")
+        out["twins_s"] = time.monotonic() - t0
+        # evict cp-c's sessions: each of its control planes heals with
+        # one counted resync, its neighbours' sessions are untouched
+        injector = ClusterLossInjector(controller=None, farm_server=srv)
+        neighbours = {k: v for k, v in side.items() if k[0] != "cp-c"}
+        evicted = injector.evict_farm_tenant("cp-c")
+        resyncs0 = dict(srv.resyncs)
+        for name in names:
+            if name.startswith("cp-c/"):
+                uids[name] = fed_churn(members[name], 1, uids[name],
+                                       t0=1000)
+                if members[name].engine.remote.resyncs != {
+                        "session_missing": 1}:
+                    raise AssertionError(
+                        f"phase 22 (a): {name} resyncs "
+                        f"{members[name].engine.remote.resyncs}")
+        after = _session_sums(srv)
+        healed = sum(1 for k in after if k[0] == "cp-c")
+        if (evicted != FED_PLANES or healed != FED_PLANES
+                or srv.resyncs.get("session_missing", 0)
+                - resyncs0.get("session_missing", 0) != FED_PLANES
+                or any(after.get(k, (None,))[0] is not s
+                       or after[k][1] != chk
+                       for k, (s, chk) in neighbours.items())):
+            raise AssertionError(
+                f"phase 22 (a): eviction of cp-c: {evicted} evicted, "
+                f"{healed} healed, resyncs {srv.resyncs}")
+        # throttle cp-d: its next drain degrades to host cycles without
+        # spending the solve slot
+        m = members["cp-d/0"]
+        served_d, throttled_d = farm.served["cp-d"], farm.throttled.get(
+            "cp-d", 0)
+        failures0 = m.engine.health.consecutive_failures
+        farm.force_throttle("cp-d")
+        admitted = sorted(k for k, w in m.store.workloads.items()
+                          if w.is_quota_reserved and not w.is_finished)
+        m.scheduler.finish_workload(admitted[0], now=2000.0)
+        wl = fed_wl(uids["cp-d/0"])
+        m.store.add_workload(wl)
+        try:
+            m.drain(now=2000.0)
+            raise AssertionError("phase 22 (a): a throttled drain ran")
+        except SolverUnavailable as e:
+            if "backpressure" not in str(e):
+                raise
+        m.scheduler.run_until_quiet(now=2001.0)
+        if (farm.served["cp-d"] != served_d
+                or farm.throttled["cp-d"] != throttled_d + 1
+                or m.engine.health.consecutive_failures != failures0 + 1
+                or not wl.is_quota_reserved):
+            raise AssertionError(
+                f"phase 22 (a): throttled cp-d: served {farm.served}, "
+                f"throttled {farm.throttled}, breaker "
+                f"{m.engine.health.consecutive_failures}")
+        if _launches() or cuda_relax.relax_lp.launches != relax0:
+            raise AssertionError(
+                f"phase 22 (a): {_launches()} TAS kernel launches, "
+                f"{cuda_relax.relax_lp.launches - relax0} relax_lp; "
+                f"expected 0")
+        out["evicted_sessions"] = evicted
+        out["phase_s"] = time.monotonic() - t_phase
+    finally:
+        srv.shutdown()
+        srv.server_close()
+    print(f"[federation (a)] {out['solves']} solves in "
+          f"{out['contended_s']:.3f} s of contention; wall shares "
+          f"{json.dumps(out['wall_shares'])}, spread of share / weight "
+          f"{out['spread']}; throttled {json.dumps(out['throttled'])}; "
+          f"grant waits {json.dumps(out['grant_wait_ms'])}; zero "
+          f"cross-tenant state, every plan its dedicated twin's, cp-c "
+          f"healed with one resync a plane, cp-d degraded to host cycles "
+          f"({smi}); " + json.dumps(out))
+    return out
+
+
+def fleet_real(smi: str, device: str = "cuda") -> tuple:
+    """Phase 22 (b): a fleet at real size on one farm, tenants in
+    threads: two control planes on phase 10's storm and churn (weights
+    2:1), one on phase 12's TAS store. Returns (report, the placer's
+    launches)."""
+    import torch
+
+    from kueue_oss_tpu_torch.api import types
+    from kueue_oss_tpu_torch.core.eviction import finish_workload
+    from kueue_oss_tpu_torch.core.store import Store
+    from kueue_oss_tpu_torch.federation import build_member
+    from kueue_oss_tpu_torch.scenarios import (
+        baseline_preempt_store,
+        storm_churn_drains,
+        tas_drain_store,
+    )
+    from kueue_oss_tpu_torch.solver import cuda_relax, cuda_tas
+
+    t_phase = time.monotonic()
+    path, srv, farm = _farm_server(FLEET_WEIGHTS, device)
+    out = {}
+    try:
+        storms, steps = {}, {}
+        for name in ("storm-a", "storm-b"):
+            store, wave1, wave2 = baseline_preempt_store(types, Store)
+            m = storms[name] = build_member(name, socket_path=path,
+                                            store=store, device=device)
+            relax_off(m.engine)
+            steps[name] = storm_churn_drains(
+                types, store, wave1, wave2,
+                lambda key, now, m=m: finish_workload(m.store, m.queues,
+                                                      key, now))
+        tas = build_member("tas", socket_path=path, device=device,
+                           store=tas_drain_store(
+                               types, Store, n_workloads=STEPWISE_WORKLOADS))
+        relax_off(tas.engine)
+        # the system's entry point over the member's remote engine
+        tas.scheduler.solver = tas.engine
+        out["build_s"] = time.monotonic() - t_phase
+        records = {}
+
+        def storm(name):
+            m = storms[name]
+            walls = []
+            for i, (label, now) in enumerate(steps[name]):
+                before = _reserved_state(m.store)
+                t0 = time.monotonic()
+                result = m.drain(now=now)
+                walls.append(time.monotonic() - t0)
+                _check_remote_storm_drain(f"phase 22 (b) {name}", i, label,
+                                          now, m.store, result, before,
+                                          m.engine)
+            if len(walls) != len(STORM_CHURN_REFERENCE):
+                raise AssertionError(f"phase 22 (b) {name}: {len(walls)} "
+                                     f"drains")
+            records[name] = {"drain_s": walls,
+                             "frames_by_kind":
+                                 dict(m.engine.remote.frames_by_kind)}
+
+        def tas_plane():
+            sched = tas.scheduler
+            counts0 = dict(sched.solver_counts)
+            t0 = time.monotonic()
+            cycles = sched.run_until_quiet(now=0.0, tick=0.001)
+            wall = time.monotonic() - t0
+            rec = _scheduler_record(tas.store, sched, cycles, counts0)
+            rec["parked"] = sum(len(q.inadmissible)
+                                for q in sched.queues.queues.values())
+            if rec != SCHEDULER_REFERENCE["tas"]:
+                raise AssertionError(f"phase 22 (b) tas: {rec} != "
+                                     f"{SCHEDULER_REFERENCE['tas']}")
+            if tas.engine.last_drain_arm != "remote":
+                raise AssertionError("phase 22 (b) tas: drained locally")
+            records["tas"] = {"wall_s": wall, "cycles": cycles}
+
+        _reset_launches()
+        cuda_tas.tas_place_sequential.steps = 0
+        relax0 = cuda_relax.relax_lp.launches
+        _settle()
+        t0 = time.monotonic()
+        out["thread_s"] = _run_threads({"storm-a": lambda: storm("storm-a"),
+                                        "storm-b": lambda: storm("storm-b"),
+                                        "tas": tas_plane})
+        if device != "cpu":
+            torch.cuda.synchronize()
+        out["fleet_s"] = time.monotonic() - t0
+        place = cuda_tas.tas_place_sequential.launches
+        placed = cuda_tas.tas_place_sequential.steps
+        leaf = cuda_tas.leaf_states.launches
+        fills = cuda_tas.launch_counts["fill_counts"]
+        relax = cuda_relax.relax_lp.launches - relax0
+        # the placer launches once in the TAS plane's one drain (a CPU
+        # rehearsal places through the plain placer: no launch)
+        want = 0 if device == "cpu" else 1
+        want_steps = 0 if device == "cpu" else STEPWISE_REFERENCE["admitted"]
+        if (place != want or placed != want_steps or leaf or fills
+                or relax):
+            raise AssertionError(
+                f"phase 22 (b): {place} tas_place_sequential launches "
+                f"({placed} steps), {leaf} leaf_states, {fills} "
+                f"fill_counts, {relax} relax_lp; expected {want} "
+                f"({want_steps}), 0, 0, 0")
+        if farm.throttled or srv.resyncs:
+            raise AssertionError(f"phase 22 (b): throttled "
+                                 f"{farm.throttled}, resyncs {srv.resyncs}")
+        _quota_checks(tas.store)
+        for m in storms.values():
+            _quota_checks(m.store)
+        out.update(records=records, served=dict(farm.served),
+                   wall_by_tenant=dict(farm.wall_by_tenant),
+                   tas_place_sequential=place, steps=placed,
+                   grant_wait_ms={n: m.engine.remote.last_grant_wait_ms
+                                  for n, m in {**storms,
+                                               "tas": tas}.items()})
+        out["phase_s"] = time.monotonic() - t_phase
+    finally:
+        srv.shutdown()
+        srv.server_close()
+    print(f"[federation (b)] two storm planes (2:1) and the TAS plane on "
+          f"one farm match phases 10 and 12's pins; {place} "
+          f"tas_place_sequential launch ({placed} steps), 0 leaf_states, "
+          f"fill_counts and relax_lp ({smi}); " + json.dumps(out))
+    return out, place
+
+
+def federation_phase(smi: str, device: str = "cuda") -> tuple:
+    """Phase 22: the solver farm on the card, (a) bench.py's federation
+    phase 1 and (b) a fleet at real size. Returns (report, the placer's
+    launches)."""
+    t0 = time.monotonic()
+    contention = farm_contention(smi, device)
+    fleet, place = fleet_real(smi, device)
+    return {"federation": contention, "fleet_real": fleet,
+            "phase_s": time.monotonic() - t0}, place
+
+
 def main() -> int:
     import torch
 
@@ -4779,6 +5298,12 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this "
               "script runs only on a CUDA device", file=sys.stderr)
         return 1
+
+    # each phase's seconds of wall clock, printed before the timings
+    marks = [("start", time.monotonic())]
+
+    def mark(phase: str) -> None:
+        marks.append((phase, time.monotonic()))
 
     # 1. device
     kind = torch.cuda.get_device_name(0)
@@ -4818,6 +5343,15 @@ def main() -> int:
         print(smi)
         return 0
 
+    if sys.argv[1:] == ["--phase", "22"]:
+        # phase 22 alone: the solver farm
+        federation, federation_place = federation_phase(smi)
+        print("[timings] " + json.dumps({"federation": federation,
+                                         "tas_place_sequential":
+                                             federation_place}))
+        print(smi)
+        return 0
+
     if sys.argv[1:] == ["--phase", "20"]:
         # phase 20 alone, on phase 14's host-only store built afresh
         from kueue_oss_tpu_torch.api import types
@@ -4835,14 +5369,17 @@ def main() -> int:
         print(smi)
         return 0
 
+    mark("1-2")
     # 3. kernel vs plain
     device = torch.device("cuda")
     reports = [check_leaf_states(device), check_tas_place(device),
                check_fill_counts(device)]
+    mark("3")
 
     # 4. stepwise placement, for the placement phase before the kernel
     step_phases, (step_tree, step_batch) = drain_with_stepwise_placer(
         device)
+    mark("4")
 
     # 5. main path at full size
     from kueue_oss_tpu_torch.solver.engine import SolverEngine
@@ -4885,42 +5422,55 @@ def main() -> int:
     reports[1]["launches"] = place_launches
     reports[1]["steps"] = steps
 
+    mark("5")
     # 6. the baseline preemption storm (FULL path, no TAS kernel)
     storm = storm_drain()
+    mark("6")
 
     # 7. TAS with preemption (FULL path)
     tas_full, tas_full_launches = tas_full_drain()
+    mark("7")
 
     # 8. the fair reclamation storm (FULL path, fair sharing)
     fair, fair_launches = fair_storm_drain()
+    mark("8")
 
     # 9. the admission-fair-sharing backlog (FULL path, AFS)
     afs, afs_launches = afs_drain()
+    mark("9")
 
     # 10. the storm under churn with delta sessions (FULL path)
     churn, churn_launches = storm_churn_drain()
+    mark("10")
 
     # 11-13. the scheduler: the storm, the TAS store, a refused backlog
     sched_storm, sched_storm_launches = scheduler_storm()
+    mark("11")
     sched_tas, sched_tas_launches, sched_tas_leaf = scheduler_tas()
+    mark("12")
     sched_refused, sched_refused_launches = scheduler_refused()
+    mark("13")
 
     # 14. the scheduler's host TAS placement and its device fill
     (sched_host, host_fill, host_leaf, host_place,
      (tas_store, tas_sched)) = scheduler_tas_host()
+    mark("14")
 
     # 15. streaming admission: micro-drains through the lean drain on
     # the card, and serve with its watch-driven worker
     stream_fleets, stream_launches = streaming_fleets()
     stream_serve = streaming_serve()
+    mark("15")
 
     # 16. the perf runner: Kueue's baseline run host only and auto, and
     # drain_benchmark at the large-scale size
     perf, perf_launches, (large_store, large_plan) = perf_runner(smi)
+    mark("16")
 
     # 17. the what-if sweep: bench.py's shape batched, and the engine on
     # the baseline backlog
     whatif, whatif_launches = whatif_sweeps(smi)
+    mark("17")
 
     # 18. the relaxed arm: its kernel against the plain loop, the arm on
     # the large-scale backlog, the router's audited churn, the relax tier
@@ -4933,6 +5483,7 @@ def main() -> int:
     relaxed, relax_report, relax_launches = relax_phase(
         smi, large_store, large_plan)
     reports.append(relax_report)
+    mark("18")
 
     # 19. the FULL what-if sweep: the scenario-batched preemption drain,
     # lane-budgeted chunks with the relax tier, resident sweep state
@@ -4940,6 +5491,7 @@ def main() -> int:
         smi)
     relax_report["launches"] += fullsweep_relax
     relax_report["launches_by_path"]["fullsweep"] = fullsweep_relax
+    mark("19")
 
     # 20. the what-if-scored MultiKueue dispatch and the TAS controllers:
     # bench.py's fleet, the 8-worker pricing, node-failure recovery on
@@ -4958,6 +5510,7 @@ def main() -> int:
         raise
     del tas_store, tas_sched
     relax_report["launches_by_path"]["dispatch"] = 0
+    mark("20")
 
     # 21. the solver sidecar: phase 10's storm through a sidecar process,
     # the scheduler's TAS entry point routed to it, the chaos storm and
@@ -4969,6 +5522,17 @@ def main() -> int:
     # fill_counts are checked in sidecar_phase: the control plane in
     # (a)-(d), the sidecars by the launches they report on exit
     relax_report["launches_by_path"]["sidecar"] = 0
+    mark("21")
+
+    # 22. the solver farm: bench.py's federation phase 1 (4 tenants x 2
+    # control planes, weighted DRR, isolation, eviction, throttling) and
+    # a fleet at real size (phase 10's storm twice, phase 12's TAS
+    # store) on one farm; its 0 launches of relax_lp, leaf_states and
+    # fill_counts are checked in farm_contention (over all of (a)) and
+    # fleet_real (over (b)'s threads)
+    federation, federation_place = federation_phase(smi)
+    relax_report["launches_by_path"]["federation"] = 0
+    mark("22")
     # the fill's own path: phase 14's host placement with the fill gate
     # on; every other path launched no TAS kernel but its placer
     reports[2]["launches"] = host_fill
@@ -4995,7 +5559,7 @@ def main() -> int:
                                           dispatch_fills["node_failure"],
                                       "dispatch_delayed_tas":
                                           dispatch_fills["delayed_tas"],
-                                      "sidecar": 0}
+                                      "sidecar": 0, "federation": 0}
     reports[0]["launches_by_path"] = {"tas_lean": leaf_launches,
                                       "tas_full": 0, "storm_full": 0,
                                       "fair_storm": fair_launches,
@@ -5012,7 +5576,8 @@ def main() -> int:
                                       "whatif": whatif_launches,
                                       "relax": relax_launches,
                                       "fullsweep": fullsweep_launches,
-                                      "dispatch": 0, "sidecar": 0}
+                                      "dispatch": 0, "sidecar": 0,
+                                      "federation": 0}
     # leaf_states is on no main path since fill_counts took the fill
     # (its launches on every path are 0, checked above)
     reports[0]["launches"] = sum(reports[0]["launches_by_path"].values())
@@ -5037,7 +5602,8 @@ def main() -> int:
                                       "relax": relax_launches,
                                       "fullsweep": fullsweep_launches,
                                       "dispatch": 0,
-                                      "sidecar": sidecar_place}
+                                      "sidecar": sidecar_place,
+                                      "federation": federation_place}
 
     timings = {"setup_s": setup_s, "drain_s": drain_s,
                **{f"{k}_s": v for k, v in result.phases.items()},
@@ -5051,7 +5617,10 @@ def main() -> int:
                "streaming": stream_fleets, "streaming_serve": stream_serve,
                "perf_runner": perf, "whatif": whatif, "relax": relaxed,
                "fullsweep": fullsweep, "dispatch": dispatch,
-               "sidecar": sidecar}
+               "sidecar": sidecar, "federation": federation}
+    print("[phase seconds] " + json.dumps(
+        {name: t - marks[i][1] for i, (name, t) in enumerate(marks[1:])}
+        | {"total": marks[-1][1] - marks[0][1]}))
     print("[timings] " + json.dumps(timings))
     print(smi)
     print(json.dumps({"kernels": reports}))

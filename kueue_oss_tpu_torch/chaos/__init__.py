@@ -25,9 +25,14 @@ Copies from ``kueue_oss_tpu/chaos/__init__.py``:
 - ``NodeFlapInjector`` (:384-421): node-readiness flaps against the
   store.
 
+- ``ClusterLossInjector`` (:424-497): a federated fleet's member loss:
+  a MultiKueue worker dropped, restored or flapped against the port's
+  ``MultiKueueController``, and a tenant's sessions evicted from the
+  shared farm's ``SolverServer`` (``drop_tenant``).
+
 The mesh-fault injector waits for the multi-device arms (ROADMAP Queue A
 item 9), the crash-point injector for a persistence layer, and the
-cluster-loss injector and the campaign layer for the federation layer.
+campaign layer for the observability layer (item 13).
 """
 
 from __future__ import annotations
@@ -267,3 +272,80 @@ class NodeFlapInjector:
 __all__ = ["CORRUPT_PLAN", "CRASH", "CRASH_PRE", "ChaosSolverServer",
            "FAULTS", "FaultInjector", "GARBLE", "HANG", "NodeFlapInjector",
            "OK", "OVERSIZE", "SLOW", "TRUNCATE"]
+
+
+class ClusterLossInjector:
+    """Federation member-loss faults.
+
+    Drives the three ways a federated fleet loses a member, against a
+    live ``MultiKueueController`` (and optionally the shared farm's
+    ``SolverServer``):
+
+    - **worker silent-drop**: the worker stops heartbeating
+      (``active=False``, ``last_seen`` frozen) without any cleanup —
+      the hub must re-dispatch its workloads only after
+      ``worker_lost_timeout_s`` elapses (workload.go remote-lost);
+    - **farm-tenant eviction**: the shared sidecar drops every
+      resident session of one tenant (capacity reclaim / chaos); the
+      tenant's next frame must heal through RESYNC with zero impact on
+      its neighbors' sessions;
+    - **hub-link flap**: a drop/restore pair inside the grace window,
+      which must NOT trigger re-dispatch.
+
+    Deterministic: no clocks read here — callers pass ``now`` exactly
+    like the controller's reconcile loop, so the grace-window boundary
+    is driven, not raced. ``injected`` counts by fault kind.
+    """
+
+    def __init__(self, controller, farm_server=None,
+                 seed: int = 0) -> None:
+        self.controller = controller
+        self.farm_server = farm_server
+        self._rng = random.Random(seed)
+        self.injected: dict[str, int] = {}
+
+    def _count(self, kind: str) -> None:
+        self.injected[kind] = self.injected.get(kind, 0) + 1
+
+    def _cluster(self, name: Optional[str]):
+        clusters = self.controller.clusters
+        if name is None:
+            pool = sorted(n for n, c in clusters.items() if c.active)
+            if not pool:
+                raise ValueError("no active worker to drop")
+            name = pool[self._rng.randrange(len(pool))]
+        return clusters[name]
+
+    def drop_worker(self, name: Optional[str] = None) -> str:
+        """Silent worker loss: stops heartbeating, state intact."""
+        cluster = self._cluster(name)
+        cluster.active = False
+        self._count("worker_drop")
+        return cluster.name
+
+    def restore_worker(self, name: str, now: float) -> str:
+        """The worker reconnects; its next reconcile marks it seen."""
+        cluster = self.controller.clusters[name]
+        cluster.active = True
+        cluster.mark_seen(now)
+        self._count("worker_restore")
+        return name
+
+    def flap_worker(self, name: str, now: float) -> str:
+        """Drop + immediate restore (a link flap INSIDE the grace
+        window when the caller reconciles before the timeout)."""
+        self.drop_worker(name)
+        self._count("worker_flap")
+        return self.restore_worker(name, now)
+
+    def evict_farm_tenant(self, tenant: str) -> int:
+        """Drop every resident farm session of one tenant; returns the
+        eviction count (the server counts them under
+        ``session_evictions["tenant_evicted"]``)."""
+        if self.farm_server is None:
+            raise ValueError("no farm server wired to this injector")
+        self._count("tenant_evict")
+        return self.farm_server.drop_tenant(tenant)
+
+    def faults_injected(self) -> int:
+        return sum(self.injected.values())

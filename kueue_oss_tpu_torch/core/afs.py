@@ -1,10 +1,9 @@
 """Admission fair sharing (KEP-4136).
 
 A copy of ``kueue_oss_tpu/core/afs.py`` (reference: pkg/cache/queue/afs
-and pkg/util/admissionfairsharing) with the
-``AdmissionFairSharingConfig`` it reads
-(``kueue_oss_tpu/config/configuration.py``; the port has no ``config``
-package). LocalQueues accumulate historical resource usage that decays
+and pkg/util/admissionfairsharing); it reads the Configuration's
+``AdmissionFairSharingConfig`` (``config/configuration.py``).
+LocalQueues accumulate historical resource usage that decays
 with a configurable half-life; within a ClusterQueue whose
 admissionScope is UsageBasedAdmissionFairSharing, pending workloads
 from lighter-usage LocalQueues are admitted first. An admission charges
@@ -15,20 +14,14 @@ here the penalty is the sample).
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass, field
 from typing import Optional
+
+from kueue_oss_tpu_torch.config.configuration import (
+    AdmissionFairSharingConfig,
+)
 
 #: resources counted when no explicit weights are configured
 _DEFAULT_WEIGHT = 1.0
-
-
-@dataclass
-class AdmissionFairSharingConfig:
-    """Reference parity: configuration_types.go AdmissionFairSharing."""
-
-    usage_half_life_time_seconds: float = 300.0
-    usage_sampling_interval_seconds: float = 10.0
-    resource_weights: dict[str, float] = field(default_factory=dict)
 
 
 class AfsManager:

@@ -46,6 +46,8 @@ class Store:
         self._admitted: dict[str, Workload] = {}
         #: cached WorkloadInfo of admitted workloads; dropped on write
         self._admitted_infos: dict[str, object] = {}
+        #: the requests-config generation the cache was built under
+        self._info_cache_gen = -1
 
     # -- watch -------------------------------------------------------------
 
@@ -136,9 +138,15 @@ class Store:
     def admitted_infos(self) -> list:
         """WorkloadInfo for every workload holding quota, charged to the
         CQ recorded in its admission (workload.go:299); cached per
-        workload until its next write."""
+        workload until its next write, and wholesale until the
+        request-shaping config (LimitRanges, transformations) changes."""
+        from kueue_oss_tpu_torch.core import workload_info as wli
         from kueue_oss_tpu_torch.core.workload_info import WorkloadInfo
 
+        gen = wli.requests_config_generation()
+        if gen != self._info_cache_gen:
+            self._admitted_infos.clear()
+            self._info_cache_gen = gen
         out = []
         for key, wl in self._admitted.items():
             info = self._admitted_infos.get(key)

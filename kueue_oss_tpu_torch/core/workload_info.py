@@ -2,10 +2,16 @@
 
 A copy of ``kueue_oss_tpu/core/workload_info.py`` (reference:
 pkg/workload/workload.go) with the flavor cursor the host scheduler
-carries across cycles (``AssignmentClusterQueueState``). Cut from the
-copy: the request-shaping config (LimitRange defaults, resource
-transformations and QuotaCheckStrategy, empty by default; the port has
-no Configuration loader) and the AFS LocalQueue usage field.
+carries across cycles (``AssignmentClusterQueueState``) and the
+process-wide request shaping (pkg/workload/resources.go): LimitRange
+default requests (``set_limit_ranges``) and the Configuration's
+``resources`` section (``set_resources_config``: exclude prefixes,
+transformations, QuotaCheckStrategy=IgnoreUndeclared). Every path that
+computes a workload's requests (the host cycle, the TAS placement, the
+solver export and its cache, the streaming admitter) reads them through
+``effective_per_pod_requests``; ``requests_config_generation`` keys the
+caches of computed requests. Cut from the copy: the AFS LocalQueue
+usage field.
 """
 
 from __future__ import annotations
@@ -21,12 +27,62 @@ from kueue_oss_tpu_torch.api.types import (
 )
 
 
+#: process-wide ResourcesConfig applied when computing workload totals
+#: (reference: the Configuration's Resources section consulted by
+#: pkg/workload/resources.go). None = no transformations.
+_active_resources_config = None
+#: namespace -> per-pod default requests (LimitRange defaultRequest)
+_limit_ranges: dict[str, dict[str, int]] = {}
+#: bumped on every config change; caches of computed requests key on it
+_requests_config_generation = 0
+
+
+def ignore_undeclared_resources() -> bool:
+    """QuotaCheckStrategy=IgnoreUndeclared honored when the gate is on
+    (flavorassigner.go:245-247 IgnoreUndeclaredResources)."""
+    return (features.enabled("QuotaCheckStrategy")
+            and _active_resources_config is not None
+            and getattr(_active_resources_config, "quota_check_strategy",
+                        None) == "IgnoreUndeclared")
+
+
+def requests_config_generation() -> int:
+    return _requests_config_generation
+
+
+def set_resources_config(cfg) -> None:
+    """Install Configuration.resources for request transformation
+    (callers of ``config.load`` wire this; None clears)."""
+    global _active_resources_config, _requests_config_generation
+    _active_resources_config = cfg
+    _requests_config_generation += 1
+
+
+def set_limit_ranges(by_namespace: dict[str, dict[str, int]]) -> None:
+    """Install namespace LimitRange default-requests (pkg/workload/
+    resources.go LimitRange adjustment; pkg/util/limitrange)."""
+    global _limit_ranges, _requests_config_generation
+    _limit_ranges = dict(by_namespace)
+    _requests_config_generation += 1
+
+
 def effective_per_pod_requests(ps, namespace: str) -> dict[str, int]:
-    """Per-pod requests — the shape every accounting and placement path
-    must agree on. The JAX package applies the process-wide requests
-    config here (LimitRange defaults, resource transformations); its
-    default is empty, and the port has no way to set one."""
-    return dict(ps.requests)
+    """Per-pod requests after LimitRange defaulting and resource
+    transformations — the request shape every accounting and placement
+    path must agree on (pkg/workload/resources.go)."""
+    per_pod = dict(ps.requests)
+    defaults = _limit_ranges.get(namespace)
+    if defaults:
+        for r, q in defaults.items():
+            per_pod.setdefault(r, q)
+    if _active_resources_config is not None:
+        from kueue_oss_tpu_torch.config.configuration import (
+            apply_resource_transformations,
+        )
+
+        per_pod = apply_resource_transformations(
+            per_pod, _active_resources_config)
+    return per_pod
 
 
 @dataclass

@@ -6,10 +6,8 @@ cut to the gates the port reads, at their reference defaults.
 defaults, with the JAX package's signatures, so tests and chip_smoke.py
 can run the gated modes (the TAS placement's balanced, multi-layer and
 device fill-in-counts modes, the failure controller's fail-fast, the
-MultiKueue hub's race rules). The JAX package's process-wide requests
-config (``core/workload_info.py``: LimitRange defaults, resource
-transformations, QuotaCheckStrategy=IgnoreUndeclared) is at its
-default, empty, and so is not read at all.
+MultiKueue hub's race rules, QuotaCheckStrategy=IgnoreUndeclared, the
+Configuration's TLS options).
 """
 
 from __future__ import annotations
@@ -48,6 +46,10 @@ _DEFAULTS: dict[str, bool] = {
     "MultiKueue": True,                # controller sync
     "MultiKueueWaitForWorkloadAdmitted": True,  # race won by Admitted
     "MultiKueueRedoAdmissionOnEvictionInWorker": True,  # _sync_winner
+    # Resources.quotaCheckStrategy=IgnoreUndeclared honored (GA)
+    "QuotaCheckStrategy": True,        # flavor_assigner + solver export
+    # TLS options validated by config.validate (beta, on)
+    "TLSOptions": True,                # util/tlsconfig parse_tls_options
 }
 
 _lock = threading.Lock()
@@ -79,3 +81,9 @@ def reset() -> None:
     """Restore defaults (test isolation)."""
     with _lock:
         _overrides.clear()
+
+
+def all_gates() -> dict[str, bool]:
+    """Every registered gate's current value."""
+    with _lock:
+        return {n: _overrides.get(n, d) for n, d in _DEFAULTS.items()}

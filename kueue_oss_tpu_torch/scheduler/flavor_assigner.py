@@ -10,9 +10,10 @@ flavors, and ``PodSetReducer`` searches reduced counts for partial
 admission. After the quota assignment, the podsets that
 ``is_tas_requested`` and got a TAS flavor are placed on the topology
 (``_update_for_tas``: Fit places with the real usage, Preempt on an
-empty tree). Cut from the copy: QuotaCheckStrategy=IgnoreUndeclared
-(the port has no requests config; an undeclared resource never fits)
-and the decision recorder's ``skip_detail``.
+empty tree). Under QuotaCheckStrategy=IgnoreUndeclared (the
+Configuration's ``resources`` section) a resource that no resource
+group covers does not take part in the quota check. Cut from the copy:
+the decision recorder's ``skip_detail``.
 """
 
 from __future__ import annotations
@@ -37,6 +38,7 @@ from kueue_oss_tpu_torch.core.workload_info import (
     AssignmentClusterQueueState,
     WorkloadInfo,
     effective_per_pod_requests,
+    ignore_undeclared_resources,
 )
 from kueue_oss_tpu_torch.tas.snapshot import TASPodSetRequest
 
@@ -387,6 +389,10 @@ class FlavorAssigner:
             for res in group_requests:
                 if self.cq.rg_by_resource(res) is None:
                     if group_requests[res] == 0:
+                        continue
+                    if ignore_undeclared_resources():
+                        # QuotaCheckStrategy=IgnoreUndeclared: the
+                        # resource simply doesn't participate in quota
                         continue
                     group_reasons.append(
                         f"resource {res} unavailable in ClusterQueue")

@@ -127,7 +127,11 @@ def ptxas_report(lib: Path) -> str:
 
 def build() -> Path:
     """Compile every kernel source into one library with one nvcc call,
-    unless these sources are already built."""
+    unless these sources are already built. The library's name hashes
+    the sources, headers and flags (``library_path``), so this build is
+    the port's compile cache, the counterpart of the JAX package's
+    ``util/xla_cache.py``: a process reuses a build of the same sources
+    and never a stale one."""
     out = library_path()
     if out.is_file():
         return out

@@ -1451,6 +1451,58 @@ def _init_state(t: FullTensors, g_max: int):
     }
 
 
+def debug_drain(problem: SolverProblem, g_max: int, h_max: int = 8,
+                p_max: int = 32, max_rounds: int = 64, verbose: bool = True,
+                fs_enabled: bool = False, device="cuda"):
+    """Python-loop drain printing per-round events (development aid):
+    each round's heads with their mode and summed request, admissions
+    and evictions, by workload key; stops on the first round without
+    progress or after ``max_rounds``. Returns the final state. The
+    rounds are ``round_body``'s, as in ``solve_backlog_full``, on
+    ``device`` ("cuda" unless the caller asks for the CPU)."""
+    from kueue_oss_tpu_torch.device import resolve_device
+
+    t = to_device_full(problem, resolve_device(device))
+    pot = potential_available_all(t)
+    if fs_enabled:
+        from kueue_oss_tpu_torch.solver.fair_kernels import (
+            lendable_by_resource,
+        )
+
+        lendable_r = lendable_by_resource(t, pot)
+    else:
+        lendable_r = None
+    afs = (problem.cq_afs is not None
+           and bool(np.asarray(problem.cq_afs).any()))
+    stats = FullDrainStats()
+    state = _init_state(t, g_max)
+    W_null = t.wl_cqid.shape[0] - 1
+
+    def name(w):
+        w = int(w)
+        return problem.wl_keys[w] if w < W_null else "-"
+
+    for r in range(max_rounds):
+        state, dbg = round_body(t, state, pot, g_max, h_max, p_max, stats,
+                                fs_enabled, lendable_r, afs)
+        if verbose:
+            cand_w = dbg["cand_w"].cpu().numpy()
+            heads = [(name(w), int(m), int(b))
+                     for w, m, b in zip(cand_w, dbg["mode"].cpu().numpy(),
+                                        dbg["req_c"].sum(1).cpu().numpy())
+                     if int(w) != W_null]
+            evs = [name(i) for i, v in
+                   enumerate(dbg["victims"].cpu().numpy()[:-1]) if v]
+            adms = [name(w) for w, a in zip(cand_w,
+                                            dbg["adm_entry"].cpu().numpy())
+                    if a and int(w) != W_null]
+            print(f"round {r}: heads(mode,req)={heads} "
+                  f"admitted={adms} evicted={evs}")
+        if not bool(state["progress"]):
+            break
+    return state
+
+
 def solve_backlog_full(t: FullTensors, g_max: int, h_max: int = 32,
                        p_max: int = 128, round_cap: int = 0,
                        stats: Optional[FullDrainStats] = None,

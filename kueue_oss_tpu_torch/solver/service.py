@@ -42,6 +42,18 @@ solve, so two sessions never drain on the device at once and the
 module-level launch counters of the kernel wrappers are only ever
 touched by one thread; plans do not depend on it.
 
+Farm: with a ``federation.FarmScheduler`` on ``server.farm``
+(``federation.attach_farm``) every decoded request, SYNC and DELTA
+frames included, runs its whole body under the farm's weighted deficit
+round robin over solver wall-time: the frame header's tenant picks the
+queue, the response carries the grant wait (``grant_wait_ms`` and a
+``farm_grant_wait`` span), and an over-quota tenant gets an in-band
+backpressure error, which the client raises as ``SolverUnavailable``
+with no retry (the engine's breaker then degrades it to host cycles).
+The farm grants one body at a time; a body takes ``_DEVICE_LOCK``
+inside its grant, and the farm charges the body's wall, lock wait
+included.
+
 The framing and ``SolverClient`` import no torch: a control plane
 without a GPU (or without torch) can use them. ``SolverServer`` runs on
 ``device`` ("cuda" unless the caller asks for the CPU; it raises without
@@ -50,9 +62,6 @@ as a process.
 
 Cut from the copy, each with its ROADMAP item:
 
-- the solver farm (``server.farm``, ``federation/farm.py``, and the
-  response's ``grant_wait_ms`` / ``farm_grant_wait`` span): Queue A item
-  12;
 - the multihost sidecar (``serve_multihost``, ``follower_solve_loop``,
   ``_bcast_bytes``) and the mesh solve (``_solve_resilient``'s mesh
   arm; ``mesh_devices`` is answered 0, as a JAX sidecar without a mesh
@@ -60,7 +69,7 @@ Cut from the copy, each with its ROADMAP item:
 - ``persist_hooks.crash_if("sidecar_session_store")``: the port has no
   persistence layer;
 - ``metrics`` counters (kept as plain counters on the server and the
-  client), the degradation ladder's farm rung and devtel's
+  client), the degradation ladder's farm rungs and devtel's
   ``note_wire``: the observability layer, Queue A item 13.
 """
 
@@ -231,20 +240,36 @@ def _solve_kernel(tensors, header: dict, problem: SolverProblem):
     return tuple(a.cpu().numpy() for a in out), names
 
 
-def _spans(header: dict, t0: float) -> list[dict]:
-    """The response's trace-context span: the sidecar solve, tagged with
-    its source (the farm's grant-wait span is cut with the farm)."""
+def _spans(header: dict, t0: float, wait_s: float = 0.0) -> list[dict]:
+    """The response's trace-context spans: the sidecar solve itself plus
+    (farmed requests) ``wait_s``, the DRR grant wait the handler thread
+    just paid. Every span names its ``source`` (a per-process or
+    per-tenant track)."""
     tenant = str(header.get("tenant", ""))
+    src_tail = tenant or "solver"
     span_args = {"full": bool(header["full"]),
                  "kind": header.get("kind", "solve"),
-                 "source": f"sidecar:{tenant or 'solver'}"}
+                 "source": f"sidecar:{src_tail}"}
     if tenant:
         span_args["tenant"] = tenant
     if header.get("trace_cycle") is not None:
         span_args["cycle"] = header["trace_cycle"]
-    return [{"name": "sidecar_solve",
-             "dur_us": int((time.perf_counter() - t0) * 1e6),
-             "args": span_args}]
+    solve_dur_us = int((time.perf_counter() - t0) * 1e6)
+    spans = [{"name": "sidecar_solve", "dur_us": solve_dur_us,
+              "args": span_args}]
+    if wait_s > 0.0:
+        wait_args = {"kind": "grant_wait", "source": f"farm:{src_tail}"}
+        if tenant:
+            wait_args["tenant"] = tenant
+        if header.get("trace_cycle") is not None:
+            wait_args["cycle"] = header["trace_cycle"]
+        # the wait ended when the solve began: end_skew_us places it
+        # just before the solve span (both end at the response)
+        spans.append({"name": "farm_grant_wait",
+                      "dur_us": int(wait_s * 1e6),
+                      "end_skew_us": solve_dur_us,
+                      "args": wait_args})
+    return spans
 
 
 def compact_plan(out, full: bool) -> dict[str, np.ndarray]:
@@ -327,9 +352,10 @@ def _session_solve(sess: _SidecarSession, problem: SolverProblem,
         return _solve_kernel(tensors, header, problem)[0]
 
 
-def _session_request(header: dict, blob: bytes,
-                     server) -> tuple[dict, bytes]:
-    """Handle a SYNC or DELTA frame against the server's session store."""
+def _session_request(header: dict, blob: bytes, server,
+                     wait_s: float = 0.0) -> tuple[dict, bytes]:
+    """Handle a SYNC or DELTA frame against the server's session store;
+    ``wait_s`` is a farm's grant wait for the spans."""
     t0 = time.perf_counter()
     kind = header["kind"]
     sid = str(header.get("sid", ""))
@@ -384,7 +410,8 @@ def _session_request(header: dict, blob: bytes,
     np.savez(buf, **arrays)
     # a sidecar without a mesh advertises width 0 (meshutil.py: item 9)
     return {"ok": True, "compact": True, "epoch": epoch,
-            "mesh_devices": 0, "spans": _spans(header, t0)}, buf.getvalue()
+            "mesh_devices": 0,
+            "spans": _spans(header, t0, wait_s)}, buf.getvalue()
 
 
 def solve_request(header: dict, blob: bytes,
@@ -393,19 +420,39 @@ def solve_request(header: dict, blob: bytes,
 
     Shared by the production handler and the chaos harness. ``server``
     holds the session store and the device; without one, a SYNC is
-    refused in-band and a DELTA answers ``session_unsupported``. (The
-    JAX package's farm admission around this body, ``_solve_request_
-    body``, is cut with the farm.)"""
-    kind = header.get("kind", "solve")
+    refused in-band and a DELTA answers ``session_unsupported``. With a
+    farm attached (``server.farm``) the whole body runs under its DRR
+    admission, and a served response echoes the grant wait in
+    ``grant_wait_ms``."""
     if server is not None:
-        server._count("frames", kind)
+        server._count("frames", header.get("kind", "solve"))
+    farm = getattr(server, "farm", None)
+    if farm is not None:
+        from kueue_oss_tpu_torch.federation.farm import last_grant_wait_s
+
+        # the lambda runs inside the grant, on this thread: it reads the
+        # wait the farm just recorded
+        resp, out = farm.run(
+            str(header.get("tenant", "")),
+            lambda: _solve_request_body(header, blob, server,
+                                        last_grant_wait_s()))
+        if resp.get("ok"):
+            resp.setdefault("grant_wait_ms",
+                            round(last_grant_wait_s() * 1e3, 3))
+        return resp, out
+    return _solve_request_body(header, blob, server)
+
+
+def _solve_request_body(header: dict, blob: bytes, server=None,
+                        wait_s: float = 0.0) -> tuple[dict, bytes]:
+    kind = header.get("kind", "solve")
     if kind in ("sync", "delta"):
         if server is None:
             if kind == "delta":
                 return _resync("session_unsupported")
             return {"ok": False, "error": "session frames need a "
                     "SolverServer"}, b""
-        return _session_request(header, blob, server)
+        return _session_request(header, blob, server, wait_s)
     t0 = time.perf_counter()
     if server is None:
         raise ValueError("solve_request needs a SolverServer for its "
@@ -426,7 +473,7 @@ def solve_request(header: dict, blob: bytes,
     buf = io.BytesIO()
     np.savez(buf, **dict(zip(names, out)))
     return {"ok": True, "names": names,
-            "spans": _spans(header, t0)}, buf.getvalue()
+            "spans": _spans(header, t0, wait_s)}, buf.getvalue()
 
 
 def respond(sock: socket.socket, header: dict, blob: bytes,
@@ -464,7 +511,9 @@ class SolverServer(socketserver.ThreadingUnixStreamServer):
     Sessions are keyed by (tenant, sid) and capped LRU at
     ``max_sessions``; ``frames`` counts requests by kind, ``resyncs``
     the in-band resync answers by reason and ``session_evictions`` the
-    dropped sessions by cause ("lru", "tenant_evicted")."""
+    dropped sessions by cause ("lru", "tenant_evicted"). ``farm`` (None,
+    or a ``federation.FarmScheduler``) admits every request through its
+    per-tenant DRR queue."""
 
     allow_reuse_address = True
     # a wedged client connection must not hang server_close()
@@ -494,6 +543,8 @@ class SolverServer(socketserver.ThreadingUnixStreamServer):
         self.resyncs: dict[str, int] = {}
         self.session_evictions: dict[str, int] = {}
         self._counts_lock = threading.Lock()
+        #: optional federation FarmScheduler (federation.attach_farm)
+        self.farm = None
 
     def _count(self, what: str, key: str, by: int = 1) -> None:
         with self._counts_lock:
@@ -578,7 +629,9 @@ class SolverClient:
 
     Wire accounting: ``bytes_by_kind`` and ``frames_by_kind`` by frame
     kind ("legacy", "sync", "delta", "resync"), ``last_frame`` (kind,
-    bytes); plain counters for the JAX metrics: ``attempts``
+    bytes), ``last_grant_wait_ms`` (a farm's grant wait echoed by the
+    last successful response; 0 from a dedicated sidecar); plain
+    counters for the JAX metrics: ``attempts``
     (connections tried), ``retries``, ``failures`` by kind ("timeout",
     "protocol", "connection", "server"), ``resyncs`` by reason and
     ``deadline_exceeded``. ``clock`` / ``sleep`` are injectable.
@@ -616,6 +669,9 @@ class SolverClient:
         self.trace_cycle: Optional[int] = None
         #: sidecar spans from the last successful response
         self.last_spans: list[dict] = []
+        #: the farm's DRR grant wait echoed by the last successful
+        #: response (ms; 0 = dedicated sidecar or idle farm)
+        self.last_grant_wait_ms = 0.0
         #: the sidecar's advertised mesh width (0 = none)
         self.remote_mesh_devices = 0
         if sessions is None:
@@ -781,14 +837,21 @@ class SolverClient:
         if not resp.get("ok", False):
             if isinstance(resp.get("resync"), str):
                 raise _ResyncRequested(resp["resync"])
-            # the sidecar is up but the solve failed; a retry would fail
-            # again, so do not burn the deadline on it
+            # the sidecar is up but the solve failed (a farm's
+            # backpressure among them: the engine's breaker degrades the
+            # control plane to host cycles); a retry would fail again,
+            # so do not burn the deadline on it
             self._fail("server")
             raise SolverUnavailable(
                 f"solver sidecar reported failure: "
                 f"{resp.get('error', 'unknown')}")
         spans = resp.get("spans")
         self.last_spans = spans if isinstance(spans, list) else []
+        try:
+            self.last_grant_wait_ms = float(
+                resp.get("grant_wait_ms", 0.0) or 0.0)
+        except (TypeError, ValueError):
+            self.last_grant_wait_ms = 0.0
         try:
             self.remote_mesh_devices = int(resp.get("mesh_devices", 0))
         except (TypeError, ValueError):

@@ -46,8 +46,10 @@ from kueue_oss_tpu_torch.core.store import Store
 from kueue_oss_tpu_torch.core.workload_info import (
     WorkloadInfo,
     effective_priority,
+    ignore_undeclared_resources,
     queue_order_timestamp,
     quota_reservation_time,
+    requests_config_generation,
 )
 
 #: "infinity" for missing borrowing limits; headroom against overflow
@@ -408,10 +410,11 @@ class ExportCache:
 
     Invalidation is event-driven: a Workload event drops that key's row;
     any other kind bumps ``spec_gen``, which retires every derived table
-    through the stamp check on the next export. The stamp also holds
-    the FR vocabulary, the CQ name order and K; the JAX stamp's gate
-    values and requests-config generation are constants in the port
-    (``features``), so they are left out.
+    through the stamp check on the next export. Gate flips,
+    request-shaping config changes and vocabulary growth are caught by
+    the per-export stamp itself (``features.all_gates()``,
+    ``requests_config_generation()``, the FR vocabulary, the CQ name
+    order and K), so a config change never serves a stale export.
     """
 
     def __init__(self, store: Store, subscribe: bool = True) -> None:
@@ -483,7 +486,9 @@ class ExportCache:
                 F: int) -> tuple:
         """Return the stamp rows must carry, clearing derived state when
         anything it covers changed since the previous export."""
-        stamp = (self.spec_gen, tuple(fr_list), tuple(cq_names), K)
+        stamp = (self.spec_gen, tuple(sorted(features.all_gates().items())),
+                 requests_config_generation(), tuple(fr_list),
+                 tuple(cq_names), K)
         if stamp != self._stamp:
             self._stamp = stamp
             self.rows.clear()
@@ -589,7 +594,8 @@ class ExportCache:
         if sid is not None:
             return sid
         covered = self._cq_covered[cid]
-        if any(q > 0 and r not in covered for r, q in totals.items()):
+        if (any(q > 0 and r not in covered for r, q in totals.items())
+                and not ignore_undeclared_resources()):
             # undeclared resource: no option can ever fit (oracle
             # parity); intern to the all-invalid row
             self._shape_ids[shape_key] = 0

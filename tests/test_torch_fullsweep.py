@@ -571,7 +571,7 @@ def test_chip_smoke_copies_match_the_pins_helpers():
 
     for name in ("FULLSWEEP_QUOTA", "FULLSWEEP_ARRIVAL", "FULLSWEEP_S",
                  "FULLSWEEP_JOBS", "FULLSWEEP_CHUNK", "ENGINE_REMOVED",
-                 "ENGINE_WORLDS", "FULL_FIELDS"):
+                 "ENGINE_WORLDS", "ENGINE_ARRIVAL", "FULL_FIELDS"):
         assert getattr(chip_smoke, name) == getattr(pins, name), name
     problem, W, specs, overlays, order = chip_smoke.fullsweep_problem(32)
     want, W2 = sweep_problem(PORT, pins.trace_store(PORT, 32))

@@ -6,7 +6,8 @@ sharing and admission fair sharing, and lean through the relaxed arm),
 schedules, streams, runs the perf simulator, a what-if sweep, the relax
 tier, a resident FULL sweep, a MultiKueue hub with the what-if-scored
 dispatcher, the node-failure controller, and drains through the solver
-sidecar (a clean one and a chaos one) with those modules blocked."""
+sidecar (a clean one and a chaos one) and a solver farm loaded from a
+Configuration with those modules blocked."""
 
 import ast
 import subprocess
@@ -69,7 +70,9 @@ def test_scan_sees_the_whole_port():
                  "controllers/workload_controller.py",
                  "controllers/failure_recovery.py", "chaos/__init__.py",
                  "solver/service.py", "solver/resilience.py",
-                 "solver/meshutil.py"):
+                 "solver/meshutil.py", "federation/__init__.py",
+                 "federation/farm.py", "federation/fleet.py",
+                 "util/tlsconfig.py", "entry.py", "smoke_kernel.py"):
         assert f"kueue_oss_tpu_torch/{name}" in names, name
     assert "chip_smoke.py" in names
     # the exact-name comparison lets the port's own name through
@@ -330,6 +333,32 @@ def test_port_drains_with_jax_blocked():
         assert engine.drain().admitted > 0
         srv.shutdown()
         srv.server_close()
+        # a fleet member on a solver farm loaded from a Configuration,
+        # with the resources section shaping its requests
+        from kueue_oss_tpu_torch import config
+        from kueue_oss_tpu_torch.core import workload_info
+        from kueue_oss_tpu_torch.federation import (
+            FarmScheduler, attach_farm, build_member)
+        cfg = config.load({"federation": {"tenantWeights": {"cp-a": 2}},
+                           "resources": {"quotaCheckStrategy":
+                                         "IgnoreUndeclared"}})
+        assert config.validate(cfg) == []
+        workload_info.set_resources_config(cfg.resources)
+        path = os.path.join(tempfile.mkdtemp(), "f.sock")
+        srv = SolverServer(path, device="cpu")
+        farm = attach_farm(srv, FarmScheduler.from_config(cfg.federation))
+        srv.serve_in_background()
+        store, wave1, _ = baseline_preempt_store(
+            types, Store, n_cohorts=1, cqs_per_cohort=2, scale=0.05)
+        member = build_member("cp-a", socket_path=path, store=store,
+                              device="cpu")
+        for wl in wave1:
+            store.add_workload(wl)
+        assert member.drain(now=100.0).admitted > 0
+        assert farm.served == {"cp-a": 1}
+        srv.shutdown()
+        srv.server_close()
+        workload_info.set_resources_config(None)
         leaked = [m for m in sys.modules
                   if m.split(".")[0] in ("jax", "jaxlib", "kueue_oss_tpu")
                   and sys.modules[m] is not None]

@@ -351,6 +351,18 @@ def test_phase14_pins_agree_across_fill_modes():
     assert pins["host_fill"] == pins["host"]
 
 
+def test_phase14_runs_and_depths_are_the_pins():
+    """chip_smoke.py's phase-14 runs and their depths (the auto runs cut
+    to 1,500 workloads) are the pins script's."""
+    smoke = _chip_smoke()
+    assert smoke.TAS_MIXED_RUNS == P.TAS_MIXED_RUNS
+    assert smoke.TAS_MIXED_WORKLOADS == P.TAS_MIXED_WORKLOADS
+    assert set(P.TAS_MIXED_WORKLOADS) == {r[0] for r in P.TAS_MIXED_RUNS}
+    pins = smoke.SCHEDULER_REFERENCE["tas_mixed"]
+    for name, n in P.TAS_MIXED_WORKLOADS.items():
+        assert pins[name]["held"] + pins[name]["parked"] == n, name
+
+
 @pytest.mark.slow
 def test_full_size_pins_are_chip_smokes():
     smoke = _chip_smoke()

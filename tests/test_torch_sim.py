@@ -354,6 +354,9 @@ def test_chip_smoke_copies_match_the_pins_helpers():
     import torch_sim_pins as pins
 
     assert chip_smoke.PERF_AUTO_SCALE == pins.PERF_AUTO_SCALE
+    for name in ("WHATIF_QUOTA", "WHATIF_ARRIVAL", "WHATIF_PARITY",
+                 "BENCH_QUOTA", "BENCH_ARRIVAL"):
+        assert getattr(chip_smoke, name) == getattr(pins, name), name
     problem, overlays = chip_smoke.bench_whatif_problem()
     want_problem, want_overlays = pins.bench_whatif_problem(pins.PORT)
     assert problem.wl_keys == want_problem.wl_keys

@@ -36,9 +36,9 @@ if __name__ == "__main__":
     os.environ["JAX_PLATFORMS"] = "cpu"
 
 from torch_sim_pins import (  # noqa: E402
+    WHATIF_QUOTA,
     baseline_config,
     plan_digest,
-    whatif_baseline_specs,
 )
 
 JAX = "kueue_oss_tpu"
@@ -54,11 +54,20 @@ FULLSWEEP_JOBS = 256
 FULLSWEEP_CHUNK = 8
 #: phase 19 (c) on the baseline backlog at its full depth: the share of
 #: the pending workloads removed between runs 1 and 2 (75 of 15,000),
-#: and the worlds of every run, the first of phase 17 (b)'s grid (the
-#: base quota at arrival 1, 0.25, 0.5 and 0.75: worlds with another
-#: quota ping-pong towards the 2 W1 + C + 5 round bound at this depth)
+#: and the worlds of every run, the first of the quota x arrival grid
+#: with ``ENGINE_ARRIVAL`` (once phase 17 (b)'s grid): the base
+#: quota at arrival 1, 0.25, 0.5 and 0.75 (worlds with another quota
+#: ping-pong towards the 2 W1 + C + 5 round bound at this depth)
 ENGINE_REMOVED = 0.005
 ENGINE_WORLDS = 4
+ENGINE_ARRIVAL = (0.25, 0.5, 0.75)
+
+
+def engine_specs(root: str):
+    """Phase 19 (c)'s worlds."""
+    sim = _mod(root, "sim")
+    return sim.cross(sim.quota_sweep(WHATIF_QUOTA),
+                     sim.arrival_sweep(ENGINE_ARRIVAL))[:ENGINE_WORLDS]
 
 
 def _mod(root: str, name: str):
@@ -315,8 +324,8 @@ def reference_pins() -> dict:
         tensors=tensors, order=order), W)
     print(f"# fullsweep {time.monotonic() - t0:.1f} s", file=sys.stderr)
     t0 = time.monotonic()
-    _, reports, syncs = engine_runs(
-        JAX, engine_store(JAX), whatif_baseline_specs(JAX)[:ENGINE_WORLDS])
+    _, reports, syncs = engine_runs(JAX, engine_store(JAX),
+                                    engine_specs(JAX))
     out["engine"] = {"syncs": syncs,
                      "runs": [engine_record(r) for r in reports]}
     print(f"# engine {time.monotonic() - t0:.1f} s", file=sys.stderr)

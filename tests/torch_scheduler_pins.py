@@ -280,6 +280,10 @@ def run_tas_mixed(package, *, solver: bool, fill: bool,
 #: phase 14's four runs: (name, solver="auto", TASDeviceFillCounts)
 TAS_MIXED_RUNS = (("auto", True, False), ("auto_fill", True, True),
                   ("host_fill", False, True), ("host", False, False))
+#: each run's depth: the auto runs on the store's first 1,500 workloads
+#: (cut from 15,000 for chip_smoke.py's time)
+TAS_MIXED_WORKLOADS = {"auto": 1500, "auto_fill": 1500,
+                       "host_fill": 15000, "host": 15000}
 
 
 #: phase 12's depth: the TAS drain store's first 1,500 workloads (phase
@@ -291,7 +295,8 @@ def reference_pins(*, storm_scale: float = 1.0, storm_cohorts: int = 5,
                    storm_cqs: int = 6, tas_kwargs=None,
                    tas_mixed_kwargs=None) -> dict:
     """The JAX package's records of phases 11-14 (full size by
-    default, but phase 12 at ``TAS_WORKLOADS``)."""
+    default, but phase 12 at ``TAS_WORKLOADS`` and phase 14's runs at
+    ``TAS_MIXED_WORKLOADS``)."""
     jax = jax_package()
     storm = dict(n_cohorts=storm_cohorts, cqs_per_cohort=storm_cqs,
                  scale=storm_scale)
@@ -304,9 +309,11 @@ def reference_pins(*, storm_scale: float = 1.0, storm_cohorts: int = 5,
                                or {"n_workloads": TAS_WORKLOADS})),
         "refused": run_waves(jax, scenarios.refused_quantity_store,
                              solver=True, **storm),
-        "tas_mixed": {name: run_tas_mixed(jax, solver=solver, fill=fill,
-                                          **(tas_mixed_kwargs or {}))
-                      for name, solver, fill in TAS_MIXED_RUNS},
+        "tas_mixed": {name: run_tas_mixed(
+            jax, solver=solver, fill=fill,
+            **(tas_mixed_kwargs
+               or {"n_workloads": TAS_MIXED_WORKLOADS[name]}))
+            for name, solver, fill in TAS_MIXED_RUNS},
     }
 
 

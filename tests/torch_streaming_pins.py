@@ -42,7 +42,7 @@ from kueue_oss_tpu_torch import scenarios  # noqa: E402
 
 #: phase 15's runs: (fleet, arrivals a tick, ticks, twins)
 STREAMING_RUNS = {
-    "single": (128, 200, ("micro", "host", "batch")),
+    "single": (128, 100, ("micro", "host", "batch")),
     "wide": (16, 400, ("stream", "batch")),
 }
 
