@@ -7,8 +7,9 @@ Run from the repository root on a machine with one NVIDIA GPU:
 
 (``python3 chip_smoke.py --phase 20`` runs phases 1, 2 and 20 alone,
 with phase 14's host-only store built afresh for 20 (c);
-``python3 chip_smoke.py --phase 21`` runs phases 1, 2 and 21 alone, and
-``--phase 22`` phases 1, 2 and 22; none prints a kernel report.)
+``python3 chip_smoke.py --phase 21`` runs phases 1, 2 and 21 alone,
+``--phase 22`` phases 1, 2 and 22, and ``--phase 23`` phases 1, 2 and
+23; none prints a kernel report.)
 
 Phases, in order; any failure propagates (nonzero exit, no result line):
 
@@ -340,7 +341,10 @@ Phases, in order; any failure propagates (nonzero exit, no result line):
    sync and its two dense deltas) and a DELTA for every delta, no
    resync, no failure; ``bytes_by_kind``, the SYNC frame against the
    median DELTA frame and each drain's wall beside phase 10's
-   in-process wall printed; (b) phase 12's TAS store at 1,500
+   in-process wall printed; a ``Tracer`` on the engine holds a
+   ``sidecar_solve`` span under every ``solver_drain`` span's cycle id
+   (the sidecar's spans imported by the engine); (b) phase 12's TAS
+   store at 1,500
    workloads through ``Scheduler(solver="auto", solver_config=
    SolverBackendConfig(socket_path=path))``: phase 12's record, one
    ``tas_place_sequential`` launch in the control plane, no
@@ -379,15 +383,42 @@ Phases, in order; any failure propagates (nonzero exit, no result line):
    solve slot is not spent, a host cycle admits the arrival); solves,
    wall shares, the spread of share over weight (printed, not gated:
    DRR fairness is held on the CPU), throttles and grant waits are
-   printed; (b) a fleet at real size on one farm, the tenants in
-   threads: two control planes on phase 10's storm and churn (weights
-   2:1), each drain held to ``STORM_CHURN_REFERENCE``, and one on phase
+   printed; a ``Tracer`` on the farm holds one ``farm_grant_wait``
+   span per granted solve, and the farm's series in the metrics
+   registry (requests, wall seconds, throttles, the grant-wait
+   histogram's count) equal its ledgers; (b) a fleet at real size on
+   one farm, the tenants in
+   threads: two control planes on phase 10's storm and the first four
+   cycles of its churn (weights 2:1; six of its twelve drains), each
+   drain held to ``STORM_CHURN_REFERENCE``, and one on phase
    12's TAS store through ``Scheduler(solver=<its engine>)``, held to
    phase 12's record, one ``tas_place_sequential`` launch of 102 steps
    in its control plane, read with every other kernel's count (0) after
    the threads join. No hand kernel runs in (a): every count, relax_lp's
    included, is read from (a)'s start (before its server and members
    are built) to its end (after the twins, the heal and the throttle).
+23. observability (``metrics``, ``obs``, ``debugger.profiling``): phase
+   12's TAS store at 1,500 workloads through ``Scheduler(solver=
+   "auto")`` twice, on fresh stores: once with the tracer and device
+   telemetry off (the recorder, the ledger and the SLO engine are on by
+   default, as in every phase), once with a ``Tracer`` attached and
+   devtel fully on (compile accounting, the transfer ledger, the
+   watermarks, a ``DeepCapture`` with ``torch.profiler`` triggered just
+   before the run and stopped after it). Both runs launch the same hand
+   kernels the same number of times and read the device the same
+   number of times (every ``.item()``, ``.cpu()``, ``.tolist()``,
+   scalar conversion of a CUDA tensor and ``torch.cuda.synchronize``,
+   counted): the layer adds no synchronisation. The second run's
+   journal (digest of every event's kind, workload, cycle,
+   ClusterQueue, path, reason slug and breaker tag, and the per-kind
+   counts), ledger rows, deterministic metric lines (count and digest)
+   and compile events are the JAX package's (``OBS_REFERENCE``; pins:
+   tests/torch_obs_pins.py); the transfer ledger's bytes by direction
+   are the sum of the solver rows' device deltas; the
+   ``solver_hbm_bytes_in_use`` gauge is the CUDA allocator's, above 0
+   and at least the resident bytes; the capture's Chrome trace holds
+   ``tas_place_kernel``, the placer's CUDA symbol; the tracer's trace
+   holds the ``solver_drain`` span under the ledger row's cycle.
 
 Phases 5-15 pin the JAX engine's plans with delta sessions on (its
 default, and the port's; ``use_sessions = False`` stays the off
@@ -4684,6 +4715,7 @@ def sidecar_phase(smi: str, churn_walls=None, device: str = "cuda",
         storm_churn_drains,
         tas_drain_store,
     )
+    from kueue_oss_tpu_torch.debugger.profiling import Tracer
     from kueue_oss_tpu_torch.scheduler.scheduler import Scheduler
     from kueue_oss_tpu_torch.solver import cuda_relax, cuda_tas
     from kueue_oss_tpu_torch.solver.engine import SolverEngine
@@ -4710,6 +4742,8 @@ def sidecar_phase(smi: str, churn_walls=None, device: str = "cuda",
         client = SolverClient(path_a)
         engine = relax_off(SolverEngine(store, queues, device=device,
                                         remote=client))
+        # the engine imports the sidecar's spans beside its own
+        engine.tracer = Tracer()
         steps = storm_churn_drains(
             types, store, wave1, wave2,
             lambda key, now: finish_workload(store, queues, key, now))
@@ -4747,11 +4781,22 @@ def sidecar_phase(smi: str, churn_walls=None, device: str = "cuda",
                 f"phase 21 (a) wire: frames {client.frames_by_kind}, "
                 f"resyncs {client.resyncs}, failures {client.failures}")
         delta_bytes = [n for kind, n in wire if kind == "delta"]
+        spans = json.loads(engine.tracer.chrome_trace())["traceEvents"]
+        by_name: dict = {}
+        for ev in spans:
+            if ev["ph"] == "X":
+                by_name.setdefault(ev["name"], []).append(
+                    ev["args"].get("cycle"))
+        if (len(by_name.get("solver_drain", [])) != len(wire)
+                or by_name.get("sidecar_solve")
+                != by_name["solver_drain"]):
+            raise AssertionError(f"phase 21 (a): spans {by_name}")
         out["storm"] = {
             "drains": drains, "bytes_by_kind": dict(client.bytes_by_kind),
             "frames_by_kind": dict(client.frames_by_kind),
             "sync_frame_bytes": wire[0][1],
-            "median_delta_frame_bytes": statistics.median(delta_bytes)}
+            "median_delta_frame_bytes": statistics.median(delta_bytes),
+            "sidecar_solve_spans": len(by_name["sidecar_solve"])}
         print("[sidecar (a)] the storm and its churn through the sidecar "
               "match phase 10's pins; " + json.dumps(
                   {k: v for k, v in out["storm"].items() if k != "drains"}))
@@ -4862,6 +4907,11 @@ FED_SECS = 5.0
 #: phase 22 (b): the real-size fleet's tenants and weights (two storm
 #: control planes at 2:1, the TAS one at 1)
 FLEET_WEIGHTS = {"storm-a": 2.0, "storm-b": 1.0, "tas": 1.0}
+#: drains of phase 10's sequence each storm plane of 22 (b) runs: the
+#: two waves and four churn cycles (three SYNCs and three DELTAs) of
+#: its twelve, for the script's time (phase 23 and the observability
+#: layer's cost in every phase)
+FLEET_STORM_DRAINS = 6
 
 
 def fed_seed_cluster(store, n_cqs: int = 4, quota: int = 8) -> None:
@@ -4980,7 +5030,9 @@ def farm_contention(smi: str, device: str = "cuda",
 
     import torch
 
+    from kueue_oss_tpu_torch import metrics
     from kueue_oss_tpu_torch.chaos import ClusterLossInjector
+    from kueue_oss_tpu_torch.debugger.profiling import Tracer
     from kueue_oss_tpu_torch.federation import build_member, plan_fingerprint
     from kueue_oss_tpu_torch.solver import cuda_relax
     from kueue_oss_tpu_torch.solver.delta import state_checksum
@@ -4992,6 +5044,10 @@ def farm_contention(smi: str, device: str = "cuda",
     _reset_launches()
     relax0 = cuda_relax.relax_lp.launches
     path, srv, farm = _farm_server(FED_WEIGHTS, device)
+    # the farm's series start here, with its ledgers; its spans land on
+    # this tracer
+    metrics.reset_all()
+    farm.tracer = Tracer()
     out = {}
     try:
         names = [f"{t}/{j}" for t in FED_WEIGHTS for j in range(FED_PLANES)]
@@ -5140,6 +5196,26 @@ def farm_contention(smi: str, device: str = "cuda",
                 f"{cuda_relax.relax_lp.launches - relax0} relax_lp; "
                 f"expected 0")
         out["evicted_sessions"] = evicted
+        # one farm_grant_wait span per granted solve; the farm series
+        # equal the farm's ledgers
+        waits = farm.tracer.durations_ms("farm_grant_wait")
+        tenants = set(farm.served) | set(farm.throttled)
+        series = {t: (metrics.solver_farm_requests_total.value(t),
+                      metrics.solver_farm_wall_seconds_total.value(t),
+                      metrics.solver_farm_throttled_total.value(t),
+                      metrics.solver_farm_grant_wait_seconds.count(t))
+                  for t in tenants}
+        ledgers = {t: (float(farm.served.get(t, 0)),
+                       farm.wall_by_tenant.get(t, 0.0),
+                       float(farm.throttled.get(t, 0)),
+                       farm.served.get(t, 0)) for t in tenants}
+        if (len(waits) != sum(farm.served.values()) or series != ledgers
+                or metrics.solver_farm_tenants.value() != len(FED_WEIGHTS)):
+            raise AssertionError(
+                f"phase 22 (a): {len(waits)} farm_grant_wait spans for "
+                f"{sum(farm.served.values())} grants; series {series} "
+                f"!= ledgers {ledgers}")
+        out["farm_grant_wait_spans"] = len(waits)
         out["phase_s"] = time.monotonic() - t_phase
     finally:
         srv.shutdown()
@@ -5157,9 +5233,11 @@ def farm_contention(smi: str, device: str = "cuda",
 
 def fleet_real(smi: str, device: str = "cuda") -> tuple:
     """Phase 22 (b): a fleet at real size on one farm, tenants in
-    threads: two control planes on phase 10's storm and churn (weights
-    2:1), one on phase 12's TAS store. Returns (report, the placer's
-    launches)."""
+    threads: two control planes on phase 10's storm and the first
+    ``FLEET_STORM_DRAINS`` drains of its churn (weights 2:1), one on
+    phase 12's TAS store. Returns (report, the placer's launches)."""
+    import itertools
+
     import torch
 
     from kueue_oss_tpu_torch.api import types
@@ -5199,7 +5277,8 @@ def fleet_real(smi: str, device: str = "cuda") -> tuple:
         def storm(name):
             m = storms[name]
             walls = []
-            for i, (label, now) in enumerate(steps[name]):
+            for i, (label, now) in enumerate(
+                    itertools.islice(steps[name], FLEET_STORM_DRAINS)):
                 before = _reserved_state(m.store)
                 t0 = time.monotonic()
                 result = m.drain(now=now)
@@ -5207,7 +5286,7 @@ def fleet_real(smi: str, device: str = "cuda") -> tuple:
                 _check_remote_storm_drain(f"phase 22 (b) {name}", i, label,
                                           now, m.store, result, before,
                                           m.engine)
-            if len(walls) != len(STORM_CHURN_REFERENCE):
+            if len(walls) != FLEET_STORM_DRAINS:
                 raise AssertionError(f"phase 22 (b) {name}: {len(walls)} "
                                      f"drains")
             records[name] = {"drain_s": walls,
@@ -5291,6 +5370,358 @@ def federation_phase(smi: str, device: str = "cuda") -> tuple:
             "phase_s": time.monotonic() - t0}, place
 
 
+#: phase 23's pins: the JAX package's run of phase 12's store with the
+#: layer on (tests/torch_obs_pins.py, ``pin_record``)
+OBS_REFERENCE = json.loads("""
+{
+ "events": 1500,
+ "digest": "b88b925ca258f3857e2382d8ec54022d802675455249306db005b634e1597be3",
+ "kinds": {
+  "skipped": 1398,
+  "solver-admitted": 102
+ },
+ "cycles": 1,
+ "ledger": [
+  {
+   "cycle": 1,
+   "kind": "solver",
+   "breaker": "closed",
+   "phases": [
+    "apply",
+    "device_put",
+    "encode",
+    "export",
+    "export_scatter",
+    "export_walk",
+    "solve"
+   ],
+   "admitted": 102,
+   "parked": 1398,
+   "evicted": 0,
+   "rounds": 66,
+   "solverArm": "single",
+   "frameKind": "sync",
+   "frameBytes": 111640,
+   "frameReason": "first_sync",
+   "session": {
+    "removed_keys": 0,
+    "added_keys": 1500,
+    "dirty_workloads": 0,
+    "dirty_cqs": 0,
+    "events": 0,
+    "export_mode": "rebuild",
+    "export_dirty_rows": 0,
+    "export_rows": 1500
+   },
+   "device": {
+    "full_upload_bytes": 53073,
+    "compiles": 1
+   }
+  }
+ ],
+ "resident": {
+  "lean": [
+   1,
+   0
+  ]
+ },
+ "render_lines": 2574,
+ "render_digest": "5e450ad68690b0df91ab127767eae087671896237b15e2ecf86828d15d11f7a6",
+ "compiles": [
+  [
+   "lean",
+   "single",
+   "2048"
+  ]
+ ]
+}
+""")
+#: workloads of the TAS store phase 23's deep capture profiles (5
+#: rounds; a profile of 300 workloads' 19 rounds is ~180 MB of Chrome
+#: trace and took 28.5 s to write on an H100 host)
+OBS_CAPTURE_WORKLOADS = 60
+#: wall-clock metric families: a histogram's count is pinned, these
+#: gauges and counters are not (tests/torch_obs_pins.py)
+TIMED_HISTOGRAMS = (
+    "kueue_admission_attempt_duration_seconds",
+    "kueue_tpu_solver_cycle_duration_seconds",
+    "kueue_tpu_whatif_duration_seconds",
+    "kueue_tpu_solver_compile_seconds",
+    "kueue_tpu_solver_farm_grant_wait_seconds",
+    "kueue_multikueue_dispatch_score_ms",
+    "kueue_checkpoint_duration_seconds",
+)
+TIMED_SAMPLES = (
+    "kueue_cycle_phase_regression",
+    "kueue_cycle_phase_regression_ratio",
+    "kueue_tpu_solver_farm_wall_seconds_total",
+    "kueue_tpu_solver_hbm_bytes_in_use",
+    "kueue_tpu_solver_hbm_resident_bytes",
+    "kueue_tpu_solver_transfer_bytes_total",
+)
+
+
+def _obs_reset() -> None:
+    """The port's process-wide observability state back to its
+    defaults: recorder, ledger and SLO engine on and empty, metrics
+    cleared, devtel off."""
+    from kueue_oss_tpu_torch import metrics, obs
+
+    obs.recorder.clear()
+    obs.recorder.enabled = True
+    obs.cycle_ledger.clear()
+    obs.cycle_ledger.enabled = True
+    obs.slo_engine.reset()
+    obs.phase_regression.reset()
+    obs.device_telemetry.reset()
+    metrics.reset_all()
+
+
+def _obs_record(cycles: int, engine) -> dict:
+    """The run in ``OBS_REFERENCE``'s form."""
+    import hashlib
+    import re
+
+    from kueue_oss_tpu_torch import metrics, obs
+
+    rows = [(ev.kind, ev.workload, ev.cycle, ev.cluster_queue, ev.path,
+             ev.reason_slug, ev.breaker) for ev in obs.recorder.events()]
+    kinds: dict = {}
+    for r in rows:
+        kinds[r[0]] = kinds.get(r[0], 0) + 1
+    ledger, compiles = [], []
+    for r in obs.cycle_ledger.rows():
+        d = r.to_dict()
+        for k in ("seq", "ts", "durationS", "grantWaitMs"):
+            d.pop(k, None)
+        d["phases"] = sorted(d.get("phases", {}))
+        dev = dict(d.pop("device", {}) or {})
+        compiles += [[e["kernel"], e["arm"], e["bucket"]]
+                     for e in dev.pop("compile_events", [])]
+        for k in ("hbm_resident_bytes", "hbm_bytes_in_use"):
+            dev.pop(k, None)
+        if dev:
+            d["device"] = dev
+        ledger.append(d)
+    render = []
+    for line in metrics.registry.render().splitlines():
+        if not line or line.startswith("#"):
+            continue
+        name = re.match(r"[a-zA-Z_:][a-zA-Z0-9_:]*", line).group(0)
+        if any(name == f or name.startswith(f + "_")
+               for f in TIMED_HISTOGRAMS):
+            if not name.endswith("_count"):
+                continue
+        elif name in TIMED_SAMPLES or name == (
+                "kueue_tpu_solver_deep_captures_total"):
+            # the capture is this phase's own; the pins' run took none
+            continue
+        render.append(line)
+    return {"events": len(rows),
+            "digest": hashlib.sha256(json.dumps(rows).encode()).hexdigest(),
+            "kinds": dict(sorted(kinds.items())), "cycles": cycles,
+            "ledger": ledger,
+            "resident": {k: [int(d.full_uploads), int(d.delta_updates)]
+                         for k, d in sorted(engine._device_states.items())},
+            "render_lines": len(render),
+            "render_digest": hashlib.sha256(
+                "\n".join(render).encode()).hexdigest(),
+            "compiles": compiles}
+
+
+class _HostReads:
+    """Counts the reads of CUDA tensors back to the host (``.item()``,
+    ``.cpu()``, ``.tolist()``, ``bool`` / ``int`` / ``float`` /
+    ``index`` conversions) and ``torch.cuda.synchronize`` calls while
+    it is entered."""
+
+    _METHODS = ("item", "cpu", "tolist", "__bool__", "__int__",
+                "__float__", "__index__")
+
+    def __enter__(self):
+        import torch
+
+        self.count = 0
+        self._saved = {m: getattr(torch.Tensor, m) for m in self._METHODS}
+        for m, fn in self._saved.items():
+            def counted(t, *a, _fn=fn, **kw):
+                if t.is_cuda:
+                    self.count += 1
+                return _fn(t, *a, **kw)
+            setattr(torch.Tensor, m, counted)
+        self._sync = torch.cuda.synchronize
+
+        def sync(*a, **kw):
+            self.count += 1
+            return self._sync(*a, **kw)
+
+        torch.cuda.synchronize = sync
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+
+        for m, fn in self._saved.items():
+            setattr(torch.Tensor, m, fn)
+        torch.cuda.synchronize = self._sync
+        return False
+
+
+def observability_phase(smi: str, device: str = "cuda") -> tuple:
+    """Phase 23: phase 12's store through the scheduler with the layer
+    off and on (see the module docstring). Returns (report,
+    tas_place_sequential launches of the run with the layer on)."""
+    import os
+    import tempfile
+
+    import torch
+
+    from kueue_oss_tpu_torch import metrics, obs
+    from kueue_oss_tpu_torch.api import types
+    from kueue_oss_tpu_torch.config import DevTelConfig
+    from kueue_oss_tpu_torch.core.queue_manager import QueueManager
+    from kueue_oss_tpu_torch.core.store import Store
+    from kueue_oss_tpu_torch.debugger.profiling import (
+        Tracer,
+        attach_to_scheduler,
+    )
+    from kueue_oss_tpu_torch.obs.devtel import TRANSFER_DIRECTIONS
+    from kueue_oss_tpu_torch.scenarios import tas_drain_store
+    from kueue_oss_tpu_torch.scheduler.scheduler import Scheduler
+    from kueue_oss_tpu_torch.solver import cuda_relax, cuda_tas
+    from kueue_oss_tpu_torch.solver.engine import SolverEngine
+
+    def run(on: bool):
+        store = tas_drain_store(types, Store, n_workloads=STEPWISE_WORKLOADS)
+        sched = Scheduler(store, QueueManager(store), solver="auto",
+                          device=device)
+        engine = relax_off(sched._solver_engine())
+        _obs_reset()
+        tracer = capture_dir = None
+        tel = obs.device_telemetry
+        if on:
+            tracer = Tracer()
+            attach_to_scheduler(sched, tracer)
+            capture_dir = tempfile.mkdtemp()
+            tel.configure(DevTelConfig(
+                enabled=True, capture_enabled=True,
+                capture_use_profiler=True, capture_max_seconds=600.0,
+                capture_dir=capture_dir))
+        _reset_launches()
+        relax0 = cuda_relax.relax_lp.launches
+        cuda_tas.tas_place_sequential.steps = 0
+        _settle()
+        t0 = time.monotonic()
+        with _HostReads() as reads:
+            cycles = sched.run_until_quiet(now=0.0, tick=0.001)
+            torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        launches = {"tas_place_sequential":
+                    cuda_tas.tas_place_sequential.launches,
+                    "leaf_states": cuda_tas.leaf_states.launches,
+                    "fill_counts": cuda_tas.launch_counts["fill_counts"],
+                    "relax_lp": cuda_relax.relax_lp.launches - relax0}
+        rec = _obs_record(cycles, engine)
+        return sched, engine, tracer, reads.count, launches, wall, rec
+
+    t_phase = time.monotonic()
+    _, _, _, reads_off, launches_off, wall_off, rec_off = run(False)
+    sched, engine, tracer, reads_on, launches_on, wall_on, rec = run(True)
+    tel = obs.device_telemetry
+    try:
+        if (reads_on != reads_off or launches_on != launches_off
+                or launches_on["tas_place_sequential"] != 1
+                or launches_on["leaf_states"] or launches_on["fill_counts"]
+                or launches_on["relax_lp"]):
+            raise AssertionError(
+                f"phase 23: host reads {reads_off} off / {reads_on} on, "
+                f"launches {launches_off} off / {launches_on} on")
+        for key, want in OBS_REFERENCE.items():
+            if rec[key] != want:
+                raise AssertionError(
+                    f"phase 23: {key} {json.dumps(rec[key])[:2000]} != "
+                    f"the JAX pin {json.dumps(want)[:2000]}")
+        if rec_off["digest"] != rec["digest"]:
+            raise AssertionError("phase 23: the journal differs with the "
+                                 "tracer and devtel on")
+        # the transfer ledger is the drains' own device deltas
+        deltas: dict = {}
+        for row in obs.cycle_ledger.rows():
+            for name, n in (row.device or {}).items():
+                direction = TRANSFER_DIRECTIONS.get(name)
+                if direction is not None and n:
+                    deltas[direction] = deltas.get(direction, 0) + int(n)
+        transfer = dict(tel.transfer_bytes)
+        if transfer != deltas or not deltas.get("h2d"):
+            raise AssertionError(f"phase 23: transfer ledger {transfer} "
+                                 f"!= the drains' device deltas {deltas}")
+        index = str(torch.device(device).index or
+                    torch.cuda.current_device())
+        in_use = metrics.solver_hbm_bytes_in_use.value(index)
+        resident = metrics.solver_hbm_resident_bytes.value()
+        row = obs.cycle_ledger.last_row(obs.SOLVER_DRAIN)
+        if (in_use <= 0 or in_use < resident or resident <= 0
+                or row.device.get("hbm_bytes_in_use") != int(in_use)):
+            raise AssertionError(
+                f"phase 23: solver_hbm_bytes_in_use {in_use} (the CUDA "
+                f"allocator's), resident {resident}, ledger {row.device}")
+        spans = json.loads(tracer.chrome_trace())["traceEvents"]
+        drains = [ev["args"]["cycle"] for ev in spans
+                  if ev.get("name") == "solver_drain"]
+        if drains != [row.cycle] or not any(
+                ev.get("name") == "schedule" for ev in spans):
+            raise AssertionError(f"phase 23: solver_drain spans {drains}, "
+                                 f"ledger cycle {row.cycle}")
+        # one deep capture over a TAS drain of the same store cut to
+        # OBS_CAPTURE_WORKLOADS (a profile of the whole 1,500-workload
+        # run is ~640 MB of Chrome trace)
+        cstore = tas_drain_store(types, Store, n_workloads=OBS_CAPTURE_WORKLOADS)
+        cengine = relax_off(SolverEngine(cstore, QueueManager(cstore),
+                                         device=device))
+        t0 = time.monotonic()
+        if not tel.capture.trigger("manual", {"phase": 23}):
+            raise AssertionError("phase 23: the capture did not start")
+        try:
+            captured = cengine.drain(now=0.0)
+            torch.cuda.synchronize()
+        finally:
+            # never leave a profiler running past the drain
+            tel.capture.stop()
+        capture_s = time.monotonic() - t0
+        cap = tel.capture.status()["captures"][-1]
+        trace_path = cap.get("trace")
+        if not cap["profiler"] or not trace_path:
+            raise AssertionError(f"phase 23: capture {cap}")
+        with open(trace_path) as fh:
+            events = json.load(fh)["traceEvents"]
+        kernels = sorted({ev.get("name", "") for ev in events
+                          if ev.get("cat") == "kernel"})
+        placer = [k for k in kernels if "tas_place_kernel" in k]
+        if not placer or not captured.admitted:
+            raise AssertionError(f"phase 23: the capture's trace holds no "
+                                 f"tas_place_kernel: {kernels[:20]}")
+        out = {"wall_off_s": wall_off, "wall_on_s": wall_on,
+               "host_reads": reads_on, "launches": launches_on,
+               "events": rec["events"], "ledger_rows": len(rec["ledger"]),
+               "render_lines": rec["render_lines"],
+               "compiles": rec["compiles"],
+               "transfer_bytes": transfer,
+               "hbm_bytes_in_use": int(in_use),
+               "hbm_resident_bytes": int(resident),
+               "capture_s": capture_s, "capture_kernels": len(kernels),
+               "capture_placer": placer[0],
+               "capture_mb": round(os.path.getsize(trace_path) / 2**20, 3),
+               "phase_s": time.monotonic() - t_phase}
+    finally:
+        _obs_reset()
+    print(f"[observability] the journal ({out['events']} events), ledger, "
+          f"{out['render_lines']} deterministic metric lines and the "
+          f"compile events match the JAX pins; {reads_on} host reads and "
+          f"the same launches with the tracer and devtel off and on; the "
+          f"capture saw {placer[0]} ({smi}); " + json.dumps(out))
+    return out, launches_on["tas_place_sequential"]
+
+
 def main() -> int:
     import torch
 
@@ -5349,6 +5780,13 @@ def main() -> int:
         print("[timings] " + json.dumps({"federation": federation,
                                          "tas_place_sequential":
                                              federation_place}))
+        print(smi)
+        return 0
+
+    if sys.argv[1:] == ["--phase", "23"]:
+        # phase 23 alone: the observability layer
+        observability, _ = observability_phase(smi)
+        print("[timings] " + json.dumps({"observability": observability}))
         print(smi)
         return 0
 
@@ -5533,6 +5971,13 @@ def main() -> int:
     federation, federation_place = federation_phase(smi)
     relax_report["launches_by_path"]["federation"] = 0
     mark("22")
+
+    # 23. the observability layer: phase 12's store with the tracer and
+    # device telemetry off and on, held to the JAX pins; its relax_lp,
+    # leaf_states and fill_counts launches are checked there (0)
+    observability, obs_place = observability_phase(smi)
+    relax_report["launches_by_path"]["observability"] = 0
+    mark("23")
     # the fill's own path: phase 14's host placement with the fill gate
     # on; every other path launched no TAS kernel but its placer
     reports[2]["launches"] = host_fill
@@ -5559,7 +6004,8 @@ def main() -> int:
                                           dispatch_fills["node_failure"],
                                       "dispatch_delayed_tas":
                                           dispatch_fills["delayed_tas"],
-                                      "sidecar": 0, "federation": 0}
+                                      "sidecar": 0, "federation": 0,
+                                      "observability": 0}
     reports[0]["launches_by_path"] = {"tas_lean": leaf_launches,
                                       "tas_full": 0, "storm_full": 0,
                                       "fair_storm": fair_launches,
@@ -5577,7 +6023,8 @@ def main() -> int:
                                       "relax": relax_launches,
                                       "fullsweep": fullsweep_launches,
                                       "dispatch": 0, "sidecar": 0,
-                                      "federation": 0}
+                                      "federation": 0,
+                                      "observability": 0}
     # leaf_states is on no main path since fill_counts took the fill
     # (its launches on every path are 0, checked above)
     reports[0]["launches"] = sum(reports[0]["launches_by_path"].values())
@@ -5603,7 +6050,8 @@ def main() -> int:
                                       "fullsweep": fullsweep_launches,
                                       "dispatch": 0,
                                       "sidecar": sidecar_place,
-                                      "federation": federation_place}
+                                      "federation": federation_place,
+                                      "observability": obs_place}
 
     timings = {"setup_s": setup_s, "drain_s": drain_s,
                **{f"{k}_s": v for k, v in result.phases.items()},
@@ -5617,7 +6065,8 @@ def main() -> int:
                "streaming": stream_fleets, "streaming_serve": stream_serve,
                "perf_runner": perf, "whatif": whatif, "relax": relaxed,
                "fullsweep": fullsweep, "dispatch": dispatch,
-               "sidecar": sidecar, "federation": federation}
+               "sidecar": sidecar, "federation": federation,
+               "observability": observability}
     print("[phase seconds] " + json.dumps(
         {name: t - marks[i][1] for i, (name, t) in enumerate(marks[1:])}
         | {"total": marks[-1][1] - marks[0][1]}))

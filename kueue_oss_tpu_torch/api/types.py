@@ -218,6 +218,10 @@ class ClusterQueue:
     #: None selects every namespace
     namespace_selector: Optional[dict[str, str]] = None
 
+    def flavor_resources(self) -> list[FlavorResource]:
+        """All (flavor, resource) pairs this CQ defines quota for."""
+        return [key for key, _ in iter_quotas(self.resource_groups)]
+
     def checks_for_flavors(self, flavors) -> list[str]:
         """Effective admission checks for an assignment using
         ``flavors`` (plain checks always; strategy rules when onFlavors

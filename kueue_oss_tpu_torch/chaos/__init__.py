@@ -32,7 +32,7 @@ Copies from ``kueue_oss_tpu/chaos/__init__.py``:
 
 The mesh-fault injector waits for the multi-device arms (ROADMAP Queue A
 item 9), the crash-point injector for a persistence layer, and the
-campaign layer for the observability layer (item 13).
+campaign layer for the degradation ladder it drives (item 13b).
 """
 
 from __future__ import annotations

@@ -13,15 +13,14 @@ The port acts on the sections it has modules for: ``solver``
 ``federation`` (``federation.FarmScheduler.from_config``),
 ``streaming``, ``simulator``, ``resources`` (installed with
 ``core.workload_info.set_resources_config``), ``admissionFairSharing``
-(``core.afs.AfsManager``) and ``featureGates``. ``persistence``,
-``observability`` (its ``slo`` and ``devtel``) and ``resilience`` are
-carried as data: the persistence layer is ROADMAP Queue A item 14, the
-observability layer and the degradation ladder item 13. A switch that
-asks for what the port does not do raises, so no stated durability or
-alerting goes missing unseen: ``persistence.enabled``,
-``observability.devtel.enabled`` / ``captureEnabled`` and
-``observability.slo.alertWebhookUrl``. Switches that turn a layer off
-load (the port runs none of it). The fields of the multi-device arms
+(``core.afs.AfsManager``), ``observability`` (applied, as in the JAX
+package, by the caller's ``obs.configure(cfg.observability,
+capture_dir=cfg.persistence.dir)``) and ``featureGates``.
+``persistence`` and ``resilience`` are carried as data: the persistence
+layer is ROADMAP Queue A item 14, the degradation ladder item 13b. A
+switch that asks for what the port does not do raises, so no stated
+durability goes missing unseen: ``persistence.enabled``. Switches that
+turn a layer off load (the port runs none of it). The fields of the multi-device arms
 (``solver.mesh``, the pod-scale coordinator, ``simulator.mesh``) raise
 away from their defaults: Queue A item 9.
 """
@@ -233,7 +232,8 @@ class FederationConfig:
 @dataclass
 class ResilienceConfig:
     """Degradation-ladder knobs (the JAX package's resilience layer;
-    carried as data here: the ladder waits for ROADMAP Queue A item 13).
+    carried as data here: the ladder waits for ROADMAP Queue A item
+    13b).
 
     No reference analog — the reference has no explicit degraded-mode
     state machine; these govern the process-wide DegradationController
@@ -384,8 +384,8 @@ class StreamingConfig:
 
 @dataclass
 class SLOConfig:
-    """Queue-wait SLO objectives (the JAX package's obs/health.py;
-    carried as data here: ROADMAP Queue A item 13).
+    """Queue-wait SLO objectives (obs/health.py, applied by
+    ``obs.configure``).
 
     The SLI is time-to-admit: an admission is good when its
     creation→quota-reservation wait is within the threshold; alerts
@@ -414,17 +414,11 @@ class SLOConfig:
     #: stall one SLO evaluation
     alert_webhook_timeout_seconds: float = 2.0
 
-    def __post_init__(self) -> None:
-        if self.alert_webhook_url is not None:
-            raise NotImplementedError(
-                "SLOConfig.alert_webhook_url: the port sends no SLO "
-                "alerts yet, ROADMAP Queue A item 13")
-
 
 @dataclass
 class DevTelConfig:
-    """Device telemetry collector (the JAX package's obs/devtel.py;
-    carried as data here: ROADMAP Queue A item 13).
+    """Device telemetry collector (obs/devtel.py, applied by
+    ``obs.configure``).
 
     Off by default: every engine hook gates on ``enabled`` with a
     cheap attribute read, the bench telemetry scenario's overhead
@@ -437,8 +431,9 @@ class DevTelConfig:
     compile_accounting: bool = True
     #: unified solver_transfer_bytes_total{direction,arm,tenant} family
     transfer_ledger: bool = True
-    #: per-drain HBM watermark gauges (memory_stats() where available,
-    #: resident-problem byte bookkeeping as the portable fallback)
+    #: per-drain watermark gauges (the CUDA caching allocator's bytes
+    #: for the engine's device, and the resident-problem byte
+    #: bookkeeping)
     hbm_watermarks: bool = True
     #: tail-based deep capture on SLO burn / phase-regression triggers
     capture_enabled: bool = False
@@ -449,22 +444,15 @@ class DevTelConfig:
     capture_max_seconds: float = 5.0
     #: CooldownPolicy window between capture STARTS
     capture_cooldown_seconds: float = 300.0
-    #: bracket captures with a real jax.profiler trace (off by
-    #: default: the marker artifact alone is cheap and test-safe)
+    #: bracket captures with a torch.profiler session (off by default:
+    #: the marker artifact alone is cheap and test-safe)
     capture_use_profiler: bool = False
-
-    def __post_init__(self) -> None:
-        for name in ("enabled", "capture_enabled"):
-            if getattr(self, name):
-                raise NotImplementedError(
-                    f"DevTelConfig.{name}: the port has no device "
-                    f"telemetry yet, ROADMAP Queue A item 13")
 
 
 @dataclass
 class ObservabilityConfig:
-    """Cluster health layer switches (the JAX package's obs/; carried as
-    data here: ROADMAP Queue A item 13):
+    """Cluster health layer switches (obs/, applied by
+    ``obs.configure``):
     flight recorder, cycle ledger, histogram exemplars, SLO engine,
     device telemetry."""
 

@@ -21,14 +21,15 @@ workload must be reconciled again (None: none).
 Cut from the copy, since no slice of the port drives them: the
 ClusterQueue / LocalQueue stop policies, the PodsReady timeout and its
 requeuing strategy (``set_pods_ready``), the maximum execution time,
-the retention GC of finished and deactivated workloads, and the
-metrics (the port has no metrics layer).
+and the retention GC of finished and deactivated workloads (with the
+PodsReady path go its readiness-latency series).
 """
 
 from __future__ import annotations
 
 from typing import Optional
 
+from kueue_oss_tpu_torch import metrics
 from kueue_oss_tpu_torch.api.types import (
     AdmissionCheckState,
     CheckState,
@@ -138,4 +139,16 @@ class WorkloadReconciler:
                 wl.set_condition(WorkloadConditionType.ADMITTED, True,
                                  reason="Admitted", now=now)
                 self.store.update_workload(wl)
+                metrics.admitted_workload(cq_name, now - wl.creation_time)
+                qr = wl.condition(WorkloadConditionType.QUOTA_RESERVED)
+                if qr is not None:
+                    metrics.admission_checks_wait_time_seconds.observe(
+                        cq_name,
+                        value=max(now - qr.last_transition_time, 0.0))
+                    if metrics._lq_metrics_enabled():
+                        (metrics
+                         .local_queue_admission_checks_wait_time_seconds
+                         .observe(wl.queue_name, wl.namespace,
+                                  value=max(now - qr.last_transition_time,
+                                            0.0)))
         return False

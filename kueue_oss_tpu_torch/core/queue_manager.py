@@ -30,7 +30,9 @@ and its condition signals new pending work: the scheduler's threaded
 ``serve`` loop blocks in ``wait_for_pending`` as the reference's
 manager blocks the scheduler's Heads() on a sync.Cond.
 
-Cut from the copy: the metric dirty sets and pending totals.
+The metrics layer reads ``drain_dirty_pending_counts`` (pending counts
+of the queues changed since the last read) and each queue's
+``pending_totals`` (requests over heap and stale members).
 """
 
 from __future__ import annotations
@@ -73,9 +75,8 @@ def _order_key(info: WorkloadInfo) -> tuple:
 class ClusterQueuePendingQueue:
     """Heap + inadmissible parking for one ClusterQueue."""
 
-    _HEAP, _INADM = 1, 2
-
-    def __init__(self, name: str, strategy: str) -> None:
+    def __init__(self, name: str, strategy: str,
+                 on_change=None) -> None:
         self.name = name
         self.strategy = strategy
         self._heap: list[tuple[tuple, int, WorkloadInfo]] = []
@@ -85,28 +86,71 @@ class ClusterQueuePendingQueue:
         #: cycle at which inadmissible workloads were last re-queued
         self.queue_inadmissible_cycle = -1
         self.active = True
-        #: admission-fair-sharing rank (info -> decayed LQ usage), set by
-        #: the manager for UsageBasedAdmissionFairSharing CQs
+        #: called with the CQ name on any pending-count mutation (the
+        #: manager uses it to keep a dirty set so metric reporting is
+        #: O(changed CQs), not O(all CQs))
+        self._on_change = on_change or (lambda name: None)
+        #: admission-fair-sharing rank fn (info -> decayed LQ usage);
+        #: set by the manager for CQs with UsageBasedAdmissionFairSharing
         self.afs_key = None
         #: scheduling-equivalence classes known NoFit since the last
         #: capacity-freed flush (cluster_queue.go noFitSchedulingHashes)
         self.no_fit_hashes: set = set()
-        #: XOR over (key, heap|inadmissible) membership, updated O(1)
-        #: per transition (run_until_quiet's quiescence probe)
+        #: XOR accumulator over (key, heap|inadmissible) membership —
+        #: mutated O(1) on every queue transition so run_until_quiet can
+        #: detect quiescence without walking queue internals
         self.state_hash = 0
-        #: solver-managed mode: a flush marks parked entries stale
-        #: instead of re-heaping them
+        #: solver-managed mode: capacity-freed flushes mark parked
+        #: entries STALE instead of physically re-heaping them (the
+        #: eager flush is O(parked) per finish — at flood scale that is
+        #: millions of heap pushes per run). Stale entries are exported
+        #: to the solver as pending; the host path materializes them
+        #: (moves them back into the heap) before it ever schedules.
         self.lazy_flush = False
-        #: parked entries owed a retry since the latest flush
+        #: entries parked before the latest capacity-freed flush
+        #: (key -> info); they are schedulable-in-waiting, so they count
+        #: in pending_totals like heap members
         self._stale: dict[str, WorkloadInfo] = {}
+        #: per-resource request totals over heap + stale members,
+        #: maintained O(requests) per transition so the metrics flush
+        #: never sorts or walks the backlog
+        #: (cluster_queue_resource_pending gauges)
+        self.pending_totals: dict[str, int] = {}
+
+    _HEAP, _INADM = 1, 2
 
     def _hx(self, key: str, state: int) -> None:
         self.state_hash ^= hash((key, state))
 
+    def _tot(self, info: WorkloadInfo, sign: int) -> None:
+        for psr in info.total_requests:
+            for r, v in psr.requests.items():
+                nv = self.pending_totals.get(r, 0) + sign * v
+                if nv:
+                    self.pending_totals[r] = nv
+                else:
+                    self.pending_totals.pop(r, None)
+
+    def _stale_pop(self, key: str) -> None:
+        info = self._stale.pop(key, None)
+        if info is not None:
+            self._tot(info, -1)
+
+    def __len__(self) -> int:
+        return len(self._heap) + len(self.inadmissible)
+
+    @property
+    def pending_active(self) -> int:
+        return len(self._in_heap)
+
+    @property
+    def pending_inadmissible(self) -> int:
+        return len(self.inadmissible)
+
     def push(self, info: WorkloadInfo, check_no_fit: bool = False) -> None:
-        """Insert into the heap. With check_no_fit (the PushOrUpdate
-        path, cluster_queue.go:371) a BestEffortFIFO queue parks a
-        workload whose equivalence class is already known NoFit."""
+        """Insert into the heap. With check_no_fit (the PushOrUpdate path,
+        cluster_queue.go:371), a BestEffortFIFO queue parks workloads whose
+        scheduling-equivalence class is already known NoFit."""
         if (check_no_fit
                 and self.strategy == QueueingStrategy.BEST_EFFORT_FIFO
                 and info.key not in self._in_heap
@@ -116,75 +160,93 @@ class ClusterQueuePendingQueue:
             if info.key not in self.inadmissible:
                 self._hx(info.key, self._INADM)
             self.inadmissible[info.key] = info
-            self._stale.pop(info.key, None)  # updated shape: parked anew
+            self._stale_pop(info.key)  # updated shape => freshly parked
+            self._on_change(self.name)
             return
         if info.key in self.inadmissible:
             del self.inadmissible[info.key]
-            self._stale.pop(info.key, None)
+            self._stale_pop(info.key)
             self._hx(info.key, self._INADM)
         if info.key in self._in_heap:
-            self.delete(info.key)  # re-push with fresh ordering
+            # Re-push with fresh ordering (priority/timestamps may change).
+            self.delete(info.key)
         self._in_heap[info.key] = info
+        self._tot(info, +1)
         self._hx(info.key, self._HEAP)
-        heapq.heappush(self._heap, (_order_key(info), next(self._counter),
-                                    info))
+        heapq.heappush(self._heap, (_order_key(info), next(self._counter), info))
+        self._on_change(self.name)
 
     def pop_head(self) -> Optional[WorkloadInfo]:
         if self.afs_key is not None and self._in_heap:
-            # admission fair sharing: the entry whose LocalQueue has the
-            # lowest decayed usage, the heap order breaking ties; O(n),
-            # since usage decays between cycles
+            # Admission fair sharing: the head is the entry whose
+            # LocalQueue has the lowest decayed usage (KEP-4136); the
+            # static heap order is the tie-break. O(n) scan — usage decays
+            # between cycles, so the rank can't be baked into the heap.
             info = min(self._in_heap.values(),
                        key=lambda i: (self.afs_key(i), _order_key(i)))
             del self._in_heap[info.key]
+            self._tot(info, -1)
             self._hx(info.key, self._HEAP)
-            # this path never pops _heap: rebuild once dead tuples
-            # dominate (amortized O(1))
+            # The AFS path never pops _heap, so stale tuples would pile up
+            # forever; rebuild once they dominate (amortized O(1)).
             if len(self._heap) > 2 * len(self._in_heap):
                 self._heap = [(k, c, i) for k, c, i in self._heap
                               if self._in_heap.get(i.key) is i]
                 heapq.heapify(self._heap)
+            self._on_change(self.name)
             return info
         while self._heap:
             _, _, info = heapq.heappop(self._heap)
             if self._in_heap.get(info.key) is info:
                 del self._in_heap[info.key]
+                self._tot(info, -1)
                 self._hx(info.key, self._HEAP)
+                self._on_change(self.name)
                 return info
         return None
 
     def delete(self, key: str) -> None:
-        if self._in_heap.pop(key, None) is not None:
+        live = self._in_heap.pop(key, None)
+        if live is not None:
+            self._tot(live, -1)
             self._hx(key, self._HEAP)
+            self._on_change(self.name)
         if key in self.inadmissible:
             self._hx(key, self._INADM)
+            self._on_change(self.name)
         self.inadmissible.pop(key, None)
-        self._stale.pop(key, None)
+        self._stale_pop(key)
 
     def snapshot_order(self) -> list[WorkloadInfo]:
         """Heap contents in pop (rank) order, without consuming them."""
         return sorted(self._in_heap.values(), key=_order_key)
 
     def park(self, key: str) -> None:
-        """Move a heap entry to the inadmissible set (an external
-        decision). Re-parking a parked entry refreshes it: a stale entry
-        the solver retried and could not admit is owed no retry until
-        the next flush."""
+        """Move a heap entry to the inadmissible set (external decision).
+
+        Re-parking an already-parked entry refreshes it: a stale entry
+        the solver retried and could not admit is parked *again* (it is
+        no longer owed a retry until the next capacity-freed flush)."""
         info = self._in_heap.get(key)
         if info is not None:
             self.delete(key)
             self.inadmissible[key] = info
             self._hx(key, self._INADM)
+            self._on_change(self.name)
         elif key in self.inadmissible:
-            self._stale.pop(key, None)
+            self._stale_pop(key)
 
     def requeue_if_not_present(self, info: WorkloadInfo, reason: str,
                                pop_cycle: int = -1) -> bool:
-        """cluster_queue.go requeueIfNotPresent: StrictFIFO always goes
-        back to the heap; BestEffortFIFO parks a generically
-        inadmissible workload until a cohort event frees capacity, and
-        sends scheduling-affecting reasons, or a workload popped before
-        a flush that fired since, back to the heap."""
+        """Requeue semantics (reference: cluster_queue.go requeueIfNotPresent).
+
+        StrictFIFO always goes back to the heap (the head blocks the queue).
+        BestEffortFIFO parks generically-inadmissible workloads until an
+        event in the cohort frees capacity; scheduling-affecting reasons go
+        straight back to the heap. A capacity-freed flush that fired after
+        this workload was popped (queue_inadmissible_cycle >= pop_cycle)
+        also sends it to the heap, so mid-cycle events aren't lost.
+        """
         if info.key in self._in_heap or info.key in self.inadmissible:
             return False
         if (self.strategy == QueueingStrategy.STRICT_FIFO
@@ -195,33 +257,47 @@ class ClusterQueuePendingQueue:
             return True
         self.inadmissible[info.key] = info
         self._hx(info.key, self._INADM)
+        self._on_change(self.name)
         self._handle_inadmissible_hash(info)
         return False
 
     def _handle_inadmissible_hash(self, info: WorkloadInfo) -> None:
         """Record the parked workload's equivalence class as NoFit and
-        park equivalent heap entries with it (cluster_queue.go
-        handleInadmissibleHash, :559-575)."""
+        bulk-move equivalent heap entries to inadmissible, so the scheduler
+        never pays a nomination cycle for a shape it just rejected
+        (cluster_queue.go handleInadmissibleHash, :559-575)."""
         if (self.strategy != QueueingStrategy.BEST_EFFORT_FIFO
                 or not features.enabled("SchedulingEquivalenceHashing")):
             return
         h = info.scheduling_hash()
         self.no_fit_hashes.add(h)
-        for k in [k for k, i in self._in_heap.items()
-                  if i.scheduling_hash() == h]:
+        equivalent = [k for k, i in self._in_heap.items()
+                      if i.scheduling_hash() == h]
+        for k in equivalent:
             self.park(k)
 
     def queue_inadmissible(self, cycle: int) -> bool:
-        """Move every parked workload back into the heap; known-NoFit
-        classes reset (inadmissible_workloads.go:174). In lazy mode the
-        parked entries only become stale."""
+        """Move all parked workloads back into the heap. Known-NoFit
+        classes reset: freed capacity may fit them now
+        (inadmissible_workloads.go:174).
+
+        In solver-managed (lazy) mode the move is virtual: every parked
+        entry becomes STALE in O(parked) set construction — no heap
+        pushes. The solver exports stale entries as pending; the host
+        path materializes them first (materialize_stale)."""
         self.no_fit_hashes.clear()
         if self.lazy_flush:
             self.queue_inadmissible_cycle = cycle
             if not self.inadmissible:
                 return False
+            changed = False
             for k, info in self.inadmissible.items():
-                self._stale.setdefault(k, info)
+                if k not in self._stale:
+                    self._stale[k] = info
+                    self._tot(info, +1)  # schedulable-in-waiting again
+                    changed = True
+            if changed:
+                self._on_change(self.name)
             return True
         if not self.inadmissible:
             self.queue_inadmissible_cycle = cycle
@@ -229,26 +305,29 @@ class ClusterQueuePendingQueue:
         parked = list(self.inadmissible.values())
         self.inadmissible.clear()
         for info in parked:
-            self._stale.pop(info.key, None)
+            self._stale_pop(info.key)
             self._hx(info.key, self._INADM)
             self.push(info)
         self.queue_inadmissible_cycle = cycle
+        self._on_change(self.name)
         return True
 
     def stale_infos(self) -> list[WorkloadInfo]:
-        """Parked entries owed a retry since the last flush."""
+        """Parked entries owed a retry since the last capacity-freed
+        flush (lazy mode)."""
         return list(self._stale.values())
 
     def materialize_stale(self) -> bool:
-        """Physically re-heap the stale entries (host-path handoff)."""
+        """Physically re-heap stale entries (host-path handoff)."""
         if not self._stale:
             return False
         for k in list(self._stale):
             info = self.inadmissible.pop(k, None)
-            self._stale.pop(k, None)
+            self._stale_pop(k)
             if info is not None:
                 self._hx(k, self._INADM)
                 self.push(info)
+        self._on_change(self.name)
         return True
 
 
@@ -263,6 +342,8 @@ class QueueManager:
         self._mu = threading.RLock()
         self._cond = threading.Condition(self._mu)
         self.queues: dict[str, ClusterQueuePendingQueue] = {}
+        #: CQs whose pending counts changed since the last drain
+        self.dirty_cqs: set[str] = set()
         self.cycle = 0
         #: optional AfsManager (admission fair sharing, KEP-4136)
         self.afs = afs
@@ -323,7 +404,8 @@ class QueueManager:
         spec = self.store.cluster_queues[name]
         if name not in self.queues:
             self.queues[name] = ClusterQueuePendingQueue(
-                name, spec.queueing_strategy)
+                name, spec.queueing_strategy,
+                on_change=self.dirty_cqs.add)
             self.queues[name].lazy_flush = self.lazy_flush
         q = self.queues[name]
         q.strategy = spec.queueing_strategy
@@ -512,6 +594,26 @@ class QueueManager:
             for name, q in self.queues.items():
                 acc ^= hash((name, q.state_hash))
             return acc
+
+    def drain_dirty_pending_counts(self) -> dict[str, tuple[int, int]]:
+        """Pending counts for CQs that changed since the last drain —
+        O(changed CQs) so the scheduler's metric refresh stays off the
+        all-CQs path."""
+        with self._mu:
+            dirty, self.dirty_cqs = self.dirty_cqs, set()
+            out = {}
+            for name in dirty:
+                q = self.queues.get(name)
+                if q is not None:
+                    out[name] = (q.pending_active, q.pending_inadmissible)
+            return out
+
+    def pending_counts(self) -> dict[str, tuple[int, int]]:
+        with self._mu:
+            return {
+                name: (q.pending_active, q.pending_inadmissible)
+                for name, q in self.queues.items()
+            }
 
     # -- capacity-freed events ---------------------------------------------
 

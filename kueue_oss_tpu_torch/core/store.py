@@ -3,7 +3,8 @@ and commits to.
 
 A copy of ``kueue_oss_tpu/core/store.py`` with the same watch contract:
 writers emit ``(verb, kind, obj)`` events to subscribers (the queue
-manager). Cut from the copy: metrics (retained-finished gauges),
+manager). The write choke points keep the retained-finished gauges of
+the metrics registry (``_track_finished``). Cut from the copy:
 persistence hooks, ``clone``, the deletes of queues, priority classes
 and the conditional-write client path.
 """
@@ -48,6 +49,9 @@ class Store:
         self._admitted_infos: dict[str, object] = {}
         #: the requests-config generation the cache was built under
         self._info_cache_gen = -1
+        #: keys whose FINISHED transition was counted into the
+        #: retained-finished gauges (see _track_finished)
+        self._finished_counted: set[str] = set()
 
     # -- watch -------------------------------------------------------------
 
@@ -101,19 +105,47 @@ class Store:
         wl.resource_version += 1
         self.workloads[wl.key] = wl
         self._index_workload(wl)
+        self._track_finished(wl)
         self._emit("add", "Workload", wl)
 
     def update_workload(self, wl: Workload) -> None:
         wl.resource_version += 1
         self.workloads[wl.key] = wl
         self._index_workload(wl)
+        self._track_finished(wl)
         self._emit("update", "Workload", wl)
+
+    def _track_finished(self, wl: Workload) -> None:
+        """The retained-finished gauges count workloads whose FINISHED
+        condition is true and that still exist in the store; tracking
+        the transition at the write choke point keeps inc/dec balanced
+        whichever component set the condition."""
+        if wl.is_finished and wl.key not in self._finished_counted:
+            self._finished_counted.add(wl.key)
+            self._finished_gauges(wl, +1)
+
+    def _finished_gauges(self, wl: Workload, delta: int) -> None:
+        from kueue_oss_tpu_torch import metrics
+
+        cq = (wl.status.admission.cluster_queue
+              if wl.status.admission is not None
+              else self.cluster_queue_for(wl))
+        if cq:
+            metrics.finished_workloads_gauge.inc(cq, by=delta)
+            if metrics._lq_metrics_enabled():
+                metrics.local_queue_finished_workloads_gauge.inc(
+                    wl.queue_name, wl.namespace, by=delta)
 
     def delete_workload(self, key: str) -> Optional[Workload]:
         wl = self.workloads.pop(key, None)
         self._admitted.pop(key, None)
         self._admitted_infos.pop(key, None)
+        counted = key in self._finished_counted
+        self._finished_counted.discard(key)
         if wl is not None:
+            if counted:
+                # shed the retained-finished sample on any deletion path
+                self._finished_gauges(wl, -1)
             self._emit("delete", "Workload", wl)
         return wl
 

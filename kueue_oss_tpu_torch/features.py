@@ -50,6 +50,9 @@ _DEFAULTS: dict[str, bool] = {
     "QuotaCheckStrategy": True,        # flavor_assigner + solver export
     # TLS options validated by config.validate (beta, on)
     "TLSOptions": True,                # util/tlsconfig parse_tls_options
+    # the metrics registry (metrics/__init__.py)
+    "LocalQueueMetrics": True,         # local_queue_* metric series
+    "CustomMetricLabels": False,       # metrics custom label resolution
 }
 
 _lock = threading.Lock()

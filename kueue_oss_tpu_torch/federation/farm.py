@@ -38,12 +38,13 @@ ORDER, not parallelism. A body takes the sidecar's device lock
 (``service._DEVICE_LOCK``) inside the slot, never the other way round,
 and the wall charged is the body's, lock wait included.
 
-Cut from the copy: the metrics registry's farm series (the plain
-ledgers ``wall_by_tenant``, ``served``, ``throttled`` and the tenant
-ring carry the same totals), the degradation ladder's FEDERATION rung
-and the ``tracer`` span (the service's response carries the
-``farm_grant_wait`` span): the observability layer, ROADMAP Queue A
-item 13.
+The farm series of the metrics registry (requests, wall seconds,
+throttles, tenants, the grant-wait histogram) equal the plain ledgers
+``wall_by_tenant``, ``served``, ``throttled`` and the tenant ring, and
+with a ``tracer`` set every grant stamps a ``farm_grant_wait`` span on
+a per-tenant farm track (the service's response carries the same span
+to the client). Cut from the copy: the degradation ladder's FEDERATION
+rung (ROADMAP Queue A item 13b).
 """
 
 from __future__ import annotations
@@ -53,6 +54,8 @@ import threading
 import time
 from collections import deque
 from typing import Callable, Optional
+
+from kueue_oss_tpu_torch import metrics
 
 
 def _backpressure(tenant: str, why: str) -> tuple[dict, bytes]:
@@ -115,8 +118,11 @@ class FarmScheduler:
         self._cursor = 0
         self._deficit: dict[str, float] = {}
         self._busy = False
-        #: per-tenant ledgers (what the JAX package's metrics registry
-        #: also counts)
+        #: optional debugger.profiling.Tracer — when set, every grant
+        #: stamps a "farm_grant_wait" span on a per-tenant farm track
+        self.tracer = None
+        #: per-tenant ledgers (the metrics registry carries the same
+        #: totals)
         self.wall_by_tenant: dict[str, float] = {}
         self.served: dict[str, int] = {}
         self.throttled: dict[str, int] = {}
@@ -212,6 +218,7 @@ class FarmScheduler:
             self._queues[tenant] = deque()
             self._ring.append(tenant)
             self._deficit.setdefault(tenant, 0.0)
+            metrics.solver_farm_tenants.set(value=len(self._ring))
 
     def _grant_next_locked(self) -> None:
         """Pick the next winner by simulating the ring walk in closed
@@ -267,6 +274,8 @@ class FarmScheduler:
             self.wall_by_tenant[tenant] = (
                 self.wall_by_tenant.get(tenant, 0.0) + wall_s)
             self.served[tenant] = self.served.get(tenant, 0) + 1
+            # under the lock, so the series sums in the ledger's order
+            metrics.solver_farm_wall_seconds_total.inc(tenant, by=wall_s)
             self._grant_next_locked()
 
     # -- entry point -------------------------------------------------------
@@ -311,6 +320,16 @@ class FarmScheduler:
                 # granted in the race window: fall through and run
         wait_s = max(0.0, self._clock() - t_enq)
         _tls.grant_wait_s = wait_s
+        metrics.solver_farm_grant_wait_seconds.observe(tenant,
+                                                       value=wait_s)
+        tracer = self.tracer
+        if tracer is not None and getattr(tracer, "enabled", False):
+            dur_us = int(wait_s * 1e6)
+            now_us = int(tracer.clock() * 1e6)
+            tracer.add_span("farm_grant_wait", now_us - dur_us, dur_us,
+                            source=f"farm:{tenant or 'solver'}",
+                            tenant=tenant)
+        metrics.solver_farm_requests_total.inc(tenant)
         t0 = self._clock()
         try:
             out = fn()
@@ -321,6 +340,7 @@ class FarmScheduler:
     def _throttle_locked(self, tenant: str, why: str
                          ) -> tuple[dict, bytes]:
         self.throttled[tenant] = self.throttled.get(tenant, 0) + 1
+        metrics.solver_farm_throttled_total.inc(tenant)
         return _backpressure(tenant, why)
 
 

@@ -9,9 +9,11 @@ one batched what-if drain on the device (``sim/dispatch.py``) and
 nominates only the predicted-best worker, degrading to Incremental
 whenever the pricer cannot speak for a cluster.
 
-The port has no metrics layer, so ``WhatIfDispatcher`` keeps plain
-counters (``counts``: scored / deferred / fallback rounds) and the
-pricing times (``score_ms``), and records every exception the pricer
+``WhatIfDispatcher`` keeps plain counters (``counts``: scored /
+deferred / fallback rounds, equal to
+``kueue_multikueue_whatif_dispatch_total``) and the pricing times
+(``score_ms``, observed in ``kueue_multikueue_dispatch_score_ms``), and
+records every exception the pricer
 raised (``faults``: kind and message). A pricer fault still degrades
 to Incremental, as in the JAX package, so something is nominated
 while workers remain; but it is a fault, never a silent fallback: an
@@ -26,6 +28,7 @@ from __future__ import annotations
 import time
 from typing import Optional
 
+from kueue_oss_tpu_torch import metrics
 from kueue_oss_tpu_torch.api.types import Workload
 
 DISPATCHER_ALL_AT_ONCE = "AllAtOnce"
@@ -125,16 +128,19 @@ class WhatIfDispatcher:
         if nominated and started is not None:
             if now - started < self.round_timeout_s:
                 self.counts["deferred"] += 1
+                metrics.multikueue_whatif_dispatch_total.inc("deferred")
                 return []  # current round still racing
         best = self._price(wl, remaining, now)
         if best is None:
             self.counts["fallback"] += 1
+            metrics.multikueue_whatif_dispatch_total.inc("fallback")
             # keep the fallback's round clock coherent with ours
             picked = self._fallback.nominate(wl, remaining, now)
             if picked:
                 self._round_start[wl.key] = now
             return picked
         self.counts["scored"] += 1
+        metrics.multikueue_whatif_dispatch_total.inc("scored")
         self._round_start[wl.key] = now
         return [best]
 
@@ -159,6 +165,8 @@ class WhatIfDispatcher:
             return None
         finally:
             self.score_ms.append((time.monotonic() - t0) * 1e3)
+            metrics.multikueue_dispatch_score_ms.observe(
+                value=self.score_ms[-1])
         self.last_reports[wl.key] = report
         return report.best
 

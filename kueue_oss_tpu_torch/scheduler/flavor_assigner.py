@@ -12,8 +12,7 @@ admission. After the quota assignment, the podsets that
 (``_update_for_tas``: Fit places with the real usage, Preempt on an
 empty tree). Under QuotaCheckStrategy=IgnoreUndeclared (the
 Configuration's ``resources`` section) a resource that no resource
-group covers does not take part in the quota check. Cut from the copy:
-the decision recorder's ``skip_detail``.
+group covers does not take part in the quota check.
 """
 
 from __future__ import annotations
@@ -46,6 +45,7 @@ from kueue_oss_tpu_torch.tas.snapshot import TASPodSetRequest
 NO_FIT = 0
 PREEMPT = 1
 FIT = 2
+MODE_NAMES = {NO_FIT: "NoFit", PREEMPT: "Preempt", FIT: "Fit"}
 
 # preemptionMode — internal lattice (flavorassigner.go:429-437).
 P_NOFIT = 0
@@ -166,6 +166,16 @@ class Assignment:
             (rec.borrow for ps in self.podsets for rec in ps.flavors.values()),
             default=0,
         )
+
+    def skip_detail(self) -> dict:
+        """Structured no-fit explanation for the decision flight
+        recorder: the representative mode plus each podset's reason
+        list, verbatim."""
+        return {
+            "mode": MODE_NAMES[self.representative_mode()],
+            "podsets": {ps.name: list(ps.reasons)
+                        for ps in self.podsets if ps.reasons},
+        }
 
     def message(self) -> str:
         reasons = [r for ps in self.podsets for r in ps.reasons]

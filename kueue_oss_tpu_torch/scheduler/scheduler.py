@@ -57,8 +57,9 @@ Cut from the copy, each with its ROADMAP Queue A item:
   engine has no mesh or sidecar state that makes a drain unsupported and
   refuses a backlog shape only by raising ``UnsupportedProblem`` at
   export;
-- metrics, the decision recorder, the SLO engine, events, the cycle
-  ledger and persistence intents (the port has no observability layer);
+- events, logs and persistence intents (the decision recorder, the
+  metrics, the SLO feed and the cycle ledger are wired as in the JAX
+  scheduler: ``obs/``, ``metrics/``);
 - workload slicing, concurrent admission and MultiKueue orchestrated
   preemption: their gates (ElasticJobsViaWorkloadSlices,
   ConcurrentAdmission, MultiKueueOrchestratedPreemption) are off by
@@ -81,7 +82,7 @@ import time
 from dataclasses import dataclass, field
 from typing import Optional
 
-from kueue_oss_tpu_torch import features
+from kueue_oss_tpu_torch import features, metrics, obs
 from kueue_oss_tpu_torch import tas as tas_pkg
 from kueue_oss_tpu_torch.api.types import (
     Admission,
@@ -223,6 +224,15 @@ class Scheduler:
         self._host_s_per_adm: Optional[float] = None
         #: min-heap of (requeue_at, workload key) pending backoff expiry
         self._requeue_heap: list[tuple[float, str]] = []
+        #: CQs whose usage changed outside entry processing (evictions)
+        self._cycle_touched_cqs: set[str] = set()
+        #: per-cycle skip counts by bounded reason slug — feeds the
+        #: cycle ledger row (reset at each cycle start)
+        self._cycle_skip_slugs: dict[str, int] = {}
+        #: cq -> (lq, ns) label sets last reported, for gauge zero-fill
+        self._lq_reported: dict[str, set] = {}
+        #: evictions per workload key (keys the first-eviction counter)
+        self.evicted_total: dict[str, int] = {}
         #: in-flight preemption tracking (pkg/util/expectations)
         self.preemption_expectations = ExpectationsStore()
         #: the device drains and the fallbacks of this scheduler
@@ -242,18 +252,46 @@ class Scheduler:
         self.cycle_count += 1
         stats = CycleStats(cycle=self.cycle_count)
         self.queues.current_time = now  # AFS decay reference point
+        obs.slo_engine.advance(now)  # windows roll on idle cycles too
+        self._cycle_skip_slugs = {}
         self.requeue_due(now)
         self._run_second_pass(now)
 
         heads = self.queues.heads()
         stats.heads = len(heads)
         if not heads:
+            # still flush the gauges of CQs touched by out-of-cycle
+            # evictions or finishes; empty cycles record no ledger row
+            for cq_name, counts in (
+                    self.queues.drain_dirty_pending_counts().items()):
+                metrics.report_pending_workloads(cq_name, *counts)
+            if self._cycle_touched_cqs:
+                self._flush_metrics(
+                    build_snapshot(self.store, device=self.device),
+                    entries=[])
             return stats
 
+        # per-phase walls for the cycle ledger row (the Tracer's phase
+        # vocabulary, on perf_counter)
+        p0 = time.perf_counter()
         snapshot = build_snapshot(self.store, device=self.device)
-        entries, inadmissible = self._nominate(heads, snapshot, now)
-        stats.inadmissible = len(inadmissible)
+        t_snapshot = time.perf_counter() - p0
 
+        p1 = time.perf_counter()
+        entries, inadmissible = self._nominate(heads, snapshot, now)
+        t_nominate = time.perf_counter() - p1
+        stats.inadmissible = len(inadmissible)
+        for e in inadmissible:
+            # the nomination-stage rejection reason (inactive or missing
+            # CQ, namespace mismatch) answers "why is it still pending?"
+            self._cycle_skip_slugs["inadmissible"] = (
+                self._cycle_skip_slugs.get("inadmissible", 0) + 1)
+            obs.recorder.record(
+                obs.SKIPPED, e.info.key, cycle=self.cycle_count,
+                cluster_queue=e.info.cluster_queue,
+                reason=e.inadmissible_msg, reason_slug="inadmissible")
+
+        p2 = time.perf_counter()
         iterator = self._make_iterator(entries, snapshot)
         preempted_workloads: dict[str, WorkloadInfo] = {}
         while iterator.has_next():
@@ -265,6 +303,7 @@ class Scheduler:
                 self._requeue_and_update(e)
         for e in inadmissible:
             self._requeue_and_update(e)
+        t_entries = time.perf_counter() - p2
 
         stats.duration_s = time.monotonic() - start
         if stats.admitted:
@@ -272,7 +311,113 @@ class Scheduler:
             self._host_s_per_adm = (
                 per_adm if self._host_s_per_adm is None
                 else 0.7 * self._host_s_per_adm + 0.3 * per_adm)
+        result = (metrics.CycleResult.SUCCESS
+                  if stats.admitted or stats.preempted
+                  else metrics.CycleResult.INADMISSIBLE)
+        metrics.observe_admission_attempt(result, stats.duration_s)
+        p3 = time.perf_counter()
+        self._flush_metrics(snapshot, entries)
+        ledger = obs.cycle_ledger
+        if ledger.enabled:
+            ledger.record(
+                self.cycle_count, obs.HOST_CYCLE,
+                breaker=obs.breaker_state_name(),
+                duration_s=stats.duration_s,
+                phases={"snapshot": round(t_snapshot, 6),
+                        "nominate": round(t_nominate, 6),
+                        "entries": round(t_entries, 6),
+                        "flush": round(time.perf_counter() - p3, 6)},
+                heads=stats.heads, admitted=stats.admitted,
+                preempted=stats.preempted, skipped=stats.skipped,
+                inadmissible=stats.inadmissible,
+                skip_slugs=dict(self._cycle_skip_slugs))
         return stats
+
+    def _flush_metrics(self, snapshot: Snapshot,
+                       entries: list[Entry]) -> None:
+        for cq_name, counts in (
+                self.queues.drain_dirty_pending_counts().items()):
+            metrics.report_pending_workloads(cq_name, *counts)
+        touched = {e.info.cluster_queue for e in entries}
+        touched.update(self._cycle_touched_cqs)
+        self._cycle_touched_cqs.clear()
+        self._report_snapshot_metrics(snapshot, touched)
+
+    def _report_snapshot_metrics(self, snapshot: Snapshot,
+                                 touched: set[str]) -> None:
+        """Per-CQ usage / weighted-share gauges from the post-cycle
+        snapshot, limited to the CQs the cycle touched (reference: cache
+        usage reporting, metrics.go:733-830)."""
+        touched_cohorts: set = set()
+        for name in touched:
+            cq = snapshot.cluster_queues.get(name)
+            if cq is None:
+                continue
+            metrics.report_cluster_queue_usage(
+                cq.name, cq.node.usage, spec_frs=cq.spec.flavor_resources())
+            metrics.reserving_active_workloads.set(
+                cq.name, value=len(cq.workloads))
+            if self.enable_fair_sharing:
+                drs = cq.dominant_resource_share()
+                metrics.cluster_queue_weighted_share.set(
+                    cq.name, value=drs.rounded_weighted_share())
+            # per-LocalQueue usage / active gauges (local_queue_* series)
+            if metrics._lq_metrics_enabled():
+                by_lq: dict[tuple[str, str], dict] = {}
+                active_by_lq: dict[tuple[str, str], int] = {}
+                admitted_by_lq: dict[tuple[str, str], int] = {}
+                for info in cq.workloads.values():
+                    lqk = (info.obj.queue_name, info.obj.namespace)
+                    active_by_lq[lqk] = active_by_lq.get(lqk, 0) + 1
+                    if info.obj.is_admitted:
+                        admitted_by_lq[lqk] = admitted_by_lq.get(lqk, 0) + 1
+                    agg = by_lq.setdefault(lqk, {})
+                    for fr, q in info.usage().items():
+                        agg[fr] = agg.get(fr, 0) + q
+                # zero-fill LQ samples whose last workload left this CQ
+                prev = self._lq_reported.get(name, set())
+                stale = prev - set(active_by_lq)
+                for lq, ns in stale:
+                    metrics.local_queue_reserving_active_workloads.set(
+                        lq, ns, value=0)
+                    metrics.local_queue_admitted_active_workloads.set(
+                        lq, ns, value=0)
+                self._lq_reported[name] = set(active_by_lq)
+                for (lq, ns), agg in by_lq.items():
+                    metrics.local_queue_resource_usage.replace_prefix(
+                        (lq, ns), {fr: q for fr, q in agg.items()})
+                    metrics.local_queue_resource_reservation.replace_prefix(
+                        (lq, ns), {fr: q for fr, q in agg.items()})
+                for lq, ns in stale:
+                    metrics.local_queue_resource_usage.replace_prefix(
+                        (lq, ns), {})
+                    metrics.local_queue_resource_reservation.replace_prefix(
+                        (lq, ns), {})
+                for (lq, ns), n in active_by_lq.items():
+                    metrics.local_queue_reserving_active_workloads.set(
+                        lq, ns, value=n)
+                    metrics.local_queue_admitted_active_workloads.set(
+                        lq, ns, value=admitted_by_lq.get((lq, ns), 0))
+            # pending requested quantity per resource (kept by the queue)
+            q = self.queues.queues.get(name)
+            if q is not None:
+                metrics.cluster_queue_resource_pending.replace_prefix(
+                    (name,),
+                    {(r,): v for r, v in q.pending_totals.items()})
+            if cq.has_parent():
+                touched_cohorts.update(cq.path_parent_to_root())
+        # cohort subtree gauges (metrics.go cohort_subtree_*)
+        for node in touched_cohorts:
+            for (flavor, resource), v in node.node.subtree_quota.items():
+                metrics.cohort_subtree_quota.set(
+                    node.name, flavor, resource, value=v)
+            for (flavor, resource), v in node.node.usage.items():
+                metrics.cohort_subtree_resource_reservations.set(
+                    node.name, flavor, resource, value=v)
+            n_admitted = sum(
+                len(c.workloads) for c in node.subtree_cluster_queues())
+            metrics.cohort_subtree_admitted_active_workloads.set(
+                node.name, value=n_admitted)
 
     def _solver_engine(self):
         if self.solver is None:
@@ -496,10 +641,15 @@ class Scheduler:
             else:
                 self._drain_cost_ema = (0.7 * self._drain_cost_ema
                                         + 0.3 * per_wl)
-        except UnsupportedProblem:
+        except UnsupportedProblem as e:
             self.queues.materialize_stale_all()
             self._solver_drain_trigger = None
             self.solver_counts["unsupported"] += 1
+            obs.recorder.record(
+                obs.SOLVER_FALLBACK, obs.CYCLE_SCOPE,
+                cycle=self.cycle_count + 1, path=obs.SOLVER,
+                reason=str(e) or "problem shape unsupported on-device",
+                reason_slug="unsupported")
             return False
         except SolverUnavailable:
             # the backend cannot plan now: the round completes on the
@@ -525,6 +675,10 @@ class Scheduler:
         elif result.admitted:
             self._solver_arrival_mult = 1
         self._solver_drain_trigger = None
+        for key in result.admitted_keys:
+            wl = self.store.workloads.get(key)
+            if wl is not None and wl.status.admission is not None:
+                self._cycle_touched_cqs.add(wl.status.admission.cluster_queue)
         # progress = the plan changed something
         return bool(result.admitted or result.evicted)
 
@@ -810,6 +964,18 @@ class Scheduler:
     # Entry processing
     # ------------------------------------------------------------------
 
+    def _record_skip(self, e: Entry, slug: str,
+                     detail: Optional[dict] = None) -> None:
+        """Flight-recorder emission for a skipped entry: the bounded slug
+        feeds the per-reason counters, the free-form inadmissible_msg
+        survives verbatim."""
+        self._cycle_skip_slugs[slug] = (
+            self._cycle_skip_slugs.get(slug, 0) + 1)
+        obs.recorder.record(
+            obs.SKIPPED, e.info.key, cycle=self.cycle_count,
+            cluster_queue=e.info.cluster_queue,
+            reason=e.inadmissible_msg, reason_slug=slug, detail=detail)
+
     def _process_entry(self, e: Entry, snapshot: Snapshot,
                        preempted_workloads: dict[str, WorkloadInfo],
                        stats: CycleStats, now: float) -> None:
@@ -819,6 +985,8 @@ class Scheduler:
         mode = e.assignment.representative_mode()
         if mode == fa.NO_FIT:
             stats.skipped += 1
+            # the flavor assigner's no-fit reason is kept, not discarded
+            self._record_skip(e, "no_fit", detail=e.assignment.skip_detail())
             return
 
         if mode == fa.PREEMPT and not e.preemption_targets:
@@ -827,6 +995,7 @@ class Scheduler:
             # (scheduler.go reserveCapacityForUnreclaimablePreempt)
             cq.add_usage(self._quota_to_reserve(e, cq))
             stats.skipped += 1
+            self._record_skip(e, "no_candidates")
             return
 
         # one cohort-conflicting admission per cycle
@@ -836,6 +1005,7 @@ class Scheduler:
             e.inadmissible_msg = ("Workload has overlapping preemption "
                                   "targets with another workload")
             stats.skipped += 1
+            self._record_skip(e, "cohort_conflict")
             return
 
         # in-flight preemption guard (preemption.go:207-221)
@@ -848,6 +1018,7 @@ class Scheduler:
                 e.inadmissible_msg = ("Workload is waiting for previously "
                                       "issued preemptions")
                 stats.skipped += 1
+                self._record_skip(e, "pending_preemption")
                 return
 
         usage = e.assignment_usage()
@@ -857,6 +1028,7 @@ class Scheduler:
             e.inadmissible_msg = ("Workload no longer fits after "
                                   "processing another workload")
             stats.skipped += 1
+            self._record_skip(e, "lost_race")
             return
         for t in e.preemption_targets:
             preempted_workloads[t.info.key] = t.info
@@ -987,6 +1159,7 @@ class Scheduler:
         if wl is None:
             e.status = SKIPPED
             e.inadmissible_msg = "Workload vanished from the store"
+            self._record_skip(e, "vanished")
             return
         delay_tas = self._delays_topology(e)
         admission = Admission(
@@ -1026,8 +1199,47 @@ class Scheduler:
         else:
             wl.set_condition(WorkloadConditionType.ADMITTED, True,
                              reason="Admitted", now=now)
+            metrics.admitted_workload(e.info.cluster_queue,
+                                      now - wl.creation_time,
+                                      lq=wl.queue_name,
+                                      namespace=wl.namespace,
+                                      exemplar={
+                                          "cycle": self.cycle_count,
+                                          "workload": wl.key})
         self.store.update_workload(wl)
         e.status = ASSUMED
+        wait_s = max(now - wl.creation_time, 0.0)
+        metrics.quota_reserved_workload(e.info.cluster_queue, wait_s,
+                                        lq=wl.queue_name,
+                                        namespace=wl.namespace,
+                                        exemplar={
+                                            "cycle": self.cycle_count,
+                                            "workload": wl.key})
+        # queue-wait SLI: one time-to-admit observation per admission;
+        # the same wait rides the journal detail
+        pclass = obs.priority_class_of(self.store, wl)
+        obs.slo_engine.observe_admission(
+            e.info.cluster_queue, wait_s, priority=wl.priority,
+            priority_class=pclass, now=now,
+            cycle=self.cycle_count, workload=wl.key)
+        obs.recorder.record(
+            obs.ASSIGNED, wl.key, cycle=self.cycle_count,
+            cluster_queue=e.info.cluster_queue,
+            reason=f"Quota reserved in ClusterQueue {e.info.cluster_queue}",
+            detail={
+                "flavors": {psa.name: dict(psa.flavors)
+                            for psa in admission.podset_assignments},
+                "borrows": e.assignment.borrows(),
+                "admitted": wl.is_admitted,
+                "waitSeconds": round(wait_s, 3),
+                "priority": wl.priority,
+                "priorityClass": pclass,
+            })
+        # cohort subtree admission counters (metrics.go cohort_subtree_*)
+        if e.cq_snapshot is not None and e.cq_snapshot.has_parent():
+            for node in e.cq_snapshot.path_parent_to_root():
+                metrics.cohort_subtree_admitted_workloads_total.inc(
+                    node.name)
         if (self.queues.afs is not None
                 and cq_spec.admission_scope is not None
                 and cq_spec.admission_scope.admission_mode
@@ -1055,12 +1267,19 @@ class Scheduler:
                                f"{len(e.preemption_targets)} workload(s)")
         e.requeue_reason = RequeueReason.PENDING_PREEMPTION
         e.info.last_assignment = None
+        obs.recorder.record(
+            obs.NOMINATED, e.info.key, cycle=self.cycle_count,
+            cluster_queue=e.info.cluster_queue,
+            reason=e.inadmissible_msg, reason_slug="preempting",
+            detail={"targets": [t.info.key for t in e.preemption_targets]})
 
     def evict_workload(self, key: str, reason: str, message: str,
                        now: float, preemption_reason: str = "",
                        backoff_base_s: Optional[float] = None,
                        requeue: bool = True,
-                       underlying_cause: str = "") -> None:
+                       underlying_cause: str = "",
+                       decision_path: str = obs.HOST,
+                       decision_cycle: Optional[int] = None) -> None:
         """Evict and finalize through ``core.eviction.evict_workload``
         (one state machine for the host cycle, the drain's plan and the
         controllers), plus the scheduler's own books: the freed-capacity
@@ -1068,15 +1287,22 @@ class Scheduler:
         expectations. ``requeue=False`` skips the backoff requeue (the
         admission-check rejection and other deactivations);
         ``underlying_cause`` keys the eviction counter beside the
-        reason."""
+        reason. The eviction is journaled under ``decision_path`` and
+        ``decision_cycle`` (the drain's, for a plan's victims)."""
         out = eviction.evict_workload(
             self.store, self.queues, key, reason=reason, message=message,
             now=now, preemption_reason=preemption_reason,
             underlying_cause=underlying_cause,
-            backoff_base_s=backoff_base_s, requeue=requeue)
+            backoff_base_s=backoff_base_s, requeue=requeue,
+            path=decision_path,
+            cycle=(decision_cycle if decision_cycle is not None
+                   else self.cycle_count),
+            evicted_total=self.evicted_total)
         if out is None:
             return
-        wl, was_reserved = out
+        wl, was_reserved, cq = out
+        if cq:
+            self._cycle_touched_cqs.add(cq)
         if was_reserved:
             self._solver_freed_since_drain += 1
         rs = wl.status.requeue_state
@@ -1171,7 +1397,9 @@ class Scheduler:
             return
         if wl.is_quota_reserved:
             self._solver_freed_since_drain += 1
-        eviction.finish_workload(self.store, self.queues, key, now)
+        cq = eviction.finish_workload(self.store, self.queues, key, now)
+        if cq:
+            self._cycle_touched_cqs.add(cq)
 
     def _requeue_and_update(self, e: Entry) -> None:
         if (e.status != NOT_NOMINATED

@@ -82,19 +82,20 @@ per-entry host FlavorAssigner walk — the small-burst path and the
 micro-solve's parity oracle (``KUEUE_STREAM_MICROSOLVE=0`` forces it
 everywhere).
 
-The port has no observability layer. In place of the JAX package's
-stream metrics the admitter keeps ``counts`` under the same names
-(``stream_admitted_total``, ``stream_demotions_total`` by reason,
+The admitter keeps ``counts`` under the JAX package's stream metric
+names (``stream_admitted_total``, ``stream_demotions_total`` by reason,
 ``stream_microdrains_total`` by outcome, ``stream_eligible_fraction``,
 and ``stream_spec_solves_total``, which the scheduler's serve loop
-bumps). Cut from the copy: the flight-recorder fence events
-(``_fence_event``, ``_note_structural``), the cycle-ledger row
-(``_record_ledger``), the degradation-ladder reports, the persistence
-flush after a productive drain, the concurrent-admission variant
-fence (the port's Workload has no ``parent_workload``), and what nothing
-in the port sets or reads: the admitter's ``enabled`` switch (the
-scheduler's ``_streaming_on`` decides whether an admitter exists) and
-``MicroDrainResult``'s ``duration_s`` and ``commit_s`` walls.
+bumps), each equal to its series in the metrics registry. The
+flight recorder gets the fence events (``_fence_event``,
+``_note_structural``) and the streamed parkings; a productive
+micro-drain records a ``STREAM_DRAIN`` ledger row. Cut from the copy:
+the degradation-ladder reports (ROADMAP Queue A item 13b), the
+persistence flush after a productive drain, the concurrent-admission
+variant fence (the port's Workload has no ``parent_workload``), and what
+nothing in the port sets or reads: the admitter's ``enabled`` switch
+(the scheduler's ``_streaming_on`` decides whether an admitter exists)
+and ``MicroDrainResult``'s ``commit_s`` wall.
 """
 
 from __future__ import annotations
@@ -109,7 +110,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from kueue_oss_tpu_torch import features
+from kueue_oss_tpu_torch import features, metrics, obs
 from kueue_oss_tpu_torch.api.types import (
     FlavorFungibilityPolicy,
     QueueingStrategy,
@@ -135,6 +136,7 @@ class MicroDrainResult:
 
     admitted: int = 0
     parked: int = 0
+    duration_s: float = 0.0
     #: CQs skipped this drain because their subtree is contended, a
     #: sibling holds pending work, or an entry needs the full solve
     deferred_cqs: int = 0
@@ -143,6 +145,34 @@ class MicroDrainResult:
     micro_batch: int = 0
     micro_export_s: float = 0.0
     micro_solve_s: float = 0.0
+
+
+_FENCE_TEXT = {
+    "out_of_order": (
+        "demoted from the streaming fast path: the arrival sorts "
+        "before an admission already committed this window, so only "
+        "the full solve can honor batch priority order"),
+    "unsupported": (
+        "deferred to the full solve: workload shape outside the "
+        "streaming fast path (topology request, concurrent-admission "
+        "variant, or multi-podset flavor choice)"),
+    "flavor_witness_invalid": (
+        "demoted from the streaming fast path: an earlier-preference "
+        "flavor option stays reachable under its capacity ceiling, "
+        "so a capacity event could flip the batch oracle's pick"),
+    "headroom_exhausted": (
+        "demoted from the streaming fast path: the admission would "
+        "need borrowed capacity or overrun the reserved "
+        "nominal-headroom budget (borrowing is a full-solve-only "
+        "decision)"),
+    "borrow_capable": (
+        "deferred to the full solve: borrow-capable cohort subtree "
+        "with a member outside the streaming fast path"),
+    "ineligible": (
+        "deferred to the full solve: the ClusterQueue uses "
+        "preemption, AdmissionFairSharing, TAS flavors, or "
+        "non-default flavor fungibility"),
+}
 
 
 class StreamingAdmitter:
@@ -226,6 +256,9 @@ class StreamingAdmitter:
         #: newest merged-order key admitted per borrow-capable root
         #: this window (the cross-CQ out-of-order fence)
         self._root_floor: dict[str, tuple] = {}
+        #: structural fences already recorded to the flight recorder
+        #: this spec generation (explain support, one event per cause)
+        self._fence_noted: set[tuple[str, str]] = set()
         #: watch-driven drain support: the serve loop registers a
         #: notifier; _on_event signals it on every streamable arrival
         #: so micro-drain latency is event-bound, not tick-bound
@@ -272,6 +305,11 @@ class StreamingAdmitter:
                 self.counts[name] += by
             else:
                 self.counts[name][label] += by
+        series = getattr(metrics, name)
+        if label is None:
+            series.inc(by=float(by))
+        else:
+            series.inc(label, by=float(by))
 
     # -- event classification (the safety fence) ---------------------------
 
@@ -343,6 +381,7 @@ class StreamingAdmitter:
         self._members = {}
         self._eligible_cache = {}
         self._multi_flavor_cache = {}
+        self._fence_noted = set()
         #: the flavor-pick witness for this spec generation (static
         #: zero-usage ceilings the multi-flavor fence checks against)
         self._flavor_ceilings = self.engine.flavor_witness()
@@ -505,6 +544,7 @@ class StreamingAdmitter:
                 self.full_solve_pending = True
             self.count("stream_demotions_total", "spec_change")
             return result
+        t0 = time.perf_counter()
         pending = self.queues.cqs_with_pending()
         if not pending:
             self.count("stream_microdrains_total", "idle")
@@ -547,6 +587,7 @@ class StreamingAdmitter:
                 for name in names:
                     if not self._static_eligible(name):
                         result.deferred_cqs += 1
+                        self._note_structural(name, "ineligible")
                         continue
                     # single-flavor CQs may batch into the device
                     # micro-solve; multi-flavor picks stay on the
@@ -565,6 +606,8 @@ class StreamingAdmitter:
             if not self._root_merge_ok.get(root, False):
                 result.deferred_cqs += len(names)
                 self.count("stream_demotions_total", "borrow_capable")
+                for name in names:
+                    self._note_structural(name, "borrow_capable")
                 continue
             if not self._drain_root(root, names, now, result):
                 contended.add(root)  # demoted mid-walk
@@ -588,14 +631,18 @@ class StreamingAdmitter:
             if not self._drain_cq(name, root, now, result):
                 contended.add(root)  # demoted mid-walk
         if considered:
+            frac = max(0.0, 1.0 - result.deferred_cqs / considered)
             with self._mu:
-                self.counts["stream_eligible_fraction"] = max(
-                    0.0, 1.0 - result.deferred_cqs / considered)
+                self.counts["stream_eligible_fraction"] = frac
+            metrics.stream_eligible_fraction.set(value=frac)
+        result.duration_s = time.perf_counter() - t0
         self.count(
             "stream_microdrains_total",
             "admitted" if result.admitted else
             ("parked" if result.parked else
              ("deferred" if result.deferred_cqs else "idle")))
+        if result.admitted:
+            self._record_ledger(result)
         return result
 
     def _drain_cq(self, name: str, root: str, now: float,
@@ -633,18 +680,23 @@ class StreamingAdmitter:
                 # out-of-order arrival: the batch oracle would have
                 # sorted it before admissions already committed this
                 # window — demote before processing it
+                self._fence_event(info.key, name, "out_of_order")
                 self._contend(name, "out_of_order")
                 return False
             wl = self.store.workloads.get(info.key)
             if wl is None or wl.is_quota_reserved or not wl.active:
                 continue
             if any(ps.topology_request is not None for ps in wl.podsets):
+                self._fence_event(info.key, name, "unsupported",
+                                  {"check": "topology_request"})
                 self._contend(name, "unsupported")
                 return False
             if multi and len(wl.podsets) > 1:
                 # the flavor witness bounds single-podset picks only:
                 # grouped multi-podset assignment shares flavors in
                 # ways the per-resource ceilings don't model
+                self._fence_event(info.key, name, "unsupported",
+                                  {"check": "multi_flavor_multi_podset"})
                 self._contend(name, "unsupported")
                 return False
             fresh = WorkloadInfo(wl, cluster_queue=name)
@@ -656,6 +708,8 @@ class StreamingAdmitter:
             if mode == fa.FIT:
                 if multi and not self._pick_stable(
                         name, wl, cq_snap, snap, assignment):
+                    self._fence_event(
+                        info.key, name, "flavor_witness_invalid")
                     self._contend(name, "flavor_witness_invalid")
                     return False
                 self._commit(wl, name, fresh, assignment, now, result)
@@ -671,6 +725,13 @@ class StreamingAdmitter:
                 return True
             q.park(info.key)
             result.parked += 1
+            obs.recorder.record(
+                obs.SKIPPED, info.key, cycle=self._cycle(),
+                cluster_queue=name, path=obs.STREAM,
+                reason="parked inadmissible by the streaming fast "
+                       "path: no flavor option fits at current "
+                       "capacity",
+                reason_slug="stream_parked")
         return True
 
     def _drain_root(self, root: str, names: list[str], now: float,
@@ -715,6 +776,7 @@ class StreamingAdmitter:
                 # cross-CQ out-of-order arrival: the batch oracle
                 # would interleave it before an admission another
                 # member already committed this window
+                self._fence_event(info.key, name, "out_of_order")
                 self._contend(name, "out_of_order")
                 return False
             wl = self.store.workloads.get(info.key)
@@ -722,10 +784,14 @@ class StreamingAdmitter:
                 continue
             if any(ps.topology_request is not None
                    for ps in wl.podsets):
+                self._fence_event(info.key, name, "unsupported",
+                                  {"check": "topology_request"})
                 self._contend(name, "unsupported")
                 return False
             multi = self._cq_multi_flavor(name)
             if multi and len(wl.podsets) > 1:
+                self._fence_event(info.key, name, "unsupported",
+                                  {"check": "multi_flavor_multi_podset"})
                 self._contend(name, "unsupported")
                 return False
             fresh = WorkloadInfo(wl, cluster_queue=name)
@@ -741,10 +807,15 @@ class StreamingAdmitter:
                     # (or overrun the reserved budget): borrowing is
                     # a full-solve-only decision — fence the subtree
                     # until the next solve resolves it jointly
+                    self._fence_event(
+                        info.key, name, "headroom_exhausted",
+                        {"borrows": assignment.borrows()})
                     self._contend(name, "headroom_exhausted")
                     return False
                 if multi and not self._pick_stable(
                         name, wl, cq_snap, snap, assignment):
+                    self._fence_event(
+                        info.key, name, "flavor_witness_invalid")
                     self._contend(name, "flavor_witness_invalid")
                     return False
                 self._headroom_consume(name, assignment)
@@ -763,6 +834,13 @@ class StreamingAdmitter:
                 continue
             q.park(info.key)
             result.parked += 1
+            obs.recorder.record(
+                obs.SKIPPED, info.key, cycle=self._cycle(),
+                cluster_queue=name, path=obs.STREAM,
+                reason="parked inadmissible by the streaming fast "
+                       "path: no flavor option fits at current "
+                       "capacity",
+                reason_slug="stream_parked")
         return True
 
     # -- device micro-solve ------------------------------------------------
@@ -820,6 +898,7 @@ class StreamingAdmitter:
                     break
                 key = _order_key(info)
                 if floor is not None and key < floor:
+                    self._fence_event(info.key, name, "out_of_order")
                     self._contend(name, "out_of_order")
                     contended.add(root)
                     demoted = True
@@ -829,6 +908,8 @@ class StreamingAdmitter:
                     continue
                 if any(ps.topology_request is not None
                        for ps in wl.podsets):
+                    self._fence_event(info.key, name, "unsupported",
+                                      {"check": "topology_request"})
                     self._contend(name, "unsupported")
                     contended.add(root)
                     demoted = True
@@ -933,6 +1014,13 @@ class StreamingAdmitter:
                 continue
             q.park(key)
             result.parked += 1
+            obs.recorder.record(
+                obs.SKIPPED, key, cycle=self._cycle(),
+                cluster_queue=name, path=obs.STREAM,
+                reason="parked inadmissible by the streaming fast "
+                       "path: no flavor option fits at current "
+                       "capacity",
+                reason_slug="stream_parked")
 
     # -- wide-fence support: witness, headroom -----------------------------
 
@@ -1031,6 +1119,35 @@ class StreamingAdmitter:
         for fr, v in assignment.usage_quota.items():
             budget[fr] = max(0, budget.get(fr, 0) - v)
 
+    def _fence_event(self, key: str, cq: str, fence: str,
+                     detail: Optional[dict] = None) -> None:
+        """Flight-recorder trail: why a workload did not stream (which
+        fence demoted it)."""
+        d = {"fence": fence, "root": self._root_of.get(cq, f"cq:{cq}")}
+        if detail:
+            d.update(detail)
+        obs.recorder.record(
+            obs.SKIPPED, key, cycle=self._cycle(), cluster_queue=cq,
+            path=obs.STREAM, reason=_FENCE_TEXT.get(fence, fence),
+            reason_slug=f"stream_fence_{fence}", detail=d)
+
+    def _note_structural(self, name: str, fence: str) -> None:
+        """Record a structural (per-spec-generation) fence once per CQ
+        against its current queue head."""
+        if (name, fence) in self._fence_noted:
+            return
+        self._fence_noted.add((name, fence))
+        q = self.queues.queues.get(name)
+        if q is None or not q._in_heap:
+            return
+        head = min(q._in_heap.values(), key=_order_key)
+        self._fence_event(head.key, name, fence)
+
+    def _cycle(self) -> int:
+        sched = self.engine.scheduler
+        return (sched.cycle_count + 1 if sched is not None
+                else self.engine.drain_count + 1)
+
     def _commit(self, wl, name: str, info: WorkloadInfo, assignment,
                 now: float, result: MicroDrainResult) -> None:
         flavor_of: dict[str, str] = {}
@@ -1047,6 +1164,8 @@ class StreamingAdmitter:
         """Engine commit shared by the host-walk (assignment-decoded)
         and micro-solve (plan-decoded) paths."""
         drain_result = _EngineResultAdapter()
+        self.engine._drain_cycle = self._cycle()
+        self.engine.last_drain_arm = "stream"
         self._committing_thread = threading.get_ident()
         try:
             self.engine._commit_admission(
@@ -1062,6 +1181,25 @@ class StreamingAdmitter:
         result.admitted += drain_result.admitted
         result.admitted_keys.extend(drain_result.admitted_keys)
         self.count("stream_admitted_total", by=drain_result.admitted)
+
+    def _record_ledger(self, result: MicroDrainResult) -> None:
+        ledger = obs.cycle_ledger
+        if not ledger.enabled:
+            return
+        phases = {"stream": round(result.duration_s, 6)}
+        detail: dict = {"deferredCqs": result.deferred_cqs}
+        if result.micro_batch:
+            phases["micro_export"] = round(result.micro_export_s, 6)
+            phases["micro_solve"] = round(result.micro_solve_s, 6)
+            detail["microBatch"] = result.micro_batch
+        ledger.record(
+            self._cycle(), obs.STREAM_DRAIN,
+            breaker=obs.breaker_state_name(),
+            duration_s=result.duration_s,
+            phases=phases,
+            admitted=result.admitted, parked=result.parked,
+            solver_arm="stream",
+            detail=detail)
 
     def consume_full_solve_request(self) -> bool:
         """True at most once per spec-change fence: drain() observed a

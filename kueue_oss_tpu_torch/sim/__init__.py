@@ -16,10 +16,9 @@ Public surface:
   :func:`load_ladder` breaking-point sweep;
 - :class:`WhatIfReport` (report layer);
 - :func:`price_dispatch` (sim/dispatch.py): one batched lean drain
-  pricing every candidate cluster of a MultiKueue nomination.
-
-Not ported yet: journal replay (it reads the flight recorder's
-journals; the port has no observability layer).
+  pricing every candidate cluster of a MultiKueue nomination;
+- journal replay (sim/replay.py): a flight-recorder journal re-emitted
+  in virtual time, its per-cycle kind counts and baseline.
 """
 
 from kueue_oss_tpu_torch.sim.batch import (  # noqa: F401
@@ -47,6 +46,12 @@ from kueue_oss_tpu_torch.sim.engine import (  # noqa: F401
     WhatIfEngine,
     pending_backlog,
     simulate_trace,
+)
+from kueue_oss_tpu_torch.sim.replay import (  # noqa: F401
+    journal_baseline,
+    kind_counts_per_cycle,
+    load_events,
+    replay,
 )
 from kueue_oss_tpu_torch.sim.report import (  # noqa: F401
     WhatIfReport,

@@ -18,9 +18,8 @@ repeats of scenario 0). The FULL-kernel sweeps run the preemption drain
 budget's cap go to the relax tier (``solve_scenarios_relax``: the S
 scenarios' relaxed LPs in one launch of the relax kernel, then each
 scenario's rounding and exact repair), always reported per row and in
-the log. Cut from the copy: the scenario-axis mesh (ROADMAP Queue A
-item 9) and the ``metrics.whatif_*`` counters (the port has no metrics
-layer).
+the log and counted in ``metrics.whatif_retier_total``. Cut from the
+copy: the scenario-axis mesh (ROADMAP Queue A item 9).
 """
 
 from __future__ import annotations
@@ -32,6 +31,8 @@ from typing import Optional
 
 import numpy as np
 import torch
+
+from kueue_oss_tpu_torch import metrics
 
 from kueue_oss_tpu_torch.device import resolve_device
 from kueue_oss_tpu_torch.solver.kernels import (
@@ -428,6 +429,8 @@ class LaneBudget:
                 plan.chunks.append((start, w))
                 start += w
         if plan.relax_idx:
+            metrics.whatif_retier_total.inc(plan.retier_reason,
+                                            by=len(plan.relax_idx))
             log.warning(
                 "lane budget re-tiered %d/%d scenarios to the relax "
                 "LP (%s): indices %s (budget %d B, per-scenario %d B, "
@@ -575,6 +578,7 @@ def solve_scenarios_full(problem: SolverProblem, overlays: list[dict],
         chunk_widths.append(target_s)
         total_width += target_s
         reads += stats.syncs + 1
+        metrics.whatif_full_chunks_total.inc()
         chunk_stats.append({"width": target_s,
                             "seconds": time.monotonic() - t1,
                             "rounds": stats.rounds,

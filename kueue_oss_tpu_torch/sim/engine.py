@@ -26,9 +26,9 @@ sweep through the FULL preemption drain in lane-budgeted chunks
 state of sim/resident.py when the engine is built ``resident=True``.
 
 Everything is deterministic: same store, same specs, same seeds =>
-byte-identical ``WhatIfReport.canonical_json()``. Cut from the copy:
-the scenario-axis mesh (ROADMAP Queue A item 9) and the
-``metrics.whatif_*`` observations (the port has no metrics layer).
+byte-identical ``WhatIfReport.canonical_json()``. A run is observed
+in the ``metrics.whatif_*`` series. Cut from the copy: the
+scenario-axis mesh (ROADMAP Queue A item 9).
 """
 
 from __future__ import annotations
@@ -38,6 +38,7 @@ from typing import Optional
 
 import numpy as np
 
+from kueue_oss_tpu_torch import metrics
 from kueue_oss_tpu_torch.config.configuration import SimulatorConfig
 from kueue_oss_tpu_torch.core.store import Store
 from kueue_oss_tpu_torch.core.workload_info import WorkloadInfo
@@ -269,6 +270,7 @@ class WhatIfEngine:
                                  arrival_idx=arrival_idx)
                     for spec in specs]
         build_s = time.monotonic() - t0
+        metrics.whatif_duration_seconds.observe("build", value=build_s)
 
         if use_full:
             caps = full_caps(problem)
@@ -286,6 +288,11 @@ class WhatIfEngine:
             bucket_stats = {}
             n_dispatches = max(1, len(batch.chunks)
                                + (1 if batch.retier_idx else 0))
+            n_full = sum(1 for t in batch.tier if t == FULL_TIER)
+            metrics.whatif_scenarios_total.inc("full", by=n_full)
+            if len(specs) > n_full:
+                metrics.whatif_scenarios_total.inc(
+                    "relax", by=len(specs) - n_full)
             report.base["full_caps"] = {"g_max": caps[0],
                                         "h_max": caps[1],
                                         "p_max": caps[2]}
@@ -315,6 +322,13 @@ class WhatIfEngine:
                                         tensors=lean_tensors,
                                         pad_pow2=self.config.pad_pow2)
                 bucket_stats, n_dispatches = {}, 1
+        metrics.whatif_batches_total.inc(by=n_dispatches)
+        for b, n in bucket_stats.items():
+            metrics.whatif_round_buckets_total.inc(str(b), by=n)
+        metrics.whatif_scenarios_total.inc("batched", by=len(specs))
+        metrics.whatif_batch_width.observe(value=batch.batch_width)
+        metrics.whatif_duration_seconds.observe(
+            "solve", value=batch.solve_seconds)
 
         n_parity = (self.config.parity_scenarios
                     if parity is None else parity)
@@ -338,7 +352,13 @@ class WhatIfEngine:
                     problem, [overlays[i] for i in idx],
                     tensors=lean_tensors)
                 pr = check_parity(batch, seq, idx)
+            metrics.whatif_scenarios_total.inc("sequential",
+                                               by=len(idx))
             parity_s = time.monotonic() - t1
+            metrics.whatif_duration_seconds.observe(
+                "parity", value=parity_s)
+            if not pr.identical:
+                metrics.whatif_parity_failures_total.inc()
             report.parity = {"checked": pr.checked,
                              "identical": pr.identical,
                              "mismatches": pr.mismatches}
@@ -359,6 +379,7 @@ class WhatIfEngine:
                 batch.parked[i], batch.rounds[i], batch.usage[i],
                 now=now, **kw))
         report_s = time.monotonic() - t2
+        metrics.whatif_duration_seconds.observe("report", value=report_s)
         report.timing = {
             "build_seconds": round(build_s, 6),
             "solve_seconds": round(batch.solve_seconds, 6),
@@ -436,6 +457,7 @@ def simulate_trace(store: Store, schedule, spec: ScenarioSpec,
                     enable_fair_sharing=enable_fair_sharing,
                     solver=solver, timed_hooks=hooks, device=device)
     stats = sim.run()
+    metrics.whatif_scenarios_total.inc("trace")
     return {
         "name": spec.name,
         "spec": spec.to_dict(),

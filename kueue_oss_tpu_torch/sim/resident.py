@@ -24,8 +24,8 @@ unique rows and values of exactly the buffer's dtype; anything else
 raises, and a failed write heals through a full upload, counted in
 ``scatter_faults``. Every upload copies (``torch.tensor``), so a
 resident tensor never shares memory with the host copy the next diff
-reads. The sync kind is counted on the session (the JAX session also
-counts it in a metric; the port has no metrics layer). Steady-state
+reads. The sync kind is counted on the session and in
+``kueue_tpu_whatif_resident_syncs_total``. Steady-state
 sweep cost is overlays + solve, not upload + solve.
 """
 
@@ -36,6 +36,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from kueue_oss_tpu_torch import metrics
 from kueue_oss_tpu_torch.device import resolve_device
 from kueue_oss_tpu_torch.solver.full_kernels import (
     FULL_WL_FIELDS,
@@ -127,6 +128,7 @@ class ResidentSweep:
                                 pow2(max(1, problem.n_workloads)))
         host = host_tensors_full(problem)
         self.last_sync = self._sync(host, self.cache.spec_gen)
+        metrics.whatif_resident_syncs_total.inc(self.last_sync)
         self._spec_gen = self.cache.spec_gen
         self._host = host
         return problem, self._dev

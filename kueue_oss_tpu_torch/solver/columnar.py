@@ -164,8 +164,8 @@ class ColumnarStore:
         self._cq_frs_map: dict[str, set] = {}
         self._build_seq = 0
         self.exports = 0
-        #: exports handed back to the classic walk, by reason (the JAX
-        #: package counts them in a metric; the port has no metrics)
+        #: exports handed back to the classic walk, by reason (equal to
+        #: kueue_tpu_columnar_bailouts_total)
         self.bailouts: dict[str, int] = {}
         #: timing/mode statistics of the most recent export (the engine
         #: folds them into its export_walk / export_scatter phases)
@@ -704,6 +704,9 @@ class ColumnarStore:
         in ``bailouts`` and stamped into ``last_stats`` so the engine's
         export phase attributes the slower drain."""
         self.bailouts[reason] = self.bailouts.get(reason, 0) + 1
+        from kueue_oss_tpu_torch import metrics
+
+        metrics.columnar_bailouts_total.inc(reason)
         self.last_stats = {
             "mode": f"bailout:{reason}", "walk_s": walk_s,
             "scatter_s": time.perf_counter() - t0 - walk_s,

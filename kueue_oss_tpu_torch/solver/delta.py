@@ -849,6 +849,15 @@ class HostDeltaSession:
         self._fast_crc = crc & 0xFFFFFFFF
         return self._fast_crc
 
+    def last_sync_wire_bytes(self) -> int:
+        """Wire payload of the most recent full-sync state (the ledger's
+        byte count for a sync frame, as ``ProblemDelta.payload_bytes``
+        is for a delta)."""
+        if self._last is None:
+            return 0
+        return sum(int(getattr(a, "nbytes", 0))
+                   for a in self._last[0].values())
+
     def _drain_stats_fast(self, n_changed: int) -> dict:
         stats = {"removed_keys": 0, "added_keys": 0,
                  "fast_rows": n_changed}
@@ -1044,6 +1053,9 @@ class DeviceResidentProblem:
         #: bytes written into resident buffers in place (row updates
         #: and in-place full syncs)
         self.donated_update_bytes = 0
+        #: bytes of the resident buffers those in-place writes did not
+        #: copy (the JAX donation's avoided copies)
+        self.avoided_copy_bytes = 0
         self.full_upload_bytes = 0
         #: full syncs that rewrote the previous epoch's buffers in place
         self.donated_full_syncs = 0
@@ -1093,13 +1105,15 @@ class DeviceResidentProblem:
         kind = "full" if full else "lean"
         prev = self.tensors if self.kind == kind else None
         if prev is not None and self._donation_compatible(prev, host):
-            du = self.donated_update_bytes
+            du, ac = self.donated_update_bytes, self.avoided_copy_bytes
             try:
                 for old, new in zip(prev, host):
                     old.copy_(_host_tensor(new))
                     self.donated_update_bytes += int(np.asarray(new).nbytes)
+                    self.avoided_copy_bytes += int(
+                        old.numel() * old.element_size())
             except RuntimeError:
-                self.donated_update_bytes = du
+                self.donated_update_bytes, self.avoided_copy_bytes = du, ac
                 self.apply_faults += 1
             else:
                 self.donated_full_syncs += 1
@@ -1149,6 +1163,7 @@ class DeviceResidentProblem:
         index = torch.from_numpy(idx.astype(np.int64)).to(self.device)
         buf.index_copy_(0, index, src.to(self.device))
         self.donated_update_bytes += int(index.numel() * 8) + int(vals.nbytes)
+        self.avoided_copy_bytes += int(buf.numel() * buf.element_size())
 
     @staticmethod
     def _write_all(buf: torch.Tensor, arr: np.ndarray) -> None:

@@ -78,18 +78,29 @@ the JAX engine keeps it and stays on host cycles for good. Under a remote the se
 ``use_sessions`` is, frames carry the full crc ``state_checksum`` (the
 sidecar re-checks it), and the pad target and session interleave follow
 the sidecar's advertised mesh width (``meshutil.align_pad_target``).
-The sidecar's spans stay on ``remote.last_spans``.
 
-Cut from the copy: metrics, the obs recorder and cycle ledger, tracer
-spans, the import of the sidecar's spans and devtel's compile verdicts
-(the router keeps the legacy warm set): the observability layer,
-ROADMAP Queue A item 13; persistence intents and the degradation
-ladder; and the mesh arm (Queue A item 9: locally the pad target is the
-pow2 high-water mark and the interleave 1).
+Every drain is observed as in the JAX engine: a ``solver_drain`` span on
+the attached tracer (the scheduler's, via ``attach_to_scheduler``) with
+the sidecar's spans imported beside it under the drain's cycle id, the
+decision events (``SOLVER_ADMITTED``, ``solver_parked`` skips, the
+fallbacks and their slugs), the admission and solver series, the SLO
+feed, and one ``SOLVER_DRAIN`` ledger row with the engine's phases
+(export, export_walk, export_scatter, encode, device_put, solve, apply),
+the session frame and the resident state's per-drain byte deltas. With
+device telemetry on (``obs.devtel.collector``) its compile verdict per
+(kernel, arm, shape bucket) replaces the router's warm set, and each
+drain folds its transfer bytes and the CUDA allocator's watermark into
+the telemetry.
+
+Cut from the copy: persistence intents and the degradation ladder
+(ROADMAP Queue A items 14 and 13b); and the mesh arm (Queue A item 9:
+locally the pad target is the pow2 high-water mark and the interleave
+1).
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import time
 from dataclasses import dataclass, field
@@ -97,6 +108,7 @@ from typing import Optional
 
 import numpy as np
 
+from kueue_oss_tpu_torch import metrics, obs
 from kueue_oss_tpu_torch.api.types import (
     Admission,
     AdmissionCheckState,
@@ -111,6 +123,7 @@ from kueue_oss_tpu_torch.core.store import Store
 from kueue_oss_tpu_torch.core.workload_info import WorkloadInfo
 from kueue_oss_tpu_torch.device import resolve_device
 from kueue_oss_tpu_torch.native import BatchOracle
+from kueue_oss_tpu_torch.obs import devtel
 from kueue_oss_tpu_torch.scheduler.preemption import (
     _VARIANT_REASON,
     IN_CLUSTER_QUEUE,
@@ -154,6 +167,13 @@ _REASON_OF = {**_VARIANT_REASON, V_FAIR_SHARING: IN_COHORT_FAIR_SHARING}
 _DEVICE_COUNTERS = ("full_uploads", "delta_updates", "full_upload_bytes",
                     "donated_update_bytes", "donated_full_syncs",
                     "apply_faults")
+#: resident-state byte counters the ledger row and devtel read as
+#: per-drain deltas (the JAX engine's _device_totals)
+_DEVICE_TOTALS = ("donated_update_bytes", "avoided_copy_bytes",
+                  "full_upload_bytes", "donated_full_syncs")
+#: the engine's drain phases a SOLVER_DRAIN ledger row carries
+_LEDGER_PHASES = ("export", "export_walk", "export_scatter", "encode",
+                  "device_put")
 #: FULL drain lanes per round: up to the ClusterQueue count and this cap
 H_MAX_CAP = 1024
 #: the FULL drain's per-round search budget in lane x option x group
@@ -197,6 +217,11 @@ class DrainResult:
     #: oracle rejections and failed TAS placements (the JAX engine's
     #: solver_plan_fallbacks_total)
     plan_fallbacks: int = 0
+    #: wall seconds of the solve window (after the encode, through the
+    #: plan read-back and guard) and of the apply, as the JAX engine
+    #: times them for its histogram and ledger row
+    solver_time_s: float = 0.0
+    apply_time_s: float = 0.0
 
 
 class SolverEngine:
@@ -233,6 +258,12 @@ class SolverEngine:
         #: evictions (its freed-capacity and expectation books); None
         #: evicts through core/eviction.py directly
         self.scheduler = scheduler
+        #: per-workload eviction tally when there is no scheduler (the
+        #: JAX engine's stand-in evictor keeps it)
+        self._evicted_total: dict[str, int] = {}
+        #: attached tracer; None falls back to the scheduler's, so host
+        #: cycles and drains land in one ring
+        self.tracer = None
         #: fair sharing (KEP-1714): the DRS entry order and the fair
         #: preemption strategies, on the device (solver/fair_kernels.py)
         self.enable_fair_sharing = enable_fair_sharing
@@ -298,6 +329,11 @@ class SolverEngine:
                 ("served", "audit_match", "audit_diverged", "error"), 0),
             "solver_fallback_total": dict.fromkeys(
                 ("relax_error", "relax_disagreement"), 0)}
+
+    def _tracer(self):
+        if self.tracer is not None:
+            return self.tracer
+        return getattr(self.scheduler, "tracer", None)
 
     def needs_full_kernel(self, pending: dict[str, list[WorkloadInfo]]
                           ) -> bool:
@@ -417,37 +453,48 @@ class SolverEngine:
                              else self.drain_count)
         if self.remote is not None and not self.health.allow():
             self.remote_counts["solver_fallback_total"]["breaker_open"] += 1
+            metrics.solver_fallback_total.inc("breaker_open")
+            obs.recorder.record(
+                obs.SOLVER_FALLBACK, obs.CYCLE_SCOPE,
+                cycle=self._drain_cycle, path=obs.SOLVER,
+                reason="solver backend breaker is open (cooling down); "
+                       "admissions degrade to the host cycle",
+                reason_slug="breaker_open")
             raise SolverUnavailable(
                 "solver backend breaker is open (cooling down)")
-        # this drain holds the half-open probe slot
-        probe = self.remote is not None and self.health.state == HALF_OPEN
-        completed = False
-        if self.streaming is not None:
-            # mark which fences this solve's export can cover: events
-            # landing mid-solve keep their subtree fenced past
-            # note_full_solve (the solve never saw them)
-            self.streaming.note_solve_begin()
-        try:
-            result = self._drain(now, verify)
-            completed = True
-            return result
-        finally:
-            # prework of a drain that failed before its apply must never
-            # leak into the next drain (stale workload refs)
-            self._prework = None
-            if probe and self.health.state == HALF_OPEN:
-                # the probe recorded no outcome: free its slot
-                self.health.abandon_probe()
+        tracer = self._tracer()
+        with (tracer.span("solver_drain", cycle=self._drain_cycle)
+              if tracer is not None else contextlib.nullcontext()):
+            # this drain holds the half-open probe slot
+            probe = (self.remote is not None
+                     and self.health.state == HALF_OPEN)
+            completed = False
             if self.streaming is not None:
-                # full-solve boundary: the streaming fences reset
-                # against the post-solve store (a failed drain keeps
-                # them down — host fallback cycles are not a parity
-                # baseline — but must stop attributing events to the
-                # dead solve)
-                if completed:
-                    self.streaming.note_full_solve()
-                else:
-                    self.streaming.note_solve_abort()
+                # mark which fences this solve's export can cover:
+                # events landing mid-solve keep their subtree fenced
+                # past note_full_solve (the solve never saw them)
+                self.streaming.note_solve_begin()
+            try:
+                result = self._drain(now, verify)
+                completed = True
+                return result
+            finally:
+                # prework of a drain that failed before its apply must
+                # never leak into the next drain (stale workload refs)
+                self._prework = None
+                if probe and self.health.state == HALF_OPEN:
+                    # the probe recorded no outcome: free its slot
+                    self.health.abandon_probe()
+                if self.streaming is not None:
+                    # full-solve boundary: the streaming fences reset
+                    # against the post-solve store (a failed drain
+                    # keeps them down — host fallback cycles are not a
+                    # parity baseline — but must stop attributing
+                    # events to the dead solve)
+                    if completed:
+                        self.streaming.note_full_solve()
+                    else:
+                        self.streaming.note_solve_abort()
 
     def _drain(self, now: float, verify: bool) -> DrainResult:
         pending = self.pending_backlog()
@@ -468,6 +515,8 @@ class SolverEngine:
                             pow2(max(problem.n_workloads, self.pad_to)))
         problem = pad_workloads(problem, self._pad_target())
         problem, frame = self._session_encode("lean", problem, hint, result)
+        dev0 = self._device_totals()
+        ts = time.monotonic()
         if self.remote is not None:
             t0 = time.monotonic()
             admitted, opt, admit_round, parked, rounds, _usage = (
@@ -482,12 +531,102 @@ class SolverEngine:
             admitted, opt, admit_round, parked, rounds, _usage = (
                 self._local_solve(problem, frame, result, n_live))
         result.rounds = int(rounds)
+        result.solver_time_s = time.monotonic() - ts
+        metrics.solver_cycle_duration_seconds.observe(
+            "solve", value=result.solver_time_s)
 
         t1 = time.monotonic()
         self._apply_plan(problem, admitted, opt, admit_round, parked, now,
                          result, verify)
         result.phases["apply"] = time.monotonic() - t1
+        result.apply_time_s = result.phases["apply"]
+        metrics.solver_cycle_duration_seconds.observe(
+            "apply", value=result.apply_time_s)
+        self._ledger_record(
+            result, frame, "lean", dev0,
+            parked_n=int(np.asarray(
+                parked[:problem.n_workloads]).astype(bool).sum()))
         return result
+
+    # -- cycle ledger (obs/ledger.py) --------------------------------------
+
+    def _device_totals(self) -> dict:
+        """Cumulative resident-state byte counters over every resident
+        device state; the ledger records per-drain deltas of these."""
+        totals = dict.fromkeys(_DEVICE_TOTALS, 0)
+        for dev in self._device_states.values():
+            for k in totals:
+                totals[k] += int(getattr(dev, k, 0))
+        return totals
+
+    def _resident_bytes(self) -> int:
+        """Problem bytes held on the device now, over every resident
+        state — devtel's portable watermark."""
+        return sum(int(dev.resident_bytes())
+                   for dev in self._device_states.values())
+
+    def _ledger_record(self, result: DrainResult,
+                       frame: Optional[SessionFrame], kind: str,
+                       dev0: dict, parked_n: int) -> None:
+        """One solver ledger row per drain, keyed by the cycle id the
+        recorder's events carry: routing, the session frame's kind and
+        bytes, the resident state's per-drain byte deltas, and with
+        devtel on the drain's transfer, watermark and compile events."""
+        ledger = obs.cycle_ledger
+        dev1 = self._device_totals()
+        device = {k: dev1[k] - dev0.get(k, 0)
+                  for k in dev1 if dev1[k] - dev0.get(k, 0)}
+        arm = ("remote" if self.remote is not None
+               else (self.last_drain_arm or "single"))
+        tenant = getattr(self.remote, "tenant", "")
+        dtl = devtel.collector
+        if dtl.enabled:
+            # the transfer family and the watermark flow even with the
+            # ledger off
+            dtl.note_transfers(arm, tenant, device)
+            device.update(dtl.sample_residency(self._resident_bytes(),
+                                               self.device))
+            events = dtl.compiles.drain_events()
+            if events:
+                device["compiles"] = len(events)
+                device["compile_events"] = events
+            dtl.on_drain()
+        if not ledger.enabled:
+            return
+        frame_kind, frame_bytes, frame_reason, session = "legacy", 0, "", {}
+        if frame is not None:
+            session = dict(frame.stats or {})
+            if frame.delta is not None:
+                frame_kind = "delta"
+                frame_bytes = int(frame.delta.payload_bytes())
+            else:
+                frame_kind = "sync"
+                frame_reason = frame.full_reason or ""
+                sess_obj = self._delta_sessions.get(kind)
+                if sess_obj is not None:
+                    frame_bytes = sess_obj.last_sync_wire_bytes()
+        phases = {"solve": round(result.solver_time_s, 6),
+                  "apply": round(result.apply_time_s, 6)}
+        for k in _LEDGER_PHASES:
+            if k in result.phases:
+                phases[k] = round(result.phases[k], 6)
+        session.update(result.export_stats)
+        if tenant:
+            session["tenant"] = tenant
+        # the farm's grant wait for this drain's solve, echoed back by
+        # the sidecar (0 = dedicated / host / farm idle)
+        grant_wait_ms = float(getattr(self.remote, "last_grant_wait_ms",
+                                      0.0) or 0.0)
+        ledger.record(
+            self._drain_cycle, obs.SOLVER_DRAIN,
+            breaker=obs.breaker_state_name(),
+            duration_s=result.solver_time_s + result.apply_time_s,
+            phases=phases,
+            admitted=result.admitted, evicted=result.evicted,
+            parked=parked_n, rounds=result.rounds, solver_arm=arm,
+            frame_kind=frame_kind, frame_bytes=frame_bytes,
+            frame_reason=frame_reason, session=session,
+            grant_wait_ms=grant_wait_ms, device=device)
 
     # -- the lean solve's arms: relaxed LP, then the exact solve ----------
 
@@ -507,9 +646,14 @@ class SolverEngine:
     def _note_arm_wall(self, kind: str, arm: str, wall_s: float,
                        n_workloads: int) -> None:
         key = (kind, arm)
-        # devtel's compile verdicts (ROADMAP Queue A item 13) are cut: the
-        # legacy warm set decides
-        if key not in self._arm_warm:
+        dtl = devtel.collector
+        if dtl.enabled and dtl.compile_enabled:
+            # devtel's per-(kernel, arm, shape-bucket) verdict replaces
+            # the one-shot warm set: a warm arm solving at a new padded
+            # width is caught, and a warm arm's first sample is kept
+            if dtl.observe_solve(kind, arm, n_workloads, wall_s):
+                return
+        elif key not in self._arm_warm:
             # compile-tainted probe sample: discard it (the arm stays
             # unmeasured, so the router probes it once more, warm)
             self._arm_warm.add(key)
@@ -531,6 +675,7 @@ class SolverEngine:
                 return False
             self._relax_broken = False
             self._arm_warm.discard(("lean", "relax"))
+            devtel.collector.forget("lean", "relax")
         return True
 
     def _pick_relax_arm(self, n_live: int) -> bool:
@@ -554,14 +699,26 @@ class SolverEngine:
         self._arm_ema[("lean", "relax")] = e_relax * 0.98
         return False
 
-    def _note_relax_failure(self, slug: str) -> None:
-        """Demote the relaxed arm (fault or audit divergence): counted
-        and cooled down, never silent, never wedged open."""
+    def _note_relax_failure(self, e: Optional[BaseException],
+                            slug: str) -> None:
+        """Demote the relaxed arm (fault or audit divergence): counted,
+        journaled and cooled down, never silent, never wedged open."""
+        reason = ("relaxed-arm plan diverged from the exact kernel on "
+                  "an audited drain; arm demoted (exact plan emitted)"
+                  if slug == "relax_disagreement" else
+                  f"relaxed solver arm fault ({e!r}); falling back to "
+                  "the exact arms")
         self._relax_broken = True
         self._relax_broken_at = time.monotonic()
         self._arm_ema.pop(("lean", "relax"), None)
         self._arm_warm.discard(("lean", "relax"))
+        devtel.collector.forget("lean", "relax")
         self.relax_counts["solver_fallback_total"][slug] += 1
+        metrics.solver_fallback_total.inc(slug)
+        obs.recorder.record(
+            obs.SOLVER_FALLBACK, obs.CYCLE_SCOPE,
+            cycle=self._drain_cycle, path=obs.SOLVER,
+            reason=reason, reason_slug=slug)
 
     def _relax_solve(self, problem: SolverProblem,
                      frame: Optional[SessionFrame], result: DrainResult,
@@ -586,12 +743,16 @@ class SolverEngine:
                 threshold=self.relax_support_threshold,
                 pad_to=self._relax_pad_hwm, device=self.device)
             wall = time.monotonic() - t0
-        except Exception:
-            self._note_relax_failure("relax_error")
+        except Exception as e:
+            self._note_relax_failure(e, "relax_error")
             counts["error"] += 1
+            metrics.solver_relax_drains_total.inc("error")
             return None
         self._relax_pad_hwm = max(self._relax_pad_hwm, stats.support_padded)
         self.last_relax_stats = stats
+        if stats.live:
+            metrics.solver_relax_support_fraction.observe(
+                value=stats.support / stats.live)
         result.phases["relax_lp"] = stats.lp_seconds
         result.phases["relax_repair"] = stats.repair_seconds
         self._note_arm_wall("lean", "relax", wall, n_live)
@@ -601,9 +762,11 @@ class SolverEngine:
             self.last_relax_audit = agree
             if agree:
                 counts["audit_match"] += 1
+                metrics.solver_relax_drains_total.inc("audit_match")
             else:
                 counts["audit_diverged"] += 1
-                self._note_relax_failure("relax_disagreement")
+                metrics.solver_relax_drains_total.inc("audit_diverged")
+                self._note_relax_failure(None, "relax_disagreement")
             return exact
         # relax-SERVED drain: keep an existing exact-arm resident state
         # current with the frame's delta, so the next exact solve does
@@ -620,6 +783,7 @@ class SolverEngine:
                 self._device_states.pop("lean", None)
         result.phases["solve"] = wall
         counts["served"] += 1
+        metrics.solver_relax_drains_total.inc("served")
         self.last_drain_arm = "relax"
         return out
 
@@ -638,6 +802,7 @@ class SolverEngine:
         result.phases["solve"] = t2 - t1
         self._note_arm_wall("lean", "single", t2 - t0, n_live)
         self.last_drain_arm = "single"
+        metrics.solver_mesh_devices.set(value=0)
         return out
 
     # -- delta sessions and resident device state --------------------------
@@ -695,6 +860,8 @@ class SolverEngine:
         slotted, frame = sess.advance(problem, hint=hint)
         result.phases["encode"] = time.monotonic() - t0
         result.frame = frame
+        if frame is not None and frame.full_reason == "interleave_migration":
+            metrics.solver_resync_total.inc("interleave_migration")
         return slotted, frame
 
     def _local_tensors(self, problem: SolverProblem,
@@ -769,9 +936,13 @@ class SolverEngine:
         pre, self._prework = (self._prework or {}), None
         return pre
 
-    def _backend_fault(self) -> None:
+    def _backend_fault(self, reason: str) -> None:
         self.health.record_failure()
         self.remote_counts["solver_fallback_total"]["backend_error"] += 1
+        metrics.solver_fallback_total.inc("backend_error")
+        obs.recorder.record(
+            obs.SOLVER_FALLBACK, obs.CYCLE_SCOPE, cycle=self._drain_cycle,
+            path=obs.SOLVER, reason=reason, reason_slug="backend_error")
 
     def _remote_solve(self, problem: SolverProblem, expect: int, **kw):
         """One remote solve with breaker accounting: any transport or
@@ -782,19 +953,56 @@ class SolverEngine:
             self.remote.trace_cycle = self._drain_cycle
         try:
             out = tuple(self.remote.solve(problem, **kw))
-        except SolverUnavailable:
-            self._backend_fault()
+        except SolverUnavailable as e:
+            self._backend_fault(str(e))
             raise
         except (OSError, TimeoutError) as e:
             # custom remote stubs may surface raw socket errors
-            self._backend_fault()
+            self._backend_fault(repr(e))
             raise SolverUnavailable(f"solver backend fault: {e!r}") from e
         if len(out) != expect:
-            self._backend_fault()
+            self._backend_fault(
+                f"backend returned {len(out)} arrays, expected {expect}")
             raise SolverUnavailable(
                 f"solver backend returned {len(out)} arrays, "
                 f"expected {expect}")
+        self._import_sidecar_spans()
         return out
+
+    def _import_sidecar_spans(self) -> None:
+        """Merge the sidecar's solve spans (returned in the response
+        header) into the host tracer. The two processes have unrelated
+        perf_counter origins, so spans are end-aligned at the moment the
+        response arrived: the duration and the shared cycle id are the
+        signal, the sub-millisecond start skew is not."""
+        tracer = self._tracer()
+        spans = getattr(self.remote, "last_spans", None)
+        if tracer is None or not spans:
+            return
+        now_us = int(tracer.clock() * 1e6)
+        tenant = str(getattr(self.remote, "tenant", "") or "")
+        for sp in spans:
+            # best-effort diagnostics: a garbled entry must not abort
+            # the drain (the plan itself is guarded separately)
+            try:
+                dur_us = int(sp.get("dur_us", 0))
+                # a span that ended before the response (the farm's
+                # grant wait precedes the solve) declares the gap
+                skew_us = int(sp.get("end_skew_us", 0))
+                args = {str(k): v
+                        for k, v in dict(sp.get("args") or {}).items()
+                        if k not in ("name", "ts_us", "dur_us", "tid",
+                                     "source")}
+                args.setdefault("cycle", self._drain_cycle)
+                src = str(dict(sp.get("args") or {}).get("source", "")
+                          or f"sidecar:{tenant or 'solver'}")
+                tracer.add_span(str(sp.get("name", "sidecar_solve")),
+                                now_us - skew_us - dur_us, dur_us,
+                                source=src, **args)
+                if tenant:
+                    tracer.track(src, tenant=tenant)
+            except Exception:
+                continue
 
     def _check_plan(self, problem: SolverProblem, admitted, opt,
                     admit_round, parked, victim_reason=None, rounds=None,
@@ -812,9 +1020,16 @@ class SolverEngine:
                 self.health.record_success()
             return
         self.remote_counts["solver_plan_rejected_total"] += 1
+        metrics.solver_plan_rejected_total.inc()
         if self.remote is not None:
             self.health.record_failure()
             self.remote_counts["solver_fallback_total"]["plan_rejected"] += 1
+            metrics.solver_fallback_total.inc("plan_rejected")
+        obs.recorder.record(
+            obs.SOLVER_FALLBACK, obs.CYCLE_SCOPE, cycle=self._drain_cycle,
+            path=obs.SOLVER,
+            reason=f"divergent solver plan rejected: {fault}",
+            reason_slug="plan_rejected")
         raise SolverUnavailable(f"divergent solver plan rejected: {fault}")
 
     @staticmethod
@@ -927,6 +1142,14 @@ class SolverEngine:
                 ta = placements.get(info.key)
                 if ta is None:
                     result.plan_fallbacks += 1
+                    metrics.solver_plan_fallbacks_total.inc()
+                    obs.recorder.record(
+                        obs.SOLVER_FALLBACK, info.key,
+                        cycle=self._drain_cycle, cluster_queue=cq_name,
+                        path=obs.SOLVER,
+                        reason="device TAS placement failed; workload "
+                               "stays queued for the host mop-up cycle",
+                        reason_slug="tas_place_failed")
                     continue  # stays queued for the host path
                 topo_of[info.key] = ta
             kept.append(cand)
@@ -991,6 +1214,7 @@ class SolverEngine:
                           snapshot=pre.get("snapshot"))
         for passed, (wl, cq_name, flavor, info, _) in zip(ok, candidates):
             if not passed:
+                self._record_rejected(wl, cq_name)
                 continue  # stays queued for the host cycle
             flavor_of = {r: flavor for psr in info.total_requests
                          for r in psr.requests}
@@ -1001,6 +1225,24 @@ class SolverEngine:
         for w in np.nonzero(parked[:problem.n_workloads])[0]:
             cq_name = problem.cq_names[problem.wl_cqid[w]]
             self.queues.queues[cq_name].park(problem.wl_keys[w])
+            self._record_parked(problem.wl_keys[w], cq_name)
+
+    def _record_rejected(self, wl, cq_name: str) -> None:
+        metrics.solver_plan_fallbacks_total.inc()
+        obs.recorder.record(
+            obs.SOLVER_FALLBACK, wl.key, cycle=self._drain_cycle,
+            cluster_queue=cq_name, path=obs.SOLVER,
+            reason="host oracle re-check rejected the plan entry;"
+                   " workload stays queued for the host cycle",
+            reason_slug="oracle_rejected")
+
+    def _record_parked(self, key: str, cq_name: str) -> None:
+        obs.recorder.record(
+            obs.SKIPPED, key, cycle=self._drain_cycle,
+            cluster_queue=cq_name, path=obs.SOLVER,
+            reason="parked inadmissible by the solver plan: no flavor "
+                   "option fits at current capacity",
+            reason_slug="solver_parked")
 
     # -- the FULL (preemption / multi-resource-group) drain ----------------
 
@@ -1086,10 +1328,13 @@ class SolverEngine:
         g_max = int(problem.cq_ngroups.max())
         h_max, p_max = self._size_caps(problem)
         afs = bool(problem.cq_afs.any())
+        n_live = problem.n_workloads
         self._pad_hwm = max(self._pad_hwm,
                             pow2(max(problem.n_workloads, self.pad_to)))
         problem = pad_workloads(problem, self._pad_target())
         problem, frame = self._session_encode("full", problem, hint, result)
+        dev0 = self._device_totals()
+        ts = time.monotonic()
         if self.remote is not None:
             t0 = time.monotonic()
             (admitted, opt, admit_round, parked, rounds, _usage, _wl_usage,
@@ -1103,6 +1348,7 @@ class SolverEngine:
             result.phases["solve"] = time.monotonic() - t0
             self.last_drain_arm = "remote"
         else:
+            ta = time.monotonic()
             tensors = self._local_tensors(problem, frame, True, result)
             t0 = time.monotonic()
             stats = FullDrainStats()
@@ -1115,12 +1361,27 @@ class SolverEngine:
             stats.syncs += 1  # the plan's read-back
             result.full_stats = stats
             result.phases["solve"] = time.monotonic() - t0
+            self._note_arm_wall("full", "single", time.monotonic() - ta,
+                                n_live)
+            self.last_drain_arm = "single"
+            metrics.solver_mesh_devices.set(value=0)
         result.rounds = int(rounds)
+        result.solver_time_s = time.monotonic() - ts
+        metrics.solver_cycle_duration_seconds.observe(
+            "solve", value=result.solver_time_s)
 
         t1 = time.monotonic()
         self._apply_full_plan(problem, admitted, opt, admit_round, parked,
                               victim_reason, now, result, verify)
         result.phases["apply"] = time.monotonic() - t1
+        result.apply_time_s = result.phases["apply"]
+        metrics.solver_cycle_duration_seconds.observe(
+            "apply", value=result.apply_time_s)
+        W = problem.n_workloads
+        self._ledger_record(
+            result, frame, "full", dev0,
+            parked_n=int((np.asarray(parked[:W]).astype(bool)
+                          & ~np.asarray(admitted[:W]).astype(bool)).sum()))
         return result
 
     def _evict(self, key: str, reason: str, now: float) -> None:
@@ -1130,11 +1391,15 @@ class SolverEngine:
         if self.scheduler is not None:
             self.scheduler.evict_workload(key, reason="Preempted",
                                           message=message, now=now,
-                                          preemption_reason=reason)
+                                          preemption_reason=reason,
+                                          decision_path=obs.SOLVER,
+                                          decision_cycle=self._drain_cycle)
         else:
             evict_workload(self.store, self.queues, key, reason="Preempted",
                            message=message, now=now,
-                           preemption_reason=reason)
+                           preemption_reason=reason, path=obs.SOLVER,
+                           cycle=self._drain_cycle,
+                           evicted_total=self._evicted_total)
 
     def _apply_full_plan(self, problem: SolverProblem, admitted, opt,
                          admit_round, parked, victim_reason, now: float,
@@ -1193,6 +1458,7 @@ class SolverEngine:
         ok = self._verify(candidates, verify, result)
         for passed, (wl, cq_name, flavor_of, info, _) in zip(ok, candidates):
             if not passed:
+                self._record_rejected(wl, cq_name)
                 continue  # stays queued for the host cycle
             self._commit_admission(wl, cq_name, flavor_of, info, now,
                                    result, topology=topo_of.get(wl.key))
@@ -1201,6 +1467,7 @@ class SolverEngine:
         for w in np.nonzero(parked[:W] & ~admitted[:W])[0]:
             cq_name = problem.cq_names[problem.wl_cqid[w]]
             self.queues.queues[cq_name].park(problem.wl_keys[w])
+            self._record_parked(problem.wl_keys[w], cq_name)
 
     def _commit_admission(self, wl, cq_name: str,
                           flavor_of: dict[str, str], info: WorkloadInfo,
@@ -1251,5 +1518,39 @@ class SolverEngine:
                     by_resource[r] = by_resource.get(r, 0) + q
             self.queues.afs.record_admission(
                 f"{wl.namespace}/{wl.queue_name}", by_resource, now)
+        key = wl.key
+        wait_s = max(now - wl.creation_time, 0.0)
+        exemplar = {"cycle": self._drain_cycle, "workload": key}
+        metrics.quota_reserved_workload(cq_name, wait_s,
+                                        lq=wl.queue_name,
+                                        namespace=wl.namespace,
+                                        exemplar=exemplar)
+        if wl.is_admitted:
+            metrics.admitted_workload(cq_name, wait_s,
+                                      lq=wl.queue_name,
+                                      namespace=wl.namespace,
+                                      exemplar=exemplar)
+        # the queue-wait SLI, as on the host path
+        pclass = obs.priority_class_of(self.store, wl)
+        obs.slo_engine.observe_admission(
+            cq_name, wait_s, priority=wl.priority,
+            priority_class=pclass, now=now,
+            cycle=self._drain_cycle, workload=key)
+        obs.recorder.record(
+            obs.SOLVER_ADMITTED, key, cycle=self._drain_cycle,
+            cluster_queue=cq_name, path=obs.SOLVER,
+            reason=f"Admitted by the solver drain plan into "
+                   f"ClusterQueue {cq_name}",
+            detail={
+                "flavors": dict(flavor_of),
+                "placed_with_topology": topology is not None,
+                "admitted": wl.is_admitted,
+                "waitSeconds": round(wait_s, 3),
+                "priority": wl.priority,
+                "priorityClass": pclass,
+                # the arm that produced the plan (joins the ledger row)
+                "solver_arm": ("remote" if self.remote is not None
+                               else (self.last_drain_arm or "single")),
+            })
         result.admitted += 1
-        result.admitted_keys.append(wl.key)
+        result.admitted_keys.append(key)

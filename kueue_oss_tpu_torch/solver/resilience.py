@@ -21,10 +21,12 @@ The single-probe slot is a copy of the probe gate of the JAX package's
 of one process share the half-open slot as they do there. The clock is
 injectable, so tests drive the cooldown without sleeping.
 
-Cut from the copy: the process-wide degradation ladder
-(``resilience.controller``'s ``report``), and the ``metrics`` gauge and
-counters, which become the breaker's own ``state`` and ``trips``; both
-wait for the observability layer (ROADMAP Queue A item 13).
+The breaker writes ``kueue_tpu_solver_breaker_state`` on every
+transition (the recorder's breaker tags read it) and counts trips in
+``kueue_tpu_solver_breaker_trips_total``; its own ``state`` and
+``trips`` equal them. Cut from the copy: the process-wide degradation
+ladder (``resilience.controller``'s ``report``, ROADMAP Queue A item
+13b).
 """
 
 from __future__ import annotations
@@ -32,10 +34,14 @@ from __future__ import annotations
 import threading
 import time
 
+from kueue_oss_tpu_torch import metrics
+
 #: breaker states
 CLOSED = "closed"
 HALF_OPEN = "half-open"
 OPEN = "open"
+#: state -> the breaker-state gauge's value
+_STATE_CODE = {CLOSED: 0.0, HALF_OPEN: 1.0, OPEN: 2.0}
 
 
 class SolverUnavailable(Exception):
@@ -105,11 +111,17 @@ class SolverHealth:
         self.trips = 0
         self._opened_at = 0.0
         self._lock = threading.Lock()
+        # the state gauge is written only on transitions: a fresh
+        # (closed) breaker must not overwrite another breaker's state
 
     @property
     def probing(self) -> bool:
         """Whether a half-open probe is in flight right now."""
         return probe_gate.probing(self._KEY)
+
+    def _set_state(self, state: str) -> None:
+        self.state = state
+        metrics.solver_breaker_state.set(value=_STATE_CODE[state])
 
     def allow(self) -> bool:
         """Whether a remote call may be attempted right now.
@@ -124,7 +136,7 @@ class SolverHealth:
                     return False
                 if not probe_gate.acquire_probe(self._KEY):
                     return False  # someone else is already probing
-                self.state = HALF_OPEN
+                self._set_state(HALF_OPEN)
                 return True
             if self.state == HALF_OPEN:
                 # a second drain arriving mid-probe stays degraded
@@ -135,7 +147,8 @@ class SolverHealth:
         with self._lock:
             probe_gate.release_probe(self._KEY)
             self.consecutive_failures = 0
-            self.state = CLOSED
+            if self.state != CLOSED:
+                self._set_state(CLOSED)
 
     def record_failure(self) -> None:
         with self._lock:
@@ -158,5 +171,6 @@ class SolverHealth:
     def _trip(self) -> None:
         if self.state != OPEN:
             self.trips += 1
+            metrics.solver_breaker_trips_total.inc()
         self._opened_at = self.clock()
-        self.state = OPEN
+        self._set_state(OPEN)

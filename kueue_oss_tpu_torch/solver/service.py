@@ -68,9 +68,13 @@ Cut from the copy, each with its ROADMAP item:
   answers): Queue A item 9;
 - ``persist_hooks.crash_if("sidecar_session_store")``: the port has no
   persistence layer;
-- ``metrics`` counters (kept as plain counters on the server and the
-  client), the degradation ladder's farm rungs and devtel's
-  ``note_wire``: the observability layer, Queue A item 13.
+- the degradation ladder's farm rungs: Queue A item 13b.
+
+The plain counters on the server and the client equal their series in
+the metrics registry (session frames and bytes by kind, resyncs by
+reason, remote failures by kind, retries, deadline misses, session
+evictions by reason), and each request frame's bytes reach devtel's
+transfer ledger (``note_wire``, direction ``tx``).
 """
 
 from __future__ import annotations
@@ -89,6 +93,8 @@ from typing import Optional
 
 import numpy as np
 
+from kueue_oss_tpu_torch import metrics
+from kueue_oss_tpu_torch.obs import devtel
 from kueue_oss_tpu_torch.solver.delta import (
     ARRAY_FIELDS,
     META_FIELDS,
@@ -550,6 +556,8 @@ class SolverServer(socketserver.ThreadingUnixStreamServer):
         with self._counts_lock:
             table = getattr(self, what)
             table[key] = table.get(key, 0) + by
+        if what == "session_evictions":
+            metrics.solver_session_evictions_total.inc(key, by=float(by))
 
     def session(self, sid: str, tenant: str = "") -> _SidecarSession:
         key = (tenant, sid)
@@ -705,6 +713,7 @@ class SolverClient:
 
     def _fail(self, kind: str) -> None:
         self.failures[kind] = self.failures.get(kind, 0) + 1
+        metrics.solver_remote_failures_total.inc(kind)
 
     # -- request payloads --------------------------------------------------
 
@@ -746,6 +755,10 @@ class SolverClient:
         self.bytes_by_kind[kind] = self.bytes_by_kind.get(kind, 0) + n
         self.frames_by_kind[kind] = self.frames_by_kind.get(kind, 0) + 1
         self.last_frame = (kind, n)
+        metrics.solver_session_frames_total.inc(kind)
+        metrics.solver_session_bytes_total.inc(kind, by=float(n))
+        # devtel transfer ledger: request frames are direction "tx"
+        devtel.collector.note_wire("remote", self.tenant, n)
 
     # -- the call ----------------------------------------------------------
 
@@ -773,6 +786,7 @@ class SolverClient:
             remaining = deadline - self._clock()
             if remaining <= 0:
                 self.deadline_exceeded += 1
+                metrics.solver_deadline_exceeded_total.inc()
                 raise SolverUnavailable(
                     f"solver call deadline ({self.timeout_s}s) exhausted "
                     f"after {attempt} attempt(s): {last_err!r}"
@@ -790,6 +804,7 @@ class SolverClient:
                 # to a SYNC within this call, outside the retry budget
                 # (the sidecar is demonstrably alive)
                 self.resyncs[e.reason] = self.resyncs.get(e.reason, 0) + 1
+                metrics.solver_resync_total.inc(e.reason)
                 if mode != "delta" or resynced:
                     raise SolverUnavailable(
                         f"sidecar demanded resync twice: {e.reason}")
@@ -813,6 +828,7 @@ class SolverClient:
                     f"solver call failed after {attempt} attempt(s): "
                     f"{last_err!r}") from last_err
             self.retries += 1
+            metrics.solver_remote_retries_total.inc()
             delay = min(self.backoff_base_s * (2 ** (attempt - 1)),
                         self.backoff_max_s)
             delay += self._rng.uniform(0, delay)  # full jitter

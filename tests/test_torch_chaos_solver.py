@@ -14,6 +14,8 @@ real sidecar processes.
 
 from __future__ import annotations
 
+import torch_threads  # noqa: F401  (one torch thread per worker)
+
 import dataclasses
 import os
 import socket

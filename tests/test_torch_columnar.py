@@ -16,6 +16,8 @@ export, tolerance 0 (after tests/test_columnar.py).
   JAX's, and its frames must replay a mirror of the encoding.
 """
 
+
+import torch_threads  # noqa: F401  (one torch thread per worker)
 import copy
 import dataclasses
 import random

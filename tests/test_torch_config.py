@@ -9,12 +9,14 @@ in the same order; ``apply_feature_gates`` must set the same gates and
 requests. The tolerance is exact equality throughout. The fields of the
 multi-device arms (``solver.mesh``, the pod-scale coordinator,
 ``simulator.mesh``) raise in the port away from their defaults (ROADMAP
-Queue A item 9), and so do the switches that ask for what the port does
-not do yet (``persistence.enabled``, item 14; devtel's ``enabled`` and
-``captureEnabled`` and the SLO alert webhook, item 13): their messages
-are held by tests of the raise. No test compiles anything in JAX.
+Queue A item 9), and so does the switch that asks for what the port
+does not do yet (``persistence.enabled``, item 14): their messages are
+held by tests of the raise. Device telemetry, its capture and the SLO
+alert webhook load in both. No test compiles anything in JAX.
 """
 
+
+import torch_threads  # noqa: F401  (one torch thread per worker)
 import copy
 import dataclasses
 
@@ -238,25 +240,34 @@ def test_multi_device_fields_raise_in_the_port(doc):
     {"persistence": {"enabled": True, "dir": "/var/lib/kueue",
                      "fsync": "always"}},
     {"persistence": {"enabled": True}},
-    {"observability": {"devtel": {"enabled": True}}},
-    {"observability": {"devtel": {"captureEnabled": True}}},
-    {"observability": {"slo": {
-        "alertWebhookUrl": "https://alerts.example.com/hook"}}},
-], ids=["persistence", "persistence_no_dir", "devtel", "devtel_capture",
-        "slo_webhook"])
+], ids=["persistence", "persistence_no_dir"])
 def test_switches_the_port_cannot_honour_raise(doc):
     """The JAX package loads these (and validates them: a persistence
     without a dir is its one message); the port refuses them at load, so
-    a durability or alerting switch never goes missing unseen."""
+    a durability switch never goes missing unseen."""
     want = jax_cfg.validate(jax_cfg.load(copy.deepcopy(doc)))
     if doc.get("persistence") == {"enabled": True}:
         assert want == ["persistence.dir is required when persistence "
                         "is enabled"]
     else:
         assert want == []
-    item = "item 14" if "persistence" in doc else "item 13"
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(NotImplementedError, match="item 14"):
         port_cfg.load(copy.deepcopy(doc))
+
+
+@pytest.mark.parametrize("doc", [
+    {"observability": {"devtel": {"enabled": True}}},
+    {"observability": {"devtel": {"captureEnabled": True}}},
+    {"observability": {"slo": {
+        "alertWebhookUrl": "https://alerts.example.com/hook"}}},
+], ids=["devtel", "devtel_capture", "slo_webhook"])
+def test_observability_switches_load_in_both(doc):
+    """Device telemetry, its capture and the SLO alert webhook load in
+    the port as in the JAX package (the port has the observability
+    layer that honours them: ``obs.configure``)."""
+    want, got = _both(doc)
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert port_cfg.validate(got) == jax_cfg.validate(want) == []
 
 
 def test_solver_mesh_off_loads_in_both():

@@ -21,6 +21,8 @@ half) against the JAX package's, tolerance 0.
   (``ranker_prune``), as in JAX.
 """
 
+
+import torch_threads  # noqa: F401  (one torch thread per worker)
 import dataclasses
 import random
 

@@ -9,6 +9,8 @@ check state must be equal (tolerance 0). The port runs on the CPU
 the pins of tests/torch_dispatch_pins.py.
 """
 
+
+import torch_threads  # noqa: F401  (one torch thread per worker)
 import numpy as np
 import pytest
 

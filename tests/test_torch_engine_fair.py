@@ -31,6 +31,8 @@ port's ``core/quota.py`` is held against the JAX package's (exactly)
 and against the port's device ``drs_all`` on the same usage.
 """
 
+
+import torch_threads  # noqa: F401  (one torch thread per worker)
 import collections
 import random
 

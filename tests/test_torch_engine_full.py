@@ -18,6 +18,8 @@ Workloads with podset topology groups must raise UnsupportedProblem
 (fair sharing and admission fair sharing drain: see
 tests/test_torch_engine_fair.py)."""
 
+
+import torch_threads  # noqa: F401  (one torch thread per worker)
 import numpy as np
 import pytest
 

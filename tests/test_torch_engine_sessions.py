@@ -22,6 +22,8 @@ of chip_smoke.py's phase 10 (the full-size storm under churn, sessions
 on) in the form chip_smoke.py pins them.
 """
 
+
+import torch_threads  # noqa: F401  (one torch thread per worker)
 import collections
 import json
 import sys

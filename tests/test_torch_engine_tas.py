@@ -8,6 +8,8 @@ the same order, in the same rounds, with the same flavors and topology
 assignments, and park the same workloads; the port's export must equal
 the JAX export field by field."""
 
+
+import torch_threads  # noqa: F401  (one torch thread per worker)
 import numpy as np
 import pytest
 import torch

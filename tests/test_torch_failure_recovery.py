@@ -13,6 +13,8 @@ store) is held to the JAX package and to chip_smoke.py's pin, and the
 flap injector's seeded draw to the JAX injector's.
 """
 
+
+import torch_threads  # noqa: F401  (one torch thread per worker)
 import pytest
 
 import torch_dispatch_pins as P

@@ -18,6 +18,8 @@ two primitives the kernels added to ``ops`` (float segment minima and
 maxima, the per-resource FR sum) are compared on seeded numpy inputs.
 """
 
+
+import torch_threads  # noqa: F401  (one torch thread per worker)
 import jax
 import jax.numpy as jnp
 import numpy as np

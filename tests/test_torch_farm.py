@@ -9,6 +9,8 @@ Python floats computed in the same order, so the tolerance is exact
 equality throughout. No test compiles anything in JAX.
 """
 
+
+import torch_threads  # noqa: F401  (one torch thread per worker)
 import pytest
 
 from kueue_oss_tpu import metrics as jax_metrics

@@ -21,6 +21,8 @@ The tolerance is exact equality throughout.
 
 from __future__ import annotations
 
+import torch_threads  # noqa: F401  (one torch thread per worker)
+
 import os
 import socket
 import tempfile

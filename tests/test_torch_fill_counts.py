@@ -12,6 +12,8 @@ exactly. The kernel itself (``csrc/fill_counts.cu``) runs only on the
 card: ``chip_smoke.py`` phase 3 holds it against the same plain version.
 """
 
+
+import torch_threads  # noqa: F401  (one torch thread per worker)
 import jax.numpy as jnp
 import numpy as np
 import pytest

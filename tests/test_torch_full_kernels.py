@@ -17,6 +17,8 @@ that preempt-needing heads exceed ``h_max`` and a root's candidates
 exceed ``p_max``, and the dropped writes are exercised.
 """
 
+
+import torch_threads  # noqa: F401  (one torch thread per worker)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -21,6 +21,8 @@ the first 8 worlds at width 4 (one program). The engine cases share
 the JAX engine's programs: one store shape, batches of 4 worlds.
 """
 
+
+import torch_threads  # noqa: F401  (one torch thread per worker)
 import numpy as np
 import pytest
 import torch

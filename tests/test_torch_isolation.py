@@ -7,8 +7,11 @@ schedules, streams, runs the perf simulator, a what-if sweep, the relax
 tier, a resident FULL sweep, a MultiKueue hub with the what-if-scored
 dispatcher, the node-failure controller, and drains through the solver
 sidecar (a clean one and a chaos one) and a solver farm loaded from a
-Configuration with those modules blocked."""
+Configuration, and records its decisions, ledger rows, metrics and
+spans, with those modules blocked."""
 
+
+import torch_threads  # noqa: F401  (one torch thread per worker)
 import ast
 import subprocess
 import sys
@@ -72,7 +75,11 @@ def test_scan_sees_the_whole_port():
                  "solver/service.py", "solver/resilience.py",
                  "solver/meshutil.py", "federation/__init__.py",
                  "federation/farm.py", "federation/fleet.py",
-                 "util/tlsconfig.py", "entry.py", "smoke_kernel.py"):
+                 "util/tlsconfig.py", "entry.py", "smoke_kernel.py",
+                 "metrics/__init__.py", "debugger/__init__.py",
+                 "debugger/profiling.py", "obs/__init__.py",
+                 "obs/ledger.py", "obs/health.py", "obs/devtel.py",
+                 "sim/replay.py", "util/fsutil.py"):
         assert f"kueue_oss_tpu_torch/{name}" in names, name
     assert "chip_smoke.py" in names
     # the exact-name comparison lets the port's own name through
@@ -150,6 +157,23 @@ def test_port_drains_with_jax_blocked():
             sched.run_until_quiet(now=100.0)
         assert sched.solver_counts["drains"] == 2, sched.solver_counts
         assert sched.last_drain.verified > 0, sched.last_drain
+        # the observability layer saw it: journal, ledger, metrics, and
+        # spans on a tracer with device telemetry on
+        from kueue_oss_tpu_torch import metrics, obs
+        from kueue_oss_tpu_torch.debugger.profiling import (
+            Tracer, attach_to_scheduler)
+        from kueue_oss_tpu_torch.sim.replay import kind_counts_per_cycle
+        assert kind_counts_per_cycle(obs.recorder.events())
+        assert obs.cycle_ledger.last_row(obs.SOLVER_DRAIN) is not None
+        assert "kueue_admitted_workloads_total" in metrics.registry.render()
+        obs.device_telemetry.enabled = True
+        tracer = Tracer()
+        attach_to_scheduler(sched, tracer)
+        for wl in wave1:
+            sched.finish_workload(wl.key, now=150.0)
+        sched.run_until_quiet(now=200.0)
+        assert "schedule" in tracer.chrome_trace()
+        obs.device_telemetry.reset()
         # the host TAS placement, its fill-in counts on the device path
         from kueue_oss_tpu_torch import features
         from kueue_oss_tpu_torch.scenarios import tas_mixed_store

@@ -7,6 +7,8 @@ tests/test_solver_parity.py) are carried across with
 equal. The port's own export of the same store must equal the JAX
 export field by field."""
 
+
+import torch_threads  # noqa: F401  (one torch thread per worker)
 import random
 
 import numpy as np

@@ -4,6 +4,8 @@ reductions with empty segments, stable sorts with ties, floor division
 with negative numerators, int32 prefix sums. Tolerance 0: ints match
 exactly."""
 
+
+import torch_threads  # noqa: F401  (one torch thread per worker)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -16,6 +16,8 @@ reject every seventh candidate: the rejected entries are not committed,
 stay queued and are counted in ``DrainResult.plan_fallbacks``.
 """
 
+
+import torch_threads  # noqa: F401  (one torch thread per worker)
 import shutil
 
 import numpy as np

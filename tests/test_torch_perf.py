@@ -5,6 +5,8 @@ are equal host-only and with ``solver="auto"`` (cost gates pinned, see
 tests/torch_sim_pins.py), ``drain_benchmark`` solves the same plan, and
 the checker reports the same violations."""
 
+
+import torch_threads  # noqa: F401  (one torch thread per worker)
 import math
 
 import pytest

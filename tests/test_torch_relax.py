@@ -17,6 +17,8 @@ so it fuses no multiply-add); ``relax.sum_order`` is its order of the
 sum over the flavor-resources.
 """
 
+
+import torch_threads  # noqa: F401  (one torch thread per worker)
 import functools
 
 import jax

@@ -14,6 +14,8 @@ small lean drain must give the JAX plan (one JAX compile). The
 tolerance is exact equality throughout.
 """
 
+
+import torch_threads  # noqa: F401  (one torch thread per worker)
 import dataclasses
 
 import numpy as np

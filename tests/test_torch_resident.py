@@ -12,6 +12,8 @@ delta application heals through a full upload counted in
 row, raises instead of casting or racing.
 """
 
+
+import torch_threads  # noqa: F401  (one torch thread per worker)
 import numpy as np
 import pytest
 import torch

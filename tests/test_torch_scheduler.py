@@ -14,6 +14,8 @@ test runs heads that need a host topology placement (the reduced TAS
 store) through both schedulers.
 """
 
+
+import torch_threads  # noqa: F401  (one torch thread per worker)
 import pytest
 
 import torch_scheduler_pins as P

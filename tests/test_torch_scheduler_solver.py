@@ -21,6 +21,8 @@ slow``, recompute the full-size pins and compare them with the ones
 chip_smoke.py carries.
 """
 
+
+import torch_threads  # noqa: F401  (one torch thread per worker)
 import json
 from pathlib import Path
 

@@ -22,6 +22,8 @@ roll-up and with TASDeviceFillCounts on (the port's scheduler on
 host-only, each fill mode).
 """
 
+
+import torch_threads  # noqa: F401  (one torch thread per worker)
 import pytest
 
 import torch_scheduler_pins as P

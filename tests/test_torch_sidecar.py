@@ -25,6 +25,8 @@ CPU, tolerance 0.
 
 from __future__ import annotations
 
+import torch_threads  # noqa: F401  (one torch thread per worker)
+
 import io
 import os
 import random

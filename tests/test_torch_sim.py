@@ -10,6 +10,8 @@ package's. Problems and overlays cross as numpy arrays
 (``convert.problem_from_arrays``), specs as ``to_dict`` /
 ``from_dict``."""
 
+
+import torch_threads  # noqa: F401  (one torch thread per worker)
 import math
 
 import numpy as np

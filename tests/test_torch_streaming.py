@@ -19,6 +19,8 @@ worker on both packages. The JAX side of every script runs once per
 module.
 """
 
+
+import torch_threads  # noqa: F401  (one torch thread per worker)
 import threading
 import time
 

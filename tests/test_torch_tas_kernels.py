@@ -5,6 +5,8 @@ fill_counts_ext at every level and key, the extended placer, and the
 sequential placer, on random 2- and 3-level trees with slices, leaders
 and the least-free profile. Tolerance 0: ints match exactly."""
 
+
+import torch_threads  # noqa: F401  (one torch thread per worker)
 import jax.numpy as jnp
 import numpy as np
 import pytest

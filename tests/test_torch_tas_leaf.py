@@ -5,6 +5,8 @@ jnp reference, on the shapes of tests/test_pallas_tas.py plus R = 130
 negative capacities. Tolerance 0. The CUDA kernel itself is compared
 with the plain version on the card by chip_smoke.py."""
 
+
+import torch_threads  # noqa: F401  (one torch thread per worker)
 import numpy as np
 import pytest
 import torch

@@ -8,6 +8,8 @@ kernel state's footprint, the CUDA route without CUDA and M = 0.
 Tolerance 0: ints match exactly. The CUDA kernel itself is compared with
 the plain version on the card by chip_smoke.py."""
 
+
+import torch_threads  # noqa: F401  (one torch thread per worker)
 import jax.numpy as jnp
 import numpy as np
 import pytest

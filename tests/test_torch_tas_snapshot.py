@@ -15,6 +15,8 @@ case runs the JAX side's Pallas leaf kernel in interpret mode
 (``KUEUE_TPU_PALLAS=1``).
 """
 
+
+import torch_threads  # noqa: F401  (one torch thread per worker)
 import numpy as np
 import pytest
 

@@ -13,6 +13,8 @@ with a check on every ClusterQueue) is held to the JAX package and to
 chip_smoke.py's pin.
 """
 
+
+import torch_threads  # noqa: F401  (one torch thread per worker)
 import pytest
 
 import torch_dispatch_pins as P
