@@ -8,8 +8,8 @@ Run from the repository root on a machine with one NVIDIA GPU:
 (``python3 chip_smoke.py --phase 20`` runs phases 1, 2 and 20 alone,
 with phase 14's host-only store built afresh for 20 (c);
 ``python3 chip_smoke.py --phase 21`` runs phases 1, 2 and 21 alone,
-``--phase 22`` phases 1, 2 and 22, and ``--phase 23`` phases 1, 2 and
-23; none prints a kernel report.)
+``--phase 22`` phases 1, 2 and 22, ``--phase 23`` phases 1, 2 and 23,
+and ``--phase 24`` phases 1, 2 and 24; none prints a kernel report.)
 
 Phases, in order; any failure propagates (nonzero exit, no result line):
 
@@ -419,6 +419,41 @@ Phases, in order; any failure propagates (nonzero exit, no result line):
    and at least the resident bytes; the capture's Chrome trace holds
    ``tas_place_kernel``, the placer's CUDA symbol; the tracer's trace
    holds the ``solver_drain`` span under the ledger row's cycle.
+24. durability and degradation (``resilience``, ``persist``,
+   ``chaos.campaign``): (a) the four chaos campaigns (solver-storm,
+   pod-loss, fed-partition, kill-storm) at bench.py's seed 42 at the
+   campaign's own shape, their planes draining on the card (the
+   kill-storm directory under a temporary directory): each
+   ``CampaignResult.to_dict()`` without ``unavailable_wall_ms`` and the
+   ``solver_fallback_total`` deltas by reason the JAX pins (5
+   ``device_error`` and 2 ``relax_error`` in solver-storm), the relaxed
+   arm serving no drain, no hand kernel launched; each profile's wall
+   printed; (b) phase 6's storm at full size with a
+   ``PersistenceManager`` (batch group commit, no checkpoint cadence)
+   attached after wave 1 is seeded (bench.py:1349-1364): wave 1 drains,
+   wave 2 arrives, a full checkpoint of the 15,000 workloads is timed,
+   wave 2 drains, the admitted workloads finish (bench.py's slice of
+   100: 30 hold quota) and a third drain writes the WAL a tail; both
+   waves' plans phase 6's pins with its checks, the tail drain, the
+   WAL's records and bytes and the live dump's sha256 the JAX pins, and
+   after close a fresh store recovered (timed) to the same bytes with 0
+   audit violations; the drains' walls printed beside phase 6's ((b)
+   runs first and alone); (c) kill -9 mid-drain on the card with
+   ``python -m kueue_oss_tpu_torch.persist.crashtest --solver``: a
+   baseline run and a run armed by ``CrashPointInjector("mid_drain",
+   after=2).env()`` (which must die with -9) side by side while (a)
+   runs in this process (after (b) and (d), which run alone), then
+   ``--phase recover``: the recovered ``final.dump`` the baseline's and
+   the JAX harness's (pinned sha256), the first drain after the restart
+   a full SYNC, the audit empty, and in the baseline and recover runs 0
+   ``device_error`` and at least one drain served by the single arm
+   (the harness's status line counts both); (d) phase 12's TAS store through ``Scheduler(solver="auto")``
+   with the WAL on: phase 12's record and plan, one
+   ``tas_place_sequential`` launch of 102 steps, the WAL and dump the
+   JAX pins, recovery byte-identical. ``solver_fallback_total
+   {device_error}`` stays 0 through every phase but 24 (a), where it
+   counts the JAX campaigns' 5. Pins: tests/torch_campaign_pins.py,
+   tests/torch_persist_pins.py.
 
 Phases 5-15 pin the JAX engine's plans with delta sessions on (its
 default, and the port's; ``use_sessions = False`` stays the off
@@ -5722,6 +5757,450 @@ def observability_phase(smi: str, device: str = "cuda") -> tuple:
     return out, launches_on["tas_place_sequential"]
 
 
+# -- phase 24: durability and degradation on the card ------------------------
+
+#: the JAX package's four chaos campaigns at bench.py's seed (42) at the
+#: campaign's own shape: each CampaignResult.to_dict() without
+#: unavailable_wall_ms, and the solver_fallback_total deltas by reason
+#: (tests/torch_campaign_pins.py prints them)
+CAMPAIGN_SEED = 42
+CAMPAIGN_REFERENCE = json.loads("""
+{
+ "fed-partition": {"fallback": {}, "record": {"availability": 1.0,
+"converged": true, "convergence_cycles": 12, "durable_identical": null,
+"faults_injected": 7, "invariant_violations": 0, "levels_zero": true,
+"max_degradation_level": 1, "monotone_recovery": true, "profile":
+"fed-partition", "recovered_identical": true, "seed": 42, "storm_cycles":
+12, "transitions": {"federation": 10}, "twin_cycles": 24,
+"unavailable_cycles": 0}, "relax_drains": {}},
+ "kill-storm": {"fallback": {}, "record": {"availability": 1.0, "converged":
+ true, "convergence_cycles": 12, "durable_identical": true,
+"faults_injected": 8, "invariant_violations": 0, "levels_zero": true,
+"max_degradation_level": 2, "monotone_recovery": true, "profile":
+"kill-storm", "recovered_identical": true, "seed": 42, "storm_cycles": 12,
+"transitions": {"persistence": 8}, "twin_cycles": 24, "unavailable_cycles":
+0}, "relax_drains": {}},
+ "pod-loss": {"fallback": {}, "record": {"availability": 0.6923,
+"converged": true, "convergence_cycles": 1, "durable_identical": null,
+"faults_injected": 4, "invariant_violations": 0, "levels_zero": true,
+"max_degradation_level": 2, "monotone_recovery": true, "profile":
+"pod-loss", "recovered_identical": true, "seed": 42, "storm_cycles": 12,
+"transitions": {"streaming": 8}, "twin_cycles": 12, "unavailable_cycles":
+4}, "relax_drains": {}},
+ "solver-storm": {"fallback": {"device_error": 5.0, "relax_error": 2.0},
+"record": {"availability": 1.0, "converged": true, "convergence_cycles": 1,
+"durable_identical": null, "faults_injected": 17, "invariant_violations": 0,
+ "levels_zero": true, "max_degradation_level": 3, "monotone_recovery": true,
+ "profile": "solver-storm", "recovered_identical": true, "seed": 42,
+"storm_cycles": 12, "transitions": {"solver": 12}, "twin_cycles": 12,
+"unavailable_cycles": 0}, "relax_drains": {}}
+}
+""")
+#: the JAX package's durable storm (scenarios.durable_storm at full size;
+#: its engine scheduler-backed without a mesh), its crash harness's
+#: --solver no-crash dump and its durable TAS drain
+#: (scenarios.durable_tas at 1,500 workloads)
+#: (tests/torch_persist_pins.py prints them)
+PERSIST_REFERENCE = json.loads("""
+{
+ "crash_solver": {"bytes": 16377, "sha256":
+"0774631bfb5f0e97656899cc5c12e47520b612ad893728806f6c4f25d7020adc"},
+ "tas": {"audit_violations": 0, "cycles": 1, "digest":
+"d0678ae573b3b68880b6654495dae90447774ed516d4f3774c371c7a4cf2277d",
+"dump_bytes": 1542639, "dump_sha256":
+"ff15dc7f43619e0a47b4b111a96cefc2ce4f2f5cadaf9f8667ef034a4928bc95", "held":
+102, "recovered_identical": true, "wal_bytes": 156115, "wal_records": 204},
+ "storm": {"audit_violations": 0, "checkpoint_bytes": 11128103, "drains":
+[{"admitted": 600, "evicted": 0, "rounds": 22}, {"admitted": 30, "evicted":
+600, "rounds": 6}, {"admitted": 30, "evicted": 0, "rounds": 5}],
+"dump_bytes": 11250870, "dump_sha256":
+"6f3e9ab75704bb227341e8e6b8c5b7a5c18fba1e81873e519d52c8a7d7786772",
+"finished": 30, "recovered_identical": true, "wal_bytes": 5187348,
+"wal_records": 7050, "workloads_checkpointed": 15000, "workloads_seeded":
+10500}
+}
+""")
+#: the crash point of 24 (c): the third plan admission of the harness's
+#: first --solver drain (tests/test_persist.py:619-650)
+CRASH_POINT = ("mid_drain", 2)
+#: the device the crash harness's runs report (its default)
+CRASH_DEVICE = "cuda"
+
+
+def _counter_deltas(counter, before: dict) -> dict:
+    after = counter.collect()
+    return {"/".join(k): after[k] - before.get(k, 0.0) for k in sorted(after)
+            if after[k] != before.get(k, 0.0)}
+
+
+def _hand_launches() -> dict:
+    from kueue_oss_tpu_torch.solver import cuda_relax, cuda_tas
+
+    return {"leaf_states": cuda_tas.leaf_states.launches,
+            "tas_place_sequential": cuda_tas.tas_place_sequential.launches,
+            "fill_counts": cuda_tas.launch_counts["fill_counts"],
+            "relax_lp": cuda_relax.relax_lp.launches}
+
+
+def _reset_hand_launches() -> None:
+    from kueue_oss_tpu_torch.solver import cuda_relax, cuda_tas
+
+    _reset_launches()
+    cuda_relax.relax_lp.launches = 0
+    cuda_tas.tas_place_sequential.steps = 0
+
+
+def _durable(device):
+    import torch
+
+    from kueue_oss_tpu_torch.api import types
+    from kueue_oss_tpu_torch.core.queue_manager import QueueManager
+    from kueue_oss_tpu_torch.core.store import Store
+    from kueue_oss_tpu_torch.persist import (
+        InvariantAuditor,
+        PersistenceManager,
+        canonical_dump,
+    )
+    from kueue_oss_tpu_torch.scenarios import Durable
+    from kueue_oss_tpu_torch.scheduler.scheduler import Scheduler
+    from kueue_oss_tpu_torch.solver.engine import SolverEngine
+
+    return Durable(types, Store, QueueManager, Scheduler, SolverEngine,
+                   PersistenceManager, InvariantAuditor, canonical_dump,
+                   sched_kw={"device": device},
+                   engine_kw={"device": device},
+                   engine_attrs={"relax_enabled": False},
+                   sync=torch.cuda.synchronize)
+
+
+def campaigns_part(device: str = "cuda") -> dict:
+    """24 (a): the four campaigns at CAMPAIGN_SEED on the card, held to
+    CAMPAIGN_REFERENCE; no hand kernel launches and the relaxed arm
+    serves no drain."""
+    import tempfile
+
+    from kueue_oss_tpu_torch import metrics
+    from kueue_oss_tpu_torch.chaos import campaign
+
+    out = {}
+    _reset_hand_launches()
+    for profile in campaign.PROFILES:
+        fb = metrics.solver_fallback_total.collect()
+        rx = metrics.solver_relax_drains_total.collect()
+        d = tempfile.mkdtemp(prefix="kueue-killstorm-")
+        _settle()
+        t0 = time.monotonic()
+        res = campaign.run_campaign(
+            profile, seed=CAMPAIGN_SEED, device=device,
+            persistence_dir=d if profile == campaign.KILL_STORM else None)
+        wall = time.monotonic() - t0
+        rec = res.to_dict()
+        unavailable_ms = rec.pop("unavailable_wall_ms")
+        got = {"record": rec,
+               "fallback": _counter_deltas(metrics.solver_fallback_total,
+                                           fb),
+               "relax_drains": _counter_deltas(
+                   metrics.solver_relax_drains_total, rx)}
+        if got != CAMPAIGN_REFERENCE[profile]:
+            raise AssertionError(f"campaign {profile}: {got} != reference "
+                                 f"{CAMPAIGN_REFERENCE[profile]}")
+        if not res.ok:
+            raise AssertionError(f"campaign {profile}: the oracle failed "
+                                 f"{rec}")
+        out[profile] = {"wall_s": wall,
+                        "unavailable_wall_ms": unavailable_ms,
+                        "faults": rec["faults_injected"],
+                        "transitions": rec["transitions"],
+                        "fallback": got["fallback"]}
+        print(f"[durability campaign {profile}] the JAX record "
+              f"(converged in {rec['convergence_cycles']} cycles, max "
+              f"level {rec['max_degradation_level']}, "
+              f"{rec['faults_injected']} faults, transitions "
+              f"{rec['transitions']}, fallbacks {got['fallback']}); wall "
+              f"{wall:.3f} s")
+    launches = _hand_launches()
+    if any(launches.values()):
+        raise AssertionError(f"24 (a): hand kernels launched {launches}; "
+                             f"no campaign runs a TAS flavor or the "
+                             f"relaxed arm")
+    return out
+
+
+def durable_storm_part(storm_walls=None, device: str = "cuda") -> dict:
+    """24 (b): the baseline storm at full size with the WAL on: each
+    drain held to phase 6's pins (wave 1, wave 2) and the JAX tail
+    drain, the WAL's records and bytes and the live dump the JAX pins,
+    and the recovered dump byte-identical with a clean audit."""
+    import tempfile
+
+    from kueue_oss_tpu_torch.scenarios import durable_storm
+
+    ref = PERSIST_REFERENCE["storm"]
+    befores = {}
+
+    def hook(i, store, result=None):
+        if result is None:
+            # every drain timed without set-up debt, as phase 6's are
+            if i < 2:
+                befores[i] = _reserved_state(store)
+            _settle()
+        elif i < 2:
+            _check_storm_wave(store, result, befores[i], STORM_REFERENCE[i])
+
+    _reset_hand_launches()
+    _settle()
+    d = tempfile.mkdtemp(prefix="kueue-durable-storm-")
+    t0 = time.monotonic()
+    out = durable_storm(_durable(device), d, hook=hook)
+    wall = time.monotonic() - t0
+    drains = [{"admitted": r.admitted, "evicted": r.evicted,
+               "rounds": r.rounds} for r, _ in out["drains"]]
+    got = {"drains": drains,
+           **{k: out[k] for k in (
+               "workloads_seeded", "workloads_checkpointed", "finished",
+               "wal_records", "wal_bytes", "checkpoint_bytes",
+               "dump_sha256", "dump_bytes", "recovered_identical",
+               "audit_violations")}}
+    if got != ref:
+        raise AssertionError(f"durable storm: {got} != reference {ref}")
+    _quota_checks(out["store"])
+    launches = _hand_launches()
+    if any(launches.values()):
+        raise AssertionError(f"24 (b): hand kernels launched {launches}")
+    walls = [w for _, w in out["drains"]]
+    res = {"wall_s": wall, "drain_s": walls,
+           "checkpoint_ms": out["checkpoint_ms"],
+           "recovery_ms": out["recovery_ms"],
+           "wal_records": out["wal_records"], "wal_bytes": out["wal_bytes"],
+           "checkpoint_bytes": out["checkpoint_bytes"],
+           "dump_bytes": out["dump_bytes"],
+           "phases": [{k: round(v, 6) for k, v in r.phases.items()}
+                      for r, _ in out["drains"]]}
+    if storm_walls:
+        res["phase6_drain_s"] = storm_walls
+    print(f"[durability storm] phase 6's plans and the JAX tail, WAL "
+          f"{out['wal_records']} records / {out['wal_bytes']} bytes, "
+          f"checkpoint of {out['workloads_checkpointed']} workloads in "
+          f"{out['checkpoint_ms']:.1f} ms, recovery in "
+          f"{out['recovery_ms']:.1f} ms, recovered dump byte-identical "
+          f"(sha256 the JAX pin), 0 violations; drains {walls} s against "
+          f"phase 6's {storm_walls}; " + json.dumps(res))
+    return res
+
+
+def _crash_harness(d: str, phase: str, env=None):
+    import os
+
+    cmd = [sys.executable, "-m", "kueue_oss_tpu_torch.persist.crashtest",
+           "--dir", d, "--phase", phase, "--solver"]
+    return subprocess.Popen(cmd, env=dict(os.environ, **(env or {})),
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+
+
+def _finish(proc, timeout: float = 300.0) -> tuple:
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise
+    return proc.returncode, out, err
+
+
+def start_crash_runs() -> tuple:
+    """24 (c)'s first half: a baseline run of the port's crash harness
+    and a run armed at CRASH_POINT, started side by side (they run
+    while 24 (a) does). Returns (dirs, processes, start time)."""
+    import tempfile
+
+    from kueue_oss_tpu_torch.chaos import CrashPointInjector
+
+    base, crash = (tempfile.mkdtemp(prefix="kueue-crash-") for _ in "ab")
+    procs = [_crash_harness(base, "run"),
+             _crash_harness(crash, "run", CrashPointInjector(
+                 *CRASH_POINT).env())]
+    return (base, crash), procs, time.monotonic()
+
+
+def crash_part(started) -> dict:
+    """24 (c): kill -9 mid-drain on the card with the port's crash
+    harness: the baseline run and the run armed at CRASH_POINT (which
+    must die by SIGKILL) of ``start_crash_runs``, then a recover run;
+    the recovered final.dump is the baseline's and the JAX harness's
+    (pinned sha256), the first drain after the restart is a full SYNC
+    and the audit is empty."""
+    import hashlib
+    import os
+
+    (base, crash), procs, t0 = started
+    try:
+        (rc_b, out_b, err_b), (rc_c, _, err_c) = (_finish(p) for p in procs)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    t_runs = time.monotonic() - t0
+    if rc_b != 0:
+        raise AssertionError(f"crash harness baseline rc {rc_b}: "
+                             f"{err_b[-2000:]}")
+    if rc_c != -9 or os.path.exists(os.path.join(crash, "final.dump")):
+        raise AssertionError(f"the armed run ended with rc {rc_c} (want "
+                             f"-9, killed at {CRASH_POINT}): "
+                             f"{err_c[-2000:]}")
+    t1 = time.monotonic()
+    rc_r, out_r, err_r = _finish(_crash_harness(crash, "recover"))
+    t_recover = time.monotonic() - t1
+    if rc_r != 0:
+        raise AssertionError(f"crash harness recover rc {rc_r}: "
+                             f"{err_r[-2000:]}")
+    status = json.loads(out_r.strip().splitlines()[-1])
+    base_status = json.loads(out_b.strip().splitlines()[-1])
+    with open(os.path.join(base, "final.dump"), "rb") as f:
+        baseline = f.read()
+    with open(os.path.join(crash, "final.dump"), "rb") as f:
+        recovered = f.read()
+    ref = PERSIST_REFERENCE["crash_solver"]
+    sha = hashlib.sha256(recovered).hexdigest()
+    # the harness's settle() finishes a failed drain on host cycles:
+    # both completed runs must have drained on the card (no local
+    # solve fault, at least one drain served by the single arm)
+    for name, st in (("baseline", base_status), ("recover", status)):
+        if (st.get("device_error") != 0
+                or st.get("drains_by_arm", {}).get("single", 0) < 1):
+            raise AssertionError(
+                f"kill -9 mid-drain: the {name} run's drains did not all "
+                f"run on the card: device_error "
+                f"{st.get('device_error')}, drains by arm "
+                f"{st.get('drains_by_arm')}")
+    if (recovered != baseline or sha != ref["sha256"]
+            or len(recovered) != ref["bytes"]
+            or not status["session_first_frame_sync"]
+            or status["audit_violations"] or base_status["audit_violations"]
+            or status["device"] != CRASH_DEVICE
+            or base_status["device"] != CRASH_DEVICE):
+        raise AssertionError(f"kill -9 mid-drain: recovered sha {sha} "
+                             f"(baseline equal: {recovered == baseline}), "
+                             f"reference {ref}; status {status}")
+    out = {"runs_s": t_runs, "recover_s": t_recover,
+           "recovered_bytes": len(recovered),
+           "replayed_events": status["replayed_events"],
+           "replayed_intents": status["replayed_intents"],
+           "unapplied_intents": status["unapplied_intents"],
+           "session_full_syncs": status["session_full_syncs"],
+           "drains_by_arm": {"baseline": base_status["drains_by_arm"],
+                             "recover": status["drains_by_arm"]}}
+    print(f"[durability crash] kill -9 at {CRASH_POINT[0]} after "
+          f"{CRASH_POINT[1]} admissions (rc -9), recovered final.dump "
+          f"byte-identical to the baseline and the JAX harness's; first "
+          f"drain after the restart a full SYNC, 0 violations, every "
+          f"drain of the baseline and recover runs on the card; "
+          + json.dumps(out))
+    return out
+
+
+def durable_tas_part(device: str = "cuda") -> tuple:
+    """24 (d): phase 12's TAS store through Scheduler(solver="auto")
+    with the WAL on: phase 12's record and plan, one tas_place_sequential
+    launch of 102 steps, the JAX WAL and dump, recovery byte-identical.
+    Returns (report, tas_place_sequential launches)."""
+    import tempfile
+
+    from kueue_oss_tpu_torch.scenarios import durable_tas, plan_digest
+    from kueue_oss_tpu_torch.solver import cuda_tas
+
+    _reset_hand_launches()
+    _settle()
+    d = tempfile.mkdtemp(prefix="kueue-durable-tas-")
+    out = durable_tas(_durable(device), d, n_workloads=STEPWISE_WORKLOADS)
+    store, sched, drain = out["store"], out["sched"], out["drain"]
+    rec = _scheduler_record(store, sched, out["cycles"], dict.fromkeys(
+        ("drains", "unsupported", "admitted"), 0))
+    rec["parked"] = sum(len(q.inadmissible)
+                        for q in sched.queues.queues.values())
+    launches = _hand_launches()
+    steps = cuda_tas.tas_place_sequential.steps
+    ref = PERSIST_REFERENCE["tas"]
+    got = {k: out[k] for k in ("wal_records", "wal_bytes", "dump_sha256",
+                               "dump_bytes", "recovered_identical",
+                               "audit_violations")}
+    want = {k: ref[k] for k in got}
+    if (rec != SCHEDULER_REFERENCE["tas"] or got != want
+            or launches != {"leaf_states": 0, "tas_place_sequential": 1,
+                            "fill_counts": 0, "relax_lp": 0}
+            or steps != STEPWISE_REFERENCE["admitted"]
+            or plan_digest(store, drain.admitted_keys)
+            != STEPWISE_REFERENCE["digest"]):
+        raise AssertionError(f"durable TAS: {rec}, {got} against "
+                             f"{SCHEDULER_REFERENCE['tas']}, {want}; "
+                             f"launches {launches}, {steps} steps")
+    _quota_checks(store)
+    res = {"wall_s": out["wall_s"], "cycles": out["cycles"],
+           "checkpoint_ms": out["checkpoint_ms"],
+           "recovery_ms": out["recovery_ms"],
+           "wal_records": out["wal_records"], "wal_bytes": out["wal_bytes"],
+           "drain": {f"{k}_s": v for k, v in drain.phases.items()}}
+    print(f"[durability tas] phase 12's record and plan, 1 "
+          f"tas_place_sequential launch of {steps} steps, the JAX WAL "
+          f"and dump, recovery byte-identical; " + json.dumps(res))
+    return res, launches["tas_place_sequential"]
+
+
+def durability_phase(smi: str, storm_walls=None,
+                     device: str = "cuda") -> tuple:
+    """Phase 24: the degradation ladder, the durable control plane and
+    the chaos campaigns on the card. Returns (timings,
+    tas_place_sequential launches of (d))."""
+    from kueue_oss_tpu_torch import metrics
+
+    t_phase = time.monotonic()
+    dev_err = metrics.solver_fallback_total.value("device_error")
+    marks = {}
+    # (b) first, alone, so its drains' walls compare with phase 6's
+    t0 = time.monotonic()
+    storm = durable_storm_part(storm_walls, device)
+    marks["b_s"] = time.monotonic() - t0
+    if metrics.solver_fallback_total.value("device_error") != dev_err:
+        raise AssertionError("24 (b): a device_error fallback; no local "
+                             "solve fault was injected there")
+    # (d) alone too, so its durable TAS timings are clean
+    t1 = time.monotonic()
+    tas, place = durable_tas_part(device)
+    marks["d_s"] = time.monotonic() - t1
+    if metrics.solver_fallback_total.value("device_error") != dev_err:
+        raise AssertionError("24 (d): a device_error fallback; no local "
+                             "solve fault was injected there")
+    # (c)'s two runs boot and run beside (a) only
+    t0 = time.monotonic()
+    started = start_crash_runs()
+    try:
+        t1 = time.monotonic()
+        campaigns = campaigns_part(device)
+        marks["a_s"] = time.monotonic() - t1
+        camp_err = (metrics.solver_fallback_total.value("device_error")
+                    - dev_err)
+        want_err = sum(p["fallback"].get("device_error", 0.0)
+                       for p in CAMPAIGN_REFERENCE.values())
+        if camp_err != want_err:
+            raise AssertionError(f"24 (a): {camp_err} device_error "
+                                 f"fallbacks, the JAX campaigns counted "
+                                 f"{want_err}")
+    except BaseException:
+        for p in started[1]:
+            p.kill()
+            p.wait()
+        raise
+    crash = crash_part(started)
+    # (c)'s window: its runs beside (a), then the recover run
+    marks["ac_s"] = time.monotonic() - t0
+    out = {"campaigns": campaigns, "storm": storm, "crash": crash,
+           "tas": tas, "parts": marks,
+           "phase_s": time.monotonic() - t_phase}
+    print(f"[durability] phase 24 passed ({smi}): " + json.dumps(marks))
+    return out, place
+
+
 def main() -> int:
     import torch
 
@@ -5732,9 +6211,20 @@ def main() -> int:
 
     # each phase's seconds of wall clock, printed before the timings
     marks = [("start", time.monotonic())]
+    from kueue_oss_tpu_torch import metrics
+
+    # a local solve fault is the device_error rung: only 24 (a) injects
+    # one, so every other phase must leave the count where it was
+    dev_err = [metrics.solver_fallback_total.value("device_error")]
 
     def mark(phase: str) -> None:
         marks.append((phase, time.monotonic()))
+        now = metrics.solver_fallback_total.value("device_error")
+        if phase != "24" and now != dev_err[0]:
+            raise AssertionError(f"phase {phase}: {now - dev_err[0]} "
+                                 f"device_error fallbacks; no local solve "
+                                 f"fault is injected there")
+        dev_err[0] = now
 
     # 1. device
     kind = torch.cuda.get_device_name(0)
@@ -5787,6 +6277,13 @@ def main() -> int:
         # phase 23 alone: the observability layer
         observability, _ = observability_phase(smi)
         print("[timings] " + json.dumps({"observability": observability}))
+        print(smi)
+        return 0
+
+    if sys.argv[1:] == ["--phase", "24"]:
+        # phase 24 alone: durability and degradation (no phase 6 walls)
+        durability, _ = durability_phase(smi)
+        print("[timings] " + json.dumps({"durability": durability}))
         print(smi)
         return 0
 
@@ -5978,6 +6475,14 @@ def main() -> int:
     observability, obs_place = observability_phase(smi)
     relax_report["launches_by_path"]["observability"] = 0
     mark("23")
+
+    # 24. durability and degradation: the chaos campaigns, the storm and
+    # the TAS store with the WAL on, kill -9 mid-drain; its relax_lp,
+    # leaf_states and fill_counts launches are checked there (0)
+    durability, durability_place = durability_phase(
+        smi, [storm["wave1"]["drain_s"], storm["wave2"]["drain_s"]])
+    relax_report["launches_by_path"]["durability"] = 0
+    mark("24")
     # the fill's own path: phase 14's host placement with the fill gate
     # on; every other path launched no TAS kernel but its placer
     reports[2]["launches"] = host_fill
@@ -6005,7 +6510,7 @@ def main() -> int:
                                       "dispatch_delayed_tas":
                                           dispatch_fills["delayed_tas"],
                                       "sidecar": 0, "federation": 0,
-                                      "observability": 0}
+                                      "observability": 0, "durability": 0}
     reports[0]["launches_by_path"] = {"tas_lean": leaf_launches,
                                       "tas_full": 0, "storm_full": 0,
                                       "fair_storm": fair_launches,
@@ -6024,7 +6529,7 @@ def main() -> int:
                                       "fullsweep": fullsweep_launches,
                                       "dispatch": 0, "sidecar": 0,
                                       "federation": 0,
-                                      "observability": 0}
+                                      "observability": 0, "durability": 0}
     # leaf_states is on no main path since fill_counts took the fill
     # (its launches on every path are 0, checked above)
     reports[0]["launches"] = sum(reports[0]["launches_by_path"].values())
@@ -6051,7 +6556,8 @@ def main() -> int:
                                       "dispatch": 0,
                                       "sidecar": sidecar_place,
                                       "federation": federation_place,
-                                      "observability": obs_place}
+                                      "observability": obs_place,
+                                      "durability": durability_place}
 
     timings = {"setup_s": setup_s, "drain_s": drain_s,
                **{f"{k}_s": v for k, v in result.phases.items()},
@@ -6066,7 +6572,7 @@ def main() -> int:
                "perf_runner": perf, "whatif": whatif, "relax": relaxed,
                "fullsweep": fullsweep, "dispatch": dispatch,
                "sidecar": sidecar, "federation": federation,
-               "observability": observability}
+               "observability": observability, "durability": durability}
     print("[phase seconds] " + json.dumps(
         {name: t - marks[i][1] for i, (name, t) in enumerate(marks[1:])}
         | {"total": marks[-1][1] - marks[0][1]}))

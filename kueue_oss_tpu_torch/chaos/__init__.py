@@ -30,9 +30,18 @@ Copies from ``kueue_oss_tpu/chaos/__init__.py``:
   ``MultiKueueController``, and a tenant's sessions evicted from the
   shared farm's ``SolverServer`` (``drop_tenant``).
 
-The mesh-fault injector waits for the multi-device arms (ROADMAP Queue A
-item 9), the crash-point injector for a persistence layer, and the
-campaign layer for the degradation ladder it drives (item 13b).
+- ``MeshFaultInjector`` (:249-315): device loss through the engine's
+  ``solve_fault_hook`` (the mesh half arms faults no single-device
+  solve consumes: the mesh arm is ROADMAP Queue A item 9).
+
+- ``CrashPointInjector`` (:317-371): kill -9 (or raise) at a named
+  durability point of ``persist/hooks.py``, in process or, through
+  ``env()``, in a ``persist/crashtest.py`` child.
+
+- ``chaos/campaign.py`` (the lazy ``ChaosCampaign``, ``CampaignSpec``,
+  ``CampaignResult``, ``PROFILES``, ``PROFILE_SUBSYSTEM`` and
+  ``run_campaign`` below): composed-fault campaigns with a convergence
+  oracle.
 """
 
 from __future__ import annotations
@@ -228,6 +237,134 @@ class ChaosSolverServer(SolverServer):
         self.RequestHandlerClass = _ChaosHandler
 
 
+class MeshFaultInjector:
+    """Deterministic device loss through the engine's
+    ``solve_fault_hook`` seam: the hook runs right before each local
+    solve, tagged with the arm about to run, so raising there stands in
+    for the device failing at dispatch. The engine's contract under
+    test: a fault on every local arm raises ``SolverUnavailable`` and the
+    scheduler finishes the round on host cycles
+    (``solver_fallback_total{device_error}``, the ladder's
+    ``device_error``). The port has no mesh arm (ROADMAP Queue A item 9):
+    ``lose_mesh`` arms faults that no solve consumes, and ``shrink`` /
+    ``restore`` re-detect a width of 0, as a single-device JAX engine
+    does.
+    """
+
+    def __init__(self, engine) -> None:
+        self.engine = engine
+        self._mesh_faults = 0
+        self._all_faults = 0
+        self.injected: dict[str, int] = {}
+        engine.solve_fault_hook = self._hook
+
+    def _count(self, kind: str) -> None:
+        self.injected[kind] = self.injected.get(kind, 0) + 1
+
+    def _hook(self, arm: str) -> None:
+        if self._all_faults > 0:
+            if arm == "single":
+                self._all_faults -= 1  # terminal arm = one drain
+            self._count(f"{arm}_lost")
+            raise RuntimeError(
+                f"injected device loss ({arm} arm unavailable)")
+        if arm == "mesh" and self._mesh_faults > 0:
+            self._mesh_faults -= 1
+            self._count("mesh_lost")
+            raise RuntimeError("injected mesh device loss")
+
+    def lose_mesh(self, times: int = 1) -> None:
+        """The next ``times`` mesh-arm solves fail (ICI/device loss)."""
+        self._mesh_faults += int(times)
+
+    def lose_all(self, times: int = 1) -> None:
+        """The next ``times`` drains fail on EVERY local arm — the
+        whole accelerator is gone; only host cycles remain."""
+        self._all_faults += int(times)
+
+    def shrink(self, n_devices: int) -> int:
+        """Shrink the engine's mesh to ``n_devices`` (a partial device
+        loss); returns the re-detected width."""
+        self._count(f"shrink_{n_devices}")
+        return self.engine.refresh_mesh(max_devices=n_devices)
+
+    def restore(self) -> int:
+        """Heal: clear pending faults and re-detect the full mesh."""
+        self._mesh_faults = 0
+        self._all_faults = 0
+        return self.engine.refresh_mesh()
+
+    def faults_injected(self) -> int:
+        return sum(self.injected.values())
+
+
+class CrashPointInjector:
+    """Kill -9 the control plane at a named durability point
+    (docs/DURABILITY.md; docs/ROBUSTNESS.md fault taxonomy).
+
+    Two usage modes:
+
+    - **subprocess** (the restart fault): ``env()`` returns the
+      environment that arms the point inside a child control plane —
+      ``persist/crashtest.py`` consumes it, SIGKILLs itself at the
+      point, and a second invocation with ``--phase recover`` proves
+      recovery. This is the production-faithful mode: the process
+      really dies, nothing flushes.
+    - **in-process** (unit tests): ``arm(mode="raise")`` makes the
+      point raise :class:`kueue_oss_tpu_torch.persist.hooks.CrashPoint`
+      instead of killing, so a test can assert on the half-written
+      state directly.
+
+    Points: pre_fsync, torn_tail, post_fsync_pre_apply,
+    mid_checkpoint, mid_drain (``persist.hooks.CRASH_POINTS``).
+    """
+
+    def __init__(self, point: str, after: int = 0,
+                 mode: str = "kill") -> None:
+        from kueue_oss_tpu_torch.persist import hooks
+
+        if point not in hooks.CRASH_POINTS:
+            raise ValueError(f"unknown crash point {point!r}; "
+                             f"one of {hooks.CRASH_POINTS}")
+        self.point = point
+        self.after = int(after)
+        self.mode = mode
+
+    def arm(self) -> "CrashPointInjector":
+        from kueue_oss_tpu_torch.persist import hooks
+
+        hooks.arm(self.point, after=self.after, mode=self.mode)
+        return self
+
+    def disarm(self) -> None:
+        from kueue_oss_tpu_torch.persist import hooks
+
+        hooks.disarm()
+
+    def __enter__(self) -> "CrashPointInjector":
+        return self.arm()
+
+    def __exit__(self, *exc) -> None:
+        self.disarm()
+
+    def env(self) -> dict:
+        """Environment arming this point in a child process."""
+        return {"KUEUE_CRASH_POINT": self.point,
+                "KUEUE_CRASH_AFTER": str(self.after),
+                "KUEUE_CRASH_MODE": self.mode}
+
+
+def __getattr__(name: str):
+    # campaign composition layer (chaos/campaign.py) — lazy so that
+    # importing the injectors never pulls the scheduler stack
+    if name in ("ChaosCampaign", "CampaignSpec", "CampaignResult",
+                "PROFILES", "PROFILE_SUBSYSTEM", "run_campaign"):
+        from kueue_oss_tpu_torch.chaos import campaign
+
+        return getattr(campaign, name)
+    raise AttributeError(name)
+
+
 class NodeFlapInjector:
     """Seeded node-readiness flapping against the store.
 
@@ -270,8 +407,9 @@ class NodeFlapInjector:
 
 
 __all__ = ["CORRUPT_PLAN", "CRASH", "CRASH_PRE", "ChaosSolverServer",
-           "FAULTS", "FaultInjector", "GARBLE", "HANG", "NodeFlapInjector",
-           "OK", "OVERSIZE", "SLOW", "TRUNCATE"]
+           "CrashPointInjector", "FAULTS", "FaultInjector", "GARBLE",
+           "HANG", "MeshFaultInjector", "NodeFlapInjector", "OK",
+           "OVERSIZE", "SLOW", "TRUNCATE"]
 
 
 class ClusterLossInjector:

@@ -15,12 +15,11 @@ The port acts on the sections it has modules for: ``solver``
 ``core.workload_info.set_resources_config``), ``admissionFairSharing``
 (``core.afs.AfsManager``), ``observability`` (applied, as in the JAX
 package, by the caller's ``obs.configure(cfg.observability,
-capture_dir=cfg.persistence.dir)``) and ``featureGates``.
-``persistence`` and ``resilience`` are carried as data: the persistence
-layer is ROADMAP Queue A item 14, the degradation ladder item 13b. A
-switch that asks for what the port does not do raises, so no stated
-durability goes missing unseen: ``persistence.enabled``. Switches that
-turn a layer off load (the port runs none of it). The fields of the multi-device arms
+capture_dir=cfg.persistence.dir)``), ``persistence``
+(``persist.PersistenceManager.from_config``), ``resilience`` (applied,
+as in the JAX package, by the caller's ``resilience.configure(
+cfg.resilience)``: ``load`` applies neither) and ``featureGates``.
+The fields of the multi-device arms
 (``solver.mesh``, the pod-scale coordinator, ``simulator.mesh``) raise
 away from their defaults: Queue A item 9.
 """
@@ -231,9 +230,7 @@ class FederationConfig:
 
 @dataclass
 class ResilienceConfig:
-    """Degradation-ladder knobs (the JAX package's resilience layer;
-    carried as data here: the ladder waits for ROADMAP Queue A item
-    13b).
+    """Degradation-ladder knobs (``resilience.configure``).
 
     No reference analog — the reference has no explicit degraded-mode
     state machine; these govern the process-wide DegradationController
@@ -250,8 +247,8 @@ class ResilienceConfig:
 
 @dataclass
 class PersistenceConfig:
-    """Durable control plane knobs (the JAX package's persistence layer;
-    carried as data here: the port has none).
+    """Durable control plane knobs (``persist.PersistenceManager.
+    from_config``).
 
     No reference analog — the reference delegates durability to the
     apiserver/etcd; here the control plane carries its own write-ahead
@@ -299,12 +296,6 @@ class PersistenceConfig:
     #: per-key last-state-wins compaction of sealed segments during
     #: shipping (never alters the primary's own log)
     ship_compact: bool = True
-
-    def __post_init__(self) -> None:
-        if self.enabled:
-            raise NotImplementedError(
-                "PersistenceConfig.enabled: the port has no write-ahead "
-                "log or checkpoints yet, ROADMAP Queue A item 14")
 
 
 @dataclass

@@ -16,8 +16,10 @@ parked neighbours. The eviction is journaled (a ``PREEMPTED`` or
 ``EVICTED`` decision event tagged with the caller's ``path`` and
 ``cycle``) and counted in the eviction series; ``evicted_total`` is the
 evictor's per-workload tally that keys the first-eviction counter (the
-JAX scheduler's ``evicted_total``). Cut from the copy: persistence
-intents, events and logs.
+JAX scheduler's ``evicted_total``). With a ``PersistenceManager``
+attached to the store, a ``preempt`` or ``evict`` intent fenced by the
+pre-write resource version is written before the store mutation. Cut
+from the copy: events and logs.
 
 ``finish_workload`` is ``Scheduler.finish_workload``
 (``kueue_oss_tpu/scheduler/scheduler.py:1650-1672``): the Finished
@@ -61,6 +63,11 @@ def evict_workload(store: Store, queues: QueueManager, key: str,
     cq = (wl.status.admission.cluster_queue
           if wl.status.admission is not None
           else store.cluster_queue_for(wl))
+    p = getattr(store, "persistence", None)
+    if p is not None:
+        p.intent("preempt" if preemption_reason else "evict",
+                 wl.key, rv=wl.resource_version, cycle=cycle,
+                 cluster_queue=cq or "", detail={"reason": reason})
     was_reserved = wl.is_quota_reserved
     wl.set_condition(WorkloadConditionType.EVICTED, True, reason=reason,
                      message=message, now=now)

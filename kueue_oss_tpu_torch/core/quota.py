@@ -141,7 +141,12 @@ class QuotaForest:
         self.cqs: dict[str, QuotaNode] = {}
 
     def build(self, cluster_queues: Iterable[ClusterQueue],
-              cohorts: Iterable[Cohort] = ()) -> None:
+              cohorts: Iterable[Cohort] = (),
+              cq_usage: Optional[dict[str, dict[FlavorResource, int]]]
+              = None) -> None:
+        """The forest of ``cluster_queues`` under ``cohorts``; with
+        ``cq_usage`` (the invariant auditor's recompute) each named
+        ClusterQueue starts from that usage before the roll-up."""
         self.nodes.clear()
         self.cqs.clear()
         cohorts = list(cohorts)
@@ -177,6 +182,12 @@ class QuotaForest:
                 node.parent = parent
                 parent.children[key] = node
         self._check_cycles()
+        if cq_usage:
+            for name, usage in cq_usage.items():
+                if name not in self.cqs:
+                    raise KeyError(f"cq_usage references unknown "
+                                   f"ClusterQueue {name!r}")
+                self.cqs[name].usage = dict(usage)
         self.refresh()
 
     def _check_cycles(self) -> None:

@@ -3,15 +3,23 @@ and commits to.
 
 A copy of ``kueue_oss_tpu/core/store.py`` with the same watch contract:
 writers emit ``(verb, kind, obj)`` events to subscribers (the queue
-manager). The write choke points keep the retained-finished gauges of
-the metrics registry (``_track_finished``). Cut from the copy:
-persistence hooks, ``clone``, the deletes of queues, priority classes
-and the conditional-write client path.
+manager, and a ``persist.PersistenceManager``'s WAL). The write choke
+points keep the retained-finished gauges of the metrics registry
+(``_track_finished``). ``persistence`` is the attached manager (None for
+a volatile store): the scheduler and the engine write their decision
+intents and cycle-end flushes through it. ``_lock`` (an RLock) is held
+by every writer while it mutates the dicts and the derived indexes, as
+in JAX, so the background auditor's passes and heals never race a
+write; events are emitted after it is released. Cut from the copy: ``clone``,
+the deletes of queues, priority classes (``persist/codec.py`` writes the
+JAX package's empty ``WorkloadPriorityClass`` map) and the
+conditional-write client path.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import threading
 from typing import Callable, Optional
 
 from kueue_oss_tpu_torch import features
@@ -31,6 +39,7 @@ Event = tuple[str, str, object]  # (verb, kind, obj)
 
 class Store:
     def __init__(self) -> None:
+        self._lock = threading.RLock()
         self.cluster_queues: dict[str, ClusterQueue] = {}
         self.cohorts: dict[str, Cohort] = {}
         self.local_queues: dict[str, LocalQueue] = {}  # key "ns/name"
@@ -52,6 +61,8 @@ class Store:
         #: keys whose FINISHED transition was counted into the
         #: retained-finished gauges (see _track_finished)
         self._finished_counted: set[str] = set()
+        #: the attached persist.PersistenceManager (None = volatile)
+        self.persistence = None
 
     # -- watch -------------------------------------------------------------
 
@@ -65,54 +76,65 @@ class Store:
     # -- writers -----------------------------------------------------------
 
     def upsert_cluster_queue(self, cq: ClusterQueue) -> None:
-        verb = "update" if cq.name in self.cluster_queues else "add"
-        self.cluster_queues[cq.name] = cq
-        self.cq_generation[cq.name] = self.cq_generation.get(cq.name, 0) + 1
+        with self._lock:
+            verb = "update" if cq.name in self.cluster_queues else "add"
+            self.cluster_queues[cq.name] = cq
+            self.cq_generation[cq.name] = (
+                self.cq_generation.get(cq.name, 0) + 1)
         self._emit(verb, "ClusterQueue", cq)
 
     def upsert_cohort(self, cohort: Cohort) -> None:
         if cohort.parent and not features.enabled("HierarchicalCohorts"):
             cohort = dataclasses.replace(cohort, parent=None)
-        self.cohorts[cohort.name] = cohort
+        with self._lock:
+            self.cohorts[cohort.name] = cohort
         self._emit("update", "Cohort", cohort)
 
     def upsert_local_queue(self, lq: LocalQueue) -> None:
-        self.local_queues[lq.key] = lq
+        with self._lock:
+            self.local_queues[lq.key] = lq
         self._emit("update", "LocalQueue", lq)
 
     def upsert_resource_flavor(self, rf: ResourceFlavor) -> None:
-        self.resource_flavors[rf.name] = rf
+        with self._lock:
+            self.resource_flavors[rf.name] = rf
         self._emit("update", "ResourceFlavor", rf)
 
     def upsert_topology(self, t: Topology) -> None:
-        self.topologies[t.name] = t
+        with self._lock:
+            self.topologies[t.name] = t
         self._emit("update", "Topology", t)
 
     def upsert_admission_check(self, ac: AdmissionCheck) -> None:
-        self.admission_checks[ac.name] = ac
+        with self._lock:
+            self.admission_checks[ac.name] = ac
         self._emit("update", "AdmissionCheck", ac)
 
     def upsert_node(self, node: Node) -> None:
-        self.nodes[node.name] = node
+        with self._lock:
+            self.nodes[node.name] = node
         self._emit("update", "Node", node)
 
     def delete_node(self, name: str) -> None:
-        node = self.nodes.pop(name, None)
+        with self._lock:
+            node = self.nodes.pop(name, None)
         if node is not None:
             self._emit("delete", "Node", node)
 
     def add_workload(self, wl: Workload) -> None:
-        wl.resource_version += 1
-        self.workloads[wl.key] = wl
-        self._index_workload(wl)
-        self._track_finished(wl)
+        with self._lock:
+            wl.resource_version += 1
+            self.workloads[wl.key] = wl
+            self._index_workload(wl)
+            self._track_finished(wl)
         self._emit("add", "Workload", wl)
 
     def update_workload(self, wl: Workload) -> None:
-        wl.resource_version += 1
-        self.workloads[wl.key] = wl
-        self._index_workload(wl)
-        self._track_finished(wl)
+        with self._lock:
+            wl.resource_version += 1
+            self.workloads[wl.key] = wl
+            self._index_workload(wl)
+            self._track_finished(wl)
         self._emit("update", "Workload", wl)
 
     def _track_finished(self, wl: Workload) -> None:
@@ -137,11 +159,12 @@ class Store:
                     wl.queue_name, wl.namespace, by=delta)
 
     def delete_workload(self, key: str) -> Optional[Workload]:
-        wl = self.workloads.pop(key, None)
-        self._admitted.pop(key, None)
-        self._admitted_infos.pop(key, None)
-        counted = key in self._finished_counted
-        self._finished_counted.discard(key)
+        with self._lock:
+            wl = self.workloads.pop(key, None)
+            self._admitted.pop(key, None)
+            self._admitted_infos.pop(key, None)
+            counted = key in self._finished_counted
+            self._finished_counted.discard(key)
         if wl is not None:
             if counted:
                 # shed the retained-finished sample on any deletion path
@@ -175,23 +198,26 @@ class Store:
         from kueue_oss_tpu_torch.core import workload_info as wli
         from kueue_oss_tpu_torch.core.workload_info import WorkloadInfo
 
-        gen = wli.requests_config_generation()
-        if gen != self._info_cache_gen:
-            self._admitted_infos.clear()
-            self._info_cache_gen = gen
-        out = []
-        for key, wl in self._admitted.items():
-            info = self._admitted_infos.get(key)
-            if info is None:
-                if wl.status.admission is not None:
-                    info = WorkloadInfo(
-                        wl, cluster_queue=wl.status.admission.cluster_queue)
-                    self._admitted_infos[key] = info
-                else:
-                    # the LocalQueue may be repointed: resolve every call
-                    cq_name = self.cluster_queue_for(wl)
-                    if cq_name is None:
-                        continue
-                    info = WorkloadInfo(wl, cluster_queue=cq_name)
-            out.append(info)
-        return out
+        with self._lock:
+            gen = wli.requests_config_generation()
+            if gen != self._info_cache_gen:
+                self._admitted_infos.clear()
+                self._info_cache_gen = gen
+            out = []
+            for key, wl in self._admitted.items():
+                info = self._admitted_infos.get(key)
+                if info is None:
+                    if wl.status.admission is not None:
+                        info = WorkloadInfo(
+                            wl,
+                            cluster_queue=wl.status.admission.cluster_queue)
+                        self._admitted_infos[key] = info
+                    else:
+                        # the LocalQueue may be repointed: resolve it
+                        # on every call
+                        cq_name = self.cluster_queue_for(wl)
+                        if cq_name is None:
+                            continue
+                        info = WorkloadInfo(wl, cluster_queue=cq_name)
+                out.append(info)
+            return out

@@ -43,8 +43,8 @@ throttles, tenants, the grant-wait histogram) equal the plain ledgers
 ``wall_by_tenant``, ``served``, ``throttled`` and the tenant ring, and
 with a ``tracer`` set every grant stamps a ``farm_grant_wait`` span on
 a per-tenant farm track (the service's response carries the same span
-to the client). Cut from the copy: the degradation ladder's FEDERATION
-rung (ROADMAP Queue A item 13b).
+to the client). A throttle raises the degradation ladder's FEDERATION
+``backpressure`` condition and a served grant clears it.
 """
 
 from __future__ import annotations
@@ -55,7 +55,7 @@ import time
 from collections import deque
 from typing import Callable, Optional
 
-from kueue_oss_tpu_torch import metrics
+from kueue_oss_tpu_torch import metrics, resilience
 
 
 def _backpressure(tenant: str, why: str) -> tuple[dict, bytes]:
@@ -335,12 +335,20 @@ class FarmScheduler:
             out = fn()
         finally:
             self._complete(tenant, max(0.0, self._clock() - t0))
+        ctl = resilience.controller
+        if ctl.active(resilience.FEDERATION, "backpressure"):
+            ctl.report(resilience.FEDERATION, "backpressure", False,
+                       reason=f"farm served tenant {tenant!r}; "
+                              "backpressure relieved")
         return out
 
     def _throttle_locked(self, tenant: str, why: str
                          ) -> tuple[dict, bytes]:
         self.throttled[tenant] = self.throttled.get(tenant, 0) + 1
         metrics.solver_farm_throttled_total.inc(tenant)
+        resilience.controller.report(
+            resilience.FEDERATION, "backpressure", True,
+            reason=f"farm backpressure for tenant {tenant!r}: {why}")
         return _backpressure(tenant, why)
 
 

@@ -37,6 +37,7 @@ import time
 from typing import Optional
 
 from kueue_oss_tpu_torch import metrics
+from kueue_oss_tpu_torch.resilience import CooldownPolicy
 
 #: device-delta counter name -> transfer direction (the unification of
 #: solver/delta.py's scattered byte counters; counts are not bytes and
@@ -77,40 +78,6 @@ def device_memory_stats(device=None) -> dict[str, int]:
         return {str(index): int(stats["allocated_bytes.all.current"])}
     except Exception:
         return {}
-
-
-class CooldownPolicy:
-    """The cooldown half of the JAX ``resilience.CooldownPolicy``
-    (``kueue_oss_tpu/resilience/__init__.py:91-150``), what the capture
-    needs of it: a fault stamp per key and whether its cooldown
-    elapsed. The degradation ladder that owns the JAX policy is not
-    ported yet (ROADMAP Queue A item 13b)."""
-
-    def __init__(self, clock=time.monotonic) -> None:
-        self.clock = clock
-        self._lock = threading.Lock()
-        self._faulted_at: dict = {}
-
-    def note_fault(self, key) -> None:
-        with self._lock:
-            self._faulted_at[key] = self.clock()
-
-    def clear(self, key) -> None:
-        with self._lock:
-            self._faulted_at.pop(key, None)
-
-    def stamp(self, key) -> Optional[float]:
-        return self._faulted_at.get(key)
-
-    def set_stamp(self, key, t: float) -> None:
-        """Test hook: rewind a fault stamp to simulate elapsed cooldown."""
-        with self._lock:
-            if key in self._faulted_at:
-                self._faulted_at[key] = t
-
-    def elapsed(self, key, cooldown_s: float) -> bool:
-        at = self._faulted_at.get(key)
-        return at is not None and self.clock() - at >= cooldown_s
 
 
 class CompileDetector:

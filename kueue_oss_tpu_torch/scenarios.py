@@ -58,6 +58,14 @@ percentiles.
 tree and request mix, and random trees with slices, leaders, the
 least-free profile and pre-rejected rows.
 
+``durable_storm`` and ``durable_tas`` drive ``baseline_preempt_store``
+and ``tas_drain_store`` with a ``PersistenceManager`` attached (the
+storm through a scheduler-backed engine, the TAS store through
+``Scheduler(solver="auto")``), then close the manager and recover a
+fresh store from its directory; like the builders they take the
+package's classes (a ``Durable`` bundle), so the JAX package's pins and
+the port's card run drive the same steps.
+
 ``dense_relax_lp`` widens a relaxed LP to more flavor-resource columns,
 every column non-zero where its source column is: the LPs whose sum over
 the columns shows its float order.
@@ -67,7 +75,11 @@ from __future__ import annotations
 
 import hashlib
 import json
+import os
 import random
+import time
+from dataclasses import dataclass
+from typing import Any, Callable
 
 import numpy as np
 
@@ -789,3 +801,150 @@ def interior_relax_lp(lp, n_cols: int, seed: int, iters: int = 32):
     return d._replace(
         r=r, s=s, slack=np.zeros_like(d.slack),
         scale=np.full_like(d.scale, np.float32(2.0 ** -20)))
+
+
+@dataclass
+class Durable:
+    """One package's classes for ``durable_storm`` / ``durable_tas``."""
+
+    types: Any
+    store_cls: Any
+    queues_cls: Any
+    scheduler_cls: Any
+    engine_cls: Any
+    manager_cls: Any
+    auditor_cls: Any
+    canonical_dump: Callable
+    #: keyword arguments of every Scheduler and SolverEngine built here,
+    #: and attributes set on every engine (its arms' switches)
+    sched_kw: dict
+    engine_kw: dict
+    engine_attrs: dict
+    #: called after each timed step (``torch.cuda.synchronize`` on the
+    #: card)
+    sync: Callable = lambda: None
+
+
+def _recover(pkg: Durable, dir_path: str, live: bytes, out: dict) -> None:
+    """Close-time half of the durable runs: recover a fresh store
+    from ``dir_path``, time it, audit it and compare its dump."""
+    m2 = pkg.manager_cls(dir_path)
+    t0 = time.perf_counter()
+    rr = m2.recover()
+    out["recovery_ms"] = (time.perf_counter() - t0) * 1000
+    recovered = pkg.canonical_dump(rr.store)
+    out["recovered_identical"] = recovered == live
+    out["recovery"] = rr.to_dict()
+    out["audit_violations"] = len(pkg.auditor_cls(rr.store).audit())
+    m2.close()
+    out["dump_sha256"] = hashlib.sha256(live).hexdigest()
+    out["dump_bytes"] = len(live)
+
+
+def durable_storm(pkg: Durable, dir_path: str, *, finish: int = 100,
+                  hook: Callable = None, **store_kw) -> dict:
+    """The baseline storm with the durable control plane on, as
+    bench.py's durability scenario attaches it (bench.py:1349-1364):
+    wave 1 seeds the store, the manager attaches (batch group commit,
+    no checkpoint cadence), wave 1 drains; wave 2 arrives and a full
+    checkpoint is taken over the whole store; wave 2 drains; the first
+    ``finish`` admitted workloads finish (bench.py's slice of
+    ``store._admitted``) and a third drain writes the WAL a tail; then
+    flush, close and recover. ``hook(i, store)`` runs just before drain
+    ``i`` and ``hook(i, store, result)`` just after it, untimed (the
+    card run's plan checks). Returns each drain's result and wall, the
+    checkpoint's and the recovery's ms, the WAL's records and bytes (the
+    manager's segments summed) and the dump's sha256."""
+    store, wave1, wave2 = baseline_preempt_store(pkg.types, pkg.store_cls,
+                                                 **store_kw)
+    queues = pkg.queues_cls(store)
+    sched = pkg.scheduler_cls(store, queues, **pkg.sched_kw)
+    engine = pkg.engine_cls(store, queues, scheduler=sched, **pkg.engine_kw)
+    for k, v in pkg.engine_attrs.items():
+        setattr(engine, k, v)
+    for wl in wave1:
+        store.add_workload(wl)
+    manager = pkg.manager_cls(dir_path, fsync="batch",
+                              checkpoint_interval_records=1 << 62,
+                              checkpoint_interval_seconds=0.0)
+    manager.attach(store)
+    out: dict = {"workloads_seeded": len(store.workloads), "drains": []}
+    wal_records = wal_bytes = 0
+
+    def drain(now: float):
+        i = len(out["drains"])
+        if hook is not None:
+            hook(i, store)
+        t0 = time.perf_counter()
+        result = engine.drain(now=now)
+        pkg.sync()
+        out["drains"].append((result, time.perf_counter() - t0))
+        if hook is not None:
+            hook(i, store, result)
+
+    drain(100.0)
+    for wl in wave2:
+        store.add_workload(wl)
+    out["workloads_checkpointed"] = len(store.workloads)
+    wal_records += manager.wal.records_appended
+    wal_bytes += manager.wal.bytes_appended
+    t0 = time.perf_counter()
+    manager.checkpoint()
+    out["checkpoint_ms"] = (time.perf_counter() - t0) * 1000
+    drain(200.0)
+    finished = list(store._admitted)[:finish]
+    for key in finished:
+        sched.finish_workload(key, now=250.0)
+    out["finished"] = len(finished)
+    drain(300.0)
+    manager.flush()
+    wal_records += manager.wal.records_appended
+    wal_bytes += manager.wal.bytes_appended
+    out["wal_records"], out["wal_bytes"] = wal_records, wal_bytes
+    out["checkpoint_bytes"] = sum(
+        os.path.getsize(os.path.join(dir_path, n))
+        for n in os.listdir(dir_path) if n.endswith(".ckpt"))
+    live = pkg.canonical_dump(store)
+    manager.close()
+    _recover(pkg, dir_path, live, out)
+    out["store"] = store
+    return out
+
+
+def durable_tas(pkg: Durable, dir_path: str, *, n_workloads: int = 1500,
+                now: float = 0.0, tick: float = 0.001) -> dict:
+    """The TAS drain store through ``Scheduler(solver="auto")`` with the
+    durable control plane attached after seeding (batch group commit)
+    and a full checkpoint of the seeded store (the seed never reaches
+    the WAL): ``run_until_quiet(now, tick)``, then flush, close and
+    recover. Returns the cycles, the wall, the last drain, the
+    checkpoint's ms, the WAL's records and bytes and the recovery's
+    record."""
+    store = tas_drain_store(pkg.types, pkg.store_cls,
+                            n_workloads=n_workloads)
+    manager = pkg.manager_cls(dir_path, fsync="batch",
+                              checkpoint_interval_records=1 << 62,
+                              checkpoint_interval_seconds=0.0)
+    manager.attach(store)
+    t0 = time.perf_counter()
+    manager.checkpoint()
+    checkpoint_ms = (time.perf_counter() - t0) * 1000
+    sched = pkg.scheduler_cls(store, pkg.queues_cls(store), solver="auto",
+                              **pkg.sched_kw)
+    engine = sched._solver_engine()
+    for k, v in pkg.engine_attrs.items():
+        setattr(engine, k, v)
+    t0 = time.perf_counter()
+    cycles = sched.run_until_quiet(now=now, tick=tick)
+    pkg.sync()
+    out = {"cycles": cycles, "wall_s": time.perf_counter() - t0,
+           "drain": getattr(sched, "last_drain", None), "sched": sched,
+           "checkpoint_ms": checkpoint_ms}
+    manager.flush()
+    out["wal_records"] = manager.wal.records_appended
+    out["wal_bytes"] = manager.wal.bytes_appended
+    live = pkg.canonical_dump(store)
+    manager.close()
+    _recover(pkg, dir_path, live, out)
+    out["store"] = store
+    return out

@@ -57,9 +57,9 @@ Cut from the copy, each with its ROADMAP Queue A item:
   engine has no mesh or sidecar state that makes a drain unsupported and
   refuses a backlog shape only by raising ``UnsupportedProblem`` at
   export;
-- events, logs and persistence intents (the decision recorder, the
-  metrics, the SLO feed and the cycle ledger are wired as in the JAX
-  scheduler: ``obs/``, ``metrics/``);
+- events and logs (the decision recorder, the metrics, the SLO feed,
+  the cycle ledger and the persistence intents and flushes are wired as
+  in the JAX scheduler: ``obs/``, ``metrics/``, ``persist/``);
 - workload slicing, concurrent admission and MultiKueue orchestrated
   preemption: their gates (ElasticJobsViaWorkloadSlices,
   ConcurrentAdmission, MultiKueueOrchestratedPreemption) are off by
@@ -269,6 +269,7 @@ class Scheduler:
                 self._flush_metrics(
                     build_snapshot(self.store, device=self.device),
                     entries=[])
+            self._persist_flush()
             return stats
 
         # per-phase walls for the cycle ledger row (the Tracer's phase
@@ -317,6 +318,7 @@ class Scheduler:
         metrics.observe_admission_attempt(result, stats.duration_s)
         p3 = time.perf_counter()
         self._flush_metrics(snapshot, entries)
+        self._persist_flush()
         ledger = obs.cycle_ledger
         if ledger.enabled:
             ledger.record(
@@ -332,6 +334,14 @@ class Scheduler:
                 inadmissible=stats.inadmissible,
                 skip_slugs=dict(self._cycle_skip_slugs))
         return stats
+
+    def _persist_flush(self) -> None:
+        """Cycle-end durability barrier: the WAL's group commit lands
+        every record this cycle produced, and the checkpoint cadence
+        gets its look."""
+        p = getattr(self.store, "persistence", None)
+        if p is not None:
+            p.flush()
 
     def _flush_metrics(self, snapshot: Snapshot,
                        entries: list[Entry]) -> None:
@@ -1161,6 +1171,14 @@ class Scheduler:
             e.inadmissible_msg = "Workload vanished from the store"
             self._record_skip(e, "vanished")
             return
+        p = getattr(self.store, "persistence", None)
+        if p is not None:
+            # the decision's intent before the store mutation, fenced by
+            # the pre-write resource version: recovery matches it to the
+            # event at rv+1, or redoes the admission
+            p.intent("admit", wl.key, rv=wl.resource_version,
+                     cycle=self.cycle_count,
+                     cluster_queue=e.info.cluster_queue)
         delay_tas = self._delays_topology(e)
         admission = Admission(
             cluster_queue=e.info.cluster_queue,

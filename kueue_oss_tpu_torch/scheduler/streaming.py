@@ -89,10 +89,14 @@ and ``stream_spec_solves_total``, which the scheduler's serve loop
 bumps), each equal to its series in the metrics registry. The
 flight recorder gets the fence events (``_fence_event``,
 ``_note_structural``) and the streamed parkings; a productive
-micro-drain records a ``STREAM_DRAIN`` ledger row. Cut from the copy:
-the degradation-ladder reports (ROADMAP Queue A item 13b), the
-persistence flush after a productive drain, the concurrent-admission
-variant fence (the port's Workload has no ``parent_workload``), and what
+micro-drain records a ``STREAM_DRAIN`` ledger row. The fences report
+into the degradation ladder's STREAMING subsystem: a full fence (an
+unresolvable event owner, a spec change mid-window) raises
+``stream_off`` and a completed full solve clears it; deferred CQs raise
+``structural_fence``, and a clean drain or a solve that cleared every
+contended root clears it. A productive micro-drain ends in the attached
+``PersistenceManager``'s group commit. Cut from the copy: the
+concurrent-admission variant fence (the port's Workload has no ``parent_workload``), and what
 nothing in the port sets or reads: the admitter's ``enabled`` switch
 (the scheduler's ``_streaming_on`` decides whether an admitter exists)
 and ``MicroDrainResult``'s ``commit_s`` wall.
@@ -110,7 +114,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from kueue_oss_tpu_torch import features, metrics, obs
+from kueue_oss_tpu_torch import features, metrics, obs, resilience
 from kueue_oss_tpu_torch.api.types import (
     FlavorFungibilityPolicy,
     QueueingStrategy,
@@ -369,6 +373,11 @@ class StreamingAdmitter:
             else:
                 self._contended_roots[self._root(cq)] = self._gen
         self.count("stream_demotions_total", reason)
+        if cq is None:
+            resilience.controller.report(
+                resilience.STREAMING, "stream_off", True,
+                reason=f"window disarmed ({reason}): event owner "
+                       "unresolvable; full fence")
 
     # -- per-spec-gen derived tables ---------------------------------------
 
@@ -508,6 +517,18 @@ class StreamingAdmitter:
             # against post-solve usage
             self._headroom.clear()
             self._root_floor.clear()
+            contended = bool(self._contended_roots)
+        # degradation ladder: a completed full solve re-arms the window
+        # (stream_off clears); structural fences survive only for roots
+        # contended mid-solve
+        ctl = resilience.controller
+        if ctl.active(resilience.STREAMING, "stream_off"):
+            ctl.report(resilience.STREAMING, "stream_off", False,
+                       reason="full solve completed; window re-armed")
+        if not contended and ctl.active(resilience.STREAMING,
+                                        "structural_fence"):
+            ctl.report(resilience.STREAMING, "structural_fence", False,
+                       reason="full solve cleared every contended root")
 
     def note_solve_abort(self) -> None:
         """The solve failed (host fallback): stop attributing events
@@ -543,6 +564,10 @@ class StreamingAdmitter:
                 self.armed = False
                 self.full_solve_pending = True
             self.count("stream_demotions_total", "spec_change")
+            resilience.controller.report(
+                resilience.STREAMING, "stream_off", True,
+                reason="spec generation changed mid-window; streaming "
+                       "disarmed pending a full solve")
             return result
         t0 = time.perf_counter()
         pending = self.queues.cqs_with_pending()
@@ -641,8 +666,27 @@ class StreamingAdmitter:
             "admitted" if result.admitted else
             ("parked" if result.parked else
              ("deferred" if result.deferred_cqs else "idle")))
+        # degradation ladder: deferrals mean part of the fleet runs on
+        # the structural (full-solve-only) rung; a clean drain over a
+        # non-empty set recovers it
+        ctl = resilience.controller
+        if result.deferred_cqs:
+            ctl.report(
+                resilience.STREAMING, "structural_fence", True,
+                reason=f"{result.deferred_cqs} CQ(s) deferred to the "
+                       "next full solve behind structural fences")
+        elif considered and ctl.active(resilience.STREAMING,
+                                       "structural_fence"):
+            ctl.report(resilience.STREAMING, "structural_fence", False,
+                       reason="micro-drain covered every eligible CQ")
         if result.admitted:
             self._record_ledger(result)
+            p = getattr(self.store, "persistence", None)
+            if p is not None:
+                # sub-cycle durability barrier: the micro-batch's
+                # intents and events group-commit now, and the
+                # checkpoint cadence gets its look
+                p.flush()
         return result
 
     def _drain_cq(self, name: str, root: str, now: float,

@@ -92,10 +92,26 @@ device telemetry on (``obs.devtel.collector``) its compile verdict per
 drain folds its transfer bytes and the CUDA allocator's watermark into
 the telemetry.
 
-Cut from the copy: persistence intents and the degradation ladder
-(ROADMAP Queue A items 14 and 13b); and the mesh arm (Queue A item 9:
-locally the pad target is the pow2 high-water mark and the interleave
-1).
+The degradation ladder (``resilience/``) owns the arms' broken flags:
+``_relax_broken`` (and its cooldown stamp ``_relax_broken_at``) reads
+and reports the ``relax_broken`` condition, and its re-probe is the
+controller's single half-open probe. A local solve that raises, on the
+lean or the FULL drain, drops that kind's resident state, counts
+``solver_fallback_total{device_error}``, reports ``device_error`` (the
+solver ladder's host rung), records a ``SOLVER_FALLBACK`` event and
+raises ``SolverUnavailable``, so the scheduler finishes the round on
+host cycles; the next local solve that lands clears the condition. With
+a ``PersistenceManager`` attached to the store, every plan admission
+writes its ``admit`` intent before the store mutation, the
+``mid_drain`` crash point sits after each committed admission, and a
+drain ends in the WAL's group commit (``persistence.flush()``).
+``reset_sessions`` drops the sessions and resident states after a
+recovery, so the next drain opens with a full SYNC.
+
+Cut from the copy: the mesh arm (ROADMAP Queue A item 9): locally the
+pad target is the pow2 high-water mark and the interleave 1,
+``refresh_mesh`` re-detects no mesh (0 devices) and ``mesh_broken`` is
+never reported.
 """
 
 from __future__ import annotations
@@ -108,7 +124,7 @@ from typing import Optional
 
 import numpy as np
 
-from kueue_oss_tpu_torch import metrics, obs
+from kueue_oss_tpu_torch import metrics, obs, resilience
 from kueue_oss_tpu_torch.api.types import (
     Admission,
     AdmissionCheckState,
@@ -124,6 +140,7 @@ from kueue_oss_tpu_torch.core.workload_info import WorkloadInfo
 from kueue_oss_tpu_torch.device import resolve_device
 from kueue_oss_tpu_torch.native import BatchOracle
 from kueue_oss_tpu_torch.obs import devtel
+from kueue_oss_tpu_torch.persist import hooks as persist_hooks
 from kueue_oss_tpu_torch.scheduler.preemption import (
     _VARIANT_REASON,
     IN_CLUSTER_QUEUE,
@@ -314,8 +331,10 @@ class SolverEngine:
         self.relax_retry_cooldown_s = 300.0
         #: pin lean drains to the relax arm (bench/tests only)
         self.relax_force = False
+        # the broken flags are ladder conditions (the properties below):
+        # a new engine reports both healthy, as the JAX engine does
+        self._mesh_broken = False
         self._relax_broken = False
-        self._relax_broken_at = 0.0
         self._relax_drains = 0
         #: sticky pow2 pad target of the repair's support axis
         self._relax_pad_hwm = 0
@@ -482,6 +501,11 @@ class SolverEngine:
                 # prework of a drain that failed before its apply must
                 # never leak into the next drain (stale workload refs)
                 self._prework = None
+                # durability barrier: the drain's plan applications are
+                # group-committed before the scheduler builds on them
+                persistence = getattr(self.store, "persistence", None)
+                if persistence is not None:
+                    persistence.flush()
                 if probe and self.health.state == HALF_OPEN:
                     # the probe recorded no outcome: free its slot
                     self.health.abandon_probe()
@@ -628,6 +652,94 @@ class SolverEngine:
             frame_reason=frame_reason, session=session,
             grant_wait_ms=grant_wait_ms, device=device)
 
+    # -- the degradation ladder's solver conditions ----------------------
+
+    @property
+    def _mesh_broken(self) -> bool:
+        return resilience.controller.active(resilience.SOLVER,
+                                            "mesh_broken")
+
+    @_mesh_broken.setter
+    def _mesh_broken(self, v: bool) -> None:
+        resilience.controller.report(
+            resilience.SOLVER, "mesh_broken", bool(v),
+            cycle=self._drain_cycle,
+            reason=("mesh arm tripped" if v
+                    else "mesh re-probed; arm restored"))
+
+    @property
+    def _relax_broken(self) -> bool:
+        return resilience.controller.active(resilience.SOLVER,
+                                            "relax_broken")
+
+    @_relax_broken.setter
+    def _relax_broken(self, v: bool) -> None:
+        resilience.controller.report(
+            resilience.SOLVER, "relax_broken", bool(v),
+            cycle=self._drain_cycle,
+            reason=("relaxed arm demoted" if v
+                    else "relaxed arm re-probed; arm restored"))
+
+    @property
+    def _relax_broken_at(self) -> float:
+        return (resilience.controller.cooldowns.stamp(
+            (resilience.SOLVER, "relax_broken")) or 0.0)
+
+    @_relax_broken_at.setter
+    def _relax_broken_at(self, t: float) -> None:
+        resilience.controller.cooldowns.set_stamp(
+            (resilience.SOLVER, "relax_broken"), float(t))
+
+    def refresh_mesh(self, max_devices: int = 0) -> int:
+        """Re-detect the mesh (the ladder's heal, or a chaos mesh
+        shrink capping the width at ``max_devices``): clears
+        ``mesh_broken`` and forgets the mesh arm's cost estimate. The
+        port has no mesh arm, so the width is 0 (a single device) and
+        ``max_devices`` caps nothing."""
+        self._mesh_broken = False
+        for kind in ("lean", "full"):
+            self._arm_ema.pop((kind, "mesh"), None)
+            self._arm_warm.discard((kind, "mesh"))
+            devtel.collector.forget(kind, "mesh")
+        return 0
+
+    def reset_sessions(self, reason: str = "restart") -> None:
+        """Drop the delta sessions and the resident device states, so
+        the next drain of each kind opens with a full SYNC (the recovery
+        path: resident state and sidecar sessions are gone across a
+        restart, and a store rebuilt by replay is never diffed against
+        slot state from before it)."""
+        if self._delta_sessions or self._device_states:
+            metrics.solver_resync_total.inc(reason)
+        self._delta_sessions.clear()
+        self._device_states.clear()
+
+    def _clear_device_error(self) -> None:
+        """A local solve landed: the device works again, so the
+        device_error rung (host cycles) recovers on the ladder."""
+        ctl = resilience.controller
+        if ctl.active(resilience.SOLVER, "device_error"):
+            ctl.report(resilience.SOLVER, "device_error", False,
+                       cycle=self._drain_cycle,
+                       reason="local solve succeeded; device healthy")
+
+    def _device_fault(self, kind: str, e: BaseException) -> None:
+        """The local solve raised: drop the kind's resident state,
+        count, report and journal the fault, and raise
+        SolverUnavailable so the round completes on host cycles."""
+        self._device_states.pop(kind, None)
+        metrics.solver_fallback_total.inc("device_error")
+        metrics.solver_mesh_devices.set(value=0)
+        reason = (f"local solver backend fault ({e!r}); admissions "
+                  "degrade to the host cycle")
+        resilience.controller.report(
+            resilience.SOLVER, "device_error", True,
+            cycle=self._drain_cycle, reason=reason)
+        obs.recorder.record(
+            obs.SOLVER_FALLBACK, obs.CYCLE_SCOPE, cycle=self._drain_cycle,
+            path=obs.SOLVER, reason=reason, reason_slug="device_error")
+        raise SolverUnavailable(f"local solver backend fault: {e!r}") from e
+
     # -- the lean solve's arms: relaxed LP, then the exact solve ----------
 
     def _local_solve(self, problem: SolverProblem,
@@ -667,11 +779,12 @@ class SolverEngine:
         if not self.relax_enabled:
             return False
         if self._relax_broken:
-            # timed half-open: one probe drain re-measures once the
-            # cooldown elapses; another fault or divergence re-demotes
-            # and restarts the clock
-            if (time.monotonic() - self._relax_broken_at
-                    < self.relax_retry_cooldown_s):
+            # timed half-open through the ladder's cooldown policy: one
+            # probe drain re-measures once the cooldown elapses; another
+            # fault or divergence re-demotes and restarts the clock
+            if not resilience.controller.begin_probe(
+                    resilience.SOLVER, "relax_broken",
+                    self.relax_retry_cooldown_s):
                 return False
             self._relax_broken = False
             self._arm_warm.discard(("lean", "relax"))
@@ -708,8 +821,9 @@ class SolverEngine:
                   if slug == "relax_disagreement" else
                   f"relaxed solver arm fault ({e!r}); falling back to "
                   "the exact arms")
-        self._relax_broken = True
-        self._relax_broken_at = time.monotonic()
+        resilience.controller.report(
+            resilience.SOLVER, "relax_broken", True,
+            cycle=self._drain_cycle, reason=reason)
         self._arm_ema.pop(("lean", "relax"), None)
         self._arm_warm.discard(("lean", "relax"))
         devtel.collector.forget("lean", "relax")
@@ -791,18 +905,25 @@ class SolverEngine:
                      frame: Optional[SessionFrame], result: DrainResult,
                      n_live: int) -> tuple:
         """The exact lean drain on the engine's device (resident state
-        updated by the frame, or a fresh upload)."""
-        if self.solve_fault_hook is not None:
-            self.solve_fault_hook("single")
-        t0 = time.monotonic()
-        tensors = self._local_tensors(problem, frame, False, result)
-        t1 = time.monotonic()
-        out = tuple(a.cpu().numpy() for a in solve_backlog(tensors))
+        updated by the frame, or a fresh upload). A fault there is the
+        device_error rung (``_device_fault``); the plan is read back
+        inside the guarded block, so a device fault surfaces here and
+        not mid-apply."""
+        try:
+            if self.solve_fault_hook is not None:
+                self.solve_fault_hook("single")
+            t0 = time.monotonic()
+            tensors = self._local_tensors(problem, frame, False, result)
+            t1 = time.monotonic()
+            out = tuple(a.cpu().numpy() for a in solve_backlog(tensors))
+        except Exception as e:
+            self._device_fault("lean", e)
         t2 = time.monotonic()
         result.phases["solve"] = t2 - t1
         self._note_arm_wall("lean", "single", t2 - t0, n_live)
         self.last_drain_arm = "single"
         metrics.solver_mesh_devices.set(value=0)
+        self._clear_device_error()
         return out
 
     # -- delta sessions and resident device state --------------------------
@@ -1348,16 +1469,22 @@ class SolverEngine:
             result.phases["solve"] = time.monotonic() - t0
             self.last_drain_arm = "remote"
         else:
-            ta = time.monotonic()
-            tensors = self._local_tensors(problem, frame, True, result)
-            t0 = time.monotonic()
-            stats = FullDrainStats()
-            out = solve_backlog_full(tensors, g_max=g_max, h_max=h_max,
-                                     p_max=p_max, stats=stats,
-                                     fs_enabled=self.enable_fair_sharing,
-                                     afs=afs)
-            (admitted, opt, admit_round, parked, rounds, _usage, _wl_usage,
-             victim_reason) = (a.cpu().numpy() for a in out)
+            try:
+                if self.solve_fault_hook is not None:
+                    self.solve_fault_hook("single")
+                ta = time.monotonic()
+                tensors = self._local_tensors(problem, frame, True, result)
+                t0 = time.monotonic()
+                stats = FullDrainStats()
+                out = solve_backlog_full(
+                    tensors, g_max=g_max, h_max=h_max, p_max=p_max,
+                    stats=stats, fs_enabled=self.enable_fair_sharing,
+                    afs=afs)
+                (admitted, opt, admit_round, parked, rounds, _usage,
+                 _wl_usage, victim_reason) = tuple(
+                     a.cpu().numpy() for a in out)
+            except Exception as e:
+                self._device_fault("full", e)
             stats.syncs += 1  # the plan's read-back
             result.full_stats = stats
             result.phases["solve"] = time.monotonic() - t0
@@ -1365,6 +1492,7 @@ class SolverEngine:
                                 n_live)
             self.last_drain_arm = "single"
             metrics.solver_mesh_devices.set(value=0)
+            self._clear_device_error()
         result.rounds = int(rounds)
         result.solver_time_s = time.monotonic() - ts
         metrics.solver_cycle_duration_seconds.observe(
@@ -1474,6 +1602,15 @@ class SolverEngine:
                           now: float, result: DrainResult,
                           topology: Optional[TopologyAssignment] = None,
                           ) -> None:
+        persistence = getattr(self.store, "persistence", None)
+        if persistence is not None:
+            # the plan entry's intent before the store mutation, fenced
+            # like the host path's: a drain killed mid-apply redoes the
+            # uncommitted suffix from the recovered backlog
+            persistence.intent("admit", wl.key, rv=wl.resource_version,
+                               cycle=self._drain_cycle,
+                               cluster_queue=cq_name,
+                               detail={"path": "solver"})
         admission = Admission(
             cluster_queue=cq_name,
             podset_assignments=[
@@ -1506,6 +1643,7 @@ class SolverEngine:
             wl.set_condition(WorkloadConditionType.ADMITTED, True,
                              reason="Admitted", now=now)
         self.store.update_workload(wl)
+        persist_hooks.crash_if("mid_drain")
         self.queues.queues[cq_name].delete(wl.key)
         scope = cq_spec.admission_scope
         if (self.queues.afs is not None and scope is not None

@@ -15,18 +15,17 @@ admission round:
   cooldown expires, then admits exactly one probe, which closes it or
   opens it for another cooldown.
 
-The single-probe slot is a copy of the probe gate of the JAX package's
-``resilience.CooldownPolicy`` (``kueue_oss_tpu/resilience/__init__.py:
-91-150``): one process-wide gate keyed like the JAX one, so two breakers
-of one process share the half-open slot as they do there. The clock is
-injectable, so tests drive the cooldown without sleeping.
+The single-probe slot is the probe gate of the degradation ladder's
+shared ``resilience.CooldownPolicy`` (``controller.cooldowns``, keyed
+``(SOLVER, "breaker_open")``), so two breakers of one process share the
+half-open slot, and every trip and close reports the ``breaker_open``
+condition into the ladder. The cooldown's elapsed check keeps the
+breaker's own injectable clock, so tests drive it without sleeping.
 
 The breaker writes ``kueue_tpu_solver_breaker_state`` on every
 transition (the recorder's breaker tags read it) and counts trips in
 ``kueue_tpu_solver_breaker_trips_total``; its own ``state`` and
-``trips`` equal them. Cut from the copy: the process-wide degradation
-ladder (``resilience.controller``'s ``report``, ROADMAP Queue A item
-13b).
+``trips`` equal them.
 """
 
 from __future__ import annotations
@@ -34,7 +33,7 @@ from __future__ import annotations
 import threading
 import time
 
-from kueue_oss_tpu_torch import metrics
+from kueue_oss_tpu_torch import metrics, resilience
 
 #: breaker states
 CLOSED = "closed"
@@ -54,33 +53,6 @@ class SolverUnavailable(Exception):
     """
 
 
-class _ProbeGate:
-    """Clock-free single-probe gate (the probe half of the JAX
-    ``CooldownPolicy``): claim the slot or stay degraded."""
-
-    def __init__(self) -> None:
-        self._lock = threading.Lock()
-        self._probing: set = set()
-
-    def probing(self, key) -> bool:
-        return key in self._probing
-
-    def acquire_probe(self, key) -> bool:
-        with self._lock:
-            if key in self._probing:
-                return False
-            self._probing.add(key)
-            return True
-
-    def release_probe(self, key) -> None:
-        with self._lock:
-            self._probing.discard(key)
-
-
-#: the process-wide probe gate (the JAX ``resilience.controller.cooldowns``)
-probe_gate = _ProbeGate()
-
-
 class SolverHealth:
     """Circuit breaker over the remote solver backend.
 
@@ -98,8 +70,8 @@ class SolverHealth:
     transitions (the JAX ``solver_breaker_trips_total``).
     """
 
-    #: the probe gate's key (the JAX package's (SOLVER, "breaker_open"))
-    _KEY = ("solver", "breaker_open")
+    #: the shared cooldown policy's key for the probe slot
+    _KEY = (resilience.SOLVER, "breaker_open")
 
     def __init__(self, failure_threshold: int = 3, cooldown_s: float = 30.0,
                  clock=time.monotonic) -> None:
@@ -117,7 +89,7 @@ class SolverHealth:
     @property
     def probing(self) -> bool:
         """Whether a half-open probe is in flight right now."""
-        return probe_gate.probing(self._KEY)
+        return resilience.controller.cooldowns.probing(self._KEY)
 
     def _set_state(self, state: str) -> None:
         self.state = state
@@ -130,29 +102,33 @@ class SolverHealth:
         follow up with record_success() or record_failure(), or with
         abandon_probe() when it ends with no outcome, to release the
         probe slot."""
+        cooldowns = resilience.controller.cooldowns
         with self._lock:
             if self.state == OPEN:
                 if self.clock() - self._opened_at < self.cooldown_s:
                     return False
-                if not probe_gate.acquire_probe(self._KEY):
+                if not cooldowns.acquire_probe(self._KEY):
                     return False  # someone else is already probing
                 self._set_state(HALF_OPEN)
                 return True
             if self.state == HALF_OPEN:
                 # a second drain arriving mid-probe stays degraded
-                return probe_gate.acquire_probe(self._KEY)
+                return cooldowns.acquire_probe(self._KEY)
             return True
 
     def record_success(self) -> None:
+        ctl = resilience.controller
         with self._lock:
-            probe_gate.release_probe(self._KEY)
+            ctl.cooldowns.release_probe(self._KEY)
             self.consecutive_failures = 0
             if self.state != CLOSED:
                 self._set_state(CLOSED)
+                ctl.report(resilience.SOLVER, "breaker_open", False,
+                           reason="probe succeeded; breaker closed")
 
     def record_failure(self) -> None:
         with self._lock:
-            probe_gate.release_probe(self._KEY)
+            resilience.controller.cooldowns.release_probe(self._KEY)
             self.consecutive_failures += 1
             if (self.state == HALF_OPEN
                     or self.consecutive_failures >= self.failure_threshold):
@@ -166,7 +142,7 @@ class SolverHealth:
         slot until the process restarts."""
         with self._lock:
             if self.state == HALF_OPEN:
-                probe_gate.release_probe(self._KEY)
+                resilience.controller.cooldowns.release_probe(self._KEY)
 
     def _trip(self) -> None:
         if self.state != OPEN:
@@ -174,3 +150,7 @@ class SolverHealth:
             metrics.solver_breaker_trips_total.inc()
         self._opened_at = self.clock()
         self._set_state(OPEN)
+        resilience.controller.report(
+            resilience.SOLVER, "breaker_open", True,
+            reason=(f"breaker open after "
+                    f"{self.consecutive_failures} consecutive failures"))

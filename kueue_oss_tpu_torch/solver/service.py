@@ -60,15 +60,18 @@ without a GPU (or without torch) can use them. ``SolverServer`` runs on
 CUDA). ``python -m kueue_oss_tpu_torch.solver.service SOCKET`` runs one
 as a process.
 
-Cut from the copy, each with its ROADMAP item:
+Cut from the copy:
 
 - the multihost sidecar (``serve_multihost``, ``follower_solve_loop``,
   ``_bcast_bytes``) and the mesh solve (``_solve_resilient``'s mesh
   arm; ``mesh_devices`` is answered 0, as a JAX sidecar without a mesh
-  answers): Queue A item 9;
-- ``persist_hooks.crash_if("sidecar_session_store")``: the port has no
-  persistence layer;
-- the degradation ladder's farm rungs: Queue A item 13b.
+  answers): Queue A item 9.
+
+The sidecar's session store holds the ``sidecar_session_store`` crash
+point (a DELTA's rows applied, its epoch not yet advanced), and the
+client reports the degradation ladder's FEDERATION ``farm_unavailable``
+condition when a farm answers with backpressure, and clears it on the
+next answered solve.
 
 The plain counters on the server and the client equal their series in
 the metrics registry (session frames and bytes by kind, resyncs by
@@ -93,7 +96,8 @@ from typing import Optional
 
 import numpy as np
 
-from kueue_oss_tpu_torch import metrics
+from kueue_oss_tpu_torch import metrics, resilience
+from kueue_oss_tpu_torch.persist import hooks as persist_hooks
 from kueue_oss_tpu_torch.obs import devtel
 from kueue_oss_tpu_torch.solver.delta import (
     ARRAY_FIELDS,
@@ -400,6 +404,10 @@ def _session_request(header: dict, blob: bytes, server,
             # the numpy mirror first: a garbled row fails here, on the
             # host, and is answered in-band
             apply_delta(sess.kwargs, sess.meta, delta)
+            # torn-tail kill point: the delta's dirty rows are applied
+            # but the epoch has not advanced and the checksum is
+            # unverified; the next drain must heal through a RESYNC
+            persist_hooks.crash_if("sidecar_session_store")
             sess.epoch = delta.epoch
             if state_checksum(sess.kwargs, sess.meta) != delta.checksum:
                 # resident state diverged from the host's: drop the
@@ -798,6 +806,11 @@ class SolverClient:
                     st.acked_epoch = frame.epoch
                 self._account("resync" if resynced else mode,
                               header, blob)
+                ctl = resilience.controller
+                if ctl.active(resilience.FEDERATION, "farm_unavailable"):
+                    ctl.report(resilience.FEDERATION, "farm_unavailable",
+                               False, reason="solver farm answered; "
+                                             "dedicated lane restored")
                 return out
             except _ResyncRequested as e:
                 # the sidecar lost (or never had) our session: fall back
@@ -858,9 +871,16 @@ class SolverClient:
             # control plane to host cycles); a retry would fail again,
             # so do not burn the deadline on it
             self._fail("server")
+            err = str(resp.get("error", "unknown"))
+            if "backpressure" in err:
+                # the farm is throttling this whole control plane: the
+                # federation ladder degrades past the farm rung and the
+                # engine's breaker walks it down to host cycles
+                resilience.controller.report(
+                    resilience.FEDERATION, "farm_unavailable", True,
+                    reason=f"farm refused the solve: {err}")
             raise SolverUnavailable(
-                f"solver sidecar reported failure: "
-                f"{resp.get('error', 'unknown')}")
+                f"solver sidecar reported failure: {err}")
         spans = resp.get("spans")
         self.last_spans = spans if isinstance(spans, list) else []
         try:

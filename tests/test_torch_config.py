@@ -9,9 +9,9 @@ in the same order; ``apply_feature_gates`` must set the same gates and
 requests. The tolerance is exact equality throughout. The fields of the
 multi-device arms (``solver.mesh``, the pod-scale coordinator,
 ``simulator.mesh``) raise in the port away from their defaults (ROADMAP
-Queue A item 9), and so does the switch that asks for what the port
-does not do yet (``persistence.enabled``, item 14): their messages are
-held by tests of the raise. Device telemetry, its capture and the SLO
+Queue A item 9): their messages are held by tests of the raise. The
+persistence switch loads in both, and ``PersistenceManager.from_config``
+builds the same manager in both. Device telemetry, its capture and the SLO
 alert webhook load in both. No test compiles anything in JAX.
 """
 
@@ -241,18 +241,43 @@ def test_multi_device_fields_raise_in_the_port(doc):
                      "fsync": "always"}},
     {"persistence": {"enabled": True}},
 ], ids=["persistence", "persistence_no_dir"])
-def test_switches_the_port_cannot_honour_raise(doc):
-    """The JAX package loads these (and validates them: a persistence
-    without a dir is its one message); the port refuses them at load, so
-    a durability switch never goes missing unseen."""
+def test_switches_the_port_cannot_honour_raise(doc, tmp_path):
+    """The persistence switch loads in both packages with the same
+    validation (a persistence without a dir is the one message), and on a
+    copy whose dir is ``tmp_path`` ``PersistenceManager.from_config``
+    gives a manager with the same settings in both. (The name is the
+    test's from before the port had a persistence layer, when the port
+    refused the switch.)"""
+    from kueue_oss_tpu.persist import PersistenceManager as JaxManager
+    from kueue_oss_tpu_torch.persist import PersistenceManager as PortManager
+
     want = jax_cfg.validate(jax_cfg.load(copy.deepcopy(doc)))
     if doc.get("persistence") == {"enabled": True}:
         assert want == ["persistence.dir is required when persistence "
                         "is enabled"]
     else:
         assert want == []
-    with pytest.raises(NotImplementedError, match="item 14"):
-        port_cfg.load(copy.deepcopy(doc))
+    port = port_cfg.load(copy.deepcopy(doc))
+    assert port_cfg.validate(port) == want
+    assert (dataclasses.asdict(port.persistence)
+            == dataclasses.asdict(jax_cfg.load(copy.deepcopy(doc))
+                                  .persistence))
+    settings = ("fsync", "batch_records", "checkpoint_interval_records",
+                "checkpoint_interval_seconds", "keep_checkpoints",
+                "audit_interval_seconds", "audit_auto_heal", "incremental",
+                "full_checkpoint_every", "persist_obs")
+    got = {}
+    for name, (cfg_mod, manager) in {"jax": (jax_cfg, JaxManager),
+                                     "port": (port_cfg, PortManager)}.items():
+        d = copy.deepcopy(doc)
+        d["persistence"]["dir"] = str(tmp_path / name)
+        m = manager.from_config(cfg_mod.load(d).persistence)
+        got[name] = ({k: getattr(m, k) for k in settings},
+                     m.wal.fsync, m.wal.batch_records, m.shipper is None)
+        m.close()
+    assert got["port"] == got["jax"]
+    assert got["port"][0]["fsync"] == doc["persistence"].get(
+        "fsync", "batch")
 
 
 @pytest.mark.parametrize("doc", [

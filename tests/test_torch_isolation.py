@@ -7,8 +7,10 @@ schedules, streams, runs the perf simulator, a what-if sweep, the relax
 tier, a resident FULL sweep, a MultiKueue hub with the what-if-scored
 dispatcher, the node-failure controller, and drains through the solver
 sidecar (a clean one and a chaos one) and a solver farm loaded from a
-Configuration, and records its decisions, ledger rows, metrics and
-spans, with those modules blocked."""
+Configuration, records its decisions, ledger rows, metrics and spans,
+and runs the chaos campaigns over the degradation ladder and the
+durable control plane (a kill-storm recovered from its WAL and
+checkpoints, a solver storm), with those modules blocked."""
 
 
 import torch_threads  # noqa: F401  (one torch thread per worker)
@@ -79,7 +81,12 @@ def test_scan_sees_the_whole_port():
                  "metrics/__init__.py", "debugger/__init__.py",
                  "debugger/profiling.py", "obs/__init__.py",
                  "obs/ledger.py", "obs/health.py", "obs/devtel.py",
-                 "sim/replay.py", "util/fsutil.py"):
+                 "sim/replay.py", "util/fsutil.py",
+                 "resilience/__init__.py", "persist/__init__.py",
+                 "persist/codec.py", "persist/hooks.py", "persist/wal.py",
+                 "persist/checkpoint.py", "persist/manager.py",
+                 "persist/auditor.py", "persist/shipping.py",
+                 "persist/crashtest.py", "chaos/campaign.py"):
         assert f"kueue_oss_tpu_torch/{name}" in names, name
     assert "chip_smoke.py" in names
     # the exact-name comparison lets the port's own name through
@@ -383,6 +390,14 @@ def test_port_drains_with_jax_blocked():
         srv.shutdown()
         srv.server_close()
         workload_info.set_resources_config(None)
+        # the chaos campaigns over the degradation ladder and the
+        # durable control plane
+        from kueue_oss_tpu_torch.chaos import run_campaign
+        res = run_campaign("kill-storm", seed=1, device="cpu",
+                           persistence_dir=tempfile.mkdtemp())
+        assert res.ok and res.durable_identical, res.to_dict()
+        res = run_campaign("solver-storm", seed=1, device="cpu")
+        assert res.ok and res.transitions.get("solver"), res.to_dict()
         leaked = [m for m in sys.modules
                   if m.split(".")[0] in ("jax", "jaxlib", "kueue_oss_tpu")
                   and sys.modules[m] is not None]
