@@ -9,7 +9,9 @@ Run from the repository root on a machine with one NVIDIA GPU:
 with phase 14's host-only store built afresh for 20 (c);
 ``python3 chip_smoke.py --phase 21`` runs phases 1, 2 and 21 alone,
 ``--phase 22`` phases 1, 2 and 22, ``--phase 23`` phases 1, 2 and 23,
-and ``--phase 24`` phases 1, 2 and 24; none prints a kernel report.)
+``--phase 24`` phases 1, 2 and 24, and ``--phase 25`` phases 1, 2 and
+25 (drain_large_scale's store built afresh for 25 (c)); none prints a
+kernel report.)
 
 Phases, in order; any failure propagates (nonzero exit, no result line):
 
@@ -454,6 +456,32 @@ Phases, in order; any failure propagates (nonzero exit, no result line):
    {device_error}`` stays 0 through every phase but 24 (a), where it
    counts the JAX campaigns' 5. Pins: tests/torch_campaign_pins.py,
    tests/torch_persist_pins.py.
+
+25. the mesh arms (``solver/meshutil.py``, ``solver/sharded.py``) on a
+   4-shard virtual mesh of the card (``meshutil.set_virtual_devices(4)``,
+   reset after the phase; a virtual mesh on one card measures no
+   interconnect): (a) phase 6's storm waves on the FULL mesh arm
+   (``mesh_force``): the JAX engine's plans on a 4-device mesh
+   (``MESH_REFERENCE``, tests/torch_mesh_pins.py), ``last_drain_arm ==
+   "mesh"``, the victim checks, and each drain's 8 outputs equal to the
+   single-device drain of the same padded, interleaved problem; (b)
+   phase 12's TAS store (1,500) on the lean mesh arm, placed by one
+   ``tas_place_sequential`` launch, the JAX pin, the single-device
+   drain's outputs; (c) drain_large_scale's relaxed LP padded to the
+   mesh (65,540 x 1): ``relax_lp_shard_load`` and
+   ``relax_lp_shard_step`` against their plain versions on the CPU, bit
+   for bit on every shard at iterations 0 and 31, CUDA-event times; then
+   the entry point, ``relax.solve_relaxed(mesh=)`` (32 x 4 launches of
+   each, counted from 0 just before it): its x equal to the plain mesh
+   LP on the CPU bit for bit, its rounded support the single-device
+   LP's, and its plan, the pad rows cut, the single-device plan that
+   phase 18 (b) holds (``RELAX_REFERENCE``); (d) 16 of phase 17
+   (a)'s worlds over the scenario mesh, digest equal to the unsharded
+   batch's; (e) ``MeshFaultInjector.lose_mesh(1)``: one ``mesh_error``
+   and the same plan from the single arm, then ``shrink(2)``: re-padded
+   through a full sync, the host cycles' holders.
+   ``solver_fallback_total{mesh_error}`` stays 0 through every phase but
+   25, where it counts (e)'s 1.
 
 Phases 5-15 pin the JAX engine's plans with delta sessions on (its
 default, and the port's; ``use_sessions = False`` stays the off
@@ -6201,6 +6229,521 @@ def durability_phase(smi: str, storm_walls=None,
     return out, place
 
 
+# -- phase 25: the mesh arms on a virtual mesh of the card --------------------
+
+#: phase 25's mesh: the card repeated this many times
+#: (``meshutil.set_virtual_devices``)
+MESH_WIDTH = 4
+#: the JAX engine's plans on a 4-device mesh (``mesh_mode="4"``,
+#: ``mesh_force``, sessions on, the relaxed arm off), printed by
+#: ``python tests/torch_mesh_pins.py chip`` under the conftest's flags:
+#: (a) phase 6's storm waves, (b) phase 12's TAS store at 1,500
+MESH_REFERENCE = {
+    "storm": [
+        {"admitted": 600, "arm": "mesh", "evicted": 0, "held": 600,
+         "rounds": 22,
+         "digest": "60ae05565fb5f42d79b72079c03c5ab69bbbf6e5cbee39df41b110"
+                   "599614dfa3"},
+        {"admitted": 30, "arm": "mesh", "evicted": 600, "held": 30,
+         "rounds": 6,
+         "digest": "01085ce72e41feacae8d5c602101d761384bf320a4d9e11bad68d9"
+                   "0b584d7542"}],
+    "tas": {"admitted": 102, "arm": "mesh", "parked": 1398, "rounds": 66,
+            "digest": "e59e59c0b32fda169f10afa0c25672169e989b9cd3a5043c5df3"
+                      "ab00c89ff17b"},
+}
+#: (d)'s worlds: the first 16 of phase 17 (a)'s 128
+MESH_WORLDS = 16
+
+
+def _mesh_engine(store, force: bool = True, device="cuda"):
+    """Phase 25's engine: sessions on, the relaxed arm off, the mesh arm
+    forced (``force``), or a floor no drain reaches (the same pad and
+    interleave, every drain on the single device)."""
+    from kueue_oss_tpu_torch.core.queue_manager import QueueManager
+    from kueue_oss_tpu_torch.solver.engine import SolverEngine
+
+    queues = QueueManager(store)
+    engine = SolverEngine(store, queues, mesh_mode=str(MESH_WIDTH),
+                          device=device)
+    engine.relax_enabled = False
+    engine.mesh_min_workloads = 0 if force else 1 << 30
+    engine.mesh_force = force
+    return queues, engine
+
+
+def _capture_kernel(engine) -> list:
+    """Record every drain kernel the engine runs: (tensors, full, mesh,
+    caps, numpy outputs)."""
+    from kueue_oss_tpu_torch.solver.engine import SolverEngine
+
+    runs = []
+
+    def run(tensors, full, result, mesh, caps):
+        out = SolverEngine._run_kernel(tensors, full, result, mesh, caps)
+        runs.append((tensors, full, mesh, caps, out))
+        return out
+
+    engine._run_kernel = run
+    return runs
+
+
+def _single_of_mesh_run(run) -> None:
+    """The mesh drain's outputs against the single-device drain of the
+    same padded, interleaved problem (its resident rows joined)."""
+    import numpy as np
+
+    from kueue_oss_tpu_torch.solver.full_kernels import solve_backlog_full
+    from kueue_oss_tpu_torch.solver.kernels import solve_backlog
+
+    tensors, full, mesh, caps, out = run
+    if mesh is None or mesh.size != MESH_WIDTH:
+        raise AssertionError(f"a drain ran on mesh {mesh}, not the "
+                             f"{MESH_WIDTH}-shard mesh")
+    t = tensors.gather()
+    single = (solve_backlog_full(t, **caps) if full else solve_backlog(t))
+    for a, b in zip(single, out):
+        if not np.array_equal(a.cpu().numpy(), b):
+            raise AssertionError("the mesh drain differs from the "
+                                 "single-device drain of its problem")
+
+
+def _mesh_lean_store(n: int, start: int = 0, store=None):
+    """(e)'s store: 4 ClusterQueues of 16 cpu, ``n`` one-cpu workloads
+    from uid ``start``."""
+    from kueue_oss_tpu_torch.api import types
+    from kueue_oss_tpu_torch.core.store import Store
+
+    if store is None:
+        store = Store()
+        store.upsert_resource_flavor(types.ResourceFlavor(name="f"))
+        for i in range(4):
+            store.upsert_cluster_queue(types.ClusterQueue(
+                name=f"cq{i}", resource_groups=[types.ResourceGroup(
+                    covered_resources=["cpu"],
+                    flavors=[types.FlavorQuotas(name="f", resources=[
+                        types.ResourceQuota(name="cpu", nominal=16)])])]))
+            store.upsert_local_queue(types.LocalQueue(
+                name=f"lq{i}", cluster_queue=f"cq{i}"))
+    for i in range(start, start + n):
+        store.add_workload(types.Workload(
+            name=f"w{i}", queue_name=f"lq{i % 4}", uid=i + 1,
+            creation_time=float(i),
+            podsets=[types.PodSet(name="main", count=1,
+                                  requests={"cpu": 1})]))
+    return store
+
+
+def _shard_entry_work(lp, index, C: int) -> dict:
+    """Bytes and float32 operations of one shard's two entries at one
+    iteration (each input read once, each output written once; the
+    operations as ``_relax_work`` counts them). ``lp`` is the shard's."""
+    B, F = lp.r.shape
+    n1 = lp.parent.shape[0]
+    levels = lp.path_cq.shape[1]
+    listed = int((lp.wl_cqid < C).sum())
+    live = int(lp.live.sum())
+
+    def nbytes(*ts):
+        return sum(int(t.numel() * t.element_size()) for t in ts)
+
+    # load: r, x, the shard's CQ-sorted rows and offsets -> [C, F]
+    load_bytes = (nbytes(lp.r, index.rows, index.row_off) + 4 * B
+                  + 4 * C * F)
+    # step: r, s, live, CQ ids, x in and out, the tree's lists, depths,
+    # paths, slack and scale, the summed load
+    step_bytes = (nbytes(lp.r, lp.s, lp.live, lp.wl_cqid, lp.path_cq,
+                         lp.depth, lp.slack, lp.scale, index.kids,
+                         index.kid_off, index.node_cq)
+                  + 8 * B + 4 * C * F)
+    step_ops = ((levels - 1) * n1 * F + 4 * n1 * F + C * F * levels
+                + live * (4 * F + 7))
+    return {"load": (load_bytes, 2 * listed * F),
+            "step": (step_bytes, step_ops)}
+
+
+def check_shard_lp(lp, mesh) -> tuple:
+    """25 (c): the sharded LP's two entries against their plain versions
+    (run on the CPU, bit for bit: float ``index_add_`` on the card adds
+    in any order) on every shard, at iterations 0 and 31 of the main
+    path's inputs; CUDA-event times of each entry, its plain version on
+    the card and, for the load, ``index_add_`` of the precomputed r * x.
+    Returns the two kernel reports."""
+    import numpy as np
+    import torch
+
+    from kueue_oss_tpu_torch.solver import cuda_relax, meshutil, relax
+    from kueue_oss_tpu_torch.solver.sharded import RELAX_WL_FIELDS
+
+    iters = 32
+    mt = meshutil.place(lp, mesh, RELAX_WL_FIELDS)
+    C = lp.cq_node.shape[0]
+    index = [cuda_relax.shard_index(lp, s, mesh.size, dev)
+             for s, dev in enumerate(mesh.devices)]
+    cpu = [relax.RelaxLP(*(a.cpu() for a in sh)) for sh in mt.shards]
+    x = [torch.where(sh.live, 0.5, 0.0).to(torch.float32)
+         for sh in mt.shards]
+    err = {"load": 0.0, "step": 0.0}
+    for i in range(iters):
+        loads = [cuda_relax.relax_lp_shard_load(sh, xs, ix)
+                 for sh, xs, ix in zip(mt.shards, x, index)]
+        total = meshutil.psum(mesh, loads)
+        nxt = [cuda_relax.relax_lp_shard_step(sh, xs, ld, i, iters, ix)
+               for sh, xs, ld, ix in zip(mt.shards, x, total, index)]
+        if i in (0, iters - 1):
+            for s in range(mesh.size):
+                xc = x[s].cpu()
+                want_l = relax.lp_load(cpu[s], xc)
+                want_x = relax.lp_step_from_load(cpu[s], xc, total[s].cpu(),
+                                                 i, iters)
+                for name, got, want in (("load", loads[s], want_l),
+                                        ("step", nxt[s], want_x)):
+                    g, w = got.cpu().numpy(), want.numpy()
+                    err[name] = max(err[name], float(np.abs(g - w).max()))
+                    if not np.array_equal(g.view(np.int32),
+                                          w.view(np.int32)):
+                        raise AssertionError(
+                            f"relax_lp_shard_{name} differs from its plain "
+                            f"version on shard {s} at iteration {i} (max "
+                            f"abs err {err[name]})")
+        x = nxt
+    sh, x0, ix = mt.shards[0], torch.where(mt.shards[0].live, 0.5, 0.0).to(
+        torch.float32), index[0]
+    load0 = meshutil.psum(mesh, [cuda_relax.relax_lp_shard_load(
+        s_, torch.where(s_.live, 0.5, 0.0).to(torch.float32), i_)
+        for s_, i_ in zip(mt.shards, index)])[0]
+    cqid = sh.wl_cqid.long()
+    prod = sh.r * x0[:, None]
+    F = lp.r.shape[1]
+    work = _shard_entry_work(sh, ix, C)
+    times = {
+        "load": (_time_ms(lambda: cuda_relax.relax_lp_shard_load(sh, x0, ix),
+                          iters=50, warmup=5),
+                 _time_ms(lambda: relax.lp_load(sh, x0), iters=20, warmup=3),
+                 _time_ms(lambda: torch.zeros((C + 1, F), device=sh.r.device)
+                          .index_add_(0, cqid, prod), iters=50, warmup=5)),
+        "step": (_time_ms(lambda: cuda_relax.relax_lp_shard_step(
+                     sh, x0, load0, 0, iters, ix), iters=50, warmup=5),
+                 _time_ms(lambda: relax.lp_step_from_load(
+                     sh, x0, load0, 0, iters), iters=20, warmup=3),
+                 None)}
+    reports = []
+    for name, line in (("load", 120), ("step", 126)):
+        ms, plain_ms, lib_ms = times[name]
+        nbytes, nops = work[name]
+        reports.append({
+            "name": f"relax_lp_shard_{name}", "route": "cuda",
+            "source": "kueue_oss_tpu_torch/csrc/relax_lp.cu",
+            "replaces": f"kueue_oss_tpu/solver/relax.py:{line}",
+            "replaces_kind": ("lp_step_body's per-shard segment_sum "
+                              "under shard_map (sharded.py:313-338), an "
+                              "XLA program" if name == "load" else
+                              "lp_step_body after its psum (:124-142) "
+                              "under shard_map, an XLA program"),
+            "shape": [int(sh.r.shape[0]), int(F)], "shards": mesh.size,
+            "max_abs_err": err[name], "exact": err[name] == 0.0,
+            "ms": ms, "plain_ms": plain_ms, **_bound(nbytes, nops),
+            "library_ms": lib_ms,
+            "library_call": ("index_add_ of the precomputed r * x"
+                             if name == "load" else None),
+            "launches": 0})
+        print(f"[kernel] relax_lp_shard_{name} == plain (CPU) bit for bit "
+              f"on every shard of {list(lp.r.shape)} / {mesh.size} "
+              f"(C={C}) at iterations 0 and {iters - 1}: {ms:.4f} ms, "
+              f"plain on the card {plain_ms:.4f} ms, library {lib_ms} ms, "
+              f"bound {reports[-1]['bound_ms']:.2e} ms "
+              f"({reports[-1]['bound_by']})")
+    return reports
+
+
+def mesh_phase(smi: str, large_store=None, device="cuda") -> tuple:
+    """Phase 25: the mesh arms on a 4-shard virtual mesh of the card.
+    (a) phase 6's storm waves on the FULL mesh arm, (b) phase 12's TAS
+    store on the lean mesh arm (placed by ``tas_place_sequential``),
+    (c) drain_large_scale's relaxed arm on the mesh (both new entries
+    against their plain versions; ``solve_relaxed(mesh=)``'s plan against
+    the single-device one of phase 18 (b)), (d) 16 of phase 17 (a)'s worlds over the
+    scenario mesh, (e) a mesh device loss and a mesh shrink. Returns
+    (timings, the two entries' kernel reports, tas_place_sequential
+    launches). ``device="cpu"`` rehearses it on the CPU (patch
+    ``torch.cuda.synchronize`` and ``_time_ms``)."""
+    import numpy as np
+    import torch
+
+    from kueue_oss_tpu_torch import metrics, scenarios
+    from kueue_oss_tpu_torch.api import types
+    from kueue_oss_tpu_torch.chaos import MeshFaultInjector
+    from kueue_oss_tpu_torch.core.queue_manager import QueueManager
+    from kueue_oss_tpu_torch.core.store import Store
+    from kueue_oss_tpu_torch.perf import generate, generator
+    from kueue_oss_tpu_torch.scheduler.scheduler import Scheduler
+    from kueue_oss_tpu_torch.sim import batch as sim_batch
+    from kueue_oss_tpu_torch.solver import cuda_relax, cuda_tas, meshutil
+    from kueue_oss_tpu_torch.solver import relax, tensors
+    from kueue_oss_tpu_torch.solver.engine import SolverEngine
+
+    out = {}
+    marks = [("start", time.monotonic())]
+    meshutil.set_virtual_devices(MESH_WIDTH)
+    try:
+        mesh = meshutil.detect_mesh(str(MESH_WIDTH), device=device)
+        if meshutil.mesh_devices(mesh) != MESH_WIDTH:
+            raise AssertionError(f"no {MESH_WIDTH}-shard virtual mesh: "
+                                 f"{mesh}")
+
+        # (a) the storm's two waves on the FULL mesh arm
+        store, wave1, wave2 = scenarios.baseline_preempt_store(types, Store)
+        _queues, engine = _mesh_engine(store, device=device)
+        runs = _capture_kernel(engine)
+        out["storm"] = {}
+        for i, (name, now, wave) in enumerate((("wave1", 100.0, wave1),
+                                               ("wave2", 200.0, wave2))):
+            for wl in wave:
+                store.add_workload(wl)
+            before = _reserved_state(store)
+            want = MESH_REFERENCE["storm"][i]
+            _reset_launches()
+            _settle()
+            t0 = time.monotonic()
+            result = engine.drain(now=now)
+            torch.cuda.synchronize()
+            wall = time.monotonic() - t0
+            if _launches() or engine.last_drain_arm != want["arm"]:
+                raise AssertionError(f"storm {name}: arm "
+                                     f"{engine.last_drain_arm}, "
+                                     f"{_launches()} TAS kernel launches")
+            got = _check_storm_wave(store, result, before, {
+                k: v for k, v in want.items() if k != "arm"})
+            t1 = time.monotonic()
+            _single_of_mesh_run(runs[-1])
+            out["storm"][name] = {
+                "drain_s": wall, "single_check_s": time.monotonic() - t1,
+                **{f"{k}_s": v for k, v in result.phases.items()},
+                **_stats(result),
+                "replicated_bytes": result.full_stats.replicated_bytes}
+            print(f"[mesh] (a) storm {name} on the {MESH_WIDTH}-shard mesh "
+                  f"arm: the JAX 4-device plan {got}, equal to the "
+                  f"single-device drain of the same padded, interleaved "
+                  f"problem; {wall:.3f} s ({smi})")
+        sess = engine._delta_sessions["full"]
+        resident = engine._device_states["full-mesh"]
+        if sess._interleave != MESH_WIDTH or not resident.mesh_placed:
+            raise AssertionError("storm: the session does not interleave "
+                                 "over the mesh or its rows are not "
+                                 "mesh-placed")
+        # what one FULL mesh drain joins: its row fields, once; and per
+        # search, the lanes' six results (success, candidates, victims,
+        # reasons, same-CQ, borrow-after)
+        mt = resident.tensors
+        caps = runs[-1][3]
+        out["storm"]["row_gather_bytes"] = sum(
+            int(t.numel() * t.element_size())
+            for f in mt.row_fields for t in mt.field(f))
+        out["storm"]["rows"] = mt.rows
+        out["storm"]["lanes_x_p_max"] = [
+            caps["h_max"] * int(mt.shards[0].cq_opt_group.shape[1]),
+            caps["p_max"]]
+        del store, wave1, wave2, engine, runs
+        marks.append(("a", time.monotonic()))
+
+        # (b) phase 12's TAS store on the lean mesh arm
+        store = scenarios.tas_drain_store(types, Store, n_workloads=1500)
+        queues, engine = _mesh_engine(store, device=device)
+        runs = _capture_kernel(engine)
+        _reset_launches()
+        cuda_tas.tas_place_sequential.steps = 0
+        _settle()
+        t0 = time.monotonic()
+        result = engine.drain(now=0.0)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        place = cuda_tas.tas_place_sequential.launches
+        steps = cuda_tas.tas_place_sequential.steps
+        placed = _placed(store, result)
+        got = {"admitted": result.admitted, "rounds": result.rounds,
+               "arm": engine.last_drain_arm,
+               "parked": sum(len(q.inadmissible)
+                             for q in queues.queues.values()),
+               "digest": scenarios.plan_digest(store, result.admitted_keys)}
+        # the CPU placer of a rehearsal launches nothing
+        launch = 1 if device == "cuda" else 0
+        if (got != MESH_REFERENCE["tas"] or place != launch
+                or steps != placed * launch or _launches() != launch):
+            raise AssertionError(f"TAS mesh drain: {got}, {place} "
+                                 f"tas_place_sequential launches ({steps} "
+                                 f"steps) for {placed} placements; expected "
+                                 f"{MESH_REFERENCE['tas']} and 1")
+        _quota_checks(store)
+        _single_of_mesh_run(runs[-1])
+        out["tas"] = {"drain_s": wall,
+                      **{f"{k}_s": v for k, v in result.phases.items()}}
+        print(f"[mesh] (b) TAS store on the lean mesh arm: the JAX "
+              f"4-device plan {got}, 1 tas_place_sequential launch of "
+              f"{steps} steps; equal to the single-device drain; "
+              f"{wall:.3f} s")
+        del store, engine, runs
+        marks.append(("b", time.monotonic()))
+
+        # (c) drain_large_scale's relaxed LP on the mesh
+        if large_store is None:
+            large_store, schedule = generate(_large_scale(generator))
+            for g in schedule:
+                large_store.add_workload(g.workload)
+        problem, _ = SolverEngine(large_store, QueueManager(large_store),
+                                  device=device).export()
+        padded = tensors.pad_workloads(problem, meshutil.align_pad_target(
+            tensors.pow2(problem.n_workloads), MESH_WIDTH))
+        lp = relax.build_lp(padded)
+        reports = check_shard_lp(lp, mesh)
+        cuda_relax.reset_counts()
+        _reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        plan_mesh, st_mesh = relax.solve_relaxed(padded, mesh=mesh,
+                                                 device=device)
+        torch.cuda.synchronize()
+        arm_s = time.monotonic() - t0
+        n_load = cuda_relax.relax_lp_shard_load.launches
+        n_step = cuda_relax.relax_lp_shard_step.launches
+        if (n_load != 32 * MESH_WIDTH * launch
+                or n_step != 32 * MESH_WIDTH * launch
+                or cuda_relax.relax_lp.launches or _launches()):
+            raise AssertionError(f"mesh LP: {n_load} / {n_step} shard "
+                                 f"launches, {cuda_relax.relax_lp.launches} "
+                                 f"relax_lp launches")
+        x_mesh = st_mesh.x
+        cpu_mesh = meshutil.detect_mesh(str(MESH_WIDTH), device="cpu")
+        want = meshutil.relax_mesh_lp(cpu_mesh, 32)(lp).numpy()
+        if not np.array_equal(x_mesh.view(np.int32), want.view(np.int32)):
+            raise AssertionError("the mesh LP's x differs from its plain "
+                                 "version on the CPU")
+        # the single-device plan: phase 18 (b) holds the port's
+        # single-device solve_relaxed of this backlog (padded to 65,537
+        # rows) to the JAX record RELAX_REFERENCE["relax_arm"]; the mesh
+        # plan, its 3 extra pad rows cut, must be that record (a second
+        # repair here would cost ~8 lean rounds at C = 1,000). The
+        # single-device LP itself runs here: its rounded support must be
+        # the mesh LP's.
+        x_single = cuda_relax.relax_lp(
+            relax.lp_to_device(lp, device), 32, _relax_index_on(
+                lp, device)).cpu().numpy()
+        sel_mesh = relax.rounded_support(x_mesh, padded, lp.live)
+        sel_single = relax.rounded_support(x_single, padded, lp.live)
+        w_single = tensors.pow2(problem.n_workloads)
+        unpadded = [np.concatenate([np.asarray(a)[:w_single],
+                                    np.asarray(a)[-1:]])
+                    if np.ndim(a) and np.shape(a)[0] == lp.r.shape[0]
+                    else np.asarray(a) for a in plan_mesh]
+        d_mesh = plan_digest(unpadded)
+        rec = {"live": st_mesh.live, "support": st_mesh.support,
+               "support_padded": st_mesh.support_padded,
+               "repair_rounds": st_mesh.repair_rounds,
+               "admitted": int(np.asarray(plan_mesh[0]).sum()),
+               "plan_digest": d_mesh}
+        want = {k: RELAX_REFERENCE["relax_arm"][k] for k in rec}
+        if rec != want or not np.array_equal(sel_mesh, sel_single):
+            raise AssertionError(f"the relaxed arm's mesh plan {rec} is not "
+                                 f"the single-device plan {want}, or its "
+                                 f"support differs from the single-device "
+                                 f"LP's")
+        for rep, n in zip(reports, (n_load, n_step)):
+            rep["launches"] = n
+        out["relax"] = {"rows": int(lp.r.shape[0]), "arm_s": arm_s,
+                        "lp_s": st_mesh.lp_seconds,
+                        "repair_s": st_mesh.repair_seconds,
+                        "x_max_diff_single": float(np.abs(
+                            x_mesh - x_single).max()), **rec}
+        print(f"[mesh] (c) solve_relaxed on the {lp.r.shape[0]} x "
+              f"{lp.r.shape[1]} LP sharded over {MESH_WIDTH}: "
+              f"{n_load} + {n_step} launches, x equal to the plain mesh "
+              f"LP on the CPU bit for bit (within "
+              f"{out['relax']['x_max_diff_single']:.2e} of the "
+              f"single-device LP's, support {st_mesh.support} equal to "
+              f"its), plan {d_mesh[:16]} ({rec['admitted']} admitted, "
+              f"{st_mesh.repair_rounds} repair rounds) equal to the "
+              f"single-device plan of phase 18 (b); {arm_s:.3f} s (LP "
+              f"{st_mesh.lp_seconds:.3f} s, repair "
+              f"{st_mesh.repair_seconds:.3f} s)")
+        del large_store, problem, padded, lp
+        marks.append(("c", time.monotonic()))
+
+        # (d) the scenario mesh
+        bench, overlays = bench_whatif_problem()
+        overlays = overlays[:MESH_WORLDS]
+        _reset_launches()
+        t0 = time.monotonic()
+        plain = sim_batch.solve_scenarios(bench, overlays, device=device)
+        t1 = time.monotonic()
+        got = sim_batch.solve_scenarios(bench, overlays, mesh=mesh,
+                                        device=device)
+        t2 = time.monotonic()
+        fields = ("admitted", "opt", "admit_round", "parked", "rounds",
+                  "usage")
+        d_plain = plan_digest([getattr(plain, f) for f in fields])
+        d_mesh = plan_digest([getattr(got, f) for f in fields])
+        if d_plain != d_mesh or got.mesh_devices != MESH_WIDTH or _launches():
+            raise AssertionError(f"scenario mesh: digest {d_mesh} against "
+                                 f"{d_plain}, width {got.mesh_devices}")
+        out["scenarios"] = {"worlds": len(overlays), "plain_s": t1 - t0,
+                            "mesh_s": t2 - t1, "digest": d_mesh}
+        print(f"[mesh] (d) {len(overlays)} worlds over the scenario mesh: "
+              f"digest {d_mesh[:16]} equal to the unsharded batch's; "
+              f"{t2 - t1:.3f} s against {t1 - t0:.3f} s")
+        marks.append(("d", time.monotonic()))
+
+        # (e) a mesh device loss and a mesh shrink
+        mesh_err0 = metrics.solver_fallback_total.value("mesh_error")
+        plans = []
+        for fault in (False, True):
+            store = _mesh_lean_store(96)
+            _q, engine = _mesh_engine(store, device=device)
+            inj = MeshFaultInjector(engine)
+            if fault:
+                inj.lose_mesh(1)
+            result = engine.drain(now=0.0)
+            plans.append((list(result.admitted_keys),
+                          committed_store_digest(store),
+                          engine.last_drain_arm))
+        lost = metrics.solver_fallback_total.value("mesh_error") - mesh_err0
+        if (plans[0][2] != "mesh" or plans[1][2] != "single" or lost != 1
+                or plans[0][:2] != plans[1][:2]
+                or inj.injected != {"mesh_lost": 1}):
+            raise AssertionError(f"lose_mesh: arms {plans[0][2]} / "
+                                 f"{plans[1][2]}, {lost} mesh_error, equal "
+                                 f"plans {plans[0][:2] == plans[1][:2]}")
+        inj.restore()
+        store = _mesh_lean_store(96)
+        _q, engine = _mesh_engine(store, device=device)
+        inj = MeshFaultInjector(engine)
+        engine.drain(now=0.0)
+        if inj.shrink(2) != 2:
+            raise AssertionError("shrink: the mesh did not shrink to 2")
+        _mesh_lean_store(32, start=100, store=store)
+        result = engine.drain(now=1.0)
+        host = _mesh_lean_store(96)
+        _mesh_lean_store(32, start=100, store=host)
+        Scheduler(host, QueueManager(host), device=device).run_until_quiet(
+            now=0.0, tick=1.0)
+        held = {k for k, w in store.workloads.items() if w.is_quota_reserved}
+        want = {k for k, w in host.workloads.items() if w.is_quota_reserved}
+        if (engine.last_drain_arm != "mesh" or held != want
+                or engine._delta_sessions["lean"]._interleave != 2
+                or result.frame is None or result.frame.delta is not None):
+            raise AssertionError(f"shrink: arm {engine.last_drain_arm}, "
+                                 f"held {len(held)} against the host's "
+                                 f"{len(want)}, frame {result.frame}")
+        print(f"[mesh] (e) lose_mesh(1): one mesh_error, the same drain on "
+              f"the single arm, the mesh plan; shrink(2): re-padded, a "
+              f"full sync, {len(held)} held as host cycles hold")
+        marks.append(("e", time.monotonic()))
+    finally:
+        meshutil.set_virtual_devices(0)
+    out["marks"] = {name: t - marks[i][1]
+                    for i, (name, t) in enumerate(marks[1:])}
+    print(f"[mesh] phase 25 passed ({smi}): " + json.dumps(out["marks"]))
+    return out, reports, place
+
+
 def main() -> int:
     import torch
 
@@ -6214,8 +6757,10 @@ def main() -> int:
     from kueue_oss_tpu_torch import metrics
 
     # a local solve fault is the device_error rung: only 24 (a) injects
-    # one, so every other phase must leave the count where it was
+    # one, so every other phase must leave the count where it was; a mesh
+    # fault is injected once, in 25 (e)
     dev_err = [metrics.solver_fallback_total.value("device_error")]
+    mesh_err = [metrics.solver_fallback_total.value("mesh_error")]
 
     def mark(phase: str) -> None:
         marks.append((phase, time.monotonic()))
@@ -6225,6 +6770,12 @@ def main() -> int:
                                  f"device_error fallbacks; no local solve "
                                  f"fault is injected there")
         dev_err[0] = now
+        now = metrics.solver_fallback_total.value("mesh_error")
+        if now - mesh_err[0] != (1 if phase == "25" else 0):
+            raise AssertionError(f"phase {phase}: {now - mesh_err[0]} "
+                                 f"mesh_error fallbacks; only 25 (e) "
+                                 f"injects one mesh fault")
+        mesh_err[0] = now
 
     # 1. device
     kind = torch.cuda.get_device_name(0)
@@ -6284,6 +6835,14 @@ def main() -> int:
         # phase 24 alone: durability and degradation (no phase 6 walls)
         durability, _ = durability_phase(smi)
         print("[timings] " + json.dumps({"durability": durability}))
+        print(smi)
+        return 0
+
+    if sys.argv[1:] == ["--phase", "25"]:
+        # phase 25 alone: the mesh arms (drain_large_scale's store built
+        # afresh for (c))
+        mesh, mesh_reports, _ = mesh_phase(smi)
+        print("[timings] " + json.dumps({"mesh": mesh}))
         print(smi)
         return 0
 
@@ -6483,6 +7042,15 @@ def main() -> int:
         smi, [storm["wave1"]["drain_s"], storm["wave2"]["drain_s"]])
     relax_report["launches_by_path"]["durability"] = 0
     mark("24")
+
+    # 25. the mesh arms on a 4-shard virtual mesh of the card: the storm
+    # and the TAS store on the mesh arm, the sharded relaxed LP (its two
+    # entries), the scenario mesh, a mesh device loss and a shrink
+    mesh, mesh_reports, mesh_place = mesh_phase(smi, large_store)
+    del large_store
+    reports.extend(mesh_reports)
+    relax_report["launches_by_path"]["mesh"] = 0
+    mark("25")
     # the fill's own path: phase 14's host placement with the fill gate
     # on; every other path launched no TAS kernel but its placer
     reports[2]["launches"] = host_fill
@@ -6510,7 +7078,8 @@ def main() -> int:
                                       "dispatch_delayed_tas":
                                           dispatch_fills["delayed_tas"],
                                       "sidecar": 0, "federation": 0,
-                                      "observability": 0, "durability": 0}
+                                      "observability": 0, "durability": 0,
+                                      "mesh": 0}
     reports[0]["launches_by_path"] = {"tas_lean": leaf_launches,
                                       "tas_full": 0, "storm_full": 0,
                                       "fair_storm": fair_launches,
@@ -6529,7 +7098,8 @@ def main() -> int:
                                       "fullsweep": fullsweep_launches,
                                       "dispatch": 0, "sidecar": 0,
                                       "federation": 0,
-                                      "observability": 0, "durability": 0}
+                                      "observability": 0, "durability": 0,
+                                      "mesh": 0}
     # leaf_states is on no main path since fill_counts took the fill
     # (its launches on every path are 0, checked above)
     reports[0]["launches"] = sum(reports[0]["launches_by_path"].values())
@@ -6557,7 +7127,8 @@ def main() -> int:
                                       "sidecar": sidecar_place,
                                       "federation": federation_place,
                                       "observability": obs_place,
-                                      "durability": durability_place}
+                                      "durability": durability_place,
+                                      "mesh": mesh_place}
 
     timings = {"setup_s": setup_s, "drain_s": drain_s,
                **{f"{k}_s": v for k, v in result.phases.items()},
@@ -6572,7 +7143,8 @@ def main() -> int:
                "perf_runner": perf, "whatif": whatif, "relax": relaxed,
                "fullsweep": fullsweep, "dispatch": dispatch,
                "sidecar": sidecar, "federation": federation,
-               "observability": observability, "durability": durability}
+               "observability": observability, "durability": durability,
+               "mesh": mesh}
     print("[phase seconds] " + json.dumps(
         {name: t - marks[i][1] for i, (name, t) in enumerate(marks[1:])}
         | {"total": marks[-1][1] - marks[0][1]}))

@@ -30,9 +30,8 @@ Copies from ``kueue_oss_tpu/chaos/__init__.py``:
   ``MultiKueueController``, and a tenant's sessions evicted from the
   shared farm's ``SolverServer`` (``drop_tenant``).
 
-- ``MeshFaultInjector`` (:249-315): device loss through the engine's
-  ``solve_fault_hook`` (the mesh half arms faults no single-device
-  solve consumes: the mesh arm is ROADMAP Queue A item 9).
+- ``MeshFaultInjector`` (:249-315): device loss and mesh shrink through
+  the engine's ``solve_fault_hook`` and ``refresh_mesh``.
 
 - ``CrashPointInjector`` (:317-371): kill -9 (or raise) at a named
   durability point of ``persist/hooks.py``, in process or, through
@@ -242,13 +241,19 @@ class MeshFaultInjector:
     ``solve_fault_hook`` seam: the hook runs right before each local
     solve, tagged with the arm about to run, so raising there stands in
     for the device failing at dispatch. The engine's contract under
-    test: a fault on every local arm raises ``SolverUnavailable`` and the
-    scheduler finishes the round on host cycles
-    (``solver_fallback_total{device_error}``, the ladder's
-    ``device_error``). The port has no mesh arm (ROADMAP Queue A item 9):
-    ``lose_mesh`` arms faults that no solve consumes, and ``shrink`` /
-    ``restore`` re-detect a width of 0, as a single-device JAX engine
-    does.
+    test:
+
+      mesh fault   -> the same drain re-runs on the single-device arm
+                      (``solver_fallback_total{mesh_error}``);
+      both arms    -> ``SolverUnavailable``, and the scheduler finishes
+                      the round on host cycles (``device_error``): the
+                      whole mesh -> single -> host chain, never silent;
+      mesh shrink  -> ``refresh_mesh(max_devices=n)`` re-detects a
+                      narrower mesh; the next drain re-pads, the session
+                      rides the forced full sync, the plans stay equal.
+
+    An engine without a mesh never consumes the mesh faults, and
+    ``shrink`` / ``restore`` re-detect a width of 0 there.
     """
 
     def __init__(self, engine) -> None:

@@ -19,9 +19,9 @@ capture_dir=cfg.persistence.dir)``), ``persistence``
 (``persist.PersistenceManager.from_config``), ``resilience`` (applied,
 as in the JAX package, by the caller's ``resilience.configure(
 cfg.resilience)``: ``load`` applies neither) and ``featureGates``.
-The fields of the multi-device arms
-(``solver.mesh``, the pod-scale coordinator, ``simulator.mesh``) raise
-away from their defaults: Queue A item 9.
+``solver.mesh`` and ``simulator.mesh`` load and validate as the JAX
+package's (the single-process mesh arms); the pod-scale coordinator's
+fields raise away from their defaults: Queue A item 9b.
 """
 
 from __future__ import annotations
@@ -149,9 +149,10 @@ class SolverBackendConfig:
     cap), its breaker (``breaker_*``), delta sessions
     (``sessions_enabled``: None reads KUEUE_SOLVER_SESSIONS, default on)
     and the relaxed fast-path arm (``relax_*``), which
-    ``Scheduler(solver_config=...)`` wires onto its engine. The mesh and
-    pod-scale coordinator (ROADMAP Queue A item 9) are not ported: a
-    field of theirs set away from its default raises.
+    ``Scheduler(solver_config=...)`` wires onto its engine, with its
+    ``mesh`` mode (the single-process mesh arm). The pod-scale
+    coordinator (ROADMAP Queue A item 9b) is not ported: a field of its
+    set away from its default raises.
     """
 
     #: unix socket of the sidecar; None = solve in-process
@@ -187,19 +188,18 @@ class SolverBackendConfig:
     #: demoted-arm cooldown before one re-probe drain
     relax_retry_cooldown_seconds: float = 300.0
 
-    #: the fields of the multi-device arms (ROADMAP Queue A item 9)
-    _MESH = ("mesh", "coordinator_address", "coordinator_processes",
-             "coordinator_process_id")
+    #: the fields of the multi-process pod mesh (ROADMAP Queue A
+    #: item 9b)
+    _COORDINATOR = ("coordinator_address", "coordinator_processes",
+                    "coordinator_process_id")
 
     def __post_init__(self) -> None:
         defaults = {f.name: f.default for f in fields(self)}
-        for name in self._MESH:
-            value = getattr(self, name)
-            if value != defaults[name] and not (
-                    name == "mesh" and value == "off"):
+        for name in self._COORDINATOR:
+            if getattr(self, name) != defaults[name]:
                 raise NotImplementedError(
-                    f"SolverBackendConfig.{name}: the multi-device arms, "
-                    f"ROADMAP Queue A item 9")
+                    f"SolverBackendConfig.{name}: the multi-process pod "
+                    f"mesh, ROADMAP Queue A item 9b")
 
 
 @dataclass
@@ -315,8 +315,8 @@ class SimulatorConfig:
     #: pad the scenario axis to a power of two (inert repeats of
     #: scenario 0), as the JAX engine does to reuse one compiled program
     pad_pow2: bool = True
-    #: scenario-axis mesh sharding mode; only "off" runs here (the
-    #: multi-device arms are ROADMAP Queue A item 9)
+    #: scenario-axis mesh sharding mode: "off" (default), "auto" or a
+    #: device count (meshutil.parse_mesh_mode)
     mesh: str = "off"
     #: batches below this width stay single-device even with a mesh
     min_batch_for_mesh: int = 16
@@ -338,12 +338,6 @@ class SimulatorConfig:
     full_sweep_max: int = 256
     #: fixed LP iterations for the relax approximate tier
     relax_iters: int = 32
-
-    def __post_init__(self) -> None:
-        if str(self.mesh or "off") != "off":
-            raise NotImplementedError(
-                "SimulatorConfig.mesh: the scenario-axis mesh is ROADMAP "
-                "Queue A item 9")
 
 
 @dataclass

@@ -335,6 +335,150 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
     for (int k = row_off[C] + tid; k < p.W1; k += nt) x_out[rows[k]] = 0.0f;
 }
 
+// ---- the mesh-sharded LP: two entries a shard and iteration -----------
+//
+// The JAX package's shard_map of lp_loop (kueue_oss_tpu/solver/sharded.py
+// make_sharded_relax_lp, lp_step_body's psum at relax.py:124-125) splits
+// every iteration at its one collective. relax_shard_load_kernel sums one
+// shard's [C, F] load over its own rows (one thread per (CQ, f), the
+// shard's rows of each CQ in ascending row order, from a host-built CSR
+// list); the host adds the shards' loads in shard order
+// (meshutil.psum); relax_shard_step_kernel then runs the rest of the
+// iteration for one shard: the tree's full charge from the summed load,
+// the price, and the shard's x update, every operation rounded as in
+// relax_lp_kernel. One block does the whole step (u, u_next and the price
+// in a global scratch the host gives it): a simple kernel, correct first.
+
+__global__ void relax_shard_load_kernel(int F, int C, const float* r,
+                                        const float* x, const int* rows,
+                                        const int* row_off, float* load) {
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= C * F) return;
+  const int c = e / F, f = e - c * F;
+  float acc = 0.0f;
+  for (int k = row_off[c]; k < row_off[c + 1]; ++k) {
+    const int w = rows[k];
+    acc = __fadd_rn(acc, __fmul_rn(r[static_cast<long long>(w) * F + f],
+                                   x[w]));
+  }
+  load[e] = acc;
+}
+
+// pull_sum with r / max(r, 1) computed on the fly from one row of r
+__device__ __forceinline__ float pull_sum_row(const float* rw, float mx,
+                                              const float* pr, int F,
+                                              int lanes, int lane_end) {
+  if (lanes == 0) {
+    float acc = 0.0f;
+    for (int lo = -lane_end; lo < F; lo += kWindow) {
+      float w = 0.0f;
+      const int z = min(lo + kWindow, F);
+      for (int f = max(lo, 0); f < z; ++f)
+        w = __fadd_rn(w, __fmul_rn(__fdiv_rn(rw[f], mx), pr[f]));
+      acc = __fadd_rn(acc, w);
+    }
+    return acc;
+  }
+  float lane[kMaxLanes];
+#pragma unroll
+  for (int j = 0; j < kMaxLanes; ++j) {
+    lane[j] = j == 0 ? 0.0f : -0.0f;
+    if (j < lanes)
+      for (int f = j; f < lane_end; f += lanes)
+        lane[j] = __fadd_rn(lane[j], __fmul_rn(__fdiv_rn(rw[f], mx), pr[f]));
+  }
+#pragma unroll
+  for (int h = kMaxLanes / 2; h >= 1; h >>= 1) {
+    if (h < lanes) {
+#pragma unroll
+      for (int i = 0; i < h; ++i) lane[i] = __fadd_rn(lane[i], lane[i + h]);
+    }
+  }
+  float acc = lane[0];
+  for (int f = lane_end; f < F; ++f)
+    acc = __fadd_rn(acc, __fmul_rn(__fdiv_rn(rw[f], mx), pr[f]));
+  return acc;
+}
+
+struct StepParams {
+  int B, F, C, N1, D;
+  float rho;
+  int lanes, lane_end;
+  const float* r;
+  const float* s;
+  const unsigned char* live;
+  const int* wl_cqid;
+  const int* path_cq;
+  const int* depth;
+  const float* slack;
+  const float* scale;
+  const int* kids;
+  const int* kid_off;
+  const int* node_cq;
+  const float* load;
+  float* scratch;
+  float* x;
+};
+
+__global__ void __launch_bounds__(kMaxThreads, 1)
+    relax_shard_step_kernel(const StepParams p) {
+  const int F = p.F, C = p.C, N1 = p.N1, D = p.D;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  float* u = p.scratch;
+  float* u_next = u + static_cast<long long>(N1) * F;
+  float* price = u_next + static_cast<long long>(N1) * F;
+  for (int e = tid; e < N1 * F; e += nt) {
+    const int nd = e / F, f = e - nd * F;
+    const int c = p.node_cq[nd];
+    u[e] = c >= 0 ? __fadd_rn(0.0f, p.load[c * F + f]) : 0.0f;
+  }
+  __syncthreads();
+  for (int d = D - 1; d > 0; --d) {
+    for (int e = tid; e < N1 * F; e += nt) {
+      const int nd = e / F, f = e - nd * F;
+      float acc = u[e];
+      for (int k = p.kid_off[nd]; k < p.kid_off[nd + 1]; ++k) {
+        const int ch = p.kids[k];
+        if (p.depth[ch] == d) acc = __fadd_rn(acc, u[ch * F + f]);
+      }
+      u_next[e] = acc;
+    }
+    __syncthreads();
+    float* t = u;
+    u = u_next;
+    u_next = t;
+  }
+  for (int e = tid; e < C * F; e += nt) {
+    const int c = e / F, f = e - c * F;
+    const int* path = p.path_cq + static_cast<long long>(c) * D;
+    float pr = 0.0f;
+    for (int k = 0; k < D; ++k) {
+      const int o = path[k] * F + f;
+      const float over =
+          clamp01(__fdiv_rn(__fsub_rn(u[o], p.slack[o]), p.scale[o]));
+      pr = k == 0 ? over : __fadd_rn(pr, over);
+    }
+    price[e] = pr;
+  }
+  __syncthreads();
+  for (int w = tid; w < p.B; w += nt) {
+    if (!p.live[w]) {
+      p.x[w] = 0.0f;
+      continue;
+    }
+    const float* rw = p.r + static_cast<long long>(w) * F;
+    float mx = rw[0];
+    for (int f = 1; f < F; ++f) mx = fmaxf(mx, rw[f]);
+    mx = fmaxf(mx, 1.0f);
+    const int c = min(max(p.wl_cqid[w], 0), C - 1);
+    const float pull =
+        pull_sum_row(rw, mx, price + c * F, F, p.lanes, p.lane_end);
+    const float g =
+        __fsub_rn(__fmul_rn(p.s[w], 0.05f), __fmul_rn(p.rho, pull));
+    p.x[w] = clamp01(__fadd_rn(p.x[w], __fmul_rn(g, 0.5f)));
+  }
+}
+
 }  // namespace
 
 // Plain C entry bound with ctypes: S clusters of K blocks of `threads`
@@ -385,5 +529,44 @@ extern "C" int kueue_relax_lp(
   cfg.numAttrs = 1;
   err = cudaLaunchKernelEx(&cfg, relax_lp_kernel, p);
   if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// One shard's [C, F] load of the mesh-sharded LP (B rows, CSR `rows` /
+// `row_off` of the shard's rows by CQ). Launches on `stream`; returns the
+// first CUDA error.
+extern "C" int kueue_relax_shard_load(int B, int F, int C, const float* r,
+                                      const float* x, const int* rows,
+                                      const int* row_off, float* load,
+                                      void* stream) {
+  if (B < 0 || F < 1 || C < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const int n = C * F, threads = 256;
+  relax_shard_load_kernel<<<(n + threads - 1) / threads, threads, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
+      F, C, r, x, rows, row_off, load);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The rest of one iteration for one shard of B rows: `load` is the [C, F]
+// sum of every shard's load, `scratch` holds 2 * N1 * F + C * F floats,
+// `x` is updated in place. One block of `threads` threads.
+extern "C" int kueue_relax_shard_step(
+    int B, int F, int C, int N1, int D, float rho, int lanes, int lane_end,
+    int threads, const float* r, const float* s, const unsigned char* live,
+    const int* wl_cqid, const int* path_cq, const int* depth,
+    const float* slack, const float* scale, const int* kids,
+    const int* kid_off, const int* node_cq, const float* load,
+    float* scratch, float* x, void* stream) {
+  if (B < 0 || F < 1 || C < 1 || D < 1 || lanes < 0 || lanes > kMaxLanes ||
+      lane_end > F ||
+      (lanes == 0 && (F <= kWindow || F > kMaxColumns ||
+                      lane_end >= kWindow)) ||
+      threads < 32 || threads > kMaxThreads || threads % 32 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const StepParams p{B, F, C, N1, D, rho, lanes, lane_end, r, s, live,
+                     wl_cqid, path_cq, depth, slack, scale, kids, kid_off,
+                     node_cq, load, scratch, x};
+  relax_shard_step_kernel<<<1, threads, 0,
+                            static_cast<cudaStream_t>(stream)>>>(p);
   return static_cast<int>(cudaGetLastError());
 }

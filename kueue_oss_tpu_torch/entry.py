@@ -5,8 +5,8 @@ The counterpart of ``__graft_entry__.py``'s ``entry()``: ``entry()``
 returns ``(fn, example_args)``, here ``(kernels.solve_backlog,
 (tensors,))`` with the problem's tensors on ``device`` ("cuda" unless
 the caller asks for the CPU; it raises without CUDA), so ``fn(*args)``
-runs one drain. Its ``dryrun_multichip`` waits for the multi-device
-arms (ROADMAP Queue A item 9).
+runs one drain. Its ``dryrun_multichip`` waits for the multi-process
+pod mesh (ROADMAP Queue A items 9b and 10).
 """
 
 from __future__ import annotations

@@ -17,9 +17,9 @@ process-wide :data:`controller`:
   ``DEGRADATION`` event of the flight recorder and a ``DEGRADATION_ROW``
   of the cycle ledger.
 
-The port has no mesh arm (ROADMAP Queue A item 9): the solver ladder
-keeps its ``mesh`` rung and ``mesh_broken`` condition, and a
-single-device engine never reports it.
+The solver ladder's ``mesh`` rung is the engine's mesh arm: a mesh
+drain fault reports ``mesh_broken`` and the ladder's half-open probe
+re-detects the mesh after its cooldown.
 
 The ladders (level 0 is the leftmost rung)::
 

@@ -41,7 +41,8 @@ variable) routes the engine's solves through a sidecar
 (``solver/service.py`` ``SolverClient.from_config``), with a
 ``SolverHealth`` breaker from its ``breaker_*`` fields; the engine's
 ``SolverUnavailable`` then lands in ``solver_counts["unavailable"]``.
-Its mesh fields raise there (ROADMAP Queue A item 9).
+Its ``mesh`` sets the engine's mesh mode; its coordinator fields raise
+there (ROADMAP Queue A item 9b).
 
 Cut from the copy, each with its ROADMAP Queue A item:
 
@@ -469,7 +470,8 @@ class Scheduler:
                     self.store, self.queues, device=self.device,
                     scheduler=self,
                     enable_fair_sharing=self.enable_fair_sharing,
-                    remote=remote, health=health)
+                    remote=remote, health=health,
+                    mesh_mode=(cfg.mesh if cfg is not None else None))
                 if cfg is not None:
                     if cfg.sessions_enabled is not None:
                         eng.use_sessions = bool(cfg.sessions_enabled)

@@ -18,8 +18,12 @@ repeats of scenario 0). The FULL-kernel sweeps run the preemption drain
 budget's cap go to the relax tier (``solve_scenarios_relax``: the S
 scenarios' relaxed LPs in one launch of the relax kernel, then each
 scenario's rounding and exact repair), always reported per row and in
-the log and counted in ``metrics.whatif_retier_total``. Cut from the
-copy: the scenario-axis mesh (ROADMAP Queue A item 9).
+the log and counted in ``metrics.whatif_retier_total``. With a solver
+mesh (``meshutil.Mesh``) whose width divides the padded scenario axis,
+``solve_scenarios`` block-shards the scenarios over it: each shard
+solves its block with ``solve_backlog_batched`` on its device, and the
+blocks join in scenario order (``meshutil.all_gather``); scenarios never
+interact, so the plans are the unsharded batch's.
 """
 
 from __future__ import annotations
@@ -64,6 +68,8 @@ class BatchSolveResult:
     #: host reads of the drain: one per round (whether any lane is
     #: live) plus the final read-back
     host_reads: int = 0
+    #: mesh width the scenario axis was sharded over (0 = one device)
+    mesh_devices: int = 0
 
     def plan(self, i: int) -> tuple:
         return (self.admitted[i], self.opt[i], self.admit_round[i],
@@ -102,13 +108,20 @@ def pad_scenario_axis(stacked: dict[str, np.ndarray], target_s: int,
     return out
 
 
-def _maybe_shard_scenarios(mesh) -> None:
-    """The single-device path only: a scenario-axis mesh is ROADMAP
-    Queue A item 9."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "scenario-axis sharding over a device mesh: ROADMAP Queue A "
-            "item 9")
+def _maybe_shard_scenarios(stacked: dict, mesh) -> tuple[list, int]:
+    """Block-shard the scenario axis over the solver mesh when it
+    divides evenly: ([(device, block overlay)] in shard order, width);
+    otherwise ([(None, stacked)], 0) for the single-device path."""
+    from kueue_oss_tpu_torch.solver.meshutil import mesh_devices
+
+    n = mesh_devices(mesh)
+    S = next(iter(stacked.values())).shape[0]
+    if n < 2 or S % n != 0:
+        return [(None, stacked)], 0
+    b = S // n
+    return [(dev, {name: arr[s * b:(s + 1) * b]
+                   for name, arr in stacked.items()})
+            for s, dev in enumerate(mesh.devices)], n
 
 
 def _fetch(out) -> tuple:
@@ -136,19 +149,29 @@ def solve_scenarios(problem: SolverProblem, overlays: list[dict],
         stacked = {"usage0": np.repeat(problem.usage0[None], S, axis=0)}
     target_s = pow2(S) if pad_pow2 else S
     stacked = pad_scenario_axis(stacked, target_s)
-    _maybe_shard_scenarios(mesh)
+    blocks, mesh_devs = _maybe_shard_scenarios(stacked, mesh)
     if tensors is None:
-        tensors = to_device(problem, resolve_device(device))
+        tensors = to_device(problem, mesh.lead if mesh_devs
+                            else resolve_device(device))
     counts = {"host_reads": 0}
     t0 = time.monotonic()
-    out = _fetch(solve_backlog_batched(tensors, stacked, counts))
+    if mesh_devs:
+        from kueue_oss_tpu_torch.solver import meshutil
+
+        parts = [solve_backlog_batched(
+            type(tensors)(*(a.to(dev) for a in tensors)), block, counts)
+            for dev, block in blocks]
+        out = _fetch(meshutil.all_gather(mesh, [p[k] for p in parts])[0]
+                     for k in range(len(parts[0])))
+    else:
+        out = _fetch(solve_backlog_batched(tensors, stacked, counts))
     wall = time.monotonic() - t0
     admitted, opt, admit_round, parked, rounds, usage = out
     return BatchSolveResult(
         admitted=admitted[:S], opt=opt[:S], admit_round=admit_round[:S],
         parked=parked[:S], rounds=rounds[:S], usage=usage[:S],
         batch_width=target_s, solve_seconds=wall,
-        host_reads=counts["host_reads"] + 1)
+        host_reads=counts["host_reads"] + 1, mesh_devices=mesh_devs)
 
 
 def predict_rounds(problem: SolverProblem,
@@ -226,7 +249,8 @@ def solve_scenarios_bucketed(
         rounds=stitched("rounds"), usage=stitched("usage"),
         batch_width=sum(r.batch_width for _, r in parts),
         solve_seconds=sum(r.solve_seconds for _, r in parts),
-        host_reads=sum(r.host_reads for _, r in parts)),
+        host_reads=sum(r.host_reads for _, r in parts),
+        mesh_devices=max(r.mesh_devices for _, r in parts)),
         stats, len(parts))
 
 

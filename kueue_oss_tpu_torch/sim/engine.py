@@ -27,8 +27,11 @@ state of sim/resident.py when the engine is built ``resident=True``.
 
 Everything is deterministic: same store, same specs, same seeds =>
 byte-identical ``WhatIfReport.canonical_json()``. A run is observed
-in the ``metrics.whatif_*`` series. Cut from the copy: the
-scenario-axis mesh (ROADMAP Queue A item 9).
+in the ``metrics.whatif_*`` series. With ``SimulatorConfig.mesh`` set
+(an explicit mode, "off" by default) and at least
+``min_batch_for_mesh`` scenarios, lean sweeps shard their scenario axis
+over the detected mesh (sim/batch.py); the report's timing carries the
+width (``mesh_devices``).
 """
 
 from __future__ import annotations
@@ -192,6 +195,21 @@ class WhatIfEngine:
         #: ages on live stores (epoch-seconds timestamps) while the
         #: report stays deterministic (no wall clock leaks in).
         self.now = now
+        self._mesh_obj = None
+        self._mesh_resolved = False
+
+    def _mesh(self, n_scenarios: int):
+        if n_scenarios < self.config.min_batch_for_mesh:
+            return None
+        if not self._mesh_resolved:
+            from kueue_oss_tpu_torch.solver import meshutil
+
+            # always an explicit mode string ("off" by default): the
+            # simulator never reads the ambient KUEUE_SOLVER_MESH
+            self._mesh_obj = meshutil.detect_mesh(
+                str(self.config.mesh or "off"), device=self.device)
+            self._mesh_resolved = True
+        return self._mesh_obj
 
     def run(self, specs: list[ScenarioSpec],
             pending: Optional[dict[str, list[WorkloadInfo]]] = None,
@@ -272,6 +290,7 @@ class WhatIfEngine:
         build_s = time.monotonic() - t0
         metrics.whatif_duration_seconds.observe("build", value=build_s)
 
+        mesh = self._mesh(len(specs))
         if use_full:
             caps = full_caps(problem)
             if full_tensors is None:
@@ -315,11 +334,11 @@ class WhatIfEngine:
                 batch, bucket_stats, n_dispatches = (
                     solve_scenarios_bucketed(
                         problem, overlays, tensors=lean_tensors,
-                        pad_pow2=self.config.pad_pow2,
+                        mesh=mesh, pad_pow2=self.config.pad_pow2,
                         min_batch=self.config.min_batch_for_bucketing))
             else:
                 batch = solve_scenarios(problem, overlays,
-                                        tensors=lean_tensors,
+                                        tensors=lean_tensors, mesh=mesh,
                                         pad_pow2=self.config.pad_pow2)
                 bucket_stats, n_dispatches = {}, 1
         metrics.whatif_batches_total.inc(by=n_dispatches)
@@ -389,6 +408,7 @@ class WhatIfEngine:
             "batch_dispatches": n_dispatches,
             "round_buckets": {str(b): n
                               for b, n in sorted(bucket_stats.items())},
+            "mesh_devices": getattr(batch, "mesh_devices", 0),
             "full_chunks": list(getattr(batch, "chunks", [])),
             "scenarios_per_sec": round(
                 len(specs) / batch.solve_seconds, 2)

@@ -12,8 +12,14 @@ launches by where the row arrays lived). ``lp_index`` builds the
 kernel's lists on the host once per problem: the CQ-sorted rows, the
 child lists, and the cut of each scenario's ClusterQueues into
 ``cluster`` blocks of whole ClusterQueues (``cluster_size``,
-``partition``). The kernel shares the build of ``cuda_tas`` (every
-``csrc/*.cu`` in one nvcc call, one library).
+``partition``). The mesh-sharded LP (``sharded.make_sharded_relax_lp``)
+adds two entries of the same source, each launched per shard and
+iteration: ``relax_lp_shard_load`` (one shard's [C, F] load in
+ascending row order) and ``relax_lp_shard_step`` (the tree, the price and
+the shard's x step from the shard-order sum of the loads); their plain
+versions are ``relax.lp_load`` and ``relax.lp_step_from_load``, and
+``shard_index`` builds their lists. The kernels share the build of
+``cuda_tas`` (every ``csrc/*.cu`` in one nvcc call, one library).
 """
 
 from __future__ import annotations
@@ -288,15 +294,170 @@ def relax_lp(lp: RelaxLP, iters: int, index: LPIndex = None
     return x if batched else x[0]
 
 
+# ---------------------------------------------------------------------------
+# The mesh-sharded LP's two entries (sharded.make_sharded_relax_lp)
+# ---------------------------------------------------------------------------
+
+
+class ShardIndex(NamedTuple):
+    """One shard's lists on its device (int32): the shard's rows sorted
+    stably by CQ (the padding id C last) with CSR offsets [C+1], and the
+    tree's child lists, offsets and node -> CQ map (``lp_index``'s)."""
+
+    rows: torch.Tensor
+    row_off: torch.Tensor
+    kids: torch.Tensor
+    kid_off: torch.Tensor
+    node_cq: torch.Tensor
+
+
+def shard_index(lp: RelaxLP, shard: int, n_shards: int,
+                device) -> ShardIndex:
+    """Build shard ``shard``'s lists from the host LP (row block
+    ``shard`` of ``n_shards``), once per LP, outside the iterations."""
+    W1 = lp.wl_cqid.shape[0]
+    b = W1 // n_shards
+    cqid = np.asarray(lp.wl_cqid)[shard * b:(shard + 1) * b]
+    C = lp.cq_node.shape[0]
+    order = np.argsort(cqid, kind="stable").astype(np.int32)
+    row_off = np.searchsorted(cqid[order], np.arange(C + 1)).astype(
+        np.int32)
+    tree = lp_index(np.full(1, C, dtype=np.int32), lp.parent,
+                    lp.cq_node, C, live=np.zeros(1, dtype=bool),
+                    cluster=1)
+    return ShardIndex(*(torch.as_tensor(np.ascontiguousarray(a),
+                                        device=device)
+                        for a in (order, row_off, tree.kids[0],
+                                  tree.kid_off[0], tree.node_cq[0])))
+
+
+def _bind_shard():
+    from kueue_oss_tpu_torch.solver import cuda_tas
+
+    lib = cuda_tas._library()
+    load, step = lib.kueue_relax_shard_load, lib.kueue_relax_shard_step
+    if load.argtypes is None:
+        load.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 6
+        load.restype = ctypes.c_int
+    if step.argtypes is None:
+        step.argtypes = ([ctypes.c_int] * 5 + [ctypes.c_float]
+                         + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 15)
+        step.restype = ctypes.c_int
+    return load, step
+
+
+def _check_shard(lp: RelaxLP, x: torch.Tensor, name: str) -> None:
+    device = lp.r.device
+    for field, t in zip(RelaxLP._fields, lp):
+        want = (torch.float32 if field in _FLOAT
+                else torch.bool if field == "live" else torch.int32)
+        if t.device != device or t.dtype != want or not t.is_contiguous():
+            raise ValueError(f"{name}: {field} must be a contiguous {want} "
+                             f"tensor on {device}, got {t.dtype} on "
+                             f"{t.device}")
+    if (x.device != device or x.dtype != torch.float32
+            or tuple(x.shape) != (lp.r.shape[0],) or not x.is_contiguous()):
+        raise ValueError(f"{name}: x must be a contiguous float32 "
+                         f"[{lp.r.shape[0]}] tensor on {device}")
+
+
+def relax_lp_shard_load(lp: RelaxLP, x: torch.Tensor,
+                        index: ShardIndex = None) -> torch.Tensor:
+    """One shard's [C, F] load: each CQ's r * x over the shard's rows in
+    ascending row order. ``lp`` holds the shard's rows (and the
+    replicated tree). CPU tensors take ``relax.lp_load``; CUDA tensors
+    launch ``kueue_relax_shard_load`` (``index`` from ``shard_index``)
+    or raise."""
+    from kueue_oss_tpu_torch.solver.relax import lp_load
+
+    device = lp.r.device
+    if device.type == "cpu":
+        return lp_load(lp, x)
+    if device.type != "cuda":
+        raise ValueError(f"relax_lp_shard_load: unsupported device {device}")
+    _check_shard(lp, x, "relax_lp_shard_load")
+    if index is None:
+        raise ValueError("relax_lp_shard_load: a CUDA launch needs the "
+                         "shard's index (cuda_relax.shard_index)")
+    B, F = lp.r.shape
+    C = lp.cq_node.shape[0]
+    load = torch.empty((C, F), dtype=torch.float32, device=device)
+    fn, _ = _bind_shard()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = fn(B, F, C, lp.r.data_ptr(), x.data_ptr(),
+                index.rows.data_ptr(), index.row_off.data_ptr(),
+                load.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"relax_lp_shard_load launch failed: CUDA error "
+                           f"{rc}")
+    relax_lp_shard_load.launches += 1
+    return load
+
+
+def relax_lp_shard_step(lp: RelaxLP, x: torch.Tensor, load: torch.Tensor,
+                        i: int, iters: int,
+                        index: ShardIndex = None) -> torch.Tensor:
+    """Iteration ``i`` of ``iters`` for one shard from the summed [C, F]
+    load: the tree's full charge, the price and the shard's x step.
+    Returns the new x (a new tensor on the CPU; on CUDA the kernel
+    updates a copy of ``x``). CPU tensors take
+    ``relax.lp_step_from_load``; CUDA tensors launch
+    ``kueue_relax_shard_step`` or raise."""
+    from kueue_oss_tpu_torch.solver.relax import _rho, lp_step_from_load
+
+    device = lp.r.device
+    if device.type == "cpu":
+        return lp_step_from_load(lp, x, load, i, iters)
+    if device.type != "cuda":
+        raise ValueError(f"relax_lp_shard_step: unsupported device {device}")
+    _check_shard(lp, x, "relax_lp_shard_step")
+    if index is None:
+        raise ValueError("relax_lp_shard_step: a CUDA launch needs the "
+                         "shard's index (cuda_relax.shard_index)")
+    B, F = lp.r.shape
+    C = lp.cq_node.shape[0]
+    N1 = lp.parent.shape[0]
+    D = lp.path_cq.shape[1]
+    if (tuple(load.shape) != (C, F) or load.dtype != torch.float32
+            or load.device != device or not load.is_contiguous()):
+        raise ValueError(f"relax_lp_shard_step: load must be a contiguous "
+                         f"float32 [{C}, {F}] tensor on {device}")
+    lanes, lane_end = sum_order(F)
+    out = x.clone()
+    scratch = torch.empty(2 * N1 * F + C * F, dtype=torch.float32,
+                          device=device)
+    threads = min(1024, 32 * ((max(B, N1 * F, C * F, 1) + 31) // 32))
+    _, fn = _bind_shard()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = fn(B, F, C, N1, D, float(_rho(i, iters)), lanes, lane_end,
+                threads,
+                *(getattr(lp, name).data_ptr() for name in (
+                    "r", "s", "live", "wl_cqid", "path_cq", "depth",
+                    "slack", "scale")),
+                index.kids.data_ptr(), index.kid_off.data_ptr(),
+                index.node_cq.data_ptr(), load.data_ptr(),
+                scratch.data_ptr(), out.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"relax_lp_shard_step launch failed: CUDA error "
+                           f"{rc}")
+    relax_lp_shard_step.launches += 1
+    return out
+
+
 def reset_counts() -> None:
-    """Zero ``relax_lp``'s launch counters."""
+    """Zero the launch counters of ``relax_lp`` and the sharded LP's
+    entries."""
     relax_lp.launches = 0
     relax_lp.scenarios = 0
     relax_lp.clusters = collections.Counter()
     relax_lp.layouts = collections.Counter()
+    relax_lp_shard_load.launches = 0
+    relax_lp_shard_step.launches = 0
 
 
 #: CUDA kernel launches made through ``relax_lp`` in this process, the
 #: scenarios (clusters) those launches solved, and the launches by
-#: cluster size and by layout
+#: cluster size and by layout; and the sharded LP's launches
 reset_counts()

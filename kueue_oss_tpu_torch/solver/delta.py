@@ -30,9 +30,11 @@ half the rows dirty) degrades to a full sync.
 
 Torch is imported only by ``DeviceResidentProblem``, so the wire half of
 this module (and the sidecar client built on it) runs without torch.
-Cut from the copy: mesh placement of the resident tensors (ROADMAP
-Queue A item 9). ``set_interleave`` is kept for the multi-device port;
-the engine calls it with 1 or the sidecar's advertised mesh width.
+With a ``mesh`` the resident tensors live block-sharded over it
+(``sharded.maybe_place_lean`` / ``maybe_place_full``), each delta row
+written on its owning shard; ``set_interleave`` spreads the session's
+slots over the mesh's shards (the engine passes the local mesh width or
+a sidecar's advertised one).
 """
 
 from __future__ import annotations
@@ -1030,8 +1032,15 @@ class DeviceResidentProblem:
     The JAX class donates buffers to jitted ``.at[rows].set`` scatters
     and pads the dirty-row count to a power of two to bound its
     recompiles; PyTorch updates in place and compiles nothing, so the
-    port neither donates nor pads. Mesh placement (``mesh=``) is cut:
-    the port runs on one device.
+    port neither donates nor pads.
+
+    With a ``mesh`` (``meshutil.Mesh``), both kernels' workload-axis
+    tensors live block-sharded over it (``meshutil.MeshTensors``; tree
+    and CQ state replicated, one copy per shard) whenever the padded
+    axis divides evenly and the live rows clear ``mesh_min_rows``; a
+    delta's dirty rows are written on their owning shard and its
+    replacements on every shard's copy. ``mesh_placed`` says whether the
+    current tensors are mesh-placed.
 
     Every upload copies: a resident tensor never shares memory with a
     host array (on the CPU ``torch.as_tensor`` would alias the session's
@@ -1041,10 +1050,16 @@ class DeviceResidentProblem:
     ``apply_faults``) instead of casting.
     """
 
-    def __init__(self, device) -> None:
+    def __init__(self, device, mesh=None) -> None:
         import torch
 
         self.device = torch.device(device)
+        self.mesh = mesh
+        #: problems with fewer live rows stay unsharded even with a mesh
+        #: (callers set it from their mesh_min_workloads policy)
+        self.mesh_min_rows = 0
+        #: whether the current resident tensors are mesh-placed
+        self.mesh_placed = False
         self.kind: Optional[str] = None
         self.epoch = -1
         self.tensors = None
@@ -1107,11 +1122,14 @@ class DeviceResidentProblem:
         if prev is not None and self._donation_compatible(prev, host):
             du, ac = self.donated_update_bytes, self.avoided_copy_bytes
             try:
-                for old, new in zip(prev, host):
-                    old.copy_(_host_tensor(new))
-                    self.donated_update_bytes += int(np.asarray(new).nbytes)
-                    self.avoided_copy_bytes += int(
-                        old.numel() * old.element_size())
+                # the same shapes keep the placement the first upload
+                # chose (mesh_placed is preserved)
+                for name, new in zip(host._fields, host):
+                    for old, part in self._parts(prev, name, new):
+                        old.copy_(_host_tensor(part))
+                        self.donated_update_bytes += int(part.nbytes)
+                        self.avoided_copy_bytes += int(
+                            old.numel() * old.element_size())
             except RuntimeError:
                 self.donated_update_bytes, self.avoided_copy_bytes = du, ac
                 self.apply_faults += 1
@@ -1122,21 +1140,53 @@ class DeviceResidentProblem:
                 return prev
         import torch
 
-        t = type(host)(*(torch.tensor(np.asarray(a), device=self.device)
-                         for a in host))
+        self.mesh_placed = False
+        t = None
+        if self.mesh is not None:
+            from kueue_oss_tpu_torch.solver import sharded
+
+            place = (sharded.maybe_place_full if full
+                     else sharded.maybe_place_lean)
+            t, self.mesh_placed = place(host, problem, self.mesh,
+                                        self.mesh_min_rows)
+        if t is None:
+            t = type(host)(*(torch.tensor(np.asarray(a), device=self.device)
+                             for a in host))
         self.full_uploads += 1
         self.full_upload_bytes += _tree_nbytes(t)
         return t
 
     @staticmethod
-    def _donation_compatible(prev, host) -> bool:
+    def _parts(t, name: str, arr):
+        """(buffer, host part) pairs of field ``name``: the one buffer,
+        or on a mesh each shard's buffer with its block of rows (a row
+        field) or the whole array (a replicated one)."""
+        from kueue_oss_tpu_torch.solver.meshutil import MeshTensors
+
+        arr = np.asarray(arr)
+        if not isinstance(t, MeshTensors):
+            return [(getattr(t, name), arr)]
+        bufs = t.field(name)
+        if name not in t.row_fields:
+            return [(b, arr) for b in bufs]
+        n = t.block
+        return [(b, arr[s * n:(s + 1) * n]) for s, b in enumerate(bufs)]
+
+    @classmethod
+    def _donation_compatible(cls, prev, host) -> bool:
         """Every resident buffer matches its replacement's shape and
-        dtype exactly."""
-        for old, new in zip(prev, host):
-            new = np.asarray(new)
-            if (tuple(old.shape) != new.shape
-                    or old.dtype != _torch_dtype(new.dtype)):
+        dtype exactly (on a mesh, each shard's block)."""
+        from kueue_oss_tpu_torch.solver.meshutil import MeshTensors
+
+        if isinstance(prev, MeshTensors):
+            first = next(f for f in host._fields if f in prev.row_fields)
+            if np.asarray(getattr(host, first)).shape[0] != prev.rows:
                 return False
+        for name, new in zip(host._fields, host):
+            for old, part in cls._parts(prev, name, new):
+                if (tuple(old.shape) != part.shape
+                        or old.dtype != _torch_dtype(part.dtype)):
+                    return False
         return True
 
     def _write_rows(self, buf: torch.Tensor, idx: np.ndarray,
@@ -1160,10 +1210,34 @@ class DeviceResidentProblem:
                                   or int(idx.max()) >= buf.shape[0]))):
             raise ValueError(f"row update {idx.shape} / {vals.shape} does "
                              f"not address unique rows of {tuple(buf.shape)}")
-        index = torch.from_numpy(idx.astype(np.int64)).to(self.device)
-        buf.index_copy_(0, index, src.to(self.device))
+        index = torch.from_numpy(idx.astype(np.int64)).to(buf.device)
+        buf.index_copy_(0, index, src.to(buf.device))
         self.donated_update_bytes += int(index.numel() * 8) + int(vals.nbytes)
         self.avoided_copy_bytes += int(buf.numel() * buf.element_size())
+
+    def _write_field_rows(self, name: str, idx: np.ndarray,
+                          vals: np.ndarray) -> None:
+        """A delta's rows of field ``name``: each row on the shard that
+        owns it (one buffer off the mesh)."""
+        from kueue_oss_tpu_torch.solver.meshutil import MeshTensors
+
+        t = self.tensors
+        idx = np.asarray(idx)
+        vals = np.asarray(vals)
+        if not isinstance(t, MeshTensors):
+            self._write_rows(getattr(t, name), idx, vals)
+            return
+        n = t.block
+        if idx.size and (int(idx.min()) < 0 or int(idx.max()) >= t.rows):
+            raise ValueError(f"row update outside the {t.rows} rows")
+        owner = idx // n if idx.size else idx
+        for s, buf in enumerate(t.field(name)):
+            sel = owner == s
+            if sel.any():
+                self._write_rows(buf, idx[sel] - s * n, vals[sel])
+            else:
+                self.avoided_copy_bytes += int(buf.numel()
+                                               * buf.element_size())
 
     @staticmethod
     def _write_all(buf: torch.Tensor, arr: np.ndarray) -> None:
@@ -1173,6 +1247,11 @@ class DeviceResidentProblem:
                             f"a {buf.dtype}{tuple(buf.shape)} buffer")
         buf.copy_(src)
 
+    def _write_field(self, name: str, arr: np.ndarray) -> None:
+        """Replace field ``name`` whole (every shard's copy on a mesh)."""
+        for buf, part in self._parts(self.tensors, name, arr):
+            self._write_all(buf, part)
+
     def _apply(self, problem: SolverProblem, delta: ProblemDelta,
                full: bool) -> None:
         t = self.tensors
@@ -1181,19 +1260,20 @@ class DeviceResidentProblem:
         for name, (idx, vals) in delta.row_updates.items():
             tname = row_map.get(name)
             if tname is not None:
-                self._write_rows(getattr(t, tname), idx, vals)
+                self._write_field_rows(tname, idx, vals)
         for name, arr in delta.repl.items():
             if name in fields:
-                self._write_all(getattr(t, name), arr)
+                self._write_field(name, arr)
         derived = [d for d, srcs in _DERIVED.items()
                    if d in fields and any(s in delta.repl for s in srcs)]
         if derived:
             host = self._host(problem, full)
             for d in derived:
-                self._write_all(getattr(t, d), getattr(host, d))
+                self._write_field(d, getattr(host, d))
         if full:
             # the 0-d rank bases take a host int: no device read-back
             for name in ("ts_evict_base", "admit_rank_base"):
                 if name in delta.meta_delta:
-                    getattr(t, name).fill_(int(getattr(problem, name)))
+                    for buf, _ in self._parts(t, name, 0):
+                        buf.fill_(int(getattr(problem, name)))
         self.delta_updates += 1

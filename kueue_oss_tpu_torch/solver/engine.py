@@ -108,10 +108,19 @@ drain ends in the WAL's group commit (``persistence.flush()``).
 ``reset_sessions`` drops the sessions and resident states after a
 recovery, so the next drain opens with a full SYNC.
 
-Cut from the copy: the mesh arm (ROADMAP Queue A item 9): locally the
-pad target is the pow2 high-water mark and the interleave 1,
-``refresh_mesh`` re-detects no mesh (0 devices) and ``mesh_broken`` is
-never reported.
+The mesh arm (``solver/meshutil.py``, ``solver/sharded.py``): with a
+mesh detected from ``mesh_mode`` (``SolverBackendConfig.mesh`` /
+``KUEUE_SOLVER_MESH``; "auto" finds one over more than one local
+device, or over ``meshutil.set_virtual_devices``), the pad target is
+aligned to its width, the session interleaves slots over its shards,
+and ``_pick_mesh_arm`` routes a lean or FULL drain onto it by the
+per-workload wall of each arm (one probe each; ``mesh_force`` pins it,
+``mesh_min_workloads`` floors it). The mesh drains keep their own
+resident state (``"lean-mesh"`` / ``"full-mesh"``, block-sharded). A
+mesh fault counts ``solver_fallback_total{mesh_error}``, reports
+``mesh_broken`` and re-runs the same drain on the single-device arm;
+``refresh_mesh`` re-detects (the ladder's heal after
+``mesh_retry_cooldown_s``, or a chaos shrink).
 """
 
 from __future__ import annotations
@@ -158,6 +167,7 @@ from kueue_oss_tpu_torch.solver.full_kernels import (
     to_device_full,
 )
 from kueue_oss_tpu_torch.solver.kernels import solve_backlog, to_device
+from kueue_oss_tpu_torch.solver import meshutil
 from kueue_oss_tpu_torch.solver.meshutil import align_pad_target
 from kueue_oss_tpu_torch.solver.resilience import (
     HALF_OPEN,
@@ -247,7 +257,8 @@ class SolverEngine:
     def __init__(self, store: Store, queues: QueueManager,
                  device="cuda", enable_fair_sharing: bool = False,
                  scheduler=None, remote=None,
-                 health: Optional[SolverHealth] = None) -> None:
+                 health: Optional[SolverHealth] = None,
+                 mesh_mode: Optional[str] = None) -> None:
         self.store = store
         self.queues = queues
         #: the control plane's device: the local drains and, with a
@@ -313,8 +324,23 @@ class SolverEngine:
         #: sample of each arm is discarded (the warm set)
         self._arm_ema: dict[tuple[str, str], float] = {}
         self._arm_warm: set[tuple[str, str]] = set()
-        #: called with the arm name ("relax" / "single") right before
-        #: each local solve; raising simulates a device fault on that arm
+        #: mesh drains: the mode string ("auto" when None and
+        #: KUEUE_SOLVER_MESH is unset, "off", or a device count); the
+        #: mesh itself resolves lazily
+        self.mesh_mode = mesh_mode
+        self._mesh_obj = None
+        self._mesh_resolved = False
+        #: chaos / device-loss cap on the mesh width (refresh_mesh)
+        self._mesh_max_devices = 0
+        #: a tripped mesh re-probes after this cooldown (one probe)
+        self.mesh_retry_cooldown_s = 300.0
+        #: backlogs below this stay on the single device
+        self.mesh_min_workloads = 1024
+        #: pin drains to the mesh arm regardless of cost estimates
+        self.mesh_force = False
+        #: called with the arm name ("relax" / "mesh" / "single") right
+        #: before each local solve; raising simulates a device fault on
+        #: that arm
         self.solve_fault_hook = None
         #: arm that served the most recent local solve
         self.last_drain_arm: Optional[str] = None
@@ -690,18 +716,82 @@ class SolverEngine:
         resilience.controller.cooldowns.set_stamp(
             (resilience.SOLVER, "relax_broken"), float(t))
 
+    def _mesh(self):
+        """The resolved mesh, or None (one device, off, or tripped by a
+        mesh fault). A tripped mesh heals after ``mesh_retry_cooldown_s``
+        through the ladder's single half-open probe."""
+        if self._mesh_broken:
+            if not resilience.controller.begin_probe(
+                    resilience.SOLVER, "mesh_broken",
+                    self.mesh_retry_cooldown_s):
+                return None
+            self.refresh_mesh(self._mesh_max_devices)
+        if not self._mesh_resolved:
+            try:
+                self._mesh_obj = meshutil.detect_mesh(
+                    self.mesh_mode, self._mesh_max_devices, self.device)
+            except Exception:
+                self._mesh_obj = None  # backend init failure != crash
+            self._mesh_resolved = True
+        return self._mesh_obj
+
     def refresh_mesh(self, max_devices: int = 0) -> int:
-        """Re-detect the mesh (the ladder's heal, or a chaos mesh
-        shrink capping the width at ``max_devices``): clears
-        ``mesh_broken`` and forgets the mesh arm's cost estimate. The
-        port has no mesh arm, so the width is 0 (a single device) and
-        ``max_devices`` caps nothing."""
+        """Re-detect the mesh (the ladder's heal, or a chaos mesh shrink
+        capping the width at ``max_devices``): clears ``mesh_broken``,
+        drops the mesh-resident states and the mesh arm's cost estimate,
+        so the new topology is measured afresh. Returns the new width."""
+        self._mesh_max_devices = max_devices
         self._mesh_broken = False
+        self._mesh_resolved = False
         for kind in ("lean", "full"):
+            self._device_states.pop(kind + "-mesh", None)
             self._arm_ema.pop((kind, "mesh"), None)
             self._arm_warm.discard((kind, "mesh"))
             devtel.collector.forget(kind, "mesh")
-        return 0
+        return meshutil.mesh_devices(self._mesh())
+
+    def _pick_mesh_arm(self, kind: str, n_workloads: int):
+        """The mesh to drain on, or None for the single device: cost-EMA
+        routing with one probe per arm."""
+        mesh = self._mesh()
+        if mesh is None:
+            return None
+        if self.mesh_force:
+            return mesh
+        if n_workloads < self.mesh_min_workloads:
+            return None
+        e_mesh = self._arm_ema.get((kind, "mesh"))
+        e_single = self._arm_ema.get((kind, "single"))
+        if e_mesh is None:
+            return mesh          # probe the mesh arm first
+        if e_single is None:
+            return None          # then the single-device arm
+        if e_mesh <= e_single:
+            # decay the skipped arm so a stale estimate erodes and the
+            # loser eventually re-probes
+            self._arm_ema[(kind, "single")] = e_single * 0.98
+            return mesh
+        self._arm_ema[(kind, "mesh")] = e_mesh * 0.98
+        return None
+
+    def _note_mesh_failure(self, e: BaseException, kind: str) -> None:
+        """A mesh drain fault (device loss, injected): count it, drop the
+        mesh-resident state, and degrade to the single device until
+        refresh_mesh() or the retry cooldown re-probes. Never silent:
+        metered and journaled."""
+        reason = (f"mesh drain failed ({e!r}); degrading to the "
+                  "single-chip solver arm")
+        resilience.controller.report(
+            resilience.SOLVER, "mesh_broken", True,
+            cycle=self._drain_cycle, reason=reason)
+        self._arm_warm.discard((kind, "mesh"))
+        devtel.collector.forget(kind, "mesh")
+        self._device_states.pop(kind + "-mesh", None)
+        metrics.solver_fallback_total.inc("mesh_error")
+        metrics.solver_mesh_devices.set(value=0)
+        obs.recorder.record(
+            obs.SOLVER_FALLBACK, obs.CYCLE_SCOPE, cycle=self._drain_cycle,
+            path=obs.SOLVER, reason=reason, reason_slug="mesh_error")
 
     def reset_sessions(self, reason: str = "restart") -> None:
         """Drop the delta sessions and the resident device states, so
@@ -745,10 +835,10 @@ class SolverEngine:
     def _local_solve(self, problem: SolverProblem,
                      frame: Optional[SessionFrame], result: DrainResult,
                      n_live: int) -> tuple:
-        """relax -> single-device chain (the mesh hop is ROADMAP Queue A
-        item 9): the relaxed arm when the router picks it, falling
-        through to the exact solve on an arm fault. Returns the numpy
-        plan (admitted, opt, admit_round, parked, rounds, usage)."""
+        """relax -> mesh -> single-device chain: the relaxed arm when
+        the router picks it, falling through to the exact solve on an
+        arm fault. Returns the numpy plan (admitted, opt, admit_round,
+        parked, rounds, usage)."""
         if self._pick_relax_arm(n_live):
             out = self._relax_solve(problem, frame, result, n_live)
             if out is not None:
@@ -804,10 +894,13 @@ class SolverEngine:
         if n_live < self.relax_min_workloads:
             return False
         e_relax = self._arm_ema.get(("lean", "relax"))
-        e_exact = self._arm_ema.get(("lean", "single"))
+        exact = [e for e in (self._arm_ema.get(("lean", "single")),
+                             self._arm_ema.get(("lean", "mesh")))
+                 if e is not None]
         if e_relax is None:
-            return e_exact is not None
-        if e_exact is None or e_relax <= e_exact:
+            # probe only once an exact baseline exists
+            return bool(exact)
+        if not exact or e_relax <= min(exact):
             return True
         self._arm_ema[("lean", "relax")] = e_relax * 0.98
         return False
@@ -852,9 +945,11 @@ class SolverEngine:
             if self.solve_fault_hook is not None:
                 self.solve_fault_hook("relax")
             t0 = time.monotonic()
+            # solve_relaxed falls back to the single-device LP when the
+            # padded axis does not shard evenly
             out, stats = relax.solve_relaxed(
                 problem, iters=self.relax_iters,
-                threshold=self.relax_support_threshold,
+                threshold=self.relax_support_threshold, mesh=self._mesh(),
                 pad_to=self._relax_pad_hwm, device=self.device)
             wall = time.monotonic() - t0
         except Exception as e:
@@ -882,11 +977,13 @@ class SolverEngine:
                 metrics.solver_relax_drains_total.inc("audit_diverged")
                 self._note_relax_failure(None, "relax_disagreement")
             return exact
-        # relax-SERVED drain: keep an existing exact-arm resident state
-        # current with the frame's delta, so the next exact solve does
-        # not find it epoch-stale
-        dev = self._device_states.get("lean")
-        if frame is not None and dev is not None:
+        # relax-SERVED drain: keep the existing exact-arm resident
+        # states current with the frame's delta, so the next exact solve
+        # does not find them epoch-stale
+        for key in ("lean", "lean-mesh"):
+            dev = self._device_states.get(key)
+            if frame is None or dev is None:
+                continue
             try:
                 before = {k: getattr(dev, k) for k in _DEVICE_COUNTERS}
                 dev.update(problem, frame, False)
@@ -894,7 +991,7 @@ class SolverEngine:
                                  for k in _DEVICE_COUNTERS}
             except Exception:
                 # the next exact solve re-seeds from the host problem
-                self._device_states.pop("lean", None)
+                self._device_states.pop(key, None)
         result.phases["solve"] = wall
         counts["served"] += 1
         metrics.solver_relax_drains_total.inc("served")
@@ -903,27 +1000,72 @@ class SolverEngine:
 
     def _solve_exact(self, problem: SolverProblem,
                      frame: Optional[SessionFrame], result: DrainResult,
-                     n_live: int) -> tuple:
-        """The exact lean drain on the engine's device (resident state
-        updated by the frame, or a fresh upload). A fault there is the
-        device_error rung (``_device_fault``); the plan is read back
-        inside the guarded block, so a device fault surfaces here and
-        not mid-apply."""
+                     n_live: int, full: bool = False, **caps) -> tuple:
+        """The exact drain (lean, or FULL with ``caps``): the mesh arm
+        when ``_pick_mesh_arm`` routes there, then the single-device
+        arm. A mesh fault is counted (``_note_mesh_failure``) and the
+        same drain re-runs on the single device; a fault there is the
+        device_error rung (``_device_fault``). The plan is read back
+        inside each arm's guarded block, so a device fault surfaces here
+        and not mid-apply."""
+        kind = "full" if full else "lean"
+        mesh = self._pick_mesh_arm(kind, n_live)
+        if mesh is not None:
+            try:
+                # only the fault-prone device work is guarded: the
+                # bookkeeping below must not discard a plan
+                if self.solve_fault_hook is not None:
+                    self.solve_fault_hook("mesh")
+                t0 = time.monotonic()
+                tensors = self._local_tensors(problem, frame, full, result,
+                                              mesh=mesh)
+                t1 = time.monotonic()
+                out = self._run_kernel(tensors, full, result, mesh, caps)
+            except Exception as e:
+                self._note_mesh_failure(e, kind)
+            else:
+                t2 = time.monotonic()
+                result.phases["solve"] = t2 - t1
+                self._note_arm_wall(kind, "mesh", t2 - t0, n_live)
+                self.last_drain_arm = "mesh"
+                metrics.solver_mesh_devices.set(
+                    value=meshutil.mesh_devices(mesh))
+                # both drains row-shard the workload axis
+                metrics.solver_shard_imbalance.observe(
+                    value=meshutil.shard_imbalance(
+                        problem.wl_cqid, problem.n_cqs, mesh))
+                self._clear_device_error()
+                return out
         try:
             if self.solve_fault_hook is not None:
                 self.solve_fault_hook("single")
             t0 = time.monotonic()
-            tensors = self._local_tensors(problem, frame, False, result)
+            tensors = self._local_tensors(problem, frame, full, result)
             t1 = time.monotonic()
-            out = tuple(a.cpu().numpy() for a in solve_backlog(tensors))
+            out = self._run_kernel(tensors, full, result, None, caps)
         except Exception as e:
-            self._device_fault("lean", e)
+            self._device_fault(kind, e)
         t2 = time.monotonic()
         result.phases["solve"] = t2 - t1
-        self._note_arm_wall("lean", "single", t2 - t0, n_live)
+        self._note_arm_wall(kind, "single", t2 - t0, n_live)
         self.last_drain_arm = "single"
         metrics.solver_mesh_devices.set(value=0)
         self._clear_device_error()
+        return out
+
+    @staticmethod
+    def _run_kernel(tensors, full: bool, result: DrainResult, mesh,
+                    caps: dict) -> tuple:
+        """One drain kernel on the arm's tensors, read back to numpy."""
+        if not full:
+            fn = (solve_backlog if mesh is None
+                  else meshutil.lean_mesh_solver(mesh))
+            return tuple(a.cpu().numpy() for a in fn(tensors))
+        stats = FullDrainStats()
+        out = tuple(a.cpu().numpy() for a in solve_backlog_full(
+            tensors, stats=stats, mesh=mesh, **caps))
+        stats.syncs += 1  # the plan's read-back
+        result.full_stats = stats
         return out
 
     # -- delta sessions and resident device state --------------------------
@@ -944,11 +1086,17 @@ class SolverEngine:
                 "export_rows": int(stats.get("rows", 0))}
 
     def _pad_target(self) -> int:
-        """The sticky pow2 pad high-water mark, aligned to a remote
-        sidecar's advertised mesh width (0 / 1 without one)."""
+        """The sticky pow2 pad high-water mark, aligned so the padded
+        axis plus the null row block-shards evenly over the local mesh
+        whenever one is available (even on drains routed to the single
+        device, so session slots keep stable (shard, row) coordinates
+        and both arms solve the same padded problem), and over a remote
+        sidecar's advertised mesh width (lcm of both)."""
         remote_w = (int(getattr(self.remote, "remote_mesh_devices", 0))
                     if self.remote is not None else 0)
-        return align_pad_target(self._pad_hwm, 0, remote_w)
+        return align_pad_target(self._pad_hwm,
+                                meshutil.mesh_devices(self._mesh()),
+                                remote_w)
 
     def _session_encode(self, kind: str, problem: SolverProblem, hint,
                         result: DrainResult):
@@ -969,11 +1117,13 @@ class SolverEngine:
             sess = HostDeltaSession(cache=self.export_cache,
                                     neutral_fields=neutral)
             self._delta_sessions[kind] = sess
-        # the slot interleave follows the sidecar's advertised mesh (1
-        # locally: the mesh arm is ROADMAP Queue A item 9)
+        # the slot interleave follows the mesh the resident tensors
+        # shard over: a sidecar's advertised width, else the local mesh
+        # (a width change is one counted interleave_migration resync)
         remote_w = (int(getattr(self.remote, "remote_mesh_devices", 0))
                     if self.remote is not None else 0)
-        sess.set_interleave(max(1, remote_w))
+        sess.set_interleave(remote_w if remote_w > 1
+                            else meshutil.mesh_devices(self._mesh()))
         # only a sidecar recomputes state_checksum over the frames; the
         # local path may chain the cheap delta checksum
         sess.cheap_checksum = self.remote is None
@@ -987,21 +1137,40 @@ class SolverEngine:
 
     def _local_tensors(self, problem: SolverProblem,
                        frame: Optional[SessionFrame], full: bool,
-                       result: DrainResult):
+                       result: DrainResult, mesh=None):
         """The drain's device tensors: with a frame, the kind's resident
-        state updated by it; without, a fresh upload."""
+        state updated by it; without, a fresh upload. With a ``mesh``
+        the tensors are block-sharded over it (when the padded axis
+        divides), in resident states of their own (``"lean-mesh"`` /
+        ``"full-mesh"``), so arm flips never share buffers."""
         t0 = time.monotonic()
         if frame is None:
-            tensors = (to_device_full(problem, self.device) if full
-                       else to_device(problem, self.device))
+            tensors = None
+            if mesh is not None:
+                from kueue_oss_tpu_torch.solver import sharded
+                from kueue_oss_tpu_torch.solver.full_kernels import (
+                    host_tensors_full,
+                )
+                from kueue_oss_tpu_torch.solver.kernels import host_tensors
+
+                place = (sharded.maybe_place_full if full
+                         else sharded.maybe_place_lean)
+                host = (host_tensors_full(problem) if full
+                        else host_tensors(problem))
+                tensors, _placed = place(host, problem, mesh)
+            if tensors is None:
+                tensors = (to_device_full(problem, self.device) if full
+                           else to_device(problem, self.device))
             result.device = {"full_uploads": 1, "full_upload_bytes": sum(
                 int(a.numel() * a.element_size()) for a in tensors)}
         else:
             kind = "full" if full else "lean"
+            if mesh is not None:
+                kind += "-mesh"
             dev = self._device_states.get(kind)
             if dev is None:
                 dev = self._device_states[kind] = DeviceResidentProblem(
-                    self.device)
+                    self.device, mesh=mesh)
             before = {k: getattr(dev, k) for k in _DEVICE_COUNTERS}
             tensors = dev.update(problem, frame, full)
             result.device = {k: getattr(dev, k) - before[k]
@@ -1469,30 +1638,11 @@ class SolverEngine:
             result.phases["solve"] = time.monotonic() - t0
             self.last_drain_arm = "remote"
         else:
-            try:
-                if self.solve_fault_hook is not None:
-                    self.solve_fault_hook("single")
-                ta = time.monotonic()
-                tensors = self._local_tensors(problem, frame, True, result)
-                t0 = time.monotonic()
-                stats = FullDrainStats()
-                out = solve_backlog_full(
-                    tensors, g_max=g_max, h_max=h_max, p_max=p_max,
-                    stats=stats, fs_enabled=self.enable_fair_sharing,
-                    afs=afs)
-                (admitted, opt, admit_round, parked, rounds, _usage,
-                 _wl_usage, victim_reason) = tuple(
-                     a.cpu().numpy() for a in out)
-            except Exception as e:
-                self._device_fault("full", e)
-            stats.syncs += 1  # the plan's read-back
-            result.full_stats = stats
-            result.phases["solve"] = time.monotonic() - t0
-            self._note_arm_wall("full", "single", time.monotonic() - ta,
-                                n_live)
-            self.last_drain_arm = "single"
-            metrics.solver_mesh_devices.set(value=0)
-            self._clear_device_error()
+            (admitted, opt, admit_round, parked, rounds, _usage, _wl_usage,
+             victim_reason) = self._solve_exact(
+                problem, frame, result, n_live, full=True, g_max=g_max,
+                h_max=h_max, p_max=p_max,
+                fs_enabled=self.enable_fair_sharing, afs=afs)
         result.rounds = int(rounds)
         result.solver_time_s = time.monotonic() - ts
         metrics.solver_cycle_duration_seconds.observe(

@@ -47,7 +47,10 @@ its own condition fails; the victim searches, the flavor walk and the
 entry scan's path walks run the single-problem functions above on
 ``_lane_view``s, whose reads address each lane's own scenario.
 
-Cut from the copy: the ``shard_map`` lane sharding and ``debug_drain``.
+With a ``mesh`` (``meshutil.Mesh``), the victim searches split their
+lane axis over the mesh's shards (``_run_searches``, JAX's
+``shard_map`` branch), and ``sharded.solve_backlog_full_sharded``
+row-shards the workload axis between drains.
 """
 
 from __future__ import annotations
@@ -262,6 +265,11 @@ class FullDrainStats:
     entry_picks: int = 0
     #: device-to-host reads (each one synchronises with the device)
     syncs: int = 0
+    #: bytes copied from the mesh's first device to the other shards for
+    #: the lane-split searches (``MeshShards``): ``t`` and ``lendable_r``
+    #: once a drain, the round state once a round. A virtual mesh counts
+    #: them though ``.to`` moves nothing there.
+    replicated_bytes: int = 0
 
     def read(self, x: torch.Tensor):
         """``x.tolist()``, counted as one synchronisation."""
@@ -970,14 +978,11 @@ def classical_search(t: FullTensors, usage0_round, wl_usage, admitted,
     return success, _i32(cand_w), victims, reason, any_same_cq, borrow_after
 
 
-def _run_searches(t, usage, wl_usage, admitted, evicted, ts, flat_w,
-                  flat_req, flat_avail, flat_cands, p_max,
-                  stats: FullDrainStats, fs_enabled: bool = False,
-                  lendable_r=None):
-    """The per-lane victim searches (the single-device branch of the
-    JAX program; the lanes are one batch): the fair search under fair
-    sharing, else the classical one."""
-    stats.lanes += flat_w.shape[0]
+def _vsearch(t, usage, wl_usage, admitted, evicted, ts, flat_w, flat_req,
+             flat_avail, flat_cands, p_max, stats: FullDrainStats,
+             fs_enabled: bool, lendable_r):
+    """One batch of lanes: the fair search under fair sharing, else the
+    classical one."""
     if fs_enabled:
         from kueue_oss_tpu_torch.solver.fair_kernels import fair_search
 
@@ -987,6 +992,89 @@ def _run_searches(t, usage, wl_usage, admitted, evicted, ts, flat_w,
     return classical_search(t, usage, wl_usage, admitted, evicted, ts,
                             flat_w, flat_req, flat_avail, flat_cands,
                             p_max, stats)
+
+
+def _replicate(mesh, xs, stats: FullDrainStats) -> list:
+    """One copy of each of ``xs`` (tensors, ``FullTensors`` or None, on
+    the mesh's first device) per shard, in shard order; the copies to
+    the other shards are counted in ``stats.replicated_bytes``."""
+    flat = [f for x in xs if x is not None
+            for f in (x if isinstance(x, tuple) else (x,))]
+    stats.replicated_bytes += (mesh.size - 1) * sum(
+        f.numel() * f.element_size() for f in flat)
+    return [tuple(None if x is None else
+                  type(x)(*(f.to(dev) for f in x)) if isinstance(x, tuple)
+                  else x.to(dev) for x in xs)
+            for dev in mesh.devices]
+
+
+class MeshShards:
+    """The lane split's replicated inputs for one FULL drain on
+    ``mesh``: ``t`` and ``lendable_r`` are copied to every shard once a
+    drain, the round state once a round (``for_round``), and both of a
+    round's searches read the same copies."""
+
+    def __init__(self, mesh, t: FullTensors, lendable_r,
+                 stats: FullDrainStats):
+        self.mesh = mesh
+        self._drain = _replicate(mesh, (t, lendable_r), stats)
+
+    def for_round(self, usage, wl_usage, admitted, evicted, ts,
+                  stats: FullDrainStats) -> list:
+        """Per shard: (t, usage, wl_usage, admitted, evicted, ts,
+        lendable_r) on its device."""
+        rnd = _replicate(self.mesh, (usage, wl_usage, admitted, evicted,
+                                     ts), stats)
+        return [(d[0],) + r + (d[1],) for d, r in zip(self._drain, rnd)]
+
+
+def _run_searches(t, usage, wl_usage, admitted, evicted, ts, flat_w,
+                  flat_req, flat_avail, flat_cands, p_max,
+                  stats: FullDrainStats, fs_enabled: bool = False,
+                  lendable_r=None, mesh=None, per_shard=None):
+    """The per-lane victim searches. Without a mesh the lanes are one
+    batch. With a ``mesh`` (JAX :1045-1114) the lane axis splits over
+    the shards, lanes being independent: L pads to a multiple of the
+    width with ``W_null`` lanes, each shard searches its block of lanes
+    against its copy of the round state (``per_shard``, from
+    ``MeshShards.for_round``) on its own device, and the results join
+    in lane order (``meshutil.all_gather``), sliced to [:L]."""
+    L = flat_w.shape[0]
+    stats.lanes += L
+    if mesh is None:
+        return _vsearch(t, usage, wl_usage, admitted, evicted, ts, flat_w,
+                        flat_req, flat_avail, flat_cands, p_max, stats,
+                        fs_enabled, lendable_r)
+    from kueue_oss_tpu_torch.solver import meshutil
+
+    W_null = t.wl_cqid.shape[0] - 1
+    n = mesh.size
+    pad = (-L) % n
+    if pad:
+        dev = flat_w.device
+        flat_w = torch.cat([flat_w, torch.full(
+            (pad,), W_null, dtype=flat_w.dtype, device=dev)])
+        flat_req = torch.cat([flat_req, torch.zeros(
+            (pad,) + tuple(flat_req.shape[1:]), dtype=flat_req.dtype,
+            device=dev)])
+        flat_avail = torch.cat([flat_avail, torch.zeros(
+            (pad,) + tuple(flat_avail.shape[1:]), dtype=flat_avail.dtype,
+            device=dev)])
+        flat_cands = torch.cat([flat_cands, torch.full(
+            (pad,) + tuple(flat_cands.shape[1:]), W_null,
+            dtype=flat_cands.dtype, device=dev)])
+    b = (L + pad) // n
+    outs = []
+    for s, dev in enumerate(mesh.devices):
+        t_s, u_s, wu_s, a_s, e_s, ts_s, lr_s = per_shard[s]
+        lanes = slice(s * b, (s + 1) * b)
+        outs.append(_vsearch(
+            t_s, u_s, wu_s, a_s, e_s, ts_s, flat_w[lanes].to(dev),
+            flat_req[lanes].to(dev), flat_avail[lanes].to(dev),
+            flat_cands[lanes].to(dev), p_max, stats, fs_enabled, lr_s))
+    joined = [meshutil.all_gather(mesh, [o[k] for o in outs])[0]
+              for k in range(len(outs[0]))]
+    return tuple(o[:L] for o in joined)
 
 
 # ---------------------------------------------------------------------------
@@ -1207,12 +1295,14 @@ def full_round_scan(t: FullTensors, state, cand_w, mode, k_chosen, req_c,
 
 def round_body(t: FullTensors, state, pot, g_max: int, h_max: int,
                p_max: int, stats: FullDrainStats, fs_enabled: bool = False,
-               lendable_r=None, afs: bool = False):
+               lendable_r=None, afs: bool = False,
+               shards: Optional[MeshShards] = None):
     """One reference cycle; returns (new_state, debug). Fair sharing
     (``fs_enabled``) needs ``lendable_r`` (``fair_kernels.
     lendable_by_resource``); ``afs`` turns on the admission-fair-sharing
     head order and entry penalties (some ClusterQueue has
-    ``cq_afs``)."""
+    ``cq_afs``). With ``shards`` the victim searches split their lanes
+    over its mesh."""
     W1 = t.wl_cqid.shape[0]
     C = t.cq_node.shape[0]
     N1 = t.parent.shape[0]
@@ -1279,10 +1369,15 @@ def round_body(t: FullTensors, state, pot, g_max: int, h_max: int,
     flat_req = t.wl_req[lane_w.long()].reshape(h_max * K, -1)
     flat_avail = lane_avail.repeat_interleave(K, dim=0)
     flat_cands = lane_cands.repeat_interleave(K, dim=0)
+    mesh = per_shard = None
+    if shards is not None:
+        mesh = shards.mesh
+        per_shard = shards.for_round(usage, wl_usage, admitted, evicted,
+                                     ts, stats)
     (s_succ, s_cand_w, s_victims, s_reason, s_same, s_borrow) = (
         _run_searches(t, usage, wl_usage, admitted, evicted, ts, flat_w,
                       flat_req, flat_avail, flat_cands, p_max, stats,
-                      fs_enabled, lendable_r))
+                      fs_enabled, lendable_r, mesh, per_shard))
 
     # granular-mode table per (lane, option)
     sim_pmode = _i32(torch.where(
@@ -1321,7 +1416,7 @@ def round_body(t: FullTensors, state, pot, g_max: int, h_max: int,
         (lane_success, lane_cand_w, lane_victims, lane_reason, _s,
          _b) = _run_searches(t, usage, wl_usage, admitted, evicted, ts,
                              lane_w, l_req, lane_avail, lane_cands, p_max,
-                             stats, fs_enabled, lendable_r)
+                             stats, fs_enabled, lendable_r, mesh, per_shard)
     lane_success = lane_success & lane_valid & (l_mode == M_PREEMPT)
 
     # compact victims to the front of each lane's slot axis (stable)
@@ -1506,7 +1601,8 @@ def debug_drain(problem: SolverProblem, g_max: int, h_max: int = 8,
 def solve_backlog_full(t: FullTensors, g_max: int, h_max: int = 32,
                        p_max: int = 128, round_cap: int = 0,
                        stats: Optional[FullDrainStats] = None,
-                       fs_enabled: bool = False, afs: bool = False):
+                       fs_enabled: bool = False, afs: bool = False,
+                       mesh=None):
     """Drain the backlog with preemption until quiescent (or
     ``round_cap`` rounds, when set; the bound is 2 W1 + C + 5), under
     fair sharing when ``fs_enabled``. ``afs`` says whether any
@@ -1517,7 +1613,20 @@ def solve_backlog_full(t: FullTensors, g_max: int, h_max: int = 32,
     int32, parked [W+1] bool, rounds 0-d int32, usage [N+1, F], wl_usage
     [W+1, F], victim_reason [W+1] int8) on the problem's device.
     ``stats`` (when given) accumulates the lanes, loop iterations and
-    host reads of the drain."""
+    host reads of the drain.
+
+    With a ``mesh`` the victim searches split their lanes over its
+    shards (``_run_searches``); ``t`` may then be mesh-placed
+    (``sharded.place_full_tensors``), and the drain joins its rows once
+    on the mesh's first device (``MeshTensors.gather``). The searches'
+    replicated inputs reach the other shards once a drain (``t``,
+    ``lendable_r``) and once a round (the round state): ``MeshShards``,
+    counted in ``stats.replicated_bytes``."""
+    from kueue_oss_tpu_torch.solver.meshutil import MeshTensors
+
+    if isinstance(t, MeshTensors):
+        mesh = mesh if mesh is not None else t.mesh
+        t = t.gather()
     if stats is None:
         stats = FullDrainStats()
     W1 = t.wl_cqid.shape[0]
@@ -1533,11 +1642,13 @@ def solve_backlog_full(t: FullTensors, g_max: int, h_max: int = 32,
     bound = 2 * W1 + C + 5
     if round_cap:
         bound = min(bound, round_cap)
+    shards = (MeshShards(mesh, t, lendable_r, stats)
+              if mesh is not None else None)
     state = _init_state(t, g_max)
     progress = True
     while progress and state["rounds"] < bound:
         state, _ = round_body(t, state, pot, g_max, h_max, p_max, stats,
-                              fs_enabled, lendable_r, afs)
+                              fs_enabled, lendable_r, afs, shards)
         progress = stats.read(state["progress"])
     stats.rounds += state["rounds"]
     return (_with_last(state["admitted"], False), state["opt"],

@@ -25,8 +25,10 @@ lists), the ancestor accumulation adding each level into the old ``u``,
 ``rho`` as float32 ops in JAX's order, the sum over the path as adds in
 index order, the sum over the flavor-resources in XLA:CPU's vectorised
 order (``sum_order``), and a ``price`` gather that clamps
-the padding id C to row C-1 as JAX's gather does. Cut from the copy: the
-mesh-sharded LP (``meshutil.relax_mesh_lp``, ROADMAP Queue A item 9).
+the padding id C to row C-1 as JAX's gather does. With a ``mesh`` whose
+width divides the padded axis, the LP runs sharded over the ``wl`` axis
+(``meshutil.relax_mesh_lp``): each shard's load (``lp_load``), one
+``psum`` in shard order, each shard's step (``lp_step_from_load``).
 """
 
 from __future__ import annotations
@@ -198,19 +200,30 @@ def sum_in_order(prod: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def lp_step_body(lp: RelaxLP, x: torch.Tensor, i: int,
-                 iters: int) -> torch.Tensor:
-    """One projected-gradient iteration on one scenario's tensors."""
+def lp_load(lp: RelaxLP, x: torch.Tensor) -> torch.Tensor:
+    """The per-ClusterQueue load [C, F]: each CQ's r * x summed over its
+    rows in ascending row order (on a mesh, over one shard's rows)."""
+    C = lp.cq_node.shape[0]
+    F = lp.r.shape[1]
+    load = torch.zeros((C + 1, F), dtype=torch.float32,
+                       device=lp.r.device).index_add_(
+        0, lp.wl_cqid.long(), lp.r * x[:, None])
+    return load[:C]
+
+
+def lp_step_from_load(lp: RelaxLP, x: torch.Tensor, load_cq: torch.Tensor,
+                      i: int, iters: int) -> torch.Tensor:
+    """The rest of one iteration from the [C, F] load: the tree's full
+    charge, the price, and x's projected-gradient step over ``lp``'s
+    rows (on a mesh, one shard's rows with the psum of the loads)."""
     C = lp.cq_node.shape[0]
     N1 = lp.parent.shape[0]
     F = lp.r.shape[1]
     d_max = lp.path_cq.shape[1]
     dev = lp.r.device
     cqid = lp.wl_cqid.long()
-    load_cq = torch.zeros((C + 1, F), dtype=torch.float32,
-                          device=dev).index_add_(0, cqid, lp.r * x[:, None])
     u = torch.zeros((N1, F), dtype=torch.float32, device=dev).index_add_(
-        0, lp.cq_node.long(), load_cq[:C])
+        0, lp.cq_node.long(), load_cq)
     # kernels.accumulate_full_charge: every level adds into the old u
     # (mode="drop": a parent outside [0, N+1) drops its row)
     keep = (lp.parent >= 0) & (lp.parent < N1)
@@ -236,6 +249,12 @@ def lp_step_body(lp: RelaxLP, x: torch.Tensor, i: int,
     x = torch.clamp(x + g * torch.tensor(ETA, dtype=torch.float32,
                                          device=dev), 0.0, 1.0)
     return torch.where(lp.live, x, 0.0)
+
+
+def lp_step_body(lp: RelaxLP, x: torch.Tensor, i: int,
+                 iters: int) -> torch.Tensor:
+    """One projected-gradient iteration on one scenario's tensors."""
+    return lp_step_from_load(lp, x, lp_load(lp, x), i, iters)
 
 
 def lp_loop(lp: RelaxLP, iters: int) -> torch.Tensor:
@@ -461,21 +480,23 @@ def solve_relaxed(problem: SolverProblem, *, iters: int = 32,
                   device="cuda") -> tuple[tuple, RelaxStats]:
     """Relax -> round -> repair one padded lean problem on ``device``:
     the LP through ``cuda_relax.relax_lp`` (the kernel on the card, the
-    plain loop on the CPU), the repair through the exact lean drain. The
-    emitted plan is exactly feasible (it IS a lean-drain plan over the
-    support)."""
-    from kueue_oss_tpu_torch.solver import cuda_relax
+    plain loop on the CPU), or, with a ``mesh`` whose width divides the
+    padded axis, sharded over it (otherwise the single-device LP); the
+    repair through the exact lean drain on ``device`` (small by
+    construction). The emitted plan is exactly feasible (it IS a
+    lean-drain plan over the support)."""
+    from kueue_oss_tpu_torch.solver import cuda_relax, meshutil
 
-    if mesh is not None:
-        raise NotImplementedError(
-            "the mesh-sharded relaxed LP: ROADMAP Queue A item 9")
     device = resolve_device(device)
     lp = build_lp(problem)
     t0 = time.monotonic()
-    index = None if device.type == "cpu" else cuda_relax.lp_index(
-        lp.wl_cqid, lp.parent, lp.cq_node, problem.n_cqs, live=lp.live)
-    x = cuda_relax.relax_lp(lp_to_device(lp, device), iters,
-                            index).cpu().numpy()
+    if mesh is not None and meshutil.mesh_divisible(mesh, lp.r.shape[0]):
+        x = meshutil.relax_mesh_lp(mesh, iters)(lp).cpu().numpy()
+    else:
+        index = None if device.type == "cpu" else cuda_relax.lp_index(
+            lp.wl_cqid, lp.parent, lp.cq_node, problem.n_cqs, live=lp.live)
+        x = cuda_relax.relax_lp(lp_to_device(lp, device), iters,
+                                index).cpu().numpy()
     lp_seconds = time.monotonic() - t0
 
     strict = strict_rows(problem)

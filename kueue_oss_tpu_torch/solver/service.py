@@ -60,12 +60,16 @@ without a GPU (or without torch) can use them. ``SolverServer`` runs on
 CUDA). ``python -m kueue_oss_tpu_torch.solver.service SOCKET`` runs one
 as a process.
 
-Cut from the copy:
+The sidecar detects its own single-process mesh (``mesh_mode``, as the
+engine's): each session's resident state is mesh-placed when its padded
+axis divides and its live rows clear ``mesh_min_workloads``, both drains
+then run on the mesh (``_solve_resilient``; a mesh fault counts
+``mesh_error``, drops the server's mesh and serves the same request on
+the single device), and every session response advertises the mesh
+width (``mesh_devices``), so a client without a mesh re-pads to it.
 
-- the multihost sidecar (``serve_multihost``, ``follower_solve_loop``,
-  ``_bcast_bytes``) and the mesh solve (``_solve_resilient``'s mesh
-  arm; ``mesh_devices`` is answered 0, as a JAX sidecar without a mesh
-  answers): Queue A item 9.
+Cut from the copy: the multihost sidecar (``serve_multihost``,
+``follower_solve_loop``, ``_bcast_bytes``), ROADMAP Queue A item 9b.
 
 The sidecar's session store holds the ``sidecar_session_store`` crash
 point (a DELTA's rows applied, its epoch not yet advanced), and the
@@ -226,10 +230,13 @@ def deserialize_problem(meta: dict, blob: bytes) -> SolverProblem:
     return SolverProblem(**kwargs)
 
 
-def _solve_kernel(tensors, header: dict, problem: SolverProblem):
+def _solve_kernel(tensors, header: dict, problem: SolverProblem,
+                  mesh=None):
     """Run the drain the request asks for on the resident tensors and
     read the plan back once; returns (numpy out tuple, array names).
-    The caps are the header's (the control plane sized them)."""
+    The caps are the header's (the control plane sized them). With a
+    ``mesh`` both drains run on it: the lean mesh drain, or the FULL
+    drain with its searches' lanes split over the shards."""
     if header["full"]:
         from kueue_oss_tpu_torch.solver.full_kernels import (
             solve_backlog_full,
@@ -240,8 +247,13 @@ def _solve_kernel(tensors, header: dict, problem: SolverProblem):
         out = solve_backlog_full(
             tensors, int(header["g_max"]), int(header["h_max"]),
             int(header["p_max"]), fs_enabled=bool(header["fs_enabled"]),
-            afs=afs)
+            afs=afs, mesh=mesh)
         names = FULL_NAMES
+    elif mesh is not None:
+        from kueue_oss_tpu_torch.solver.meshutil import lean_mesh_solver
+
+        out = lean_mesh_solver(mesh)(tensors)
+        names = LEAN_NAMES
     else:
         from kueue_oss_tpu_torch.solver.kernels import solve_backlog
 
@@ -338,14 +350,57 @@ def expand_compact_plan(data, W1: int, full: bool, g_max: int):
 
 class _SidecarSession:
     """Resident state of one delta-sync session: the problem's numpy
-    mirror and its tensors kept on the server's device across drains."""
+    mirror and its tensors kept on the server's device across drains
+    (mesh-placed over the sidecar's mesh when one is detected, the
+    padded axis shards evenly and the live rows clear the floor)."""
 
-    def __init__(self, device) -> None:
+    def __init__(self, device, mesh=None) -> None:
         self.lock = threading.Lock()
         self.kwargs: Optional[dict] = None
         self.meta: Optional[dict] = None
         self.epoch = -1
-        self.device = DeviceResidentProblem(device)
+        self.device = DeviceResidentProblem(device, mesh=mesh)
+
+
+def _solve_mesh(sess: _SidecarSession):
+    """The mesh this solve runs on, or None: both drains follow the
+    session's resident placement (a session whose tensors stayed on one
+    device solves there)."""
+    return sess.device.mesh if sess.device.mesh_placed else None
+
+
+def _solve_resilient(server, sess: _SidecarSession, tensors, header: dict,
+                     problem: SolverProblem, frame: SessionFrame):
+    """The solve with the sidecar's mesh -> single-device fallback, the
+    in-process engine's chain: a mesh fault counts ``mesh_error`` in this
+    process, drops the server's mesh, re-seeds the session's resident
+    state on the single device and serves the same request there. A
+    mesh solve sets this process's mesh width gauge and shard-imbalance
+    histogram, as the engine's mesh arm does."""
+    from kueue_oss_tpu_torch.solver import meshutil
+
+    mesh = _solve_mesh(sess)
+    if mesh is not None:
+        try:
+            out = _solve_kernel(tensors, header, problem, mesh)[0]
+            metrics.solver_mesh_devices.set(
+                value=meshutil.mesh_devices(mesh))
+            metrics.solver_shard_imbalance.observe(
+                value=meshutil.shard_imbalance(
+                    problem.wl_cqid, problem.n_cqs, mesh))
+            return out
+        except Exception:
+            metrics.solver_fallback_total.inc("mesh_error")
+            metrics.solver_mesh_devices.set(value=0)
+            if server is not None:
+                server.mesh = None
+            sess.device.mesh = None
+            sess.device.tensors = None  # force a single-device re-seed
+            tensors = sess.device.update(problem, frame,
+                                         bool(header["full"]))
+    out = _solve_kernel(tensors, header, problem)[0]
+    metrics.solver_mesh_devices.set(value=0)
+    return out
 
 
 def _resync(reason: str, server=None) -> tuple[dict, bytes]:
@@ -355,11 +410,12 @@ def _resync(reason: str, server=None) -> tuple[dict, bytes]:
 
 
 def _session_solve(sess: _SidecarSession, problem: SolverProblem,
-                   frame: SessionFrame, header: dict):
+                   frame: SessionFrame, header: dict, server=None):
     """Update the session's resident tensors by the frame and solve."""
     with _DEVICE_LOCK:
         tensors = sess.device.update(problem, frame, bool(header["full"]))
-        return _solve_kernel(tensors, header, problem)[0]
+        return _solve_resilient(server, sess, tensors, header, problem,
+                                frame)
 
 
 def _session_request(header: dict, blob: bytes, server,
@@ -388,7 +444,7 @@ def _session_request(header: dict, blob: bytes, server,
             problem = SolverProblem(**kwargs, **meta)
             frame = SessionFrame(epoch=sess.epoch,
                                  checksum=int(want or 0), delta=None)
-            out = _session_solve(sess, problem, frame, header)
+            out = _session_solve(sess, problem, frame, header, server)
             arrays = compact_plan(out, bool(header["full"]))
             epoch = sess.epoch
     else:  # delta
@@ -417,14 +473,18 @@ def _session_request(header: dict, blob: bytes, server,
             problem = SolverProblem(**sess.kwargs, **sess.meta)
             frame = SessionFrame(epoch=delta.epoch,
                                  checksum=delta.checksum, delta=delta)
-            out = _session_solve(sess, problem, frame, header)
+            out = _session_solve(sess, problem, frame, header, server)
             arrays = compact_plan(out, bool(header["full"]))
             epoch = sess.epoch
     buf = io.BytesIO()
     np.savez(buf, **arrays)
-    # a sidecar without a mesh advertises width 0 (meshutil.py: item 9)
+    from kueue_oss_tpu_torch.solver.meshutil import mesh_devices
+
+    # advertise the mesh width so a client without a mesh re-pads its
+    # next drains to a shardable axis (engine._pad_target)
     return {"ok": True, "compact": True, "epoch": epoch,
-            "mesh_devices": 0,
+            "mesh_devices": mesh_devices(getattr(server, "mesh", None)
+                                         if server is not None else None),
             "spans": _spans(header, t0, wait_s)}, buf.getvalue()
 
 
@@ -536,7 +596,9 @@ class SolverServer(socketserver.ThreadingUnixStreamServer):
     def __init__(self, socket_path: str, device="cuda",
                  max_frame_bytes: Optional[int] = None,
                  read_timeout_s: Optional[float] = None,
-                 max_sessions: Optional[int] = None) -> None:
+                 max_sessions: Optional[int] = None,
+                 mesh_mode: Optional[str] = None,
+                 mesh_min_workloads: int = 1024) -> None:
         from kueue_oss_tpu_torch.device import resolve_device
 
         self.device = resolve_device(device)  # raises without CUDA
@@ -559,6 +621,17 @@ class SolverServer(socketserver.ThreadingUnixStreamServer):
         self._counts_lock = threading.Lock()
         #: optional federation FarmScheduler (federation.attach_farm)
         self.farm = None
+        #: the sidecar's own mesh (meshutil.detect_mesh over its
+        #: device's platform; KUEUE_SOLVER_MESH / mesh_mode as the
+        #: engine's): sessions place their resident tensors on it
+        try:
+            from kueue_oss_tpu_torch.solver.meshutil import detect_mesh
+
+            self.mesh = detect_mesh(mesh_mode, device=self.device)
+        except Exception:
+            self.mesh = None
+        #: sessions with fewer live rows solve on the single device
+        self.mesh_min_workloads = int(mesh_min_workloads)
 
     def _count(self, what: str, key: str, by: int = 1) -> None:
         with self._counts_lock:
@@ -572,7 +645,8 @@ class SolverServer(socketserver.ThreadingUnixStreamServer):
         with self._sessions_lock:
             sess = self.sessions.pop(key, None)
             if sess is None:
-                sess = _SidecarSession(self.device)
+                sess = _SidecarSession(self.device, mesh=self.mesh)
+                sess.device.mesh_min_rows = self.mesh_min_workloads
             self.sessions[key] = sess  # re-insert = LRU touch
             while len(self.sessions) > self.max_sessions:
                 self.sessions.pop(next(iter(self.sessions)))

@@ -574,9 +574,11 @@ def test_auto_solver_honors_solver_config(monkeypatch):
                    solver_config=dataclasses.replace(cfg, socket_path=None),
                    device="cpu")
     assert s3._solver_engine().remote.socket_path == "/tmp/env-solver.sock"
-    # the mesh fields still wait for the multi-device arms
-    with pytest.raises(NotImplementedError, match="item 9"):
-        SolverBackendConfig(mesh="4")
+    # the mesh mode loads (the single-process mesh arm); the pod-scale
+    # coordinator still waits for the multi-process mesh
+    assert SolverBackendConfig(mesh="4").mesh == "4"
+    with pytest.raises(NotImplementedError, match="item 9b"):
+        SolverBackendConfig(coordinator_address="h:1")
 
 
 def test_auto_solver_picks_up_env_socket(monkeypatch):

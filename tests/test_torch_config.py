@@ -6,10 +6,10 @@ every invalid value ``validate`` checks, ``load`` must give a
 ``dataclasses.asdict`` equal to JAX's and ``validate`` the same messages
 in the same order; ``apply_feature_gates`` must set the same gates and
 ``apply_resource_transformations`` give the same map on seeded
-requests. The tolerance is exact equality throughout. The fields of the
-multi-device arms (``solver.mesh``, the pod-scale coordinator,
-``simulator.mesh``) raise in the port away from their defaults (ROADMAP
-Queue A item 9): their messages are held by tests of the raise. The
+requests. The tolerance is exact equality throughout. ``solver.mesh``
+and ``simulator.mesh`` load and validate as in JAX; the pod-scale
+coordinator's fields raise in the port away from their defaults (ROADMAP
+Queue A item 9b): their messages are held by tests of the raise. The
 persistence switch loads in both, and ``PersistenceManager.from_config``
 builds the same manager in both. Device telemetry, its capture and the SLO
 alert webhook load in both. No test compiles anything in JAX.
@@ -125,12 +125,14 @@ INVALID = {
                "breakerFailureThreshold": 0, "breakerCooldown": -1,
                "relaxMinWorkloads": -1, "relaxAuditEvery": -1,
                "relaxIters": 0, "relaxSupportThreshold": 1.0,
-               "relaxRetryCooldown": -1, "maxSessions": 0},
+               "relaxRetryCooldown": -1, "maxSessions": 0,
+               "mesh": "bogus"},
     "federation": {"defaultWeight": 0, "tenantWeights": {"cp-z": -1,
                                                          "cp-y": 1},
                    "quantum": 0, "maxQueued": 0, "maxCreditQuanta": 0},
     "resilience": {"historyLimit": 0, "walRestoreCooldown": -1},
     "simulator": {"maxScenarios": 0, "parityScenarios": -1,
+                  "mesh": "bogus",
                   "minBatchForMesh": 0, "minBatchForBucketing": 0,
                   "laneBudgetMB": 0, "fullSweepMax": 0, "relaxIters": 0},
     "streaming": {"maxBatch": 0, "maxCycleGap": 0},
@@ -194,11 +196,10 @@ def test_validate_matches_jax(name):
 def test_validate_sees_every_invalid_value():
     """The invalid document trips every check the port can load: one
     message per bad value, the JAX package's words. ``validate`` has 63
-    checks; the five of the multi-device fields (solver.mesh, three of
-    the coordinator, simulator.mesh) and persistence's dir check (it
-    needs persistence.enabled) cannot be loaded in the port."""
+    checks; the three of the pod-scale coordinator and persistence's dir
+    check (it needs persistence.enabled) cannot be loaded in the port."""
     errs = port_cfg.validate(port_cfg.load(copy.deepcopy(INVALID)))
-    assert len(errs) == 63 - 5 - 1, errs
+    assert len(errs) == 63 - 3 - 1, errs
     assert errs[0] == "waitForPodsReady.timeout must be > 0"
     assert "federation.tenantWeights['cp-z'] must be > 0" in errs
     assert errs[-1].startswith("tls: invalid minVersion")
@@ -229,10 +230,18 @@ def test_validate_skips_tls_with_the_gate_off():
 ], ids=["solver_auto", "solver_count", "solver_bogus", "coord_addr",
         "coord_zero", "coord_two", "coord_id", "sim_auto", "sim_count"])
 def test_multi_device_fields_raise_in_the_port(doc):
-    """The JAX package loads these (and validates the bad ones); the
-    port refuses them at load: the multi-device arms are item 9."""
-    jax_cfg.validate(jax_cfg.load(copy.deepcopy(doc)))
-    with pytest.raises(NotImplementedError, match="item 9"):
+    """The JAX package loads these (and validates the bad ones). The
+    port loads the mesh modes as JAX does (the single-process mesh arms,
+    same ``asdict`` and messages) and refuses the pod-scale coordinator
+    at load: the multi-process mesh is item 9b."""
+    want = jax_cfg.load(copy.deepcopy(doc))
+    if "mesh" in next(iter(doc.values())):
+        got = port_cfg.load(copy.deepcopy(doc))
+        assert dataclasses.asdict(got) == dataclasses.asdict(want)
+        assert port_cfg.validate(got) == jax_cfg.validate(want)
+        return
+    jax_cfg.validate(want)
+    with pytest.raises(NotImplementedError, match="item 9b"):
         port_cfg.load(copy.deepcopy(doc))
 
 

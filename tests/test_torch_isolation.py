@@ -75,7 +75,8 @@ def test_scan_sees_the_whole_port():
                  "controllers/workload_controller.py",
                  "controllers/failure_recovery.py", "chaos/__init__.py",
                  "solver/service.py", "solver/resilience.py",
-                 "solver/meshutil.py", "federation/__init__.py",
+                 "solver/meshutil.py", "solver/sharded.py",
+                 "federation/__init__.py",
                  "federation/farm.py", "federation/fleet.py",
                  "util/tlsconfig.py", "entry.py", "smoke_kernel.py",
                  "metrics/__init__.py", "debugger/__init__.py",

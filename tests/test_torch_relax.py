@@ -860,14 +860,16 @@ def test_scheduler_solver_config_drives_the_arm():
 
 
 @pytest.mark.parametrize("field,value,item", [
-    ("socket_path", "/tmp/solver.sock", 8),
-    ("breaker_failure_threshold", 9, 8),
-    ("max_sessions", 2, 8), ("mesh", "4", 9),
-    ("coordinator_address", "h:1", 9), ("coordinator_processes", 2, 9)])
+    ("socket_path", "/tmp/solver.sock", "8"),
+    ("breaker_failure_threshold", 9, "8"),
+    ("max_sessions", 2, "8"), ("mesh", "4", "9a"),
+    ("coordinator_address", "h:1", "9b"),
+    ("coordinator_processes", 2, "9b")])
 def test_solver_config_refuses_sidecar_and_mesh_fields(field, value, item):
-    # the sidecar's fields (item 8) are ported now and accepted; the
-    # mesh's (item 9) are still refused
-    if item == 8:
+    # the sidecar's fields (item 8) and the single-process mesh mode
+    # (item 9a) are ported now and accepted; the pod-scale coordinator's
+    # (item 9b) are still refused
+    if item in ("8", "9a"):
         assert getattr(SolverBackendConfig(**{field: value}),
                        field) == value
     else:

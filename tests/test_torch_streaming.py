@@ -679,9 +679,15 @@ def test_streaming_arguments():
     assert sched._streaming_admitter() is None and sched.micro_drain() is None
     from kueue_oss_tpu_torch.config import SolverBackendConfig
 
-    with pytest.raises(NotImplementedError, match="item 9"):
-        Scheduler(store, QueueManager(store), solver="auto", device="cpu",
-                  solver_config=SolverBackendConfig(mesh="8"))
+    # the mesh mode reaches the engine (the CPU is one device: no mesh
+    # without virtual devices); the pod-scale coordinator is item 9b
+    meshed = Scheduler(store, QueueManager(store), solver="auto",
+                       device="cpu",
+                       solver_config=SolverBackendConfig(mesh="8"))
+    assert meshed._solver_engine().mesh_mode == "8"
+    assert meshed._solver_engine()._mesh() is None
+    with pytest.raises(NotImplementedError, match="item 9b"):
+        SolverBackendConfig(coordinator_address="host:1234")
     sched = Scheduler(store, QueueManager(store), solver="auto",
                       streaming=True, device="cpu",
                       solver_config=SolverBackendConfig(relax_audit_every=2))
